@@ -9,18 +9,25 @@ failure of which exits non-zero:
 1. device: the card's name and power limit, torch's device name and count;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
    register / shared-memory / spill lines;
-3. kernel checks: each kernel against its plain PyTorch version at every
-   site shape of full-width qwen2-0.5b's main path, at decode (M = 4) and
-   at one prefill chunk, in bf16 and fp32, k in {1, 2, 4}, each epilogue
-   flag at least once; then the kernel, the plain version and one PyTorch
-   library call timed with CUDA events, beside the least time the card
-   could take (the bound);
-4. serving: full-width qwen2-0.5b with random weights (seed 0) served on
-   the ``arrayflex`` backend in bf16 through ``ServingEngine``: every
-   request must finish with its tokens and finite logits, and the kernel
-   launch counters must equal the launches per step times the steps;
+3. kernel checks: each kernel form against its plain PyTorch version at
+   every site shape of full-width qwen2-0.5b's main path, at decode (M = 4)
+   and at one prefill chunk, in bf16 and fp32, k in {1, 2, 4}, each
+   epilogue flag at least once; then the kernel, the plain version and one
+   PyTorch library call timed with CUDA events, beside the least time the
+   card could take (the bound).  First the float forms (the ``arrayflex``
+   backend), then the int8 forms at the sites of ``arrayflex_int8`` (W8)
+   and ``arrayflex_w8a8`` (W8A8, with attn.qk on the expert kernel's W8A8
+   form), and the plain-torch K^T quantize that attn.qk runs under W8A8;
+4. serving: full-width qwen2-0.5b with random weights (seed 0) served in
+   bf16 through ``ServingEngine`` on ``arrayflex``, then on
+   ``arrayflex_int8`` and ``arrayflex_w8a8``: every request must finish
+   with its tokens and finite logits, and each run's kernel launch
+   counters (set to 0 just before it) must equal its forms' launches per
+   step times the steps;
 5. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
-   against the ``ref`` backend on the card, in bf16 and in fp32;
+   against the ``ref`` backend on the card, in bf16 and in fp32; then
+   ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
+   ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32;
 6. summary: one JSON line of kernel numbers, the card's name and power
    limit, and the ``{"ok": true, ...}`` line last.
 
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,7 +59,8 @@ from repro_torch.serving.engine import PREFILL_CHUNK_CHOICES  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  torch.int8: 1979e12}
 
 # Tolerances, relative to the largest |value| of the plain version's output:
 # fp32 — the kernel and the plain version differ only in the order of the
@@ -59,12 +68,32 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # results may round to neighbouring bf16 values, one bf16 step (2^-8
 # relative) at the largest magnitude.
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def kernel_tol(site, dt, scale: float) -> float:
+    """Absolute tolerance of a kernel check at max |plain| ``scale``
+    (floored at 1).  The int8 forms take the bf16 step exactly at that
+    magnitude, 2^(floor(log2 scale) - 7), which 2^-8 of it understates by
+    up to 2x just below a power of two; the float forms keep KERNEL_TOL."""
+    scale = max(scale, 1.0)
+    if site.form != "float" and dt == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return KERNEL_TOL[dt] * scale
 # Model logits, relative to max |ref logit|: fp32 (with an fp32 K/V cache,
 # so no bf16 rounding enters) — summation order through 24 layers; bf16
 # (bf16 cache, as served) — hidden states are rounded to bf16 after every
 # GEMM, so a one-step rounding flip in an early layer propagates: 16 bf16
 # steps.
 MODEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 16 * 2.0 ** -8}
+# W8 against ref on the dequantized weights, relative to max |ref logit|:
+# the reference's W8 contract (docs/substrate.md: the int8 dispatch equals
+# the fp32 path on dequantized weights up to summation order), in fp32.
+W8_PARITY_TOL = 1e-4
+# W8A8 against fp32 arrayflex, relative to max |fp32 logit|: the
+# reference's dense W8A8 tolerance is 0.12 absolute on its reduced
+# qwen2-0.5b, whose fp32 logits peak at 0.513 (tests/test_torch_quant.py's
+# config), so the policy admits 0.12 / 0.513 of the logit scale.
+W8A8_PARITY_TOL = 0.12 / 0.513
 
 BATCH, MAX_SEQ, MAX_NEW = 4, 256, 16
 PROMPT_LENS = (32, 64, 96, 128)
@@ -93,6 +122,24 @@ class Site:
     per_step: int           # launches per decode/prefill step
     flags: dict = dataclasses.field(default_factory=dict)
     copies: int = 24        # distinct weight copies timed in turn (layers)
+    form: str = "float"     # "float" | "int8" (W8) | "w8a8"
+
+    @property
+    def launch_name(self) -> str:
+        """The wrapper's ``LAUNCHES`` key for this site's kernel form."""
+        return self.kernel if self.form == "float" else \
+            f"{self.kernel}_{self.form}"
+
+
+# kernel form -> the backend whose plans (k) the form runs under
+FORM_BACKEND = {"float": "arrayflex", "int8": "arrayflex_int8",
+                "w8a8": "arrayflex_w8a8"}
+# launch counter -> the backend whose main-path run reports it
+LAUNCH_SOURCE = {"arrayflex_gemm": "arrayflex",
+                 "arrayflex_expert_gemm": "arrayflex",
+                 "arrayflex_gemm_int8": "arrayflex_int8",
+                 "arrayflex_gemm_w8a8": "arrayflex_w8a8",
+                 "arrayflex_expert_gemm_w8a8": "arrayflex_w8a8"}
 
 
 def main_path_sites(cfg, rows: int):
@@ -122,6 +169,20 @@ def main_path_sites(cfg, rows: int):
     ]
 
 
+def quant_sites(cfg, rows: int, form: str):
+    """The sites whose kernel form changes on a quantizing backend: every
+    weight GEMM on int8 codes, and under W8A8 attn.qk on the expert
+    kernel's W8A8 form (attn.pv, and attn.qk under W8, stay on the float
+    expert kernel checked with the arrayflex sites)."""
+    sites = [dataclasses.replace(s, form=form)
+             for s in main_path_sites(cfg, rows)
+             if s.kernel == "arrayflex_gemm"]
+    if form == "w8a8":
+        sites += [dataclasses.replace(s, form=form)
+                  for s in main_path_sites(cfg, rows) if s.name == "attn.qk"]
+    return sites
+
+
 # Epilogue forms the main path does not use, checked once each so every
 # flag of the kernel is exercised (gelu, bias2, bias without norm scale).
 EXTRA_FLAGS = [
@@ -140,18 +201,33 @@ def _operands(site: Site, dt, gen, copies: int):
     if site.kernel == "arrayflex_expert_gemm":
         E, T, K, N = site.shape
         x = rnd(E, T, K)
+        out = torch.float32 if f.get("out_f32") else None
+        if site.form == "w8a8":         # K^T from the bf16 cache, quantized
+            qs = [substrate._quantize(rnd(E, K, N, dtype=torch.bfloat16))
+                  for _ in range(copies)]
+            return x, [dict(w=q, w_scale=s, act_quant=True, out_dtype=out)
+                       for q, s in qs]
         ws = [rnd(E, K, N, dtype=torch.bfloat16) if dt == torch.float32
               and site.name == "attn.qk" else rnd(E, K, N)
               for _ in range(copies)]
-        out = torch.float32 if f.get("out_f32") else None
         return x, [dict(w=w, out_dtype=out) for w in ws]
     M, K, N = site.shape
     x = rnd(M, K, scale=1.0)
     calls = []
+
+    def weight(name):
+        w = rnd(K, N, scale=K ** -0.5)
+        if site.form == "float":
+            return {name: w}
+        q, s = substrate._quantize(w)
+        return {name: q, f"{name}_scale": s}
+
     for _ in range(copies):
-        kw = dict(w=rnd(K, N, scale=K ** -0.5))
+        kw = weight("w")
+        if site.form == "w8a8":
+            kw["act_quant"] = True
         if f.get("dual"):
-            kw["w2"] = rnd(K, N, scale=K ** -0.5)
+            kw.update(weight("w2"))
         if f.get("bias"):
             kw["bias"] = rnd(N, dtype=torch.float32)
         if f.get("bias2"):
@@ -176,13 +252,27 @@ def _kernel_fns(site: Site):
 
 def _library_call(site: Site, x, kw):
     """One PyTorch call computing the same product (the yardstick; the
-    port never calls it): torch.matmul / torch.bmm, the dual pair as one
-    matmul against the concatenated weights."""
+    port never calls it), or None where there is no single call:
+    torch.matmul / torch.bmm, the dual pair as one matmul against the
+    concatenated weights; W8 ``torch.matmul(x, codes.to(x.dtype))``; the
+    W8A8 int8 product ``torch._int_mm`` on int8 x codes where its shape
+    rules allow (more than 16 rows, K and N multiples of 8; no batched
+    form)."""
     w = kw["w"]
     if "w2" in kw:
         w = torch.cat([kw["w"], kw["w2"]], dim=1)
+    if site.form == "w8a8":
+        M, K = x.shape[-2:]
+        if site.kernel == "arrayflex_expert_gemm" or not (
+                M > 16 and K % 8 == 0 and w.shape[1] % 8 == 0):
+            return None
+        xq = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                           device=x.device)
+        return lambda: torch._int_mm(xq, w)
     if site.kernel == "arrayflex_expert_gemm":
         return lambda: torch.bmm(x, w.to(x.dtype))
+    if site.form == "int8":
+        return lambda: torch.matmul(x, w.to(x.dtype))
     return lambda: torch.matmul(x, w)
 
 
@@ -221,9 +311,17 @@ def _time_ms(fns, iters: int):
     return device_ms, eager_ms
 
 
+def _ops_dtype(site: Site, dt):
+    """The type whose peak rate bounds a form's products: int8 for W8A8;
+    x's type otherwise (W8's int8 codes widen exactly to it)."""
+    return torch.int8 if site.form == "w8a8" else dt
+
+
 def _bound(site: Site, x, kw, out_dtype, dt):
-    """(bound_ms, bound_by, bytes, ops): each input read once, the output
-    written once, against the operations at the operands' peak rate."""
+    """(bound_ms, bound_by, bytes, ops): each input read once (int8 codes
+    one byte each), the output written once, against the GEMM's
+    operations at the peak rate of their type (the W8A8 quantizer's
+    per-element work is not counted)."""
     def nbytes(t):
         return 0 if t is None or not torch.is_tensor(t) else \
             t.numel() * t.element_size()
@@ -237,7 +335,7 @@ def _bound(site: Site, x, kw, out_dtype, dt):
         ops_ = 2 * M * N * K * (2 if "w2" in kw else 1)
     byts = ins + outs * torch.empty((), dtype=out_dtype).element_size()
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / PEAK_OPS_PER_S[dt] * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[_ops_dtype(site, dt)] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", byts, ops_)
 
@@ -254,7 +352,7 @@ def check_site(site: Site, dt, gen, k: int) -> float:
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    tol = KERNEL_TOL[dt] * max(scale, 1.0)
+    tol = kernel_tol(site, dt, scale)
     if not (err <= tol) or got.shape != want.shape:
         raise AssertionError(
             f"{site.name} {site.shape} {dt} k={k}: max abs err {err} > "
@@ -268,9 +366,10 @@ def time_site(site: Site, gen, iters: int):
     dt = torch.bfloat16
     fn, plain = _kernel_fns(site)
     x, calls = _operands(site, dt, gen, site.copies)
+    backend = FORM_BACKEND[site.form]
     if site.kernel == "arrayflex_expert_gemm":
         E, T, K, N = site.shape
-        k = substrate.plan_gemm(N, K, T, "arrayflex").k
+        k = substrate.plan_gemm(N, K, T, backend).k
     else:
         M, K, N = site.shape
         f = site.flags
@@ -279,7 +378,7 @@ def time_site(site: Site, gen, iters: int):
             bias=bool(f.get("bias")), bias2=bool(f.get("bias2")),
             residual=bool(f.get("residual")),
             norm_scale=bool(f.get("norm_scale")))
-        k = substrate.plan_gemm(N, K, M, "arrayflex", ep).k
+        k = substrate.plan_gemm(N, K, M, backend, ep).k
 
     def bind(f_, kw):
         kw = dict(kw)
@@ -289,8 +388,9 @@ def time_site(site: Site, gen, iters: int):
     ms, eager_ms = _time_ms([bind(fn, kw) for kw in calls], iters)
     plain_ms, plain_eager_ms = _time_ms([bind(plain, kw) for kw in calls],
                                         iters)
-    lib_ms, lib_eager_ms = _time_ms(
-        [_library_call(site, x, kw) for kw in calls], iters)
+    libs = [_library_call(site, x, kw) for kw in calls]
+    lib_ms, lib_eager_ms = (_time_ms(libs, iters) if libs[0] is not None
+                            else (None, None))
     out_dtype = calls[0].get("out_dtype") or dt
     bound_ms, bound_by, byts, ops_ = _bound(site, x, calls[0], out_dtype, dt)
     return dict(k=k, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -299,11 +399,19 @@ def time_site(site: Site, gen, iters: int):
                 bound_ms=bound_ms, bound_by=bound_by, bytes=byts, ops=ops_)
 
 
-def kernel_phase(cfg, chunk: int):
+def _us(ms):
+    return "    none" if ms is None else f"{ms * 1e3:8.1f}"
+
+
+def kernel_phase(cfg, chunk: int, form: str = "float"):
+    """Check and time every site of ``form`` (the float sites of the
+    arrayflex path, or the int8 sites of a quantizing backend's path)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results, max_err = [], {name: 0.0 for name in ag.LAUNCHES}
+    results, max_err = [], {}
     for phase, rows in (("decode", BATCH), ("prefill", BATCH * chunk)):
-        for site in main_path_sites(cfg, rows):
+        sites = (main_path_sites(cfg, rows) if form == "float"
+                 else quant_sites(cfg, rows, form))
+        for site in sites:
             errs = {}
             for dt in (torch.bfloat16, torch.float32):
                 for k in (1, 2, 4):
@@ -312,34 +420,69 @@ def kernel_phase(cfg, chunk: int):
             bf16_err = max(v for key, v in errs.items()
                            if key.startswith("bfloat16"))
             if phase == "decode":
-                max_err[site.kernel] = max(max_err[site.kernel], bf16_err)
+                max_err[site.launch_name] = max(
+                    max_err.get(site.launch_name, 0.0), bf16_err)
             iters = 10 if site.name == "unembed" else 2 * site.copies
             t = time_site(site, gen, iters)
             row = dict(phase=phase, site=site.name, kernel=site.kernel,
+                       form=site.form, launch_name=site.launch_name,
                        shape=site.shape, per_step=site.per_step,
                        max_abs_err=errs, **t)
             results.append(row)
-            log(f"  {phase:7s} {site.name:22s} {str(site.shape):26s} "
-                f"k={t['k']} kernel {t['ms']*1e3:8.1f} us  plain "
-                f"{t['plain_ms']*1e3:8.1f} us  library "
-                f"{t['library_ms']*1e3:8.1f} us  bound "
+            log(f"  {phase:7s} {site.form:5s} {site.name:22s} "
+                f"{str(site.shape):26s} k={t['k']} kernel "
+                f"{_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
+                f"library {_us(t['library_ms'])} us  bound "
                 f"{t['bound_ms']*1e3:7.2f} us ({t['bound_by']})  eager "
-                f"kernel/plain/library {t['eager_ms']*1e3:.1f}/"
-                f"{t['plain_eager_ms']*1e3:.1f}/"
-                f"{t['library_eager_ms']*1e3:.1f} us  "
+                f"kernel/plain/library {_us(t['eager_ms'])}/"
+                f"{_us(t['plain_eager_ms'])}/"
+                f"{_us(t['library_eager_ms'])} us  "
                 f"bf16 err {bf16_err:.3g}")
     for name, flags in EXTRA_FLAGS:
         site = Site(name, "arrayflex_gemm", (BATCH, cfg.d_model, cfg.d_ff),
-                    0, flags)
+                    0, flags, form=form)
         for dt in (torch.bfloat16, torch.float32):
             for k in (1, 2, 4):
                 check_site(site, dt, gen, k)
-        log(f"  checked {name} in bf16/fp32 at k=1,2,4")
+        log(f"  checked {form} {name} in bf16/fp32 at k=1,2,4")
     return results, max_err
+
+
+def kt_quantize_time(cfg):
+    """Device time of the plain-torch K^T quantize (``substrate._quantize``
+    per (batch, key column)) that attn.qk runs before its W8A8 launch,
+    once per layer and step, at the smoke run's cache shape."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    E, hd = BATCH * cfg.n_kv_heads, cfg.resolved_head_dim
+    kts = [torch.randn(E, hd, MAX_SEQ, generator=gen,
+                       device="cuda").to(torch.bfloat16) for _ in range(24)]
+    ms, eager_ms = _time_ms([lambda t=t: substrate._quantize(t)
+                             for t in kts], 48)
+    out = dict(shape=(E, hd, MAX_SEQ), ms=ms, eager_ms=eager_ms,
+               per_step=cfg.n_layers, ms_per_step=ms * cfg.n_layers)
+    log(f"  attn.qk K^T quantize (plain torch) {out['shape']}: "
+        f"{ms * 1e3:.1f} us device, {eager_ms * 1e3:.1f} us eager per call; "
+        f"{out['ms_per_step']:.3f} ms device per step ({cfg.n_layers} calls)")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 4: serving
+
+def expected_launches(backend: str, L: int, steps: int):
+    """Kernel launches of ``steps`` engine steps on ``backend``, per form."""
+    want = {name: 0 for name in ag.LAUNCHES}
+    gemm = {"arrayflex": "arrayflex_gemm",
+            "arrayflex_int8": "arrayflex_gemm_int8",
+            "arrayflex_w8a8": "arrayflex_gemm_w8a8"}[backend]
+    want[gemm] = (6 * L + 1) * steps
+    if backend == "arrayflex_w8a8":     # attn.qk quantized, attn.pv float
+        want["arrayflex_expert_gemm_w8a8"] = L * steps
+        want["arrayflex_expert_gemm"] = L * steps
+    else:
+        want["arrayflex_expert_gemm"] = 2 * L * steps
+    return want
+
 
 def serving_phase(cfg, params):
     rng = np.random.default_rng(0)
@@ -370,8 +513,7 @@ def serving_phase(cfg, params):
     st = engine.stats
     steps = st["prefill_dispatches"] + st["decode_dispatches"]
     L = cfg.n_layers
-    want = {"arrayflex_gemm": (6 * L + 1) * steps,
-            "arrayflex_expert_gemm": 2 * L * steps}
+    want = expected_launches(cfg.gemm_backend, L, steps)
     for r in reqs:
         if not r.done or len(r.out_tokens) != MAX_NEW:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
@@ -395,7 +537,8 @@ def serving_phase(cfg, params):
         launches=launches, dispatch_counts=dispatches,
         prefill_chunk=engine.prefill_chunk,
         streams=[r.out_tokens for r in reqs])
-    log(f"  {out['tokens_per_s']:.1f} tok/s over {wall:.3f} s, {ticks} "
+    log(f"  {cfg.gemm_backend}: {out['tokens_per_s']:.1f} tok/s over "
+        f"{wall:.3f} s, {ticks} "
         f"ticks; prefill {st['prefill_tokens']} tok in "
         f"{st['prefill_time_s']:.4f} s ({st['prefill_dispatches']} "
         f"dispatches, chunk {engine.prefill_chunk}); decode "
@@ -403,7 +546,8 @@ def serving_phase(cfg, params):
         f"({out['decode_step_ms']:.2f} ms/step); mean TTFT "
         f"{out['mean_ttft_ms']:.1f} ms; max memory allocated "
         f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
-    log(f"  launches {launches} == (6L+1, 2L) x {steps} steps")
+    log(f"  launches {({k: v for k, v in launches.items() if v})} "
+        f"== per-step counts x {steps} steps")
     out["profile"] = profile_decode_step(cfg, engine, out["decode_step_ms"])
     return out
 
@@ -480,31 +624,100 @@ def parity_phase(cfg, params):
     return out
 
 
+def _dequantized(tree):
+    """The tree with each int8 leaf replaced by ``codes.float() * scale``
+    (``table_q`` becomes the float ``table_t`` unembed reads)."""
+    if isinstance(tree, dict):
+        return {("table_t" if k == "table_q" else k): _dequantized(v)
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_dequantized(v) for v in tree)
+    if isinstance(tree, substrate.QuantizedTensor):
+        return tree.codes.float() * tree.scale.unsqueeze(-2)
+    return tree
+
+
+def quant_parity_phase(cfg, params):
+    """fp32 logits of one prefill_step + decode_step: arrayflex_int8 vs ref
+    on the dequantized weights (W8_PARITY_TOL), and arrayflex_w8a8 vs fp32
+    arrayflex (W8A8_PARITY_TOL), relative to max |reference logit|."""
+    B, C = 2, 32
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, C)),
+                           device="cuda")
+    lens = torch.tensor([C, C - 5], device="cuda")
+    pos0 = torch.zeros(B, dtype=torch.int64, device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, B), device="cuda")
+
+    def quantized(c):
+        return lm.prequantize_params(c, lm.prepare_params(c, params))
+
+    def logits(backend, tree_of):
+        c = dataclasses.replace(cfg, gemm_backend=backend,
+                                compute_dtype="float32")
+        p = tree_of(c)
+        cache = lm.init_cache(c, B, 64, dtype=torch.float32)
+        lp, cache = lm.prefill_step(c, p, cache, toks, pos0, lens)
+        ld, _ = lm.decode_step(c, p, cache, nxt, lens)
+        out = torch.cat([lp, ld]).float()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{backend}: non-finite logits")
+        return out
+
+    out = {}
+    for name, (got, want), tol in (
+            ("arrayflex_int8 vs ref(dequantized)",
+             (logits("arrayflex_int8", quantized),
+              logits("ref", lambda c: _dequantized(quantized(
+                  dataclasses.replace(c, gemm_backend="arrayflex_int8"))))),
+             W8_PARITY_TOL),
+            ("arrayflex_w8a8 vs arrayflex",
+             (logits("arrayflex_w8a8", quantized),
+              logits("arrayflex", lambda c: lm.prepare_params(c, params))),
+             W8A8_PARITY_TOL)):
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"  {name} (fp32): max |logit diff| {err:.4g} = "
+            f"{err / scale:.3g} of max |logit| {scale:.4g} (tol {tol:.3g})")
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} parity: {err} > {tol * scale}")
+        out[name] = dict(max_abs_err=err, max_abs_logit=scale,
+                         rel_err=err / scale, rel_tol=tol)
+    return out
+
+
 def summarize(results, max_err, launches):
-    """One row per kernel for one decode step at the main path's shapes:
-    each site's per-launch time (device time from the graph replay; the
-    plain version's and the library call's likewise) and bound, times the
-    site's launches per step, summed over the sites."""
+    """One row per kernel form for one decode step at the main path's
+    shapes: each site's per-launch time (device time from the graph
+    replay; the plain version's and the library call's likewise) and
+    bound, times the site's launches per step, summed over the sites.
+    ``launches`` maps each form to its count from the serving run of its
+    own backend; library_ms is null where a site has no single call."""
     rows = []
     src = "src/repro_torch/kernels/csrc/arrayflex_gemm.cu"
-    replaces = {"arrayflex_gemm": "src/repro/kernels/arrayflex_gemm.py:177",
-                "arrayflex_expert_gemm":
-                    "src/repro/kernels/arrayflex_gemm.py:452"}
-    for name in ("arrayflex_gemm", "arrayflex_expert_gemm"):
-        sel = [r for r in results if r["kernel"] == name
+    k1 = "src/repro/kernels/arrayflex_gemm.py:177"
+    k2 = "src/repro/kernels/arrayflex_gemm.py:452"
+    replaces = {"arrayflex_gemm": k1, "arrayflex_gemm_int8": k1,
+                "arrayflex_gemm_w8a8": k1, "arrayflex_expert_gemm": k2,
+                "arrayflex_expert_gemm_w8a8": k2}
+    for name in replaces:
+        sel = [r for r in results if r["launch_name"] == name
                and r["phase"] == "decode"]
         tot = {key: sum(r[key] * r["per_step"] for r in sel)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        byts = sum(r["bytes"] * r["per_step"] for r in sel)
-        ops_ = sum(r["ops"] * r["per_step"] for r in sel)
+               for key in ("ms", "plain_ms", "bound_ms")}
+        lib = [r["library_ms"] for r in sel]
+        t_bytes = sum(r["bytes"] * r["per_step"] for r in sel) \
+            / HBM_BYTES_PER_S
+        t_ops = sum(r["ops"] * r["per_step"] / PEAK_OPS_PER_S[
+            torch.int8 if r["form"] == "w8a8" else torch.bfloat16]
+            for r in sel)
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
             launches=launches[name], max_abs_err=max_err[name],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by=("bytes" if byts / HBM_BYTES_PER_S
-                      >= ops_ / PEAK_OPS_PER_S[torch.bfloat16]
-                      else "operations"),
-            library_ms=tot["library_ms"]))
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None if None in lib else sum(
+                v * r["per_step"] for v, r in zip(lib, sel))))
     return rows
 
 
@@ -537,19 +750,33 @@ def main() -> int:
     log(f"[3/6] kernel checks and times (bf16; per call: device time from "
         f"a CUDA-graph replay, eager time with host launches; card: {card})")
     results, max_err = kernel_phase(cfg, chunk)
+    for form in ("int8", "w8a8"):
+        r, e = kernel_phase(cfg, chunk, form)
+        results += r
+        max_err.update(e)
+    kt_quant = kt_quantize_time(cfg)
 
     log(f"[4/6] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
-    serving = serving_phase(cfg, params)
+    serving = {"arrayflex": serving_phase(cfg, params)}
+    for backend in ("arrayflex_int8", "arrayflex_w8a8"):
+        log(f"  serving full-width {cfg.name} on {backend}/bf16")
+        serving[backend] = serving_phase(
+            dataclasses.replace(cfg, gemm_backend=backend), params)
 
     log("[5/6] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
+    log("  quantized backends (fp32)")
+    parity.update(quant_parity_phase(cfg, params))
 
-    kernels = summarize(results, max_err, serving["launches"])
+    # each form's launches from the serving run of the backend it serves
+    launches = {name: serving[backend]["launches"][name]
+                for name, backend in LAUNCH_SOURCE.items()}
+    kernels = summarize(results, max_err, launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
-                  kernels=kernels, sites=results, serving=serving,
-                  parity=parity, seconds=elapsed)
+                  kernels=kernels, sites=results, kt_quantize=kt_quant,
+                  serving=serving, parity=parity, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

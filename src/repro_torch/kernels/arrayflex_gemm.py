@@ -1,38 +1,59 @@
 """ArrayFlex GEMM: the Hopper kernels' wrappers and their plain versions.
 
 Port of the reference's ``kernels/arrayflex_gemm.py``.  The Pallas TPU
-kernels ``_kernel`` and ``_expert_kernel`` become the hand-written CUDA
-kernels ``af_gemm`` and ``af_expert_gemm`` in ``csrc/arrayflex_gemm.cu``
-(the design notes are at the top of that file).  What stays the same is the
-schedule's meaning: K is consumed in ``ceil(K / (bk * k_collapse))`` serial
-main-loop steps of ``k_collapse`` sub-dots each into an fp32 accumulator,
-the rmsnorm scale rides each step's prologue (:func:`prologue_phase`), and
-the boundary math runs once at the carry-propagate store
-(:func:`store_phase`): bias -> activation -> gate multiply -> residual ->
-one cast.
+kernels ``_kernel`` and ``_expert_kernel`` become hand-written CUDA kernels
+in ``csrc/arrayflex_gemm.cu`` (the design notes are at the top of that
+file), one C entry per operand form:
+
+  ``af_gemm``           ``_kernel`` on fp32/bf16 weights;
+  ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 (fp32/bf16 x,
+                        dequant at the store) or, with ``act_quant``, W8A8
+                        (per-tile int8 x, an int8 x int8 -> int32 chain);
+  ``af_expert_gemm``    ``_expert_kernel`` on fp32/bf16 operands;
+  ``af_expert_gemm_q``  ``_expert_kernel``'s W8A8 form.
+
+What stays the same is the schedule's meaning: K is consumed in
+``ceil(K / (bk * k_collapse))`` serial main-loop steps of ``k_collapse``
+sub-dots each into an fp32 accumulator, the rmsnorm scale rides each step's
+prologue (:func:`prologue_phase`), and the boundary math runs once at the
+carry-propagate store (:func:`store_phase`): dequant -> bias -> activation
+-> gate multiply -> residual -> one cast.  Under W8A8 the step prologue
+also quantizes the x tile (:func:`quantize_tile`) and each step's int32
+partial folds into the fp32 accumulator times that tile's scale.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version (``*_plain``) only for CPU tensors.  The plain
-version computes ``x.float() @ w.float()`` with the same prologue and
-store, cast once: the CPU tests hold it against the reference, and the
-on-card checks hold the kernel against it.  ``LAUNCHES`` counts kernel
-launches, and nothing else.
+version computes the same function with the same prologue and store, cast
+once: the CPU tests hold it against the reference, and the on-card checks
+hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
+and nothing else.
 
-The int8-weight and W8A8 forms of the reference kernel are not ported yet.
+The int8-only form of the expert kernel (reached only by MoE expert banks)
+is not ported yet: its plain version runs on the CPU, and a CUDA tensor
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 # Epilogue activations applicable at the carry-propagate boundary.
 ACTIVATIONS = ("none", "silu", "gelu")
 
-# wrapper name -> kernel launches in this process (plain-version calls and
+# kernel form -> kernel launches in this process (plain-version calls and
 # empty operands launch nothing and do not count)
-LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_expert_gemm": 0}
+LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_int8": 0,
+            "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
+            "arrayflex_expert_gemm_w8a8": 0}
+
+# The reference kernel's tiles as ``ops.arrayflex_matmul`` launches it
+# (bm = bk = 128).  Under W8A8 they decide the numbers, not only the
+# schedule: each (bm, kk) x tile gets its own quantization scale.
+QUANT_BM = 128
+QUANT_BK = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "silu": 1, "gelu": 2}
@@ -75,18 +96,50 @@ def apply_epilogue(y, y2=None, bias=None, bias2=None, activation="none"):
 def prologue_phase(x, norm_scale):
     """The step prologue's boundary math, the single definition of the
     fused rmsnorm scale: multiply x by the per-input-channel ``g`` in fp32
-    and cast back to the operand dtype (the CUDA kernel does exactly this
+    and cast back to the operand dtype (the CUDA kernels do exactly this
     to each staged x element), so fused and unfused paths agree."""
     if norm_scale is None:
         return x
     return (x.float() * norm_scale.float()).to(x.dtype)
 
 
-def store_phase(y, y2=None, bias=None, bias2=None, activation="none",
-                residual=None):
-    """The carry-propagate boundary math in execution order: the fused
-    epilogue on the fp32 accumulator(s), then the residual join.  The
-    single definition of what the kernel store applies."""
+# fp32(1 / 127): the reference's quantizer runs only inside its compiled
+# kernel, where XLA turns ``max(amax, eps) / 127`` into a multiply by this
+# constant — which rounds differently from the division at some amax, and
+# so moves codes that sit at a rounding tie (common with bf16 x)
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_tile(x, eps: float = 1e-12):
+    """Dynamic symmetric activation quantization, the single definition of
+    the W8A8 step prologue's quantizer (the CUDA kernels inline it).
+
+    Reduces over the last two axes: ``x`` is one (bm, kk) tile, or a batch
+    of them.  Returns ``(codes, scale)``: int8 codes in [-127, 127] and one
+    fp32 scale per tile, ``scale = max(amax, eps) * fp32(1/127)`` as the
+    reference's compiled kernel computes it, and
+    ``codes = clip(round(x / scale))`` with an IEEE division (by a tensor:
+    PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal) and round half to even, so ``codes * scale`` is within
+    ``scale / 2`` of x.  An all-zero tile quantizes to zeros, so zero
+    padding contributes exactly 0."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=(-2, -1))
+    scale = torch.clamp(amax, min=eps) * torch.full_like(amax, _INV_127)
+    codes = torch.clamp(torch.round(x32 / scale[..., None, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def store_phase(y, y2=None, w_scale=None, w2_scale=None, bias=None,
+                bias2=None, activation="none", residual=None):
+    """The carry-propagate boundary math in execution order: dequant the
+    fp32 accumulator(s) by the per-output-channel weight scale(s), the
+    fused epilogue, then the residual join.  The single definition of what
+    the kernel store applies."""
+    if w_scale is not None:
+        y = y * w_scale.float()
+    if y2 is not None and w2_scale is not None:
+        y2 = y2 * w2_scale.float()
     out = apply_epilogue(
         y, y2,
         None if bias is None else bias.float(),
@@ -95,6 +148,51 @@ def store_phase(y, y2=None, bias=None, bias2=None, activation="none",
     if residual is not None:
         out = residual.float() + out
     return out
+
+
+def quant_tiles(M: int, K: int, k_collapse: int):
+    """``(bm, kk)``: the reference's W8A8 activation-quantization tile for
+    an (M, K) x.  ``bm`` is M when M <= 128, else 128 rows of the
+    zero-padded ``round_up(M, 128)`` (``ops.arrayflex_matmul``'s clamp);
+    ``kk`` is one main-loop step of the exact K tiling,
+    ``n_steps = ceil(K / (128 k))``, ``kk = ceil(K / (n_steps k)) * k``."""
+    bm = M if M <= QUANT_BM else QUANT_BM
+    n_steps = -(-K // (QUANT_BK * k_collapse))
+    kk = -(-K // (n_steps * k_collapse)) * k_collapse
+    return bm, kk
+
+
+def _w8a8_accumulate(xs, ws, k_collapse: int):
+    """The W8A8 chain's fp32 accumulator for each weight in ``ws``.
+
+    ``xs`` (..., M, K) is x after the prologue; each weight (..., K, N)
+    holds int8 codes.  x is zero-padded to whole (bm, kk) tiles and each
+    tile quantized with :func:`quantize_tile`; per K-step the exact
+    integer product (in float64: every partial is an integer far below
+    2^53) folds into the accumulator as ``acc + float(iacc) * scale``, in
+    increasing step order, as the kernel does."""
+    *lead, M, K = xs.shape
+    bm, kk = quant_tiles(M, K, k_collapse)
+    R, S = -(-M // bm), -(-K // kk)
+    xp = torch.zeros((*lead, R * bm, S * kk), dtype=torch.float32,
+                     device=xs.device)
+    xp[..., :M, :K] = xs
+    tiles = xp.reshape(*lead, R, bm, S, kk).transpose(-3, -2)
+    codes, scale = quantize_tile(tiles)           # (.., R, S, bm, kk), (.., R, S)
+    codes = codes.double()
+    accs = []
+    for w in ws:
+        N = w.shape[-1]
+        wp = torch.zeros((*w.shape[:-2], S * kk, N), dtype=torch.float64,
+                         device=w.device)
+        wp[..., :K, :] = w
+        iacc = codes @ wp.reshape(*w.shape[:-2], 1, S, kk, N)
+        acc = torch.zeros((*lead, R, bm, N), dtype=torch.float32,
+                          device=xs.device)
+        for s in range(S):
+            acc = acc + iacc[..., s, :, :].float() * scale[..., s, None, None]
+        accs.append(acc.reshape(*lead, R * bm, N)[..., :M, :])
+    return accs
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +212,14 @@ def _lib():
         lib.af_gemm.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i,
                                 ll, ll, ll, ll, i, i, p]
         lib.af_gemm.restype = i
+        lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
+                                  i, i, i, ll, ll, ll, ll, i, i, i, i, p]
+        lib.af_gemm_q.restype = i
         lib.af_expert_gemm.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
         lib.af_expert_gemm.restype = i
+        lib.af_expert_gemm_q.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i,
+                                         p]
+        lib.af_expert_gemm_q.restype = i
         _BOUND = lib
     return _BOUND
 
@@ -146,9 +250,15 @@ def _check_rows(name: str, **tensors) -> None:
                              f"last axis, got strides {t.stride()}")
 
 
+def _check_dtypes(name: str, want, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t is not None and t.dtype != want:
+            raise ValueError(f"{name}: {arg} dtype {t.dtype} must be {want}")
+
+
 def _fp32_vec(t):
-    """A (N,)/(K,) boundary vector as the kernel reads it: contiguous fp32
-    (exact — store_phase/prologue_phase cast it to fp32 anyway)."""
+    """A boundary vector as the kernel reads it: contiguous fp32 (exact —
+    store_phase/prologue_phase cast it to fp32 anyway)."""
     return None if t is None else t.float().contiguous()
 
 
@@ -156,20 +266,28 @@ def _fp32_vec(t):
 # single-GEMM kernel (optionally dual-contraction) with fused epilogue
 
 def arrayflex_gemm_plain(x, w, *, w2=None, bias=None, bias2=None,
+                         w_scale=None, w2_scale=None, act_quant: bool = False,
                          residual=None, norm_scale=None,
                          activation: str = "none", k_collapse: int = 1,
                          out_dtype=None):
     """Plain PyTorch version of :func:`arrayflex_gemm`: the same prologue,
-    an fp32 product, the same store, one cast.  ``k_collapse`` changes
-    only the summation schedule, so it does not enter here."""
-    xs = prologue_phase(x, norm_scale).float()
-    y = xs @ w.float()
-    y2 = xs @ w2.float() if w2 is not None else None
-    out = store_phase(y, y2, bias, bias2, activation, residual)
+    an fp32 product (exact int8 codes under W8), the same store, one cast.
+    ``k_collapse`` changes only the summation schedule of the float forms;
+    under ``act_quant`` it sets the quantization tiles
+    (:func:`quant_tiles`)."""
+    xs = prologue_phase(x, norm_scale)
+    ws = [w] if w2 is None else [w, w2]
+    if act_quant:
+        accs = _w8a8_accumulate(xs, ws, k_collapse)
+    else:
+        accs = [xs.float() @ v.float() for v in ws]
+    out = store_phase(accs[0], accs[1] if w2 is not None else None,
+                      w_scale, w2_scale, bias, bias2, activation, residual)
     return out.to(out_dtype or x.dtype)
 
 
-def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, residual=None,
+def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
+                   w2_scale=None, act_quant: bool = False, residual=None,
                    norm_scale=None, activation: str = "none",
                    k_collapse: int = 1, out_dtype=None):
     """X[M,K] @ W[K,N] with K-collapse depth ``k_collapse`` and the fused
@@ -184,9 +302,19 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, residual=None,
     swiglu).  Every shape is covered: ragged M/N/K edges are masked in the
     kernel, and an empty M, N or K returns the epilogue of zeros.
 
-    CUDA tensors launch ``af_gemm`` (fp32 or bf16 operands, fp32 or bf16
-    out, unit stride along each operand's last axis) or raise; CPU tensors
-    run :func:`arrayflex_gemm_plain`.
+    ``w_scale`` ((N,) fp32) makes ``w`` int8 codes whose effective weight is
+    ``w * w_scale`` per output column; the dequant multiply runs at the
+    store, before the bias (exact: the scale factors out of the K sum).  A
+    dual contraction takes its own ``w2_scale``.  ``act_quant`` (requires
+    ``w_scale``) is W8A8: each (bm, kk) x tile of the reference's tiling
+    (:func:`quant_tiles`) is quantized with :func:`quantize_tile` after the
+    prologue, the chain runs int8 x int8 -> int32, and each step's partial
+    folds in times its tile's scale.
+
+    CUDA tensors launch ``af_gemm`` (fp32 or bf16 operands) or, with
+    ``w_scale``, ``af_gemm_q`` (fp32 or bf16 x, int8 w) — fp32 or bf16
+    out, unit stride along each operand's last axis — or raise; CPU
+    tensors run :func:`arrayflex_gemm_plain`.
     """
     M, K = x.shape
     K2, N = w.shape
@@ -204,7 +332,15 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, residual=None,
                          f"{tuple(w.shape)}")
     if bias2 is not None and not dual:
         raise ValueError("bias2 requires w2 (the dual contraction)")
-    for name, b in (("bias", bias), ("bias2", bias2)):
+    quant = w_scale is not None
+    if w2_scale is not None and not (quant and dual):
+        raise ValueError("w2_scale requires both w_scale and w2")
+    if quant and dual and w2_scale is None:
+        raise ValueError("int8 dual contraction needs w2_scale for w2")
+    if act_quant and not quant:
+        raise ValueError("act_quant (W8A8) requires int8 weights (w_scale)")
+    for name, b in (("bias", bias), ("bias2", bias2), ("w_scale", w_scale),
+                    ("w2_scale", w2_scale)):
         if b is not None and tuple(b.shape) != (N,):
             raise ValueError(f"{name} must be ({N},), got {tuple(b.shape)}")
     if residual is not None and tuple(residual.shape) != (M, N):
@@ -216,37 +352,51 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, residual=None,
     out_dtype = out_dtype or x.dtype
     if M == 0 or N == 0 or K == 0:      # empty operand: epilogue of zeros
         zero = torch.zeros((M, N), dtype=torch.float32, device=x.device)
-        return store_phase(zero, zero if dual else None, bias, bias2,
-                           activation, residual).to(out_dtype)
+        return store_phase(zero, zero if dual else None, bias=bias,
+                           bias2=bias2, activation=activation,
+                           residual=residual).to(out_dtype)
     if x.device.type == "cpu":
         return arrayflex_gemm_plain(
-            x, w, w2=w2, bias=bias, bias2=bias2, residual=residual,
+            x, w, w2=w2, bias=bias, bias2=bias2, w_scale=w_scale,
+            w2_scale=w2_scale, act_quant=act_quant, residual=residual,
             norm_scale=norm_scale, activation=activation,
             k_collapse=k_collapse, out_dtype=out_dtype)
-    name = "arrayflex_gemm"
+    name = ("arrayflex_gemm_w8a8" if act_quant else
+            "arrayflex_gemm_int8" if quant else "arrayflex_gemm")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _check_cuda(name, x.device, w=w, w2=w2, bias=bias, bias2=bias2,
-                residual=residual, norm_scale=norm_scale)
+    _check_cuda(name, x.device, w=w, w2=w2, w_scale=w_scale,
+                w2_scale=w2_scale, bias=bias, bias2=bias2, residual=residual,
+                norm_scale=norm_scale)
     if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name}: operands and output must be float32 or "
+        raise ValueError(f"{name}: x and the output must be float32 or "
                          f"bfloat16, got x {x.dtype}, out {out_dtype}")
-    for arg, t in (("w", w), ("w2", w2), ("residual", residual)):
-        if t is not None and t.dtype != x.dtype:
-            raise ValueError(f"{name}: {arg} dtype {t.dtype} must match x "
-                             f"dtype {x.dtype}")
+    _check_dtypes(name, torch.int8 if quant else x.dtype, w=w, w2=w2)
+    _check_dtypes(name, x.dtype, residual=residual)
     _check_rows(name, x=x, w=w, w2=w2, residual=residual)
     if dual and w2.stride() != w.stride():
         raise ValueError(f"{name}: w2 strides {w2.stride()} must match w "
                          f"strides {w.stride()}")
     bias, bias2, g = _fp32_vec(bias), _fp32_vec(bias2), _fp32_vec(norm_scale)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    rc = _lib().af_gemm(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w),
-        _ptr(w2), _ptr(bias), _ptr(bias2), _ptr(residual), _ptr(g),
-        _ptr(out), M, N, K, x.stride(0), w.stride(0),
-        residual.stride(0) if residual is not None else 0, out.stride(0),
-        k_collapse, _ACT_CODE[activation], _stream(x.device))
+    ldr = residual.stride(0) if residual is not None else 0
+    if quant:
+        qbm, qkk = quant_tiles(M, K, k_collapse) if act_quant else (0, 0)
+        s, s2 = _fp32_vec(w_scale), _fp32_vec(w2_scale)
+        rc = _lib().af_gemm_q(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
+            _ptr(x), _ptr(w), _ptr(w2), _ptr(s), _ptr(s2), _ptr(bias),
+            _ptr(bias2),
+            _ptr(residual), _ptr(g), _ptr(out), M, N, K, x.stride(0),
+            w.stride(0), ldr, out.stride(0), k_collapse,
+            _ACT_CODE[activation], qbm, qkk, _stream(x.device))
+    else:
+        rc = _lib().af_gemm(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w),
+            _ptr(w2), _ptr(bias), _ptr(bias2), _ptr(residual), _ptr(g),
+            _ptr(out), M, N, K, x.stride(0), w.stride(0), ldr,
+            out.stride(0), k_collapse, _ACT_CODE[activation],
+            _stream(x.device))
     _check_rc(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -255,20 +405,33 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, residual=None,
 # ---------------------------------------------------------------------------
 # expert-batched kernel: the batch/expert axis is the leading grid dimension
 
-def arrayflex_expert_gemm_plain(x, w, *, k_collapse: int = 1,
-                                out_dtype=None):
+def arrayflex_expert_gemm_plain(x, w, *, w_scale=None, act_quant: bool = False,
+                                k_collapse: int = 1, out_dtype=None):
     """Plain PyTorch version of :func:`arrayflex_expert_gemm`."""
-    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
+    if act_quant:
+        (y,) = _w8a8_accumulate(x, [w], k_collapse)
+    else:
+        y = torch.matmul(x.float(), w.float())
+    out = store_phase(y, w_scale=None if w_scale is None
+                      else w_scale.unsqueeze(-2))
+    return out.to(out_dtype or x.dtype)
 
 
-def arrayflex_expert_gemm(x, w, *, k_collapse: int = 1, out_dtype=None):
+def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
+                          k_collapse: int = 1, out_dtype=None):
     """Batched per-expert GEMM in ONE launch: X[E,T,K] @ W[E,K,N] ->
     [E,T,N], the same collapse chain as :func:`arrayflex_gemm` and no
-    epilogue.  Empty E/T/N/K returns exact zeros.
+    epilogue.  ``w_scale`` ((E, N) fp32) makes ``w`` int8 codes dequantized
+    per (expert, output column) at the store; ``act_quant`` (requires
+    ``w_scale``) adds the W8A8 per-tile x quantizer, each expert's rows
+    tiled as :func:`quant_tiles` says.  Empty E/T/N/K returns exact zeros.
 
     CUDA tensors launch ``af_expert_gemm`` (contiguous operands; x/w dtypes
-    fp32/fp32, bf16/bf16 or fp32/bf16; fp32 or bf16 out) or raise; CPU
-    tensors run :func:`arrayflex_expert_gemm_plain`."""
+    fp32/fp32, bf16/bf16 or fp32/bf16) or, under ``act_quant``,
+    ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w) — fp32 or bf16 out — or
+    raise; CPU tensors run :func:`arrayflex_expert_gemm_plain`.  The
+    int8-only form (``w_scale`` without ``act_quant``) has no kernel yet
+    and raises on a CUDA tensor."""
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:
@@ -276,30 +439,52 @@ def arrayflex_expert_gemm(x, w, *, k_collapse: int = 1, out_dtype=None):
                          f"w {tuple(w.shape)}")
     if k_collapse < 1:
         raise ValueError(f"k_collapse must be >= 1, got {k_collapse}")
+    quant = w_scale is not None
+    if quant and tuple(w_scale.shape) != (E, N):
+        raise ValueError(f"w_scale must be ({E}, {N}), got "
+                         f"{tuple(w_scale.shape)}")
+    if act_quant and not quant:
+        raise ValueError("act_quant (W8A8) requires int8 weights (w_scale)")
     out_dtype = out_dtype or x.dtype
     if E == 0 or T == 0 or N == 0 or K == 0:
         return torch.zeros((E, T, N), dtype=out_dtype, device=x.device)
     if x.device.type == "cpu":
-        return arrayflex_expert_gemm_plain(x, w, k_collapse=k_collapse,
-                                           out_dtype=out_dtype)
-    name = "arrayflex_expert_gemm"
+        return arrayflex_expert_gemm_plain(
+            x, w, w_scale=w_scale, act_quant=act_quant,
+            k_collapse=k_collapse, out_dtype=out_dtype)
+    name = "arrayflex_expert_gemm_w8a8" if act_quant else \
+        "arrayflex_expert_gemm"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _check_cuda(name, x.device, w=w)
-    if ((x.dtype, w.dtype) not in ((torch.float32, torch.float32),
-                                   (torch.bfloat16, torch.bfloat16),
-                                   (torch.float32, torch.bfloat16))
-            or out_dtype not in _DTYPE_CODE):
-        raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
-                         f"w {w.dtype}, out {out_dtype}")
+    if quant and not act_quant:
+        raise NotImplementedError(
+            "the int8-only expert GEMM (MoE expert banks) has no CUDA "
+            "kernel yet (ROADMAP Queue 1 item 9)")
+    _check_cuda(name, x.device, w=w, w_scale=w_scale)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: x and w must be contiguous")
     out = torch.empty((E, T, N), dtype=out_dtype, device=x.device)
-    rc = _lib().af_expert_gemm(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], _DTYPE_CODE[out_dtype],
-        _ptr(x), _ptr(w), _ptr(out), E, T, K, N, k_collapse,
-        _stream(x.device))
+    if act_quant:
+        if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+            raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
+                             f"out {out_dtype}")
+        _check_dtypes(name, torch.int8, w=w)
+        qbm, qkk = quant_tiles(T, K, k_collapse)
+        s = _fp32_vec(w_scale)
+        rc = _lib().af_expert_gemm_q(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w),
+            _ptr(s), _ptr(out), E, T, K, N, qbm, qkk, _stream(x.device))
+    else:
+        if ((x.dtype, w.dtype) not in ((torch.float32, torch.float32),
+                                       (torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.bfloat16))
+                or out_dtype not in _DTYPE_CODE):
+            raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
+                             f"w {w.dtype}, out {out_dtype}")
+        rc = _lib().af_expert_gemm(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+            _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(out), E, T, K, N,
+            k_collapse, _stream(x.device))
     _check_rc(rc, name)
     LAUNCHES[name] += 1
     return out
-

@@ -1,9 +1,8 @@
 """GEMM execution substrate: one dispatch layer for every model GEMM.
 
-Port of the reference's ``kernels/substrate.py`` (unsharded, fp32/bf16
-backends).  Every dense contraction in nn/ and models/ routes through
-:func:`gemm` (or :func:`batched_gemm` for the attention QK/PV products),
-which
+Port of the reference's ``kernels/substrate.py`` (unsharded).  Every
+dense contraction in nn/ and models/ routes through :func:`gemm` (or
+:func:`batched_gemm` for the attention QK/PV products), which
 
   * resolves the GEMM's :class:`GemmPlan` from a process-wide **plan
     cache** keyed on ``(M, N, T, backend, epilogue)`` — the Eq.(6') argmin
@@ -17,6 +16,14 @@ which
                      after the reference's backend so configs carry over),
       ``arrayflex``  the CUDA K-collapse kernel at the planned k (its plain
                      PyTorch version for CPU tensors),
+      ``arrayflex_int8``  the same kernel on int8 weight codes (W8): the
+                     dispatch swaps each weight for codes + per-output-
+                     channel scales (a pre-quantized :class:`QuantizedTensor`
+                     leaf, or the :func:`quantize_weight` memo), and the
+                     dequant rides the kernel's store,
+      ``arrayflex_w8a8``  W8 plus per-tile int8 activations in the kernel's
+                     step prologue (W8A8); on the batched products only
+                     ``attn.qk`` quantizes (:data:`BATCHED_ACTQ_SITES`),
       ``ref``        an fp32-everywhere oracle for equivalence tests.
 
 The port runs eagerly, so :data:`DISPATCH_COUNTS` counts every dispatch a
@@ -35,13 +42,14 @@ Shape convention matches core.planner: ``gemm(x, w)`` with ``x: (..., K)``
 and ``w: (K, N_out)`` is the planner GEMM ``X[T, M] = A[T, N] x B[N, M]``
 with ``M = N_out``, ``N = K``, ``T = prod(leading dims)``.
 
-Sharded dispatch (``ShardCtx``), the quantizing backends and chaos hooks
+Sharded dispatch (``ShardCtx``), the strict routing audit and chaos hooks
 are not ported yet.
 """
 from __future__ import annotations
 
 import functools
 import math
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -106,6 +114,129 @@ class GemmCall:
     bias2: Any = None           # (N_out,) fused bias on the w2 contraction
     residual: Any = None        # (T, N_out) residual joined after the epilogue
     norm_scale: Any = None      # (K,) rmsnorm gain fused as the x prologue
+    w_scale: Any = None         # (N_out,) dequant of int8 w (quantizing backends)
+    w2_scale: Any = None        # (N_out,) dequant of int8 w2
+
+
+# ---------------------------------------------------------------------------
+# weight quantization (the quantizing backends' memoized prologue)
+
+# site labels whose weights stay fp32 under a quantizing backend: the
+# router's logits feed a discrete top-k, where quantization noise would
+# change which experts run instead of adding bounded output error.
+QUANT_EXEMPT_SITES = frozenset({"moe.router"})
+
+# id(weight) -> (weakref, int8 codes, fp32 scales).  Keyed on the weight
+# tensor's identity: every dispatch after the first is a dict hit.  The
+# weakref's death callback evicts the entry, and the ``ref() is w`` guard
+# keeps a reused id from serving a stale quantization.
+_QUANT_CACHE: Dict[int, tuple] = {}
+QUANT_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def _quantize(w):
+    """Symmetric per-output-channel int8: codes in [-127, 127], fp32
+    scales over the contraction axis (-2), ``scale = max(amax, 1e-12) /
+    127`` and ``codes = clip(round(w / scale))`` with round half to even,
+    so ``codes * scale`` recovers the weight to within scale/2.  Both
+    divisions are IEEE divisions by tensors: PyTorch's CUDA division by a
+    Python scalar multiplies by the reciprocal instead, which can round
+    differently from the reference."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2)
+    scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(w32 / scale.unsqueeze(-2)), -127, 127)
+    # elementwise ops keep a transposed input's strides: the kernels want
+    # unit stride along N
+    return q.to(torch.int8).contiguous(), scale
+
+
+def quantize_weight(w):
+    """(int8 codes, fp32 per-output-channel scales) for a weight tensor,
+    memoized on the tensor's identity (``hits``/``misses`` in
+    :data:`QUANT_CACHE_STATS`).
+
+    A 2-D (K, N) weight quantizes per output column (scales (N,)); a
+    stacked (..., K, N) one per (leading index, column).  PyTorch runs
+    eagerly, so there is no traced path (the reference's ``traced``
+    counter): a call hits the memo or quantizes once and stores.  A fresh
+    view of a weight is a new tensor and misses; served trees avoid that
+    by quantizing once at load (:func:`prequantize`)."""
+    key = id(w)
+    ent = _QUANT_CACHE.get(key)
+    if ent is not None and ent[0]() is w:
+        QUANT_CACHE_STATS["hits"] += 1
+        return ent[1], ent[2]
+    QUANT_CACHE_STATS["misses"] += 1
+    q, s = _quantize(w)
+    ref = weakref.ref(w, lambda _, k=key: _QUANT_CACHE.pop(k, None))
+    _QUANT_CACHE[key] = (ref, q, s)
+    return q, s
+
+
+class QuantizedTensor:
+    """A weight quantized once at load time: int8 ``codes`` and fp32
+    per-output-channel ``scale`` (the :func:`_quantize` pair), one leaf of
+    a parameter tree.
+
+    ``lm.prequantize_params`` builds these from the compute-dtype cast of
+    each weight, and the dispatch (:func:`gemm`) unpacks them.  Codes and
+    scale move together (``to(device)``) and slice together (``t[l]``,
+    along the leading stack axes of a (..., K, N) weight, as
+    ``lm._layer`` takes a layer's view).  A dtype cast (``to(dtype)``) is
+    a no-op: layers cast weights to the compute dtype before dispatch, and
+    that cast is already in the codes."""
+
+    __slots__ = ("codes", "scale")
+
+    def __init__(self, codes, scale):
+        self.codes = codes
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    @property
+    def ndim(self):
+        return self.codes.ndim
+
+    def to(self, *args, **kwargs):
+        device = kwargs.get("device")
+        for a in args:
+            if isinstance(a, (str, torch.device)):
+                device = a
+        if device is None:
+            return self
+        return QuantizedTensor(self.codes.to(device), self.scale.to(device))
+
+    def __getitem__(self, idx):
+        if self.codes.ndim < 3:
+            raise TypeError("only a stacked (..., K, N) QuantizedTensor "
+                            "slices, along its leading axes")
+        return QuantizedTensor(self.codes[idx], self.scale[idx])
+
+    def __repr__(self):
+        return (f"QuantizedTensor(codes={tuple(self.codes.shape)}, "
+                f"scale={tuple(self.scale.shape)})")
+
+
+def prequantize(w) -> QuantizedTensor:
+    """Quantize a weight now into a :class:`QuantizedTensor`, with the same
+    :func:`_quantize` the dispatch memo runs, so the codes are the same
+    either way."""
+    return QuantizedTensor(*_quantize(w))
+
+
+def quantize_cache_info() -> Dict[str, int]:
+    """hits / misses counters plus the memo's current size."""
+    return dict(QUANT_CACHE_STATS, size=len(_QUANT_CACHE))
+
+
+def clear_quant_cache():
+    _QUANT_CACHE.clear()
+    for k in QUANT_CACHE_STATS:
+        QUANT_CACHE_STATS[k] = 0
 
 
 @dataclass(frozen=True)
@@ -132,8 +263,15 @@ def _plan_gemm_cached(M: int, N: int, T: int, backend: str,
     collapse = info.collapse if info else False
     precision = info.precision if info else "fp32"
     params = timing.timing_for(precision)
-    e_ops = epilogue.ops
-    k = (ops.plan_collapse(M, N, T, epilogue_ops=e_ops, precision=precision)
+    # a quantizing backend's per-output-channel dequant multiply is one
+    # more boundary op per contraction; a W8A8 backend's per-tile
+    # activation quantizer one more stage, priced with its own Eq.(5')
+    # coefficient (d_actq_ps)
+    dequant_ops = epilogue.contractions if (info and info.quantize) else 0
+    actq_ops = 1 if (info and info.act_quantize) else 0
+    e_ops = epilogue.ops + dequant_ops
+    k = (ops.plan_collapse(M, N, T, epilogue_ops=e_ops, precision=precision,
+                           actq_ops=actq_ops)
          if collapse else 1)
     return GemmPlan(
         M=M, N=N, T=T, backend=backend, k=k, epilogue=epilogue,
@@ -142,10 +280,12 @@ def _plan_gemm_cached(M: int, N: int, T: int, backend: str,
             M, N, T, ops.SA_R, ops.SA_C, k),
         t_pred_ps=timing.t_abs_ps(M, N, T, ops.SA_R, ops.SA_C, k,
                                   params=params, epilogue_ops=e_ops,
-                                  contractions=epilogue.contractions),
+                                  contractions=epilogue.contractions,
+                                  actq_ops=actq_ops),
         t_conventional_ps=timing.t_abs_conventional_ps(
             M, N, T, ops.SA_R, ops.SA_C, params=params,
-            contractions=epilogue.contractions, epilogue_ops=e_ops))
+            contractions=epilogue.contractions, epilogue_ops=e_ops,
+            actq_ops=actq_ops))
 
 
 # backend name -> {"hits": n, "misses": n} of plan_gemm lookups.  Steady-
@@ -193,7 +333,8 @@ def plan_cache_info() -> PlanCacheInfo:
 def clear_plan_cache():
     """Reset every plan memo this process holds (the Eq.(6') plan cache,
     its tallies, ``ops.plan_collapse`` and ``planner.attention_plan``) plus
-    the site/dispatch logs."""
+    the site/dispatch logs.  The weight-quantization memo is not a plan and
+    survives (``clear_quant_cache`` resets it)."""
     _plan_gemm_cached.cache_clear()
     PLAN_CACHE_STATS.clear()
     ops.plan_collapse.cache_clear()
@@ -225,12 +366,26 @@ def _xla_backend(x2, w, plan: GemmPlan, call: GemmCall):
     return out.to(call.out_dtype)
 
 
-def _arrayflex_backend(x2, w, plan: GemmPlan, call: GemmCall):
+def _arrayflex_backend(x2, w, plan: GemmPlan, call: GemmCall,
+                       act_quant: bool = False):
+    # On a quantizing backend w (and w2) arrive as int8 codes with
+    # call.w_scale (call.w2_scale) from the dispatch; an exempt site passes
+    # float weights and no scale and runs the float kernel.
     return ops.arrayflex_matmul(x2, w, w2=call.w2, bias=call.bias,
-                                bias2=call.bias2, residual=call.residual,
+                                bias2=call.bias2, w_scale=call.w_scale,
+                                w2_scale=call.w2_scale,
+                                act_quant=act_quant
+                                and call.w_scale is not None,
+                                residual=call.residual,
                                 norm_scale=call.norm_scale,
                                 activation=plan.epilogue.activation,
                                 k_collapse=plan.k, out_dtype=call.out_dtype)
+
+
+def _arrayflex_w8a8_backend(x2, w, plan: GemmPlan, call: GemmCall):
+    # the int8 backend's operands; every quantized site also runs the
+    # kernel's per-tile activation quantizer and int8 x int8 -> int32 chain
+    return _arrayflex_backend(x2, w, plan, call, act_quant=True)
 
 
 def _ref_backend(x2, w, plan: GemmPlan, call: GemmCall):
@@ -250,11 +405,17 @@ class BackendInfo:
     """Registry metadata driving planning and dispatch for one backend.
     ``collapse``: plans an Eq.(6') collapse depth (ArrayFlex kernels);
     others run k=1.  ``precision``: the datapath whose ``timing``
-    coefficients price Eq.(5)-(7)."""
+    coefficients price Eq.(5)-(7).  ``quantize``: the dispatch hands ``fn``
+    int8 weight codes and scales (one more priced dequant op per
+    contraction).  ``act_quantize``: the backend also quantizes activation
+    tiles in the kernel (W8A8; one priced ``d_actq_ps`` stage); requires
+    ``quantize``."""
 
     fn: Callable
     collapse: bool = False
     precision: str = "fp32"
+    quantize: bool = False
+    act_quantize: bool = False
 
 
 _BACKENDS: Dict[str, Callable] = {}
@@ -262,13 +423,23 @@ _BACKEND_INFO: Dict[str, BackendInfo] = {}
 
 
 def register_backend(name: str, fn: Callable, *, collapse: bool = False,
-                     precision: str = "fp32") -> None:
+                     precision: str = "fp32", quantize: bool = False,
+                     act_quantize: bool = False) -> None:
     """fn(x2: (T, K), w: (K, N_out), plan: GemmPlan, call: GemmCall)
-    -> (T, N_out).  (Re-)registration evicts cached plans."""
+    -> (T, N_out).  On a quantizing backend ``call.w_scale`` is None where
+    the dispatch does not quantize (exempt sites, batched activation
+    products): ``fn`` then gets float operands.  (Re-)registration evicts
+    cached plans."""
     timing.timing_for(precision)     # fail fast on unknown precisions
+    if act_quantize and not quantize:
+        raise ValueError(
+            f"backend {name!r}: act_quantize requires quantize — the W8A8 "
+            f"int8 chain multiplies quantized activation tiles against "
+            f"int8 weight codes")
     _BACKENDS[name] = fn
     _BACKEND_INFO[name] = BackendInfo(fn=fn, collapse=collapse,
-                                      precision=precision)
+                                      precision=precision, quantize=quantize,
+                                      act_quantize=act_quantize)
     _plan_gemm_cached.cache_clear()
     PLAN_CACHE_STATS.clear()
 
@@ -290,12 +461,47 @@ def get_backend(name: str) -> Callable:
     return _BACKENDS[name]
 
 
+def backend_quantizes(name: str) -> bool:
+    """Whether the registered backend consumes int8 weights (and so a
+    pre-quantized parameter tree applies to it)."""
+    check_backend(name)
+    return _BACKEND_INFO[name].quantize
+
+
+def backend_act_quantizes(name: str) -> bool:
+    """Whether the registered backend also quantizes activation tiles
+    (the W8A8 datapath)."""
+    check_backend(name)
+    return _BACKEND_INFO[name].act_quantize
+
+
 register_backend("xla", _xla_backend)
 register_backend("arrayflex", _arrayflex_backend, collapse=True)
+register_backend("arrayflex_int8", _arrayflex_backend, collapse=True,
+                 precision="int8", quantize=True)
+register_backend("arrayflex_w8a8", _arrayflex_w8a8_backend, collapse=True,
+                 precision="w8a8", quantize=True, act_quantize=True)
 register_backend("ref", _ref_backend)
 
 _BUILTIN_BACKENDS = {"xla": _xla_backend, "arrayflex": _arrayflex_backend,
+                     "arrayflex_int8": _arrayflex_backend,
+                     "arrayflex_w8a8": _arrayflex_w8a8_backend,
                      "ref": _ref_backend}
+
+# builtin quantizing backend -> the fp32 ArrayFlex base that exempt sites
+# and non-quantized batched products plan (and execute) instead, so the
+# recorded plan prices the datapath that actually runs.
+_QUANT_FP32_BASE = {"arrayflex_int8": "arrayflex",
+                    "arrayflex_w8a8": "arrayflex"}
+
+# Batched (activation x activation) sites the W8A8 backend quantizes:
+# attn.qk only.  K^T quantizes per key column (one scale per key position,
+# :func:`_quantize`) before the launch and q per tile in the kernel
+# prologue; the logit error stays bounded relative to |q||k|.  attn.pv
+# stays on the fp32 base: softmax puts most probabilities near zero, and
+# per-tile int8 (resolution amax/127 with amax ~ 1) would zero the long
+# tail of small weights that distinguishes outputs.
+BATCHED_ACTQ_SITES = frozenset({"attn.qk"})
 
 
 def _is_builtin(name: str) -> bool:
@@ -350,16 +556,43 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     native accumulation; passing a dtype requests fp32 accumulation cast
     to it (the unembed/logits contract).  ``epilogue``, ``w2``, ``bias``,
     ``bias2``, ``residual`` and ``norm_scale`` fuse into one dispatch (one
-    kernel launch on the arrayflex backend); a fused site label like
+    kernel launch on the arrayflex backends); a fused site label like
     ``"mlp.wi_gate+mlp.wi_up"`` records the shared plan under both names.
+
+    On a quantizing backend (``arrayflex_int8`` / ``arrayflex_w8a8``) the
+    dispatch swaps ``w`` (and ``w2``) for int8 codes + per-output-channel
+    fp32 scales: a :class:`QuantizedTensor` is unpacked, a float weight
+    goes through the :func:`quantize_weight` memo, and a site in
+    :data:`QUANT_EXEMPT_SITES` keeps its float weight and plans on the
+    fp32 base.
     """
     fn = get_backend(backend)
+    info = _BACKEND_INFO[backend]
     if norm_scale is not None and tuple(norm_scale.shape) != (x.shape[-1],):
         raise ValueError(
             f"site {site!r}: norm_scale shape {tuple(norm_scale.shape)} "
             f"must be (K,) = ({x.shape[-1]},) — it scales x's contraction "
             f"axis")
     ep = _epilogue_spec(epilogue, w2, bias, bias2, residual, norm_scale)
+    w_scale = w2_scale = None
+    plan_backend = backend
+    if isinstance(w, QuantizedTensor):
+        if not info.quantize:
+            raise ValueError(
+                f"site {site!r}: pre-quantized weight dispatched on "
+                f"non-quantizing backend {backend!r}")
+        if site in QUANT_EXEMPT_SITES:
+            raise ValueError(f"site {site!r} is quantization-exempt but "
+                             f"received a pre-quantized weight")
+        w, w_scale = w.codes, w.scale
+        if isinstance(w2, QuantizedTensor):
+            w2, w2_scale = w2.codes, w2.scale
+    elif info.quantize and site in QUANT_EXEMPT_SITES:
+        plan_backend = _QUANT_FP32_BASE.get(backend, plan_backend)
+    elif info.quantize and w.shape[0] and w.shape[-1]:
+        w, w_scale = quantize_weight(w)
+        if w2 is not None:
+            w2, w2_scale = quantize_weight(w2)
     lead = tuple(x.shape[:-1])
     K = x.shape[-1]
     N_out = w.shape[-1]
@@ -367,8 +600,9 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     T = x2.shape[0]
     r2 = None if residual is None else residual.reshape(T, N_out)
     call = GemmCall(out_dtype=out_dtype, w2=w2, bias=bias, bias2=bias2,
-                    residual=r2, norm_scale=norm_scale)
-    plan = plan_gemm(N_out, K, T, backend, ep)
+                    residual=r2, norm_scale=norm_scale, w_scale=w_scale,
+                    w2_scale=w2_scale)
+    plan = plan_gemm(N_out, K, T, plan_backend, ep)
     _record(site, plan)
     return fn(x2, w, plan, call).reshape(*lead, N_out)
 
@@ -377,6 +611,15 @@ def _batched_exec(x, w, plan: GemmPlan, backend: str, out_dtype):
     """Builtin batched execution (B, T, K) @ (B, K, N): ONE launch."""
     if backend == "arrayflex":
         return ops.arrayflex_expert_matmul(x, w, k_collapse=plan.k,
+                                           out_dtype=out_dtype)
+    if backend == "arrayflex_w8a8":
+        # W8A8 QK: both operands are activations and both quantize — K^T
+        # here, per (batch, key column), as the reference does outside its
+        # kernel, and each q tile in the kernel prologue; the per-key
+        # scales dequant at the store
+        qw, ws = _quantize(w)
+        return ops.arrayflex_expert_matmul(x, qw, w_scale=ws, act_quant=True,
+                                           k_collapse=plan.k,
                                            out_dtype=out_dtype)
     if backend == "ref":
         out = torch.matmul(x.float(), w.float())
@@ -397,8 +640,17 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     kernel launch.  ``out_dtype`` follows the :func:`gemm` contract.  A
     custom (re-registered) backend runs the batch through its 2-D entry,
     B dispatches recorded against the shared plan.
+
+    The operands are activations, not weights, so ``arrayflex_int8`` maps
+    to its fp32 ArrayFlex base (kernel and plan).  ``arrayflex_w8a8``
+    quantizes both operands on :data:`BATCHED_ACTQ_SITES` (``attn.qk``),
+    planned on the w8a8 datapath; ``attn.pv`` runs on the fp32 base.
     """
     check_backend(backend)
+    if backend in _QUANT_FP32_BASE and not (
+            _BACKEND_INFO[backend].act_quantize and _is_builtin(backend)
+            and site in BATCHED_ACTQ_SITES):
+        backend = _QUANT_FP32_BASE[backend]
     B, T, K = x.shape
     N_out = w.shape[-1]
     plan = plan_gemm(N_out, K, T, backend)

@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --requests 6 --max-new 24 --gemm-backend arrayflex
 
+``--gemm-backend arrayflex_int8`` serves int8 weights (W8) and
+``arrayflex_w8a8`` int8 weights and per-tile int8 activations (W8A8).
+
 Runs on the card unless ``--device cpu``.  ``--reduced`` (the default)
 serves the smoke-test sized config; ``--no-reduced`` serves the full
 published width.  Prints per-request outputs plus per-phase timing:
@@ -27,14 +30,22 @@ def phase_report(engine: ServingEngine, reqs) -> str:
     de_tps = st["decode_tokens"] / max(st["decode_time_s"], 1e-9)
     ttfts = [r.ttft_s for r in reqs if r.ttft_s is not None]
     ttft_ms = 1e3 * sum(ttfts) / max(len(ttfts), 1)
-    return (f"prefill[{engine.prefill_mode}]: {st['prefill_tokens']} tok "
-            f"in {st['prefill_time_s']:.3f}s ({pf_tps:.1f} tok/s, "
-            f"{st['prefill_dispatches']} dispatches, "
-            f"chunk={engine.prefill_chunk})\n"
-            f"decode: {st['decode_tokens']} tok in "
-            f"{st['decode_time_s']:.3f}s ({de_tps:.1f} tok/s, "
-            f"{st['decode_dispatches']} dispatches)\n"
-            f"mean TTFT: {ttft_ms:.1f} ms")
+    out = (f"prefill[{engine.prefill_mode}]: {st['prefill_tokens']} tok "
+           f"in {st['prefill_time_s']:.3f}s ({pf_tps:.1f} tok/s, "
+           f"{st['prefill_dispatches']} dispatches, "
+           f"chunk={engine.prefill_chunk})\n"
+           f"decode: {st['decode_tokens']} tok in "
+           f"{st['decode_time_s']:.3f}s ({de_tps:.1f} tok/s, "
+           f"{st['decode_dispatches']} dispatches)\n"
+           f"mean TTFT: {ttft_ms:.1f} ms")
+    be = engine.cfg.gemm_backend
+    if substrate.backend_quantizes(be):
+        out += (f"\nquantized: {be} serves int8 weights from the "
+                f"pre-quantized tree"
+                + (", per-tile int8 activations in-kernel (W8A8 MAC path)"
+                   if substrate.backend_act_quantizes(be)
+                   else " against fp32 activations"))
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:

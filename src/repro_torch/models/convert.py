@@ -5,7 +5,11 @@ arrays (``jax.tree_util.tree_map(np.asarray, params)``: ``blocks`` is a
 tuple of stacked per-period dicts with the leading ``n_super`` axis, as
 ``repro.models.lm.init_params`` builds it) and returns the port's tree,
 leaf for leaf, so both packages compute the same function.  The port's
-tree has the same layout, so the conversion is a leaf-wise copy.
+tree has the same layout, so the conversion is a leaf-wise copy.  A tree
+that the reference's ``lm.prequantize_params`` built holds quantized
+leaves (``codes`` and ``scale`` attributes, still numpy arrays after the
+``tree_map``): each becomes the port's ``substrate.QuantizedTensor`` with
+int8 codes and fp32 scales.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import lm
 
@@ -35,6 +40,10 @@ def params_from_reference(cfg: ModelConfig, np_tree, device=None):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(walk(v) for v in node)
+        if hasattr(node, "codes") and hasattr(node, "scale"):
+            return substrate.QuantizedTensor(
+                _to_tensor(node.codes, dev).to(torch.int8),
+                _to_tensor(node.scale, dev).float())
         return _to_tensor(node, dev)
 
     return walk(np_tree)

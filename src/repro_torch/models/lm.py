@@ -314,6 +314,40 @@ def prepare_params(cfg: ModelConfig, params):
     return out
 
 
+def prequantize_params(cfg: ModelConfig, params):
+    """Quantize every GEMM weight leaf once, at load time, for a
+    quantizing backend; returns ``params`` unchanged on any other.
+
+    Each linear weight ``w`` becomes a :class:`substrate.QuantizedTensor`
+    of its compute-dtype cast — the value ``layers.linear`` hands the
+    dispatch — so the codes equal what the dispatch memo would compute,
+    and the dispatch never re-quantizes.  Biases, norm scales and the
+    embedding lookup table stay; with tied embeddings the table's
+    transpose gets a ``table_q`` leaf that ``layers.unembed`` prefers (a
+    served tree's float ``table_t`` is dropped for it: unembed never reads
+    it again).  MoE expert banks come with the MoE slice."""
+    if not substrate.backend_quantizes(cfg.gemm_backend):
+        return params
+    cd = _cdtype(cfg)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        if key == "w" and node.ndim >= 2:          # linear weights
+            return substrate.prequantize(node.to(cd))
+        return node                                # biases, norm scales
+
+    out = walk(params)
+    if cfg.tie_embeddings:
+        table = params["embed"]["table"].to(cd)
+        out["embed"] = {k: v for k, v in out["embed"].items()
+                        if k != "table_t"}
+        out["embed"]["table_q"] = substrate.prequantize(table.t())
+    return out
+
+
 def _logits(cfg, params, x, cd):
     """fp32 logits via the substrate (site "unembed", tied or untied)."""
     if cfg.tie_embeddings:

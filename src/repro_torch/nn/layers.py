@@ -91,8 +91,12 @@ def unembed(p, x, *, backend="xla"):
     A served tree (``models.lm.prepare_params``) carries ``table_t``, the
     table already cast to the compute dtype and transposed into a
     contiguous (d, V) weight, so no step re-reads the table to transpose
-    it; the same cast and transpose give the same numbers."""
-    w = p.get("table_t")
+    it; the same cast and transpose give the same numbers.  A tree for a
+    quantizing backend (``models.lm.prequantize_params``) carries
+    ``table_q``, that transpose quantized, which is preferred."""
+    w = p.get("table_q")
+    if w is None:
+        w = p.get("table_t")
     if w is None:
         w = p["table"].to(x.dtype).t().contiguous()
     return substrate.gemm(x, w, site="unembed", backend=backend,

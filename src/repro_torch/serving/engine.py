@@ -20,8 +20,10 @@ or ``"auto"`` (batched when the model supports it).
 
 The engine serves a prepared copy of the parameters
 (``lm.prepare_params``: weights cast once to the compute dtype) on its
-device — the card unless ``device="cpu"``.  Logits come back fp32; a
-non-finite logit row of a live request raises.  Sampling at temperature >
+device — the card unless ``device="cpu"``.  A quantizing backend
+(``arrayflex_int8``/``arrayflex_w8a8``) serves int8 weights quantized once
+here (``lm.prequantize_params``), never inside a step.  Logits come back
+fp32; a non-finite logit row of a live request raises.  Sampling at temperature >
 0 draws from a ``torch.Generator`` seeded with ``ServeConfig.seed`` (its
 draws differ from the reference's ``jax.random`` ones).
 
@@ -123,7 +125,8 @@ class ServingEngine:
         lm.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _to_device(lm.prepare_params(cfg, params), self.device)
+        self.params = lm.prequantize_params(
+            cfg, _to_device(lm.prepare_params(cfg, params), self.device))
         self.sc = serve_cfg
         self.clock = clock
         B, S = serve_cfg.max_batch, serve_cfg.max_seq

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (float, W8 and W8A8 forms) against their plain
+versions, on the card.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -7,15 +8,19 @@ skips with that reason (decided inside the ``cuda`` fixture, so every
 pytest worker collects the same tests).  Tolerances, relative to the
 largest |value| of the plain output: fp32 1e-5 (fp32 sums in another
 order); bf16 one bf16 step, 2^-8 (two fp32 sums may round to neighbouring
-bf16 values).
+bf16 values).  The int8 forms' bf16 checks take that step exactly at the
+largest |value| (2^(floor(log2 v) - 7)), which 2^-8 v understates by up
+to 2x just below a power of two.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import arrayflex_gemm as ag
+from repro_torch.kernels import substrate
 from repro_torch.models import lm
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -37,6 +42,16 @@ def _close(got, want, dt):
     scale = max(want.float().abs().max().item(), 1.0)
     err = (got.float() - want.float()).abs().max().item()
     assert got.shape == want.shape and err <= TOL[dt] * scale, (err, scale)
+
+
+def _close_step(got, want, dt):
+    """``_close`` with the bf16 tolerance one bf16 step at max |want|."""
+    torch.cuda.synchronize()
+    scale = max(want.float().abs().max().item(), 1.0)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (TOL[dt] * scale if dt == torch.float32
+           else 2.0 ** (math.floor(math.log2(scale)) - 7))
+    assert got.shape == want.shape and err <= tol, (err, scale, tol)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -96,9 +111,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ag.arrayflex_gemm(x, torch.zeros(8, 4, device=cuda))
 
 
-def test_engine_launches_every_kernel(cuda):
+def _serve_reduced(backend):
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
-                              gemm_backend="arrayflex")
+                              gemm_backend=backend)
     params = lm.init_params(cfg, seed=0)
     eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_seq=32))
     reqs = [Request(prompt=[5, 6, 7], max_new_tokens=3, rid=0),
@@ -108,7 +123,110 @@ def test_engine_launches_every_kernel(cuda):
     ag.reset_launches()
     eng.run_to_completion()
     steps = eng.stats["prefill_dispatches"] + eng.stats["decode_dispatches"]
-    L = cfg.n_layers
-    assert ag.LAUNCHES == {"arrayflex_gemm": (6 * L + 1) * steps,
-                           "arrayflex_expert_gemm": 2 * L * steps}
     assert all(r.done and len(r.out_tokens) == 3 for r in reqs)
+    return cfg.n_layers, steps
+
+
+def test_engine_launches_every_kernel(cuda):
+    L, steps = _serve_reduced("arrayflex")
+    assert ag.LAUNCHES == dict(
+        {name: 0 for name in ag.LAUNCHES},
+        arrayflex_gemm=(6 * L + 1) * steps,
+        arrayflex_expert_gemm=2 * L * steps)
+
+
+# ---------------------------------------------------------------- int8 forms
+
+def _quant_operands(g, M, K, N, dt, flags):
+    def r(*s, dtype=dt):
+        return torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+    q, s = substrate._quantize(r(K, N))
+    kw = dict(w=q, w_scale=s)
+    if flags in ("swiglu", "all"):
+        kw["w2"], kw["w2_scale"] = substrate._quantize(r(K, N))
+        kw["activation"] = "silu"
+    if flags in ("qkv", "all"):
+        kw["bias"] = r(N, dtype=torch.float32)
+        kw["norm_scale"] = 1.0 + 0.1 * r(K, dtype=torch.float32)
+    if flags in ("residual", "all"):
+        kw["residual"] = r(M, N)
+    if flags == "all":
+        kw["bias2"] = r(N, dtype=torch.float32)
+    return r(M, K), kw
+
+
+@pytest.mark.parametrize("act_quant", [False, True], ids=["w8", "w8a8"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("mkn,flags", [
+    ((4, 896, 896), "qkv"), ((4, 896, 4864), "swiglu"),
+    ((4, 4864, 896), "residual"), ((1024, 896, 4864), "swiglu"),
+    ((1024, 4864, 896), "residual"), ((4, 896, 152064 // 16), "none"),
+    ((200, 130, 96), "all"), ((37, 300, 130), "all")])
+def test_quant_gemm_matches_plain(cuda, act_quant, dt, k, mkn, flags):
+    """K1(c) W8 and K1(d) W8A8 at the main path's site shapes (decode
+    M = 4, the prefill chunk M = 1024) and ragged ones, one launch of the
+    form's own kernel per call."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N + k)
+    x, kw = _quant_operands(g, M, K, N, dt, flags)
+    w = kw.pop("w")
+    name = "arrayflex_gemm_w8a8" if act_quant else "arrayflex_gemm_int8"
+    before = dict(ag.LAUNCHES)
+    got = ag.arrayflex_gemm(x, w, act_quant=act_quant, k_collapse=k, **kw)
+    assert ag.LAUNCHES == dict(before, **{name: before[name] + 1})
+    _close_step(got, ag.arrayflex_gemm_plain(x, w, act_quant=act_quant,
+                                             k_collapse=k, **kw), dt)
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(8, 7, 64, 256), (8, 1792, 64, 256),
+                                  (3, 300, 130, 70)])
+def test_expert_w8a8_matches_plain(cuda, dx, etkn):
+    """K2's W8A8 form at attn.qk's decode and prefill shapes, K^T
+    quantized per (batch, key column) as the substrate does."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(T + K)
+    x = torch.randn(E, T, K, generator=g, device=cuda).to(dx)
+    q, s = substrate._quantize(torch.randn(E, K, N, generator=g,
+                                           device=cuda).to(torch.bfloat16))
+    for k in (1, 2, 4):
+        before = ag.LAUNCHES["arrayflex_expert_gemm_w8a8"]
+        got = ag.arrayflex_expert_gemm(x, q, w_scale=s, act_quant=True,
+                                       k_collapse=k, out_dtype=torch.float32)
+        assert ag.LAUNCHES["arrayflex_expert_gemm_w8a8"] == before + 1
+        _close(got, ag.arrayflex_expert_gemm_plain(
+            x, q, w_scale=s, act_quant=True, k_collapse=k,
+            out_dtype=torch.float32), torch.float32)
+
+
+def test_expert_int8_only_form_has_no_kernel(cuda):
+    q = torch.zeros(2, 8, 4, dtype=torch.int8, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ag.arrayflex_expert_gemm(torch.zeros(2, 3, 8, device=cuda), q,
+                                 w_scale=torch.ones(2, 4, device=cuda))
+
+
+def test_quant_kernel_refuses_float_weights(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        ag.arrayflex_gemm(x, torch.zeros(8, 4, device=cuda),
+                          w_scale=torch.ones(4, device=cuda))
+
+
+@pytest.mark.parametrize("backend", ["arrayflex_int8", "arrayflex_w8a8"])
+def test_quant_engine_launches_every_kernel(cuda, backend):
+    """Every weight GEMM on the form's kernel; attn.qk on K2's W8A8 form
+    under arrayflex_w8a8, on the fp32 K2 otherwise; attn.pv on the fp32
+    K2."""
+    L, steps = _serve_reduced(backend)
+    want = {name: 0 for name in ag.LAUNCHES}
+    if backend == "arrayflex_int8":
+        want.update(arrayflex_gemm_int8=(6 * L + 1) * steps,
+                    arrayflex_expert_gemm=2 * L * steps)
+    else:
+        want.update(arrayflex_gemm_w8a8=(6 * L + 1) * steps,
+                    arrayflex_expert_gemm_w8a8=L * steps,
+                    arrayflex_expert_gemm=L * steps)
+    assert ag.LAUNCHES == want

@@ -307,6 +307,6 @@ def test_substrate_backends_and_dispatch_counts():
     info = substrate.plan_cache_info()
     assert info.per_backend["arrayflex"]["misses"] == 2
     with pytest.raises(ValueError, match="unknown gemm backend"):
-        substrate.check_backend("arrayflex_int8")
+        substrate.check_backend("arrayflex_fp8")
     substrate.clear_plan_cache()
     assert substrate.DISPATCH_COUNTS == {}
