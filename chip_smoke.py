@@ -11,23 +11,35 @@ failure of which exits non-zero:
    register / shared-memory / spill lines;
 3. kernel checks: each kernel form against its plain PyTorch version at
    every site shape of full-width qwen2-0.5b's main path, at decode (M = 4)
-   and at one prefill chunk, in bf16 and fp32, k in {1, 2, 4}, each
-   epilogue flag at least once; then the kernel, the plain version and one
-   PyTorch library call timed with CUDA events, beside the least time the
-   card could take (the bound).  First the float forms (the ``arrayflex``
-   backend), then the int8 forms at the sites of ``arrayflex_int8`` (W8)
-   and ``arrayflex_w8a8`` (W8A8, with attn.qk on the expert kernel's W8A8
-   form), and the plain-torch K^T quantize that attn.qk runs under W8A8;
+   and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's path at
+   decode (its attention and unembed GEMMs, the router on fp32 K1, and
+   moe.wi_gate / wi_up / wo on K2 with 128 experts of one capacity row
+   each), in bf16 and fp32, k in
+   {1, 2, 4}, each epilogue flag at least once; then the kernel, the plain
+   version and one PyTorch library call timed with CUDA events, beside
+   the least time the card could take (the bound).  First the float forms
+   (the ``arrayflex`` backend), then the int8 forms at the sites of
+   ``arrayflex_int8`` (W8, with the expert banks on K2's int8-only form)
+   and ``arrayflex_w8a8`` (W8A8, with attn.qk and the expert banks on
+   K2's W8A8 form), the plain-torch K^T quantize that attn.qk runs under
+   W8A8, and the library attention call that K3 (not ported yet) will be
+   held to;
 4. serving: full-width qwen2-0.5b with random weights (seed 0) served in
    bf16 through ``ServingEngine`` on ``arrayflex``, then on
-   ``arrayflex_int8`` and ``arrayflex_w8a8``: every request must finish
-   with its tokens and finite logits, and each run's kernel launch
-   counters (set to 0 just before it) must equal its forms' launches per
-   step times the steps;
+   ``arrayflex_int8`` and ``arrayflex_w8a8``; then full-width
+   qwen3-moe-30b-a3b (bf16 parameters, token-by-token prefill) on
+   ``arrayflex`` at all 48 layers and on the two int8 backends at 24 (a
+   48-layer bf16 tree and its int8 copy do not fit one 80 GB card
+   together): every request must finish with its tokens and finite
+   logits, and each run's kernel launch counters (set to 0 just before
+   it) must equal its forms' launches per step times the steps;
 5. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
    ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
-   ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32;
+   ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32; then the
+   same three pairs on qwen3-moe-30b-a3b in fp32 at full width and 4
+   layers, each reporting whether both runs routed every token to the
+   same experts at every layer;
 6. summary: one JSON line of kernel numbers, the card's name and power
    limit, and the ``{"ok": true, ...}`` line last.
 
@@ -36,6 +48,7 @@ Detailed results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -48,12 +61,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import build, substrate  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.nn import moe  # noqa: E402
 from repro_torch.serving import Request, ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.engine import PREFILL_CHUNK_CHOICES  # noqa: E402
 
@@ -94,9 +109,20 @@ W8_PARITY_TOL = 1e-4
 # qwen2-0.5b, whose fp32 logits peak at 0.513 (tests/test_torch_quant.py's
 # config), so the policy admits 0.12 / 0.513 of the logit scale.
 W8A8_PARITY_TOL = 0.12 / 0.513
+# W8A8 MoE against fp32 arrayflex, relative to max |fp32 logit|: the
+# reference's MoE W8A8 tolerance is 2.5 absolute on its reduced
+# qwen3-moe-30b-a3b (router top-k flips amplify the quantization noise),
+# whose fp32 logits peak at 3.053 in tests/test_torch_moe.py's decode steps
+W8A8_MOE_PARITY_TOL = 2.5 / 3.053
 
 BATCH, MAX_SEQ, MAX_NEW = 4, 256, 16
 PROMPT_LENS = (32, 64, 96, 128)
+# the MoE cell: prompts prefilled token by token, fewer new tokens, depth
+# cut to 24 layers for the int8 backends and 4 for the fp32 parity runs
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_MAX_SEQ, MOE_MAX_NEW = 64, 8
+MOE_PROMPT_LENS = (8, 12, 16, 24)
+MOE_QUANT_LAYERS, MOE_PARITY_LAYERS, MOE_PARITY_STEPS = 24, 4, 4
 
 
 def log(msg=""):
@@ -123,6 +149,8 @@ class Site:
     flags: dict = dataclasses.field(default_factory=dict)
     copies: int = 24        # distinct weight copies timed in turn (layers)
     form: str = "float"     # "float" | "int8" (W8) | "w8a8"
+    cell: str = "qwen2-0.5b"
+    time_dtype: torch.dtype = torch.bfloat16   # the path's dtype here
 
     @property
     def launch_name(self) -> str:
@@ -134,53 +162,73 @@ class Site:
 # kernel form -> the backend whose plans (k) the form runs under
 FORM_BACKEND = {"float": "arrayflex", "int8": "arrayflex_int8",
                 "w8a8": "arrayflex_w8a8"}
-# launch counter -> the backend whose main-path run reports it
-LAUNCH_SOURCE = {"arrayflex_gemm": "arrayflex",
-                 "arrayflex_expert_gemm": "arrayflex",
-                 "arrayflex_gemm_int8": "arrayflex_int8",
-                 "arrayflex_gemm_w8a8": "arrayflex_w8a8",
-                 "arrayflex_expert_gemm_w8a8": "arrayflex_w8a8"}
 
 
-def main_path_sites(cfg, rows: int):
-    """Every GEMM one step of the main path launches, with ``rows`` token
-    rows per dispatch (B at decode, B * chunk at prefill)."""
+def main_path_sites(cfg, rows: int, max_seq: int = MAX_SEQ):
+    """Every GEMM one step of ``cfg``'s path launches outside the MoE
+    sites (:func:`moe_sites`), with ``rows`` token rows per dispatch (B
+    at decode, B * chunk at prefill) against a K/V cache of ``max_seq``."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
         cfg.resolved_head_dim
     L, V, ff = cfg.n_layers, cfg.padded_vocab, cfg.d_ff
     g, S = H // KV, rows // BATCH
-    qkv = dict(bias=True, norm_scale=True)
-    return [
+    qkv = dict(bias=cfg.qkv_bias, norm_scale=True)
+    sites = [
         Site("attn.wq", "arrayflex_gemm", (rows, d, H * hd), L, qkv),
         Site("attn.wk", "arrayflex_gemm", (rows, d, KV * hd), L, qkv),
         Site("attn.wv", "arrayflex_gemm", (rows, d, KV * hd), L, qkv),
         Site("attn.wo", "arrayflex_gemm", (rows, H * hd, d), L),
-        Site("mlp.wi_gate+mlp.wi_up", "arrayflex_gemm", (rows, d, ff), L,
-             dict(dual=True, activation="silu", norm_scale=True)),
-        Site("mlp.wo", "arrayflex_gemm", (rows, ff, d), L,
-             dict(residual=True)),
-        # prefill unembeds only each row's last token: B rows
+    ]
+    if cfg.moe is None:
+        sites += [
+            Site("mlp.wi_gate+mlp.wi_up", "arrayflex_gemm", (rows, d, ff), L,
+                 dict(dual=True, activation="silu", norm_scale=True)),
+            Site("mlp.wo", "arrayflex_gemm", (rows, ff, d), L,
+                 dict(residual=True)),
+        ]
+    sites += [
+        # prefill unembeds only each row's last token: B rows; a tied
+        # table accumulates to fp32 logits, an untied lm_head is a linear
         Site("unembed", "arrayflex_gemm", (BATCH, d, V), 1,
-             dict(out_f32=True), copies=1),
+             dict(out_f32=True) if cfg.tie_embeddings else {}, copies=1),
         Site("attn.qk", "arrayflex_expert_gemm",
-             (BATCH * KV, g * S, hd, MAX_SEQ), L, dict(out_f32=True)),
+             (BATCH * KV, g * S, hd, max_seq), L, dict(out_f32=True)),
         Site("attn.pv", "arrayflex_expert_gemm",
-             (BATCH * KV, g * S, MAX_SEQ, hd), L),
+             (BATCH * KV, g * S, max_seq, hd), L),
+    ]
+    return [dataclasses.replace(s, cell=cfg.name) for s in sites]
+
+
+def moe_sites(cfg):
+    """The MoE sites of one decode step of ``cfg`` (B = 4 token rows in
+    one global dispatch group, capacity factor 2.0): the router on the
+    fp32 K1 (fp32 x and weights on every backend), and the three expert
+    banks on K2 with ``cap`` capacity rows per expert.  A bank of 128
+    experts is hundreds of MB, past the 50 MB L2, so two copies rotate."""
+    d, m, L = cfg.d_model, cfg.moe, cfg.n_layers
+    E, ff = m.num_experts, m.expert_d_ff or cfg.d_ff
+    cap = int(max(1, round(BATCH * m.top_k * 2.0 / E)))
+    bank = dict(copies=2, cell=cfg.name)
+    return [
+        Site("moe.router", "arrayflex_gemm", (BATCH, d, E), L,
+             cell=cfg.name, time_dtype=torch.float32),
+        Site("moe.wi_gate", "arrayflex_expert_gemm", (E, cap, d, ff), L,
+             **bank),
+        Site("moe.wi_up", "arrayflex_expert_gemm", (E, cap, d, ff), L,
+             **bank),
+        Site("moe.wo", "arrayflex_expert_gemm", (E, cap, ff, d), L, **bank),
     ]
 
 
-def quant_sites(cfg, rows: int, form: str):
+def quant_sites(cfg, rows: int, form: str, max_seq: int = MAX_SEQ):
     """The sites whose kernel form changes on a quantizing backend: every
     weight GEMM on int8 codes, and under W8A8 attn.qk on the expert
     kernel's W8A8 form (attn.pv, and attn.qk under W8, stay on the float
     expert kernel checked with the arrayflex sites)."""
-    sites = [dataclasses.replace(s, form=form)
-             for s in main_path_sites(cfg, rows)
-             if s.kernel == "arrayflex_gemm"]
-    if form == "w8a8":
-        sites += [dataclasses.replace(s, form=form)
-                  for s in main_path_sites(cfg, rows) if s.name == "attn.qk"]
-    return sites
+    base = main_path_sites(cfg, rows, max_seq)
+    return [dataclasses.replace(s, form=form) for s in base
+            if s.kernel == "arrayflex_gemm"
+            or (form == "w8a8" and s.name == "attn.qk")]
 
 
 # Epilogue forms the main path does not use, checked once each so every
@@ -202,8 +250,16 @@ def _operands(site: Site, dt, gen, copies: int):
         E, T, K, N = site.shape
         x = rnd(E, T, K)
         out = torch.float32 if f.get("out_f32") else None
+        if site.name.startswith("moe."):    # expert banks
+            ws = [rnd(E, K, N, scale=K ** -0.5) for _ in range(copies)]
+            if site.form == "float":
+                return x, [dict(w=w) for w in ws]
+            qs = [substrate._quantize(w) for w in ws]
+            return x, [dict(w=q, w_scale=s, act_quant=site.form == "w8a8")
+                       for q, s in qs]
         if site.form == "w8a8":         # K^T from the bf16 cache, quantized
-            qs = [substrate._quantize(rnd(E, K, N, dtype=torch.bfloat16))
+            qs = [substrate._quantize(rnd(E, K, N, dtype=torch.bfloat16),
+                                      compiled=True)
                   for _ in range(copies)]
             return x, [dict(w=q, w_scale=s, act_quant=True, out_dtype=out)
                        for q, s in qs]
@@ -361,9 +417,10 @@ def check_site(site: Site, dt, gen, k: int) -> float:
 
 
 def time_site(site: Site, gen, iters: int):
-    """Kernel, plain and library times (ms per launch) at bf16, the main
-    path's dtype, at the k the substrate plans for this site."""
-    dt = torch.bfloat16
+    """Kernel, plain and library times (ms per launch) in the main path's
+    dtype at this site (bf16; fp32 for the MoE router), at the k the
+    substrate plans for this site."""
+    dt = site.time_dtype
     fn, plain = _kernel_fns(site)
     x, calls = _operands(site, dt, gen, site.copies)
     backend = FORM_BACKEND[site.form]
@@ -393,7 +450,8 @@ def time_site(site: Site, gen, iters: int):
                             else (None, None))
     out_dtype = calls[0].get("out_dtype") or dt
     bound_ms, bound_by, byts, ops_ = _bound(site, x, calls[0], out_dtype, dt)
-    return dict(k=k, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(k=k, dtype=str(dt).split(".")[-1], ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
                 eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
                 library_eager_ms=lib_eager_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=byts, ops=ops_)
@@ -403,14 +461,23 @@ def _us(ms):
     return "    none" if ms is None else f"{ms * 1e3:8.1f}"
 
 
-def kernel_phase(cfg, chunk: int, form: str = "float"):
+def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
     """Check and time every site of ``form`` (the float sites of the
-    arrayflex path, or the int8 sites of a quantizing backend's path)."""
+    arrayflex path, or the int8 sites of a quantizing backend's path) on
+    the dense model ``cfg`` at decode and at the prefill chunk, and on the
+    MoE model ``moe_cfg`` at decode (its prefill runs decode steps)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results, max_err = [], {}
-    for phase, rows in (("decode", BATCH), ("prefill", BATCH * chunk)):
-        sites = (main_path_sites(cfg, rows) if form == "float"
-                 else quant_sites(cfg, rows, form))
+    plan = [(phase, main_path_sites(cfg, rows) if form == "float"
+             else quant_sites(cfg, rows, form))
+            for phase, rows in (("decode", BATCH), ("prefill", BATCH * chunk))]
+    moe_path = (main_path_sites(moe_cfg, BATCH, MOE_MAX_SEQ)
+                if form == "float"
+                else quant_sites(moe_cfg, BATCH, form, MOE_MAX_SEQ))
+    plan.append(("decode", moe_path + [
+        dataclasses.replace(s, form=form) for s in moe_sites(moe_cfg)
+        if form == "float" or s.kernel == "arrayflex_expert_gemm"]))
+    for phase, sites in plan:
         for site in sites:
             errs = {}
             for dt in (torch.bfloat16, torch.float32):
@@ -424,10 +491,10 @@ def kernel_phase(cfg, chunk: int, form: str = "float"):
                     max_err.get(site.launch_name, 0.0), bf16_err)
             iters = 10 if site.name == "unembed" else 2 * site.copies
             t = time_site(site, gen, iters)
-            row = dict(phase=phase, site=site.name, kernel=site.kernel,
-                       form=site.form, launch_name=site.launch_name,
-                       shape=site.shape, per_step=site.per_step,
-                       max_abs_err=errs, **t)
+            row = dict(phase=phase, cell=site.cell, site=site.name,
+                       kernel=site.kernel, form=site.form,
+                       launch_name=site.launch_name, shape=site.shape,
+                       per_step=site.per_step, max_abs_err=errs, **t)
             results.append(row)
             log(f"  {phase:7s} {site.form:5s} {site.name:22s} "
                 f"{str(site.shape):26s} k={t['k']} kernel "
@@ -466,29 +533,68 @@ def kt_quantize_time(cfg):
     return out
 
 
+def k3_library_time():
+    """The yardstick for K3 (flash attention, not ported yet): one
+    ``scaled_dot_product_attention`` call at qwen2-0.5b's prefill chunk —
+    BH = 4 x 14 = 56 heads, S = T = 256, D = 64, causal, bf16 — with the
+    bound of that work: q, k, v read and the output written once; the QK^T
+    and PV multiply-adds of the S (S + 1) / 2 causal pairs per head at the
+    bf16 peak."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, H, S, D = BATCH, 14, 256, 64
+    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    ms, eager_ms = _time_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True)], 20)
+    byts = 4 * B * H * S * D * 2
+    ops_ = 2 * B * H * D * S * (S + 1)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    out = dict(shape=dict(BH=B * H, S=S, T=S, D=D, causal=True,
+                          dtype="bfloat16"),
+               library_ms=ms, library_eager_ms=eager_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=byts, ops=ops_)
+    log(f"  K3 yardstick: scaled_dot_product_attention (BH {B * H}, S = T "
+        f"= {S}, D {D}, causal, bf16) {ms * 1e3:.1f} us device, "
+        f"{eager_ms * 1e3:.1f} us eager; bound {out['bound_ms'] * 1e3:.2f} "
+        f"us ({out['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving
 
-def expected_launches(backend: str, L: int, steps: int):
-    """Kernel launches of ``steps`` engine steps on ``backend``, per form."""
+def expected_launches(cfg, steps: int):
+    """Kernel launches of ``steps`` engine steps of ``cfg`` on its backend,
+    per form: per layer the attention projections (and a dense MLP's two
+    GEMMs) on the backend's K1 form, an MoE router on the float K1, the
+    three expert banks on the backend's K2 form, attn.qk on K2 (its W8A8
+    form under W8A8) and attn.pv on the float K2; the unembed once."""
+    L, be = cfg.n_layers, cfg.gemm_backend
+    suffix = {"arrayflex": "", "arrayflex_int8": "_int8",
+              "arrayflex_w8a8": "_w8a8"}[be]
+    is_moe = cfg.moe is not None
     want = {name: 0 for name in ag.LAUNCHES}
-    gemm = {"arrayflex": "arrayflex_gemm",
-            "arrayflex_int8": "arrayflex_gemm_int8",
-            "arrayflex_w8a8": "arrayflex_gemm_w8a8"}[backend]
-    want[gemm] = (6 * L + 1) * steps
-    if backend == "arrayflex_w8a8":     # attn.qk quantized, attn.pv float
-        want["arrayflex_expert_gemm_w8a8"] = L * steps
-        want["arrayflex_expert_gemm"] = L * steps
-    else:
-        want["arrayflex_expert_gemm"] = 2 * L * steps
+    want["arrayflex_gemm" + suffix] += (4 * L + 1 + (0 if is_moe else 2 * L)) \
+        * steps
+    if is_moe:
+        want["arrayflex_gemm"] += L * steps                     # router
+        want["arrayflex_expert_gemm" + suffix] += 3 * L * steps  # banks
+    qk = ("arrayflex_expert_gemm_w8a8" if be == "arrayflex_w8a8"
+          else "arrayflex_expert_gemm")
+    want[qk] += L * steps
+    want["arrayflex_expert_gemm"] += L * steps                  # attn.pv
     return want
 
 
-def serving_phase(cfg, params):
+def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
+                  max_seq=MAX_SEQ):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in PROMPT_LENS]
-    sc = ServeConfig(max_batch=BATCH, max_seq=MAX_SEQ, seed=0)
+               for n in prompt_lens]
+    sc = ServeConfig(max_batch=BATCH, max_seq=max_seq, seed=0)
     # warm-up engine: first-call costs (allocator, cuBLAS handles) are not
     # the serving numbers
     warm = ServingEngine(cfg, params, sc)
@@ -496,7 +602,7 @@ def serving_phase(cfg, params):
     warm.run_to_completion()
     del warm
     engine = ServingEngine(cfg, params, sc)
-    reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, rid=i)
+    reqs = [Request(prompt=p, max_new_tokens=max_new, rid=i)
             for i, p in enumerate(prompts)]
     for r in reqs:
         engine.submit(r)
@@ -513,19 +619,21 @@ def serving_phase(cfg, params):
     st = engine.stats
     steps = st["prefill_dispatches"] + st["decode_dispatches"]
     L = cfg.n_layers
-    want = expected_launches(cfg.gemm_backend, L, steps)
+    want = expected_launches(cfg, steps)
     for r in reqs:
-        if not r.done or len(r.out_tokens) != MAX_NEW:
+        if not r.done or len(r.out_tokens) != max_new:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
-                                 f"{len(r.out_tokens)} of {MAX_NEW} tokens")
+                                 f"{len(r.out_tokens)} of {max_new} tokens")
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != expected "
                              f"{want} ({steps} steps of {L} layers)")
     ttft = [r.ttft_s for r in reqs]
     out = dict(
-        requests=len(reqs), prompt_lens=list(PROMPT_LENS), max_new=MAX_NEW,
+        model=cfg.name, n_layers=L, param_dtype=cfg.param_dtype,
+        requests=len(reqs), prompt_lens=list(prompt_lens), max_new=max_new,
         ticks=ticks, wall_s=wall,
         tokens_per_s=sum(len(r.out_tokens) for r in reqs) / wall,
+        prefill_mode=engine.prefill_mode,
         prefill_tokens=st["prefill_tokens"],
         prefill_time_s=st["prefill_time_s"],
         prefill_dispatches=st["prefill_dispatches"],
@@ -537,10 +645,10 @@ def serving_phase(cfg, params):
         launches=launches, dispatch_counts=dispatches,
         prefill_chunk=engine.prefill_chunk,
         streams=[r.out_tokens for r in reqs])
-    log(f"  {cfg.gemm_backend}: {out['tokens_per_s']:.1f} tok/s over "
-        f"{wall:.3f} s, {ticks} "
-        f"ticks; prefill {st['prefill_tokens']} tok in "
-        f"{st['prefill_time_s']:.4f} s ({st['prefill_dispatches']} "
+    log(f"  {cfg.name} x{L} on {cfg.gemm_backend}: "
+        f"{out['tokens_per_s']:.1f} tok/s over {wall:.3f} s, {ticks} "
+        f"ticks; prefill[{engine.prefill_mode}] {st['prefill_tokens']} tok "
+        f"in {st['prefill_time_s']:.4f} s ({st['prefill_dispatches']} "
         f"dispatches, chunk {engine.prefill_chunk}); decode "
         f"{st['decode_tokens']} tok in {st['decode_time_s']:.4f} s "
         f"({out['decode_step_ms']:.2f} ms/step); mean TTFT "
@@ -548,16 +656,61 @@ def serving_phase(cfg, params):
         f"{out['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
     log(f"  launches {({k: v for k, v in launches.items() if v})} "
         f"== per-step counts x {steps} steps")
-    out["profile"] = profile_decode_step(cfg, engine, out["decode_step_ms"])
+    out["profile"] = profile_decode_step(cfg, engine, out["decode_step_ms"],
+                                         max_seq)
     return out
 
 
-def profile_decode_step(cfg, engine, step_ms: float):
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serving_phase(moe_cfg):
+    """Full-width qwen3-moe-30b-a3b in bf16 parameters (never an fp32
+    master): all 48 layers on arrayflex, then, with that tree freed, 24
+    layers on the two int8 backends (each engine holds the bf16 tree and
+    its int8 copy)."""
+    out = {}
+    for L, backends in ((moe_cfg.n_layers, ("arrayflex",)),
+                        (MOE_QUANT_LAYERS, ("arrayflex_int8",
+                                            "arrayflex_w8a8"))):
+        cfg = dataclasses.replace(moe_cfg, n_layers=L)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in _tensors(params))
+        log(f"  {cfg.name} x{L}: {n_bytes / 1e9:.2f} GB of bf16 parameters "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        for backend in backends:
+            out[backend] = serving_phase(
+                dataclasses.replace(cfg, gemm_backend=backend), params,
+                MOE_PROMPT_LENS, MOE_MAX_NEW, MOE_MAX_SEQ)
+            out[backend]["param_bytes"] = n_bytes
+            _free()
+        del params
+        _free()
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def profile_decode_step(cfg, engine, step_ms: float, max_seq: int):
     """Device busy time of one full-batch decode step (torch.profiler,
     summed self device time), against the engine's measured step time."""
     from torch.profiler import ProfilerActivity, profile
     toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
-    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+    pos = torch.full((BATCH,), max_seq // 2, dtype=torch.int64,
                      device="cuda")
     lm.decode_step(cfg, engine.params, engine.cache, toks, pos)
     torch.cuda.synchronize()
@@ -686,39 +839,121 @@ def quant_parity_phase(cfg, params):
     return out
 
 
+def moe_parity_phase(moe_cfg):
+    """fp32 logits of ``MOE_PARITY_STEPS`` decode steps (batch 2, fp32 K/V
+    cache) of full-width qwen3-moe-30b-a3b cut to 4 layers: arrayflex vs
+    ref (MODEL_TOL), arrayflex_int8 vs ref on the dequantized weights
+    (W8_PARITY_TOL), arrayflex_w8a8 vs fp32 arrayflex
+    (W8A8_MOE_PARITY_TOL), each relative to max |reference logit|; and
+    for each pair whether both runs picked the same top-k experts for
+    every token at every layer and step."""
+    cfg = dataclasses.replace(moe_cfg, n_layers=MOE_PARITY_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
+    params = lm.init_params(cfg, seed=0)
+    B, steps = 2, MOE_PARITY_STEPS
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (steps, B)),
+                           device="cuda")
+
+    def quantized(c):
+        return lm.prequantize_params(c, lm.prepare_params(c, params))
+
+    def run(backend, tree_of):
+        c = dataclasses.replace(cfg, gemm_backend=backend)
+        p = tree_of(c)
+        cache = lm.init_cache(c, B, 16, dtype=torch.float32)
+        logits = []
+        with moe.record_routing() as routing:
+            for t in range(steps):
+                pos = torch.full((B,), t, dtype=torch.int64, device="cuda")
+                lg, cache = lm.decode_step(c, p, cache, toks[t], pos)
+                logits.append(lg.float())
+        out = torch.cat(logits)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{backend}: non-finite logits")
+        del p, cache
+        _free()
+        return out, [idx for idx, _ in routing]
+
+    runs = {
+        "arrayflex": run("arrayflex", lambda c: lm.prepare_params(c, params)),
+        "ref": run("ref", lambda c: lm.prepare_params(c, params)),
+        "arrayflex_int8": run("arrayflex_int8", quantized),
+        "ref(dequantized)": run("ref", lambda c: _dequantized(quantized(
+            dataclasses.replace(c, gemm_backend="arrayflex_int8")))),
+        "arrayflex_w8a8": run("arrayflex_w8a8", quantized),
+    }
+    del params
+    _free()
+    out = {}
+    for got, want, tol in (("arrayflex", "ref", MODEL_TOL[torch.float32]),
+                           ("arrayflex_int8", "ref(dequantized)",
+                            W8_PARITY_TOL),
+                           ("arrayflex_w8a8", "arrayflex",
+                            W8A8_MOE_PARITY_TOL)):
+        (a, ra), (b, rb) = runs[got], runs[want]
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        same = all(torch.equal(x, y) for x, y in zip(ra, rb))
+        name = f"{got} vs {want}"
+        log(f"  {cfg.name} x{cfg.n_layers} {name} (fp32, {steps} decode "
+            f"steps): max |logit diff| {err:.4g} = {err / scale:.3g} of max "
+            f"|logit| {scale:.4g} (tol {tol:.3g}); same top-{cfg.moe.top_k} "
+            f"experts at all {len(ra)} layer-steps: {same}")
+        if not err <= tol * scale:
+            raise AssertionError(f"{name} parity: {err} > {tol * scale}")
+        out[name] = dict(max_abs_err=err, max_abs_logit=scale,
+                         rel_err=err / scale, rel_tol=tol,
+                         same_experts=same)
+    return out
+
+
+def _step_totals(sel):
+    """Per-step sums of the site rows ``sel``: each site's per-launch
+    time and bound times its launches per step; library_ms is null where
+    a site has no single call."""
+    tot = {key: sum(r[key] * r["per_step"] for r in sel)
+           for key in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in sel]
+    tot["library_ms"] = None if None in lib else sum(
+        v * r["per_step"] for v, r in zip(lib, sel))
+    t_bytes = sum(r["bytes"] * r["per_step"] for r in sel) / HBM_BYTES_PER_S
+    t_ops = sum(r["ops"] * r["per_step"] / PEAK_OPS_PER_S[
+        torch.int8 if r["form"] == "w8a8" else getattr(torch, r["dtype"])]
+        for r in sel)
+    tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return tot
+
+
+# kernel form -> the TPU kernel it replaces
+REPLACES = {
+    "arrayflex_gemm": "src/repro/kernels/arrayflex_gemm.py:177",
+    "arrayflex_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:177",
+    "arrayflex_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:177",
+    "arrayflex_expert_gemm": "src/repro/kernels/arrayflex_gemm.py:452",
+    "arrayflex_expert_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:452",
+    "arrayflex_expert_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:452",
+}
+
+
 def summarize(results, max_err, launches):
-    """One row per kernel form for one decode step at the main path's
-    shapes: each site's per-launch time (device time from the graph
-    replay; the plain version's and the library call's likewise) and
-    bound, times the site's launches per step, summed over the sites.
-    ``launches`` maps each form to its count from the serving run of its
-    own backend; library_ms is null where a site has no single call."""
-    rows = []
+    """One row per kernel form: its decode-site times and bounds per
+    decode step of each model it serves (qwen2-0.5b's 24 layers,
+    qwen3-moe-30b-a3b's 48), summed over the models; ``launches`` maps
+    each form to its count over every serving run.  Also returns the same
+    totals per model (``cells``)."""
+    rows, cells = [], {}
     src = "src/repro_torch/kernels/csrc/arrayflex_gemm.cu"
-    k1 = "src/repro/kernels/arrayflex_gemm.py:177"
-    k2 = "src/repro/kernels/arrayflex_gemm.py:452"
-    replaces = {"arrayflex_gemm": k1, "arrayflex_gemm_int8": k1,
-                "arrayflex_gemm_w8a8": k1, "arrayflex_expert_gemm": k2,
-                "arrayflex_expert_gemm_w8a8": k2}
-    for name in replaces:
-        sel = [r for r in results if r["launch_name"] == name
-               and r["phase"] == "decode"]
-        tot = {key: sum(r[key] * r["per_step"] for r in sel)
-               for key in ("ms", "plain_ms", "bound_ms")}
-        lib = [r["library_ms"] for r in sel]
-        t_bytes = sum(r["bytes"] * r["per_step"] for r in sel) \
-            / HBM_BYTES_PER_S
-        t_ops = sum(r["ops"] * r["per_step"] / PEAK_OPS_PER_S[
-            torch.int8 if r["form"] == "w8a8" else torch.bfloat16]
-            for r in sel)
-        rows.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces[name],
-            launches=launches[name], max_abs_err=max_err[name],
-            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None if None in lib else sum(
-                v * r["per_step"] for v, r in zip(lib, sel))))
-    return rows
+    decode = [r for r in results if r["phase"] == "decode"]
+    for name, replaces in REPLACES.items():
+        sel = [r for r in decode if r["launch_name"] == name]
+        for cell in sorted({r["cell"] for r in sel}):
+            cells.setdefault(cell, {})[name] = _step_totals(
+                [r for r in sel if r["cell"] == cell])
+        rows.append(dict(name=name, route="cuda", source=src,
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=max_err[name], **_step_totals(sel)))
+    return rows, cells
 
 
 def main() -> int:
@@ -745,16 +980,23 @@ def main() -> int:
     cfg = dataclasses.replace(get_config("qwen2-0.5b"),
                               gemm_backend="arrayflex",
                               compute_dtype="bfloat16")
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH),
+                                  gemm_backend="arrayflex",
+                                  compute_dtype="bfloat16",
+                                  param_dtype="bfloat16")
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
-    log(f"[3/6] kernel checks and times (bf16; per call: device time from "
-        f"a CUDA-graph replay, eager time with host launches; card: {card})")
-    results, max_err = kernel_phase(cfg, chunk)
+    log(f"[3/6] kernel checks and times (bf16, the MoE router fp32; per "
+        f"call: device time from a CUDA-graph replay, eager time with host "
+        f"launches; card: {card})")
+    results, max_err = kernel_phase(cfg, moe_cfg, chunk)
     for form in ("int8", "w8a8"):
-        r, e = kernel_phase(cfg, chunk, form)
+        r, e = kernel_phase(cfg, moe_cfg, chunk, form)
         results += r
         max_err.update(e)
     kt_quant = kt_quantize_time(cfg)
+    k3 = k3_library_time()
+    _free()
 
     log(f"[4/6] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
@@ -763,24 +1005,42 @@ def main() -> int:
         log(f"  serving full-width {cfg.name} on {backend}/bf16")
         serving[backend] = serving_phase(
             dataclasses.replace(cfg, gemm_backend=backend), params)
+    log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
+        f"at {moe_cfg.n_layers} layers, the int8 backends at "
+        f"{MOE_QUANT_LAYERS}")
+    moe_serving = moe_serving_phase(moe_cfg)
 
     log("[5/6] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
     parity.update(quant_parity_phase(cfg, params))
+    del params
+    _free()
+    log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
+    moe_parity = moe_parity_phase(moe_cfg)
 
-    # each form's launches from the serving run of the backend it serves
-    launches = {name: serving[backend]["launches"][name]
-                for name, backend in LAUNCH_SOURCE.items()}
-    kernels = summarize(results, max_err, launches)
+    # each form's launches over every serving run (each run counted from 0)
+    runs = list(serving.values()) + list(moe_serving.values())
+    launches = {name: sum(run["launches"][name] for run in runs)
+                for name in REPLACES}
+    kernels, cells = summarize(results, max_err, launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
-                  kernels=kernels, sites=results, kt_quantize=kt_quant,
-                  serving=serving, parity=parity, seconds=elapsed)
+                  kernels=kernels, cells=cells, sites=results,
+                  kt_quantize=kt_quant, k3_yardstick=k3, serving=serving,
+                  moe_serving=moe_serving, parity=parity,
+                  moe_parity=moe_parity, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"[6/6] summary ({elapsed:.1f} s)")
+    for cell, forms in cells.items():
+        for name, t in forms.items():
+            lib = t["library_ms"]
+            log(f"  {cell} {name}: kernel {t['ms']:.3f} / plain "
+                f"{t['plain_ms']:.3f} / library "
+                f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+                f"{t['bound_ms']:.4f} ms per decode step ({t['bound_by']})")
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(card)

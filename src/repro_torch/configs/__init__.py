@@ -10,8 +10,9 @@ from repro_torch.configs.base import (
 )
 
 from repro_torch.configs.qwen2_0_5b import CONFIG as _qwen2
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3moe
 
-ARCHS = {c.name: c for c in (_qwen2,)}
+ARCHS = {c.name: c for c in (_qwen2, _qwen3moe)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -10,7 +10,10 @@ file), one C entry per operand form:
                         dequant at the store) or, with ``act_quant``, W8A8
                         (per-tile int8 x, an int8 x int8 -> int32 chain);
   ``af_expert_gemm``    ``_expert_kernel`` on fp32/bf16 operands;
-  ``af_expert_gemm_q``  ``_expert_kernel``'s W8A8 form.
+  ``af_expert_gemm_q``  ``_expert_kernel`` on int8 weight codes: the
+                        int8-only form (MoE expert banks under W8, dequant
+                        per (expert, column) at the store) or, with
+                        ``act_quant``, W8A8.
 
 What stays the same is the schedule's meaning: K is consumed in
 ``ceil(K / (bk * k_collapse))`` serial main-loop steps of ``k_collapse``
@@ -27,10 +30,6 @@ version computes the same function with the same prologue and store, cast
 once: the CPU tests hold it against the reference, and the on-card checks
 hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
 and nothing else.
-
-The int8-only form of the expert kernel (reached only by MoE expert banks)
-is not ported yet: its plain version runs on the CPU, and a CUDA tensor
-raises.
 """
 from __future__ import annotations
 
@@ -47,6 +46,7 @@ ACTIVATIONS = ("none", "silu", "gelu")
 # empty operands launch nothing and do not count)
 LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_int8": 0,
             "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
+            "arrayflex_expert_gemm_int8": 0,
             "arrayflex_expert_gemm_w8a8": 0}
 
 # The reference kernel's tiles as ``ops.arrayflex_matmul`` launches it
@@ -107,7 +107,7 @@ def prologue_phase(x, norm_scale):
 # kernel, where XLA turns ``max(amax, eps) / 127`` into a multiply by this
 # constant — which rounds differently from the division at some amax, and
 # so moves codes that sit at a rounding tie (common with bf16 x)
-_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def quantize_tile(x, eps: float = 1e-12):
@@ -125,7 +125,7 @@ def quantize_tile(x, eps: float = 1e-12):
     padding contributes exactly 0."""
     x32 = x.float()
     amax = x32.abs().amax(dim=(-2, -1))
-    scale = torch.clamp(amax, min=eps) * torch.full_like(amax, _INV_127)
+    scale = torch.clamp(amax, min=eps) * torch.full_like(amax, INV_127)
     codes = torch.clamp(torch.round(x32 / scale[..., None, None]), -127, 127)
     return codes.to(torch.int8), scale
 
@@ -217,8 +217,8 @@ def _lib():
         lib.af_gemm_q.restype = i
         lib.af_expert_gemm.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
         lib.af_expert_gemm.restype = i
-        lib.af_expert_gemm_q.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i,
-                                         p]
+        lib.af_expert_gemm_q.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
+                                         i, i, i, p]
         lib.af_expert_gemm_q.restype = i
         _BOUND = lib
     return _BOUND
@@ -427,11 +427,10 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     tiled as :func:`quant_tiles` says.  Empty E/T/N/K returns exact zeros.
 
     CUDA tensors launch ``af_expert_gemm`` (contiguous operands; x/w dtypes
-    fp32/fp32, bf16/bf16 or fp32/bf16) or, under ``act_quant``,
-    ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w) — fp32 or bf16 out — or
-    raise; CPU tensors run :func:`arrayflex_expert_gemm_plain`.  The
-    int8-only form (``w_scale`` without ``act_quant``) has no kernel yet
-    and raises on a CUDA tensor."""
+    fp32/fp32, bf16/bf16 or fp32/bf16) or, with ``w_scale``,
+    ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
+    the MoE expert banks, or W8A8 under ``act_quant``) — fp32 or bf16 out
+    — or raise; CPU tensors run :func:`arrayflex_expert_gemm_plain`."""
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:
@@ -452,28 +451,26 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
         return arrayflex_expert_gemm_plain(
             x, w, w_scale=w_scale, act_quant=act_quant,
             k_collapse=k_collapse, out_dtype=out_dtype)
-    name = "arrayflex_expert_gemm_w8a8" if act_quant else \
-        "arrayflex_expert_gemm"
+    name = ("arrayflex_expert_gemm_w8a8" if act_quant else
+            "arrayflex_expert_gemm_int8" if quant else
+            "arrayflex_expert_gemm")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if quant and not act_quant:
-        raise NotImplementedError(
-            "the int8-only expert GEMM (MoE expert banks) has no CUDA "
-            "kernel yet (ROADMAP Queue 1 item 9)")
     _check_cuda(name, x.device, w=w, w_scale=w_scale)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: x and w must be contiguous")
     out = torch.empty((E, T, N), dtype=out_dtype, device=x.device)
-    if act_quant:
+    if quant:
         if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
             raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
                              f"out {out_dtype}")
         _check_dtypes(name, torch.int8, w=w)
-        qbm, qkk = quant_tiles(T, K, k_collapse)
+        qbm, qkk = quant_tiles(T, K, k_collapse) if act_quant else (0, 0)
         s = _fp32_vec(w_scale)
         rc = _lib().af_expert_gemm_q(
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w),
-            _ptr(s), _ptr(out), E, T, K, N, qbm, qkk, _stream(x.device))
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
+            _ptr(x), _ptr(w), _ptr(s), _ptr(out), E, T, K, N, k_collapse,
+            qbm, qkk, _stream(x.device))
     else:
         if ((x.dtype, w.dtype) not in ((torch.float32, torch.float32),
                                        (torch.bfloat16, torch.bfloat16),

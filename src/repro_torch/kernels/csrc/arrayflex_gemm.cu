@@ -7,7 +7,9 @@
 //   af_gemm_q         <- _kernel, int8 weights: W8 (quant) and W8A8
 //                        (quant + act_quant)
 //   af_expert_gemm    <- _expert_kernel, fp32/bf16 operands
-//   af_expert_gemm_q  <- _expert_kernel, W8A8
+//   af_expert_gemm_q  <- _expert_kernel, int8 weights: the int8-only form
+//                        of the MoE expert banks (quant) and W8A8
+//                        (quant + act_quant)
 // (launched by arrayflex_gemm / arrayflex_expert_gemm).
 //
 // What it computes:
@@ -28,7 +30,11 @@
 //             fp32 accumulator as acc + float(iacc) * scale, in increasing
 //             step order.
 //   expert:   X[E,T,K] @ W[E,K,N] -> [E,T,N], blockIdx.z walks E, the same
-//             main loop, only the dequant at the store.
+//             main loop, only the dequant at the store.  On int8 codes
+//             without act_quant (an MoE expert bank under W8) it is the
+//             W8 chain: the codes widen exactly to fp32 for the FFMA chain
+//             and each expert's per-column scale multiplies once, at the
+//             store.
 //
 // What bounds it on this card: at decode (M = batch rows, a handful) every
 // weight byte is read once for a few rows of work, so the GEMM is bound by
@@ -550,18 +556,23 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
   return (int)cudaErrorInvalidValue;
 }
 
-// W8A8 X[E,T,K] @ W[E,K,N] -> out[E,T,N], all contiguous: x fp32 or bf16,
-// w int8 codes, w_scale (E, N) fp32; each expert's x quantized on the
-// reference's tiles of quant_bm rows by quant_kk columns.
-extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, const void* x,
-                                const void* w, const float* w_scale,
-                                void* out, int E, int T, int K, int N,
-                                int quant_bm, int quant_kk, void* stream) {
-  if (E < 1 || T < 1 || N < 1 || K < 1 || w_scale == nullptr)
+// X[E,T,K] @ W[E,K,N] -> out[E,T,N] on int8 codes, all contiguous: x fp32
+// or bf16, w int8 codes, w_scale (E, N) fp32 dequantized per (expert,
+// column) at the store.  act_quant = 0: the int8-only form (MoE expert
+// banks under W8), the float chain at k_collapse; act_quant = 1: W8A8,
+// each expert's x quantized on the reference's tiles of quant_bm rows by
+// quant_kk columns.
+extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
+                                const void* x, const void* w,
+                                const float* w_scale, void* out, int E, int T,
+                                int K, int N, int k_collapse, int quant_bm,
+                                int quant_kk, void* stream) {
+  if (k_collapse < 1 || E < 1 || T < 1 || N < 1 || K < 1 ||
+      w_scale == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a{x, w, nullptr, w_scale, nullptr, nullptr, nullptr, nullptr, nullptr,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
-         (long long)T * N, N, 1, ACT_NONE, quant_bm, quant_kk};
+         (long long)T * N, N, k_collapse, ACT_NONE, quant_bm, quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return launch_x<int8_t, false>(a, x_dtype, out_dtype, true, E, s);
+  return launch_x<int8_t, false>(a, x_dtype, out_dtype, act_quant != 0, E, s);
 }

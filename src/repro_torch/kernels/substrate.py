@@ -26,6 +26,10 @@ dense contraction in nn/ and models/ routes through :func:`gemm` (or
                      ``attn.qk`` quantizes (:data:`BATCHED_ACTQ_SITES`),
       ``ref``        an fp32-everywhere oracle for equivalence tests.
 
+:func:`expert_gemm` runs the MoE expert banks (``moe.wi_gate``,
+``moe.wi_up``, ``moe.wo``): every expert of a site in one launch of the
+expert kernel, on int8 codes under the quantizing backends.
+
 The port runs eagerly, so :data:`DISPATCH_COUNTS` counts every dispatch a
 step executes (one per layer and site), where the reference's jit-traced
 count is one per traced site.  For the arrayflex backend one dispatch is
@@ -42,8 +46,8 @@ Shape convention matches core.planner: ``gemm(x, w)`` with ``x: (..., K)``
 and ``w: (K, N_out)`` is the planner GEMM ``X[T, M] = A[T, N] x B[N, M]``
 with ``M = N_out``, ``N = K``, ``T = prod(leading dims)``.
 
-Sharded dispatch (``ShardCtx``), the strict routing audit and chaos hooks
-are not ported yet.
+Sharded dispatch (``ShardCtx``, and so expert parallelism), the strict
+routing audit and chaos hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ import torch
 
 from repro_torch.core import planner, timing
 from repro_torch.kernels import ops
-from repro_torch.kernels.arrayflex_gemm import apply_epilogue, prologue_phase
+from repro_torch.kernels.arrayflex_gemm import (INV_127, apply_epilogue,
+                                                prologue_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -134,17 +139,27 @@ _QUANT_CACHE: Dict[int, tuple] = {}
 QUANT_CACHE_STATS = {"hits": 0, "misses": 0}
 
 
-def _quantize(w):
+def _quantize(w, *, compiled: bool = False):
     """Symmetric per-output-channel int8: codes in [-127, 127], fp32
     scales over the contraction axis (-2), ``scale = max(amax, 1e-12) /
     127`` and ``codes = clip(round(w / scale))`` with round half to even,
     so ``codes * scale`` recovers the weight to within scale/2.  Both
     divisions are IEEE divisions by tensors: PyTorch's CUDA division by a
     Python scalar multiplies by the reciprocal instead, which can round
-    differently from the reference."""
+    differently from the reference.
+
+    ``compiled=True`` computes the scale as the reference's quantizer
+    does inside a compiled step (the W8A8 ``attn.qk`` K^T quantize):
+    ``max(amax, 1e-12) * fp32(1/127)``, which XLA puts in place of the
+    division and which differs from it in the last bit at some amax.  The
+    default division is the reference's eager weight quantizer
+    (``prequantize_params``)."""
     w32 = w.float()
     amax = w32.abs().amax(dim=-2)
-    scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+    if compiled:
+        scale = torch.clamp(amax, min=1e-12) * torch.full_like(amax, INV_127)
+    else:
+        scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(w32 / scale.unsqueeze(-2)), -127, 127)
     # elementwise ops keep a transposed input's strides: the kernels want
     # unit stride along N
@@ -224,8 +239,23 @@ class QuantizedTensor:
 def prequantize(w) -> QuantizedTensor:
     """Quantize a weight now into a :class:`QuantizedTensor`, with the same
     :func:`_quantize` the dispatch memo runs, so the codes are the same
-    either way."""
-    return QuantizedTensor(*_quantize(w))
+    either way.
+
+    A weight with more than three axes (a stacked MoE expert bank,
+    (n_super, E, K, N)) is quantized one leading index at a time into
+    preallocated codes and scales, so its fp32 temporaries are one
+    slice's, not the whole stack's (tens of GB for a full-width bank).
+    The codes are the same bit for bit: the amax runs over the
+    contraction axis only."""
+    if w.ndim <= 3:
+        return QuantizedTensor(*_quantize(w))
+    codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*w.shape[:-2], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+    for i in range(w.shape[0]):
+        q = prequantize(w[i])
+        codes[i], scale[i] = q.codes, q.scale
+    return QuantizedTensor(codes, scale)
 
 
 def quantize_cache_info() -> Dict[str, int]:
@@ -615,9 +645,10 @@ def _batched_exec(x, w, plan: GemmPlan, backend: str, out_dtype):
     if backend == "arrayflex_w8a8":
         # W8A8 QK: both operands are activations and both quantize — K^T
         # here, per (batch, key column), as the reference does outside its
-        # kernel, and each q tile in the kernel prologue; the per-key
-        # scales dequant at the store
-        qw, ws = _quantize(w)
+        # kernel inside its compiled step (hence ``compiled``), and each q
+        # tile in the kernel prologue; the per-key scales dequant at the
+        # store
+        qw, ws = _quantize(w, compiled=True)
         return ops.arrayflex_expert_matmul(x, qw, w_scale=ws, act_quant=True,
                                            k_collapse=plan.k,
                                            out_dtype=out_dtype)
@@ -661,3 +692,67 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     fn = get_backend(backend)
     call = GemmCall(out_dtype=out_dtype)
     return torch.stack([fn(x[b], w[b], plan, call) for b in range(B)])
+
+
+def _expert_exec(x, w, plan: GemmPlan, backend: str, w_scale=None,
+                 act_quant: bool = False):
+    """Builtin expert execution (G, E, C, K) @ (E, K, N): ONE launch.
+    ``w_scale`` (E, N): int8 expert bank, dequantized per expert at the
+    kernel's store.  ``act_quant`` (W8A8): the kernel also quantizes each
+    activation tile in its prologue and runs the int8 x int8 -> int32
+    chain."""
+    if backend == "xla":
+        return torch.einsum("gecd,edf->gecf", x, w)
+    if backend == "ref":
+        out = torch.einsum("gecd,edf->gecf", x.float(), w.float())
+        return out.to(x.dtype)
+    G, E, C, K = x.shape
+    N_out = w.shape[-1]
+    xe = x.transpose(0, 1).reshape(E, G * C, K).contiguous()
+    out = ops.arrayflex_expert_matmul(xe, w, w_scale=w_scale,
+                                      act_quant=act_quant,
+                                      k_collapse=plan.k)
+    return out.reshape(E, G, C, N_out).transpose(0, 1)
+
+
+def expert_gemm(x, w, *, site: str = "", backend: str = "xla"):
+    """Batched expert GEMM: x (G, E, C, K) @ w (E, K, N) -> (G, E, C, N).
+
+    Every backend plans ONE (M=N, N=K, T=G*C) shape per site — the
+    per-expert GEMMs of a capacity-buffered MoE layer are identical, so
+    one plan covers all E of them.  The xla backend keeps the einsum; the
+    arrayflex backends fold the dispatch groups into the row axis and run
+    ALL experts in ONE launch of the expert kernel, whose leading grid
+    axis is the expert axis.  A custom backend unrolls the expert axis
+    through its 2-D entry: E dispatches recorded against the shared plan.
+
+    A quantizing backend takes the bank as int8 codes + (E, N) scales: a
+    :class:`QuantizedTensor` is unpacked, a float bank goes through the
+    :func:`quantize_weight` memo.  Under W8A8 the expert kernel also
+    quantizes its activation tiles whenever the bank is quantized.
+    """
+    check_backend(backend)
+    G, E, C, K = x.shape
+    N_out = w.shape[-1]
+    info = _BACKEND_INFO[backend]
+    w_scale = None
+    if isinstance(w, QuantizedTensor):
+        if not info.quantize:
+            raise ValueError(
+                f"site {site!r}: pre-quantized expert bank dispatched on "
+                f"non-quantizing backend {backend!r}")
+        w, w_scale = w.codes, w.scale
+    elif info.quantize and E and K and N_out:
+        w, w_scale = quantize_weight(w)
+    actq = bool(info.act_quantize and w_scale is not None)
+    plan = plan_gemm(N_out, K, G * C, backend)
+    if _is_builtin(backend):
+        _record(site, plan)
+        return _expert_exec(x, w, plan, backend, w_scale, actq)
+    _record(site, plan, launches=E)
+    fn = get_backend(backend)
+    outs = [fn(x[:, e].reshape(G * C, K), w[e], plan,
+               GemmCall(w_scale=None if w_scale is None else w_scale[e])
+               ).reshape(G, C, N_out)
+            for e in range(E)]
+    return torch.stack(outs, dim=1)

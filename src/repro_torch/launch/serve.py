@@ -5,12 +5,20 @@
 
 ``--gemm-backend arrayflex_int8`` serves int8 weights (W8) and
 ``arrayflex_w8a8`` int8 weights and per-tile int8 activations (W8A8).
+``--arch qwen3-moe-30b-a3b`` serves the MoE family (token-by-token
+prefill), e.g. on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch qwen3-moe-30b-a3b --gemm-backend arrayflex_int8
 
 Runs on the card unless ``--device cpu``.  ``--reduced`` (the default)
 serves the smoke-test sized config; ``--no-reduced`` serves the full
-published width.  Prints per-request outputs plus per-phase timing:
-prefill and decode throughput (tokens/s), dispatch counts, and mean
-time-to-first-token.
+published width, with bf16 parameters (full-width qwen3-moe-30b-a3b is
+61 GB in bf16, 122 GB in fp32).  ``--n-layers`` cuts the depth: a
+quantizing backend holds the bf16 tree and its int8 copy at once, which
+for qwen3-moe-30b-a3b fits one 80 GB card with ``--n-layers 24``.
+Prints per-request outputs plus per-phase timing: prefill and decode
+throughput (tokens/s), dispatch counts, and mean time-to-first-token.
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="serve the smoke-test sized config (default); "
                          "--no-reduced serves the full published width")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="serve this many layers (0: the config's)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -79,7 +89,10 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg)
     substrate.check_backend(args.gemm_backend)
-    cfg = dataclasses.replace(cfg, gemm_backend=args.gemm_backend)
+    cfg = dataclasses.replace(
+        cfg, gemm_backend=args.gemm_backend,
+        param_dtype=cfg.param_dtype if args.reduced else "bfloat16",
+        n_layers=args.n_layers or cfg.n_layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
     engine = ServingEngine(cfg, params,
                            ServeConfig(max_batch=args.max_batch, max_seq=128,

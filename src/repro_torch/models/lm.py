@@ -1,4 +1,4 @@
-"""Unified LM model family — the dense family is ported so far.
+"""Unified LM model family — the dense and MoE families are ported so far.
 
 Port of the reference's ``models/lm.py``.  Layers are grouped into
 *super-blocks* of ``period(cfg)`` sub-layers, and parameter and cache leaves
@@ -12,8 +12,15 @@ whole cache buffer with ``jnp.where`` on every step, ``attn_decode`` and
 given (which ``decode_step``/``prefill_step`` then return).  The values
 written are the same.
 
-Families other than ``dense`` (MoE, hybrid, SSM, VLM, audio), sliding
-windows, paged K/V and the pipeline-sharded steps are not ported yet.
+An MoE sub-layer (``family == "moe"``) runs attention, then the ln2
+rmsnorm and ``nn.moe.moe_apply`` in one global dispatch group at decode
+(capacity factor at least 2.0), as the reference's decode path does.  MoE
+capacity routing couples the rows of a dispatch, so MoE models prefill
+token by token (``supports_batched_prefill`` is False for them).
+
+Families other than ``dense`` and ``moe`` (hybrid, SSM, VLM, audio),
+sliding windows, paged K/V and the pipeline-sharded steps are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -26,8 +33,13 @@ from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers
+from repro_torch.nn import moe as moe_lib
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# MoE expert-bank leaves ((n_super, E, K, N) once stacked): GEMM weights
+# like a linear's ``w``; the router beside them stays fp32
+_EXPERT_BANKS = ("wi_gate", "wi_up", "wo")
 
 
 # ---------------------------------------------------------------------------
@@ -76,10 +88,10 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet (ROADMAP Queue 1)."""
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1: MoE, then other families); only 'dense' runs")
+            f"Queue 1: other families); only 'dense' and 'moe' run")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet "
@@ -206,10 +218,18 @@ def sublayer_init(gen, cfg: ModelConfig, pos: int, device):
     check_supported(cfg)
     dtype = _pdtype(cfg)
     d = cfg.d_model
-    return {"ln1": layers.rmsnorm_init(d, dtype, device),
-            "attn": attn_init(gen, cfg, dtype, device),
-            "ln2": layers.rmsnorm_init(d, dtype, device),
-            "mlp": layers.swiglu_init(gen, d, cfg.d_ff, dtype, device)}
+    p = {"ln1": layers.rmsnorm_init(d, dtype, device),
+         "attn": attn_init(gen, cfg, dtype, device),
+         "ln2": layers.rmsnorm_init(d, dtype, device)}
+    if sublayer_kind(cfg, pos)["mlp"] == "moe":
+        m = cfg.moe
+        p["moe"] = moe_lib.moe_init(gen, d, m.expert_d_ff or cfg.d_ff,
+                                    m.num_experts,
+                                    num_shared=m.num_shared_experts,
+                                    dtype=dtype, device=device)
+    else:
+        p["mlp"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype, device)
+    return p
 
 
 def _mlp(p, cfg, x):
@@ -225,22 +245,34 @@ def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos):
     """One-token sub-layer.  x: (B,1,d).  Returns (x, cache)."""
     kind = sublayer_kind(cfg, pos_idx)
     assert kind["mixer"] == "attn" and not kind["cross"] \
-        and kind["mlp"] == "dense", "check_supported() gates the callers"
+        and kind["mlp"] in ("dense", "moe"), \
+        "check_supported() gates the callers"
     # ln1 scale fuses into the q/k/v projection prologues
     h = layers.rmsnorm_normalize(x, cfg.rms_eps)
     out, kv = attn_decode(p["attn"], h, cfg, cache, pos,
                           norm_scale=p["ln1"]["scale"])
     x = x + out
+    if kind["mlp"] == "moe":
+        h = layers.rmsnorm(p["ln2"], x, cfg.rms_eps)
+        m = cfg.moe
+        y, _ = moe_lib.moe_apply(p["moe"], h, top_k=m.top_k,
+                                 capacity_factor=max(m.capacity_factor, 2.0),
+                                 groups=1,  # decode: one global group
+                                 compute_dtype=_cdtype(cfg),
+                                 aux_loss_weight=0.0,
+                                 backend=cfg.gemm_backend)
+        return x + y, kv
     return _mlp(p, cfg, x), kv
 
 
 def sublayer_prefill(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
                      lengths):
     """Chunk-of-tokens sub-layer.  x: (B,C,d).  Returns (x, cache); the
-    residual/MLP arithmetic is row-wise identical to ``sublayer_decode``."""
+    residual/MLP arithmetic is row-wise identical to ``sublayer_decode``.
+    Dense MLPs only (``supports_batched_prefill`` gates the callers)."""
     kind = sublayer_kind(cfg, pos_idx)
     assert kind["mixer"] == "attn" and not kind["cross"] \
-        and kind["mlp"] == "dense", "check_supported() gates the callers"
+        and kind["mlp"] == "dense", "use supports_batched_prefill() to gate"
     h = layers.rmsnorm_normalize(x, cfg.rms_eps)
     out, kv = attn_prefill(p["attn"], h, cfg, cache, pos, lengths,
                            norm_scale=p["ln1"]["scale"])
@@ -255,16 +287,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``,
     laid out as the reference's tree: ``blocks`` is a tuple (one entry per
     sub-layer of the period) of stacked dicts with a leading ``n_super``
-    dim.  On the card unless ``device="cpu"``."""
+    dim.  On the card unless ``device="cpu"``.
+
+    Each stacked leaf is allocated once, in the parameter dtype, and
+    filled layer by layer as the generator draws each layer, so the
+    transient memory is one layer's tree (a full-width MoE model's
+    stacked expert banks are 19 GB each in bf16)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _pdtype(cfg)
 
     def stacked(i):
-        per_layer = [sublayer_init(gen, cfg, i, dev)
-                     for _ in range(n_super(cfg))]
-        return _stack(per_layer)
+        n = n_super(cfg)
+        layer = sublayer_init(gen, cfg, i, dev)
+        out = _map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
+                                         device=dev), layer)
+        for l in range(n):
+            if l:
+                layer = sublayer_init(gen, cfg, i, dev)
+            _put(out, layer, l)
+        return out
 
     params = {
         "embed": layers.embedding_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -279,22 +322,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _put(stacked, tree, l: int):
+    """Copy one layer's tree into index ``l`` of the stacked tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stacked[k], v, l)
+    else:
+        stacked[l] = tree
+
+
+def _is_gemm_weight(key: str, node) -> bool:
+    """A linear's ``w`` leaf, or a (stacked) MoE expert bank."""
+    return ((key == "w" and node.ndim >= 2)
+            or (key in _EXPERT_BANKS and node.ndim >= 3))
 
 
 def prepare_params(cfg: ModelConfig, params):
-    """The served tree: every GEMM weight cast ONCE to the compute dtype
-    (contiguous), and the tied embedding table additionally transposed
-    into a contiguous (d, V) ``table_t`` for ``unembed``.  Norm scales and
-    biases keep the param dtype, as the reference feeds them.
+    """The served tree: every GEMM weight (linear ``w`` leaves and MoE
+    expert banks) cast ONCE to the compute dtype (contiguous), and the
+    tied embedding table additionally transposed into a contiguous (d, V)
+    ``table_t`` for ``unembed``.  Norm scales, biases and the MoE router
+    keep the param dtype, as the reference feeds them.
 
-    The reference casts each weight inside every ``linear`` call and
-    transposes the table on every ``unembed``; in eager PyTorch that would
-    re-read and re-write the weights every step.  The cast is
-    deterministic, so the served tree computes the same numbers."""
+    The reference casts each weight inside every ``linear`` and
+    ``moe_apply`` call and transposes the table on every ``unembed``; in
+    eager PyTorch that would re-read and re-write the weights every step.
+    The cast is deterministic, so the served tree computes the same
+    numbers."""
     cd = _cdtype(cfg)
 
     def walk(node, key=""):
@@ -302,9 +362,9 @@ def prepare_params(cfg: ModelConfig, params):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v) for v in node)
-        if key == "w" and node.ndim >= 2:          # linear weights
+        if _is_gemm_weight(key, node):
             return node.to(cd).contiguous()
-        return node                                # biases, norm scales
+        return node                       # biases, norm scales, router
 
     out = walk(params)
     table = params["embed"]["table"].to(cd)
@@ -325,7 +385,9 @@ def prequantize_params(cfg: ModelConfig, params):
     embedding lookup table stay; with tied embeddings the table's
     transpose gets a ``table_q`` leaf that ``layers.unembed`` prefers (a
     served tree's float ``table_t`` is dropped for it: unembed never reads
-    it again).  MoE expert banks come with the MoE slice."""
+    it again).  MoE expert banks quantize per (layer, expert, column),
+    one layer at a time (``substrate.prequantize``); the router stays
+    float (``substrate.QUANT_EXEMPT_SITES``)."""
     if not substrate.backend_quantizes(cfg.gemm_backend):
         return params
     cd = _cdtype(cfg)
@@ -335,9 +397,9 @@ def prequantize_params(cfg: ModelConfig, params):
             return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v) for v in node)
-        if key == "w" and node.ndim >= 2:          # linear weights
+        if _is_gemm_weight(key, node):
             return substrate.prequantize(node.to(cd))
-        return node                                # biases, norm scales
+        return node                       # biases, norm scales, router
 
     out = walk(params)
     if cfg.tie_embeddings:

@@ -15,10 +15,11 @@ from repro_torch.kernels import substrate
 
 def normal_init(gen, shape, scale=0.02, dtype=torch.float32, device="cpu"):
     """``scale`` x a standard normal truncated to [-2, 2] (the reference's
-    ``jax.random.truncated_normal``; the draws differ from JAX's)."""
+    ``jax.random.truncated_normal``; the draws differ from JAX's), drawn
+    in fp32 and scaled in place before the cast to ``dtype``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (scale * t).to(dtype)
+    return t.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------- linear

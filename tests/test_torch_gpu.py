@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (float, W8 and W8A8 forms) against their plain
-versions, on the card.
+"""The port's CUDA kernels (float, W8 and W8A8 forms, and K2's int8-only
+form of the MoE expert banks) against their plain versions, on the card.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -111,8 +111,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ag.arrayflex_gemm(x, torch.zeros(8, 4, device=cuda))
 
 
-def _serve_reduced(backend):
-    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
+def _serve_reduced(backend, arch="qwen2-0.5b"):
+    cfg = dataclasses.replace(reduced(get_config(arch)),
                               gemm_backend=backend)
     params = lm.init_params(cfg, seed=0)
     eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_seq=32))
@@ -201,11 +201,61 @@ def test_expert_w8a8_matches_plain(cuda, dx, etkn):
             out_dtype=torch.float32), torch.float32)
 
 
-def test_expert_int8_only_form_has_no_kernel(cuda):
-    q = torch.zeros(2, 8, 4, dtype=torch.int8, device=cuda)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ag.arrayflex_expert_gemm(torch.zeros(2, 3, 8, device=cuda), q,
-                                 w_scale=torch.ones(2, 4, device=cuda))
+# the MoE expert sites at full width (E = 128 experts, one capacity row
+# each at decode): moe.wi_gate / wi_up, moe.wo; and a ragged multi-step one
+MOE_SHAPES = [(128, 1, 2048, 768), (128, 1, 768, 2048), (4, 9, 300, 70)]
+
+
+@pytest.mark.parametrize("form", ["float", "int8", "w8a8"])
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", MOE_SHAPES)
+def test_expert_forms_match_plain_at_moe_shapes(cuda, form, dx, etkn):
+    """K2 on the expert banks: the float form (bf16 banks), the int8-only
+    form (W8) and the W8A8 form, several main-loop steps at every k, one
+    launch of the form's own kernel per call."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(T + K + N)
+    x = torch.randn(E, T, K, generator=g, device=cuda).to(dx)
+    w = (torch.randn(E, K, N, generator=g, device=cuda) * K ** -0.5).to(
+        torch.bfloat16 if form == "float" else torch.float32)
+    if form == "float":
+        x, kw, name = x.to(torch.bfloat16), {}, "arrayflex_expert_gemm"
+    else:
+        w, s = substrate._quantize(w)
+        kw = dict(w_scale=s, act_quant=form == "w8a8")
+        name = f"arrayflex_expert_gemm_{form}"
+    for k in (1, 2, 4):
+        before = dict(ag.LAUNCHES)
+        got = ag.arrayflex_expert_gemm(x, w, k_collapse=k,
+                                       out_dtype=torch.float32, **kw)
+        assert ag.LAUNCHES == dict(before, **{name: before[name] + 1})
+        _close(got, ag.arrayflex_expert_gemm_plain(
+            x, w, k_collapse=k, out_dtype=torch.float32, **kw),
+            torch.float32)
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8",
+                                     "arrayflex_w8a8"])
+def test_moe_engine_launches_every_kernel(cuda, backend):
+    """Reduced qwen3-moe-30b-a3b: per layer 4 attention K1, the router on
+    the float K1, attn.qk/attn.pv on K2 and the three expert sites on the
+    backend's K2 form; the unembed once per step."""
+    L, steps = _serve_reduced(backend, "qwen3-moe-30b-a3b")
+    want = {name: 0 for name in ag.LAUNCHES}
+    if backend == "arrayflex":
+        want.update(arrayflex_gemm=(5 * L + 1) * steps,
+                    arrayflex_expert_gemm=5 * L * steps)
+    elif backend == "arrayflex_int8":
+        want.update(arrayflex_gemm_int8=(4 * L + 1) * steps,
+                    arrayflex_gemm=L * steps,
+                    arrayflex_expert_gemm_int8=3 * L * steps,
+                    arrayflex_expert_gemm=2 * L * steps)
+    else:
+        want.update(arrayflex_gemm_w8a8=(4 * L + 1) * steps,
+                    arrayflex_gemm=L * steps,
+                    arrayflex_expert_gemm_w8a8=4 * L * steps,
+                    arrayflex_expert_gemm=L * steps)
+    assert ag.LAUNCHES == want
 
 
 def test_quant_kernel_refuses_float_weights(cuda):

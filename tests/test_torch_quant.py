@@ -90,6 +90,44 @@ def test_quantize_weight_bit_equal_to_reference(shape, dtype):
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
 
 
+# bf16 values whose fp32 quotient by 127 differs from their product with
+# fp32(1/127) in the last bit: as amax they give eager and compiled
+# quantizers different scales
+DIV_MUL_SPLIT = (0.55859375, 0.5625, 0.68359375, 1.1171875, 1.125)
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 256), (2, 16, 7), (1, 5, 3)])
+def test_kt_quantize_bit_equal_to_compiled_reference(shape):
+    """The W8A8 ``attn.qk`` K^T quantize runs inside the reference's
+    compiled step, where XLA computes the scale as
+    ``max(amax, eps) * fp32(1/127)``; the port's ``compiled`` quantizer
+    gives its codes and scales bit for bit on bf16 K^T, including columns
+    whose amax splits division from multiplication.  The eager default
+    keeps the division (the reference's eager ``prequantize_params``)."""
+    rng = np.random.RandomState(shape[-1])
+    a = rng.randn(*shape) * 0.3
+    for j, v in enumerate(DIV_MUL_SPLIT[:shape[-1]]):
+        a[..., 0, j] = v                     # amax of column j
+    kj, kt = _pair(a, "bfloat16")
+    cj, sj = jax.jit(ref_sub._quantize)(kj)
+    ct, st = substrate._quantize(kt, compiled=True)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    eager = substrate._quantize(kt)[1]
+    np.testing.assert_array_equal(eager.numpy(),
+                                  np.asarray(ref_sub._quantize(kj)[1]))
+    assert not torch.equal(eager, st)        # the split really occurs
+    # the W8A8 attn.qk dispatch quantizes K^T with the compiled form
+    q = torch.from_numpy(rng.randn(shape[0], 3, shape[1]).astype(np.float32))
+    got = substrate.batched_gemm(q, kt, site="attn.qk",
+                                 backend="arrayflex_w8a8")
+    k = substrate.SITE_PLANS["attn.qk"].k
+    want = ops.arrayflex_expert_matmul(q, ct, w_scale=st, act_quant=True,
+                                       k_collapse=k)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    substrate.clear_plan_cache()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(128, 512), (4, 448), (7, 64), (3, 5)])
 def test_quantize_tile_bit_equal_to_reference(shape, dtype):
@@ -226,7 +264,8 @@ def test_expert_w8a8_plain_vs_reference(etkn, dtype):
 
 
 def test_expert_int8_plain_vs_reference():
-    """The int8-only K2 form (MoE banks) has a plain version, no kernel."""
+    """The int8-only K2 form (MoE banks): its plain version against the
+    reference (tests/test_torch_moe.py covers it at more shapes)."""
     rng = np.random.RandomState(0)
     xj, xt = _pair(rng.randn(2, 9, 40), "float32")
     qj, sj = ref_sub._quantize(jnp.asarray(rng.randn(2, 40, 24),
@@ -264,10 +303,12 @@ def test_quant_plain_versions_count_no_launches():
     ag.arrayflex_gemm(x, q, w_scale=s, act_quant=True)
     ag.arrayflex_expert_gemm(x[None], q[None], w_scale=s[None],
                              act_quant=True)
+    ag.arrayflex_expert_gemm(x[None], q[None], w_scale=s[None])
     assert ag.LAUNCHES == before
     assert set(ag.LAUNCHES) == {
         "arrayflex_gemm", "arrayflex_gemm_int8", "arrayflex_gemm_w8a8",
-        "arrayflex_expert_gemm", "arrayflex_expert_gemm_w8a8"}
+        "arrayflex_expert_gemm", "arrayflex_expert_gemm_int8",
+        "arrayflex_expert_gemm_w8a8"}
 
 
 # ------------------------------------------------------------ planning
