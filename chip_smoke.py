@@ -9,22 +9,25 @@ failure of which exits non-zero:
 1. device: the card's name and power limit, torch's device name and count;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
    register / shared-memory / spill lines;
-3. kernel checks: each kernel form against its plain PyTorch version at
-   every site shape of full-width qwen2-0.5b's main path, at decode (M = 4)
-   and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's path at
-   decode (its attention and unembed GEMMs, the router on fp32 K1, and
-   moe.wi_gate / wi_up / wo on K2 with 128 experts of one capacity row
-   each), in bf16 and fp32, k in
-   {1, 2, 4}, each epilogue flag at least once; then the kernel, the plain
-   version and one PyTorch library call timed with CUDA events, beside
-   the least time the card could take (the bound).  First the float forms
-   (the ``arrayflex`` backend), then the int8 forms at the sites of
-   ``arrayflex_int8`` (W8, with the expert banks on K2's int8-only form)
-   and ``arrayflex_w8a8`` (W8A8, with attn.qk and the expert banks on
-   K2's W8A8 form), the plain-torch K^T quantize that attn.qk runs under
-   W8A8, and the library attention call that K3 (not ported yet) will be
-   held to;
-4. serving: full-width qwen2-0.5b with random weights (seed 0) served in
+3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
+   at every site shape of full-width qwen2-0.5b's main path, at decode
+   (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
+   path at decode (its attention and unembed GEMMs, the router on fp32 K1,
+   and moe.wi_gate / wi_up / wo on K2 with 128 experts of one capacity row
+   each), in bf16 and fp32, k in {1, 2, 4}, each epilogue flag at least
+   once; then the kernel, the plain version and one PyTorch library call
+   timed with CUDA events, beside the least time the card could take (the
+   bound).  First the float forms (the ``arrayflex`` backend), then the
+   int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
+   on K2's int8-only form) and ``arrayflex_w8a8`` (W8A8, with attn.qk and
+   the expert banks on K2's W8A8 form), and the plain-torch K^T quantize
+   that attn.qk runs under W8A8;
+4. flash attention (K3): ``ops.attention`` at every case of
+   :data:`K3_CASES` (the launch counter set to 0 just before and read just
+   after: one launch each), each output held against
+   ``flash_attention_plain`` on the same inputs; then the kernel, the plain
+   version and ``scaled_dot_product_attention`` timed, beside the bound;
+5. serving: full-width qwen2-0.5b with random weights (seed 0) served in
    bf16 through ``ServingEngine`` on ``arrayflex``, then on
    ``arrayflex_int8`` and ``arrayflex_w8a8``; then full-width
    qwen3-moe-30b-a3b (bf16 parameters, token-by-token prefill) on
@@ -33,14 +36,23 @@ failure of which exits non-zero:
    together): every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
    it) must equal its forms' launches per step times the steps;
-5. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
+6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
+   ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
+   at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
+   launch counters set to 0 just before it and read just after (K1 and K2
+   per layer, never K3), with its host-clock time, device-busy time and
+   peak memory;
+7. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
    ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
    ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32; then the
-   same three pairs on qwen3-moe-30b-a3b in fp32 at full width and 4
-   layers, each reporting whether both runs routed every token to the
+   full-width prefill of phase 6 in fp32 against ``ref`` and against the
+   engine's chunked ``prefill_step`` path on the same tokens; then the
+   same three decode pairs on qwen3-moe-30b-a3b in fp32 at full width and
+   4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
+   ``ref``, each reporting whether both runs routed every token to the
    same experts at every layer;
-6. summary: one JSON line of kernel numbers, the card's name and power
+8. summary: one JSON line of kernel numbers, the card's name and power
    limit, and the ``{"ok": true, ...}`` line last.
 
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
@@ -66,7 +78,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
-from repro_torch.kernels import build, substrate  # noqa: E402
+from repro_torch.kernels import build, ops, substrate  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.serving import Request, ServeConfig, ServingEngine  # noqa: E402
@@ -85,15 +98,25 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
 
 
-def kernel_tol(site, dt, scale: float) -> float:
-    """Absolute tolerance of a kernel check at max |plain| ``scale``
-    (floored at 1).  The int8 forms take the bf16 step exactly at that
-    magnitude, 2^(floor(log2 scale) - 7), which 2^-8 of it understates by
-    up to 2x just below a power of two; the float forms keep KERNEL_TOL."""
+def step_tol(dt, scale: float) -> float:
+    """Absolute tolerance at max |plain| ``scale`` (floored at 1): in bf16
+    the bf16 step exactly at that magnitude, 2^(floor(log2 scale) - 7)
+    (two fp32 results may round to neighbouring bf16 values), which 2^-8
+    of it understates by up to 2x just below a power of two; in fp32
+    KERNEL_TOL.  The int8 forms, K3 and the full-sequence prefill's K1/K2
+    sites (where the residual-joined mlp.wo reaches |value| ~8) use it."""
     scale = max(scale, 1.0)
-    if site.form != "float" and dt == torch.bfloat16:
+    if dt == torch.bfloat16:
         return 2.0 ** (math.floor(math.log2(scale)) - 7)
     return KERNEL_TOL[dt] * scale
+
+
+def kernel_tol(site, dt, scale: float) -> float:
+    """Absolute tolerance of a decode / prefill-chunk site's check: the
+    int8 forms take :func:`step_tol`; the float forms keep KERNEL_TOL."""
+    if site.form != "float":
+        return step_tol(dt, scale)
+    return KERNEL_TOL[dt] * max(scale, 1.0)
 # Model logits, relative to max |ref logit|: fp32 (with an fp32 K/V cache,
 # so no bf16 rounding enters) — summation order through 24 layers; bf16
 # (bf16 cache, as served) — hidden states are rounded to bf16 after every
@@ -123,6 +146,8 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_MAX_SEQ, MOE_MAX_NEW = 64, 8
 MOE_PROMPT_LENS = (8, 12, 16, 24)
 MOE_QUANT_LAYERS, MOE_PARITY_LAYERS, MOE_PARITY_STEPS = 24, 4, 4
+# the MoE full-sequence prefill checked in fp32 at MOE_PARITY_LAYERS
+MOE_FWD_SEQ = 256
 
 
 def log(msg=""):
@@ -396,7 +421,7 @@ def _bound(site: Site, x, kw, out_dtype, dt):
             else "operations", byts, ops_)
 
 
-def check_site(site: Site, dt, gen, k: int) -> float:
+def check_site(site: Site, dt, gen, k: int, tol_fn=None) -> float:
     """Kernel vs plain version at one k; returns the max abs error and
     raises beyond the stated tolerance."""
     fn, plain = _kernel_fns(site)
@@ -408,7 +433,8 @@ def check_site(site: Site, dt, gen, k: int) -> float:
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    tol = kernel_tol(site, dt, scale)
+    tol = (tol_fn(dt, scale) if tol_fn is not None
+           else kernel_tol(site, dt, scale))
     if not (err <= tol) or got.shape != want.shape:
         raise AssertionError(
             f"{site.name} {site.shape} {dt} k={k}: max abs err {err} > "
@@ -533,38 +559,140 @@ def kt_quantize_time(cfg):
     return out
 
 
-def k3_library_time():
-    """The yardstick for K3 (flash attention, not ported yet): one
-    ``scaled_dot_product_attention`` call at qwen2-0.5b's prefill chunk —
-    BH = 4 x 14 = 56 heads, S = T = 256, D = 64, causal, bf16 — with the
-    bound of that work: q, k, v read and the output written once; the QK^T
-    and PV multiply-adds of the S (S + 1) / 2 causal pairs per head at the
-    bf16 peak."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    B, H, S, D = BATCH, 14, 256, 64
-    q, k, v = (torch.randn(B, H, S, D, generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(3))
-    ms, eager_ms = _time_ms([lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True)], 20)
-    byts = 4 * B * H * S * D * 2
-    ops_ = 2 * B * H * D * S * (S + 1)
+# ---------------------------------------------------------------------------
+# phase 4: flash attention (K3) through ops.attention
+
+# K3 is held to its plain version within step_tol: the kernel takes each
+# planner chunk's row max in a first pass over the chunk (choice (a) in
+# csrc/flash_attention.cu), so p is rounded to bf16 against the same max
+# as in the plain version and the reference; what remains is fp32 summation
+# order over up to 4097 columns and expf's last bit, then one rounding of
+# the output to bf16 (one bf16 step at the largest |value|; fp32 1e-5).
+#
+# (name, BH, S, T, D, causal, window, dtype).  BH folds batch x heads with
+# the KV heads repeated: qwen2-0.5b's 14 query heads (x4 requests at the
+# smoke run's prefill chunk), qwen3-moe-30b-a3b's 32, B = 1 at long prefill.
+# T = 4097 is two planner chunks, the second holding one valid column; the
+# last case's rows 319.. see no column (non-causal, window 64, S > T).
+K3_CASES = [
+    ("qwen2 prefill chunk (yardstick)", 56, 256, 256, 64, True, 0,
+     torch.bfloat16),
+    ("qwen2 long prefill", 14, 4096, 4096, 64, True, 0, torch.bfloat16),
+    ("qwen2 long prefill fp32", 14, 4096, 4096, 64, True, 0, torch.float32),
+    ("qwen3-moe long prefill", 32, 4096, 4096, 128, True, 0,
+     torch.bfloat16),
+    ("ragged non-causal", 14, 128, 4097, 64, False, 0, torch.bfloat16),
+    ("window 512", 14, 4096, 4096, 64, True, 512, torch.bfloat16),
+    ("fully masked rows", 14, 512, 256, 64, False, 64, torch.bfloat16),
+]
+
+
+def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query row, key column) pairs the masks leave, per head."""
+    rows = np.arange(S)
+    hi = np.minimum(T, rows + 1) if causal else np.full(S, T)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(S, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def k3_bound(BH, S, T, D, causal, window, dt):
+    """(bound_ms, bound_by, bytes, ops): q, k, v read and o written once;
+    the QK^T and PV multiply-adds of the visible pairs at the peak rate of
+    the operands' type."""
+    size = torch.empty((), dtype=dt).element_size()
+    byts = (2 * BH * S * D + 2 * BH * T * D) * size
+    ops_ = 4 * BH * D * _visible_pairs(S, T, causal, window)
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
-    out = dict(shape=dict(BH=B * H, S=S, T=S, D=D, causal=True,
-                          dtype="bfloat16"),
-               library_ms=ms, library_eager_ms=eager_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=byts, ops=ops_)
-    log(f"  K3 yardstick: scaled_dot_product_attention (BH {B * H}, S = T "
-        f"= {S}, D {D}, causal, bf16) {ms * 1e3:.1f} us device, "
-        f"{eager_ms * 1e3:.1f} us eager; bound {out['bound_ms'] * 1e3:.2f} "
-        f"us ({out['bound_by']})")
-    return out
+    t_ops = ops_ / PEAK_OPS_PER_S[dt] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", byts, ops_)
+
+
+def k3_phase():
+    """Drive ``ops.attention`` once per case (the K3 path: the counter set
+    to 0 just before and read just after), hold each output against the
+    plain version on the same inputs, then time the kernel, the plain
+    version and ``scaled_dot_product_attention`` (not on the case with
+    fully masked rows, where it returns NaN)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    inputs = []
+    for name, BH, S, T, D, causal, window, dt in K3_CASES:
+        q, k, v = (torch.randn(BH, n, D, generator=gen, device="cuda").to(dt)
+                   for n in (S, T, T))
+        inputs.append((q, k, v))
+    torch.cuda.synchronize()
+    fa.reset_launches()                     # counts: 0 just before the run
+    outs = [ops.attention(q, k, v, causal=case[5], window=case[6])
+            for case, (q, k, v) in zip(K3_CASES, inputs)]
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]   # read just after the run
+    if launches != len(K3_CASES):
+        raise AssertionError(f"flash_attention launches {launches} != "
+                             f"{len(K3_CASES)} ops.attention calls")
+    results = []
+    for case, (q, k, v), got in zip(K3_CASES, inputs, outs):
+        name, BH, S, T, D, causal, window, dt = case
+        kc = planner.attention_plan(S, T)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, kv_chunk=kc)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = step_tol(dt, scale)
+        dead = want.float().abs().amax(dim=-1) == 0
+        n_dead = int(dead.sum().item())
+        if (not err <= tol or got.shape != want.shape
+                or not bool(torch.isfinite(got).all())
+                or not torch.equal(got[dead], torch.zeros_like(got[dead]))):
+            raise AssertionError(f"K3 {name}: max abs err {err} > tol {tol} "
+                                 f"(scale {scale}), or a non-finite or "
+                                 f"non-zero fully masked row")
+        del want
+        iters = 20 if S * T <= 256 * 256 else 3
+
+        def kernel(q=q, k=k, v=v, causal=causal, window=window):
+            return ops.attention(q, k, v, causal=causal, window=window)
+
+        def plain(q=q, k=k, v=v, causal=causal, window=window, kc=kc):
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, kv_chunk=kc)
+
+        ms, eager_ms = _time_ms([kernel], iters)
+        plain_ms, _ = _time_ms([plain], min(iters, 2))
+        lib_ms = None
+        if not n_dead:
+            q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+            mask = None
+            if window:
+                r = torch.arange(S, device="cuda")[:, None]
+                c = torch.arange(T, device="cuda")[None, :]
+                mask = c > r - window
+                if causal:
+                    mask = mask & (c <= r)
+            lib_ms, _ = _time_ms([lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask,
+                is_causal=causal and mask is None)], iters)
+        _free()
+        bound_ms, bound_by, byts, ops_ = k3_bound(BH, S, T, D, causal,
+                                                  window, dt)
+        row = dict(case=name, BH=BH, S=S, T=T, D=D, causal=causal,
+                   window=window, dtype=str(dt).split(".")[-1], kv_chunk=kc,
+                   max_abs_err=err, tol=tol, fully_masked_rows=n_dead,
+                   ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=byts, ops=ops_)
+        results.append(row)
+        log(f"  {name:32s} BH {BH:2d} S {S:4d} T {T:4d} D {D:3d} "
+            f"{row['dtype']:8s} chunk {kc:4d}: kernel {_us(ms)} us  plain "
+            f"{_us(plain_ms)} us  sdpa {_us(lib_ms)} us  bound "
+            f"{bound_ms * 1e3:8.2f} us ({bound_by}); err {err:.3g} (tol "
+            f"{tol:.3g}){f'; {n_dead} fully masked rows' if n_dead else ''}")
+    del inputs, outs
+    _free()
+    return results, launches
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serving
+# phase 5: serving
 
 def expected_launches(cfg, steps: int):
     """Kernel launches of ``steps`` engine steps of ``cfg`` on its backend,
@@ -610,11 +738,15 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     torch.cuda.reset_peak_memory_stats()
     substrate.DISPATCH_COUNTS.clear()
     ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
     t0 = time.perf_counter()
     ticks = engine.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ag.LAUNCHES)            # read just after the run
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("serving launched flash attention (K3): it is "
+                             "not on the model path")
     dispatches = dict(substrate.DISPATCH_COUNTS)
     st = engine.stats
     steps = st["prefill_dispatches"] + st["decode_dispatches"]
@@ -705,33 +837,36 @@ def _tensors(tree):
         yield tree
 
 
-def profile_decode_step(cfg, engine, step_ms: float, max_seq: int):
-    """Device busy time of one full-batch decode step (torch.profiler,
-    summed self device time), against the engine's measured step time."""
+def profile_device(fn, wall_ms: float, what: str):
+    """Device busy time of one ``fn()`` (torch.profiler: the summed time
+    of the device-side events — kernels, copies, memsets — on the one
+    stream; a CPU op's own "self device time" repeats its kernels' time,
+    so CPU ops are not summed) against ``wall_ms``, the host-clock time of
+    the same work measured outside the profiler; ``fn`` runs once before,
+    as warm-up."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
-    pos = torch.full((BATCH,), max_seq // 2, dtype=torch.int64,
-                     device="cuda")
-    lm.decode_step(cfg, engine.params, engine.cache, toks, pos)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        lm.decode_step(cfg, engine.params, engine.cache, toks, pos)
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    evs = [e for e in prof.key_averages() if dev_us(e) > 0]
+    evs = [e for e in prof.key_averages()
+           if e.device_type != DeviceType.CPU and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in evs) / 1e3
     top = sorted(evs, key=dev_us, reverse=True)[:6]
-    out = dict(device_busy_ms=busy_ms, step_ms=step_ms,
-               idle_share=(1.0 - busy_ms / step_ms) if busy_ms else None,
+    out = dict(device_busy_ms=busy_ms, step_ms=wall_ms,
+               idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
                top=[(e.key[:160], dev_us(e) / 1e3, e.count) for e in top])
     if busy_ms:
-        log(f"  profiler: device busy {busy_ms:.2f} ms of a {step_ms:.2f} "
-            f"ms decode step (idle share {out['idle_share']:.2f})")
+        log(f"  profiler: device busy {busy_ms:.2f} ms of a {wall_ms:.2f} "
+            f"ms {what} (idle share {out['idle_share']:.2f})")
         for name, ms, n in out["top"]:
             log(f"    {ms:8.3f} ms  x{n:4d}  {name}")
     else:
@@ -739,8 +874,164 @@ def profile_decode_step(cfg, engine, step_ms: float, max_seq: int):
     return out
 
 
+def profile_decode_step(cfg, engine, step_ms: float, max_seq: int):
+    """Device busy time of one full-batch decode step against the
+    engine's measured step time."""
+    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+    pos = torch.full((BATCH,), max_seq // 2, dtype=torch.int64,
+                     device="cuda")
+    return profile_device(
+        lambda: lm.decode_step(cfg, engine.params, engine.cache, toks, pos),
+        step_ms, "decode step")
+
+
 # ---------------------------------------------------------------------------
-# phase 5: model parity on the card
+# phase 6: full-sequence prefill
+
+# prompt lengths of the full-sequence prefill (B = 1): the last one at or
+# below qwen2-0.5b's attn_dense_below (dense attention), and one above it
+# (the chunked scan)
+FWD_SEQS = (2048, 4096)
+
+
+def forward_launches(cfg, S: int):
+    """Kernel launches of one ``lm.prefill`` of ``cfg`` (a dense model on
+    ``arrayflex``) at S tokens: per layer 6 K1 launches (q, k, v, o, the
+    dual-GEMM swiglu, mlp.wo) and, on the dense attention path, attn.qk
+    and attn.pv on K2; the unembed once.  K3 is never on the model path."""
+    L = cfg.n_layers
+    want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
+    want["arrayflex_gemm"] = 6 * L + 1
+    if S <= cfg.attn_dense_below:
+        want["arrayflex_expert_gemm"] = 2 * L
+    return want
+
+
+def prefill_sites(cfg, S: int):
+    """The GEMM sites of one full-sequence ``lm.prefill`` of ``cfg`` at
+    B = 1 and S tokens: every weight GEMM at S rows, the unembed of all S
+    positions (fp32 logits, as the reference's ``prefill`` computes them
+    before it keeps the last), and on the dense attention path attn.qk /
+    attn.pv with each KV head's g * S query rows against S keys.  Two
+    weight copies rotate: at S rows the products, not the weight bytes,
+    set the time."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    L, V, ff, g = cfg.n_layers, cfg.padded_vocab, cfg.d_ff, H // KV
+    qkv = dict(bias=cfg.qkv_bias, norm_scale=True)
+    kw = dict(copies=2, cell=cfg.name)
+    sites = [
+        Site("attn.wq", "arrayflex_gemm", (S, d, H * hd), L, qkv, **kw),
+        Site("attn.wk", "arrayflex_gemm", (S, d, KV * hd), L, qkv, **kw),
+        Site("attn.wv", "arrayflex_gemm", (S, d, KV * hd), L, qkv, **kw),
+        Site("attn.wo", "arrayflex_gemm", (S, H * hd, d), L, **kw),
+        Site("mlp.wi_gate+mlp.wi_up", "arrayflex_gemm", (S, d, ff), L,
+             dict(dual=True, activation="silu", norm_scale=True), **kw),
+        Site("mlp.wo", "arrayflex_gemm", (S, ff, d), L, dict(residual=True),
+             **kw),
+        Site("unembed", "arrayflex_gemm", (S, d, V), 1,
+             dict(out_f32=True) if cfg.tie_embeddings else {}, copies=1,
+             cell=cfg.name),
+    ]
+    if S <= cfg.attn_dense_below:
+        sites += [
+            Site("attn.qk", "arrayflex_expert_gemm", (KV, g * S, hd, S), L,
+                 dict(out_f32=True), **kw),
+            Site("attn.pv", "arrayflex_expert_gemm", (KV, g * S, S, hd), L,
+                 **kw),
+        ]
+    return sites
+
+
+def prefill_kernel_phase(cfg):
+    """K1 and K2 at the full-sequence prefill's site shapes (each of
+    FWD_SEQS): checked against the plain version in bf16 and fp32 at k in
+    {1, 2, 4}, then timed in bf16 at the planned k like the decode sites.
+    Returns the rows and the per-prefill totals per form."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows, totals = [], {}
+    for S in FWD_SEQS:
+        for site in prefill_sites(cfg, S):
+            errs = {f"{dt}".split(".")[-1] + f"/k{k}": check_site(
+                site, dt, gen, k, step_tol)
+                for dt in (torch.bfloat16, torch.float32) for k in (1, 2, 4)}
+            t = time_site(site, gen, 2 if site.name == "unembed" else 4)
+            _free()
+            row = dict(phase=f"prefill S={S}", cell=site.cell,
+                       site=site.name, kernel=site.kernel, form=site.form,
+                       launch_name=site.launch_name, shape=site.shape,
+                       per_step=site.per_step, max_abs_err=errs, **t)
+            rows.append(row)
+            log(f"  S={S} {site.name:22s} {str(site.shape):26s} k={t['k']} "
+                f"kernel {_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
+                f"library {_us(t['library_ms'])} us  bound "
+                f"{t['bound_ms'] * 1e3:8.2f} us ({t['bound_by']})")
+        for name in ("arrayflex_gemm", "arrayflex_expert_gemm"):
+            sel = [r for r in rows if r["phase"] == f"prefill S={S}"
+                   and r["launch_name"] == name]
+            if sel:
+                tot = _step_totals(sel)
+                totals[f"S={S} {name}"] = tot
+                log(f"  S={S} {name}: kernel {tot['ms']:.3f} / plain "
+                    f"{tot['plain_ms']:.3f} / library {tot['library_ms']:.3f}"
+                    f" / bound {tot['bound_ms']:.4f} ms per prefill "
+                    f"({tot['bound_by']})")
+    return rows, totals
+
+
+def forward_phase(cfg, params):
+    """Full-width ``lm.prefill`` at each of FWD_SEQS (B = 1, the served
+    bf16 tree): host-clock time of the run whose counters are checked,
+    device busy time of another (profiler), peak memory, logits and cache
+    shapes."""
+    served = lm.prepare_params(cfg, params)
+    rng = np.random.default_rng(4)
+    out = {}
+    for S in FWD_SEQS:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, S)), device="cuda")}
+        lm.prefill(cfg, served, batch)           # warm-up
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        ag.reset_launches()                     # counts: 0 just before the run
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(cfg, served, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ag.LAUNCHES, **fa.LAUNCHES)   # read just after
+        peak = torch.cuda.max_memory_allocated()
+        want = forward_launches(cfg, S)
+        if launches != want:
+            raise AssertionError(f"prefill S={S}: launches {launches} != "
+                                 f"{want}")
+        kv = (lm.n_super(cfg), 1, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if (tuple(logits.shape) != (1, cfg.padded_vocab)
+                or not bool(torch.isfinite(logits).all())
+                or any(tuple(c[n].shape) != kv for c in caches
+                       for n in ("k", "v"))):
+            raise AssertionError(f"prefill S={S}: logits "
+                                 f"{tuple(logits.shape)} or caches wrong, "
+                                 f"or non-finite logits")
+        del logits, caches
+        path = "dense" if S <= cfg.attn_dense_below else "chunked"
+        log(f"  {cfg.name} x{cfg.n_layers} lm.prefill B=1 S={S} ({path} "
+            f"attention): {wall_ms:.1f} ms host clock, peak "
+            f"{peak / 2**30:.2f} GiB; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        prof = profile_device(lambda: lm.prefill(cfg, served, batch),
+                              wall_ms, f"prefill of {S} tokens")
+        out[S] = dict(S=S, attention=path, prefill_ms=wall_ms,
+                      max_memory_allocated_bytes=peak, launches=launches,
+                      profile=prof)
+        _free()
+    del served
+    _free()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: model parity on the card
 
 def parity_phase(cfg, params):
     out = {}
@@ -839,6 +1130,93 @@ def quant_parity_phase(cfg, params):
     return out
 
 
+def forward_parity_phase(cfg, params):
+    """fp32 last-token logits of full-width ``lm.prefill`` at each of
+    FWD_SEQS (B = 1): on the kernels against the ``ref`` backend, and
+    against the engine's path on the same tokens — ``prefill_step`` over
+    the engine's planner-picked chunks into an fp32 cache — each within
+    MODEL_TOL of max |reference logit|."""
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    out = {}
+    for S in FWD_SEQS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
+                               device="cuda")
+        logits = {}
+        for backend in ("arrayflex", "ref"):
+            c = dataclasses.replace(c32, gemm_backend=backend)
+            logits[backend], _ = lm.prefill(c, lm.prepare_params(c, params),
+                                            {"tokens": toks})
+            _free()
+        c = dataclasses.replace(c32, gemm_backend="arrayflex")
+        p = lm.prepare_params(c, params)
+        chunk = min(S, planner.attention_plan(S, S,
+                                              choices=PREFILL_CHUNK_CHOICES))
+        cache = lm.init_cache(c, 1, S, dtype=torch.float32)
+        for c0 in range(0, S, chunk):
+            n = min(chunk, S - c0)
+            logits["prefill_step"], cache = lm.prefill_step(
+                c, p, cache, toks[:, c0:c0 + n],
+                torch.tensor([c0], device="cuda"),
+                torch.tensor([n], device="cuda"))
+        del p, cache
+        _free()
+        if not all(bool(torch.isfinite(v).all()) for v in logits.values()):
+            raise AssertionError(f"prefill S={S}: non-finite logits")
+        for got, want in (("arrayflex", "ref"),
+                          ("arrayflex", "prefill_step")):
+            err = (logits[got] - logits[want]).abs().max().item()
+            scale = logits[want].abs().max().item()
+            tol = MODEL_TOL[torch.float32] * scale
+            name = f"prefill S={S} {got} vs {want}"
+            log(f"  {cfg.name} x{cfg.n_layers} {name} (fp32{f', chunk {chunk}' if want == 'prefill_step' else ''}): "
+                f"max |logit diff| {err:.4g} = {err / scale:.3g} of max "
+                f"|logit| {scale:.4g} (tol {MODEL_TOL[torch.float32]:.3g})")
+            if not err <= tol:
+                raise AssertionError(f"{name} parity: {err} > {tol}")
+            out[name] = dict(max_abs_err=err, max_abs_logit=scale,
+                             rel_err=err / scale,
+                             rel_tol=MODEL_TOL[torch.float32])
+        del logits
+        _free()
+    return out
+
+
+def moe_prefill_parity(cfg, params):
+    """fp32 last-token logits of ``lm.prefill`` (B = 1, S = MOE_FWD_SEQ,
+    dense attention with head_dim 128, one routing group per sequence) on
+    the kernels against ``ref``, with the routing of every layer and the
+    aux loss compared."""
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, MOE_FWD_SEQ)), device="cuda")
+    runs = {}
+    for backend in ("arrayflex", "ref"):
+        c = dataclasses.replace(cfg, gemm_backend=backend)
+        with moe.record_routing() as routing:
+            logits, aux, _ = lm.forward(c, lm.prepare_params(c, params),
+                                        {"tokens": toks})
+        runs[backend] = (logits[:, -1], float(aux),
+                         [idx for idx, _ in routing])
+        del logits
+        _free()
+    (a, aux_a, ra), (b, aux_b, rb) = runs["arrayflex"], runs["ref"]
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("MoE prefill: non-finite logits")
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    same = all(torch.equal(x, y) for x, y in zip(ra, rb))
+    tol = MODEL_TOL[torch.float32]
+    log(f"  {cfg.name} x{cfg.n_layers} lm.prefill S={MOE_FWD_SEQ} arrayflex "
+        f"vs ref (fp32): max |logit diff| {err:.4g} = {err / scale:.3g} of "
+        f"max |logit| {scale:.4g} (tol {tol:.3g}); aux {aux_a:.6g} vs "
+        f"{aux_b:.6g}; same top-{cfg.moe.top_k} experts at all {len(ra)} "
+        f"layers: {same}")
+    if not err <= tol * scale:
+        raise AssertionError(f"MoE prefill parity: {err} > {tol * scale}")
+    return dict(max_abs_err=err, max_abs_logit=scale, rel_err=err / scale,
+                rel_tol=tol, aux=aux_a, ref_aux=aux_b, same_experts=same)
+
+
 def moe_parity_phase(moe_cfg):
     """fp32 logits of ``MOE_PARITY_STEPS`` decode steps (batch 2, fp32 K/V
     cache) of full-width qwen3-moe-30b-a3b cut to 4 layers: arrayflex vs
@@ -875,6 +1253,7 @@ def moe_parity_phase(moe_cfg):
         _free()
         return out, [idx for idx, _ in routing]
 
+    prefill = moe_prefill_parity(cfg, params)
     runs = {
         "arrayflex": run("arrayflex", lambda c: lm.prepare_params(c, params)),
         "ref": run("ref", lambda c: lm.prepare_params(c, params)),
@@ -905,6 +1284,7 @@ def moe_parity_phase(moe_cfg):
         out[name] = dict(max_abs_err=err, max_abs_logit=scale,
                          rel_err=err / scale, rel_tol=tol,
                          same_experts=same)
+    out[f"prefill S={MOE_FWD_SEQ} arrayflex vs ref"] = prefill
     return out
 
 
@@ -956,6 +1336,27 @@ def summarize(results, max_err, launches):
     return rows, cells
 
 
+def k3_row(k3, launches: int):
+    """K3's row of the kernels line: times and bounds summed over the K3
+    cases that have a library time (all but the case with fully masked
+    rows, where scaled_dot_product_attention returns NaN and is not
+    timed); ``launches`` is the K3 path's count (one per case); the error
+    is the largest over every case."""
+    sel = [r for r in k3 if r["library_ms"] is not None]
+    tot = {key: sum(r[key] for r in sel)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    t_bytes = sum(r["bytes"] for r in sel) / HBM_BYTES_PER_S
+    t_ops = sum(r["ops"] / PEAK_OPS_PER_S[getattr(torch, r["dtype"])]
+                for r in sel)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:27",
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in k3),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                **tot)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -965,12 +1366,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/6] device: {card}; torch {torch.__version__} cuda "
+    log(f"[1/8] device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {kind} x {count}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2/6] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/8] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for stem, text in build.PTXAS_INFO.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line \
@@ -986,19 +1387,22 @@ def main() -> int:
                                   param_dtype="bfloat16")
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
-    log(f"[3/6] kernel checks and times (bf16, the MoE router fp32; per "
-        f"call: device time from a CUDA-graph replay, eager time with host "
-        f"launches; card: {card})")
+    log(f"[3/8] GEMM kernel checks and times (bf16, the MoE router fp32; "
+        f"per call: device time from a CUDA-graph replay, eager time with "
+        f"host launches; card: {card})")
     results, max_err = kernel_phase(cfg, moe_cfg, chunk)
     for form in ("int8", "w8a8"):
         r, e = kernel_phase(cfg, moe_cfg, chunk, form)
         results += r
         max_err.update(e)
     kt_quant = kt_quantize_time(cfg)
-    k3 = k3_library_time()
     _free()
 
-    log(f"[4/6] serving full-width {cfg.name} on arrayflex/bf16")
+    log(f"[4/8] flash attention (K3) through ops.attention, against its "
+        f"plain version and scaled_dot_product_attention (card: {card})")
+    k3, k3_launches = k3_phase()
+
+    log(f"[5/8] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
     serving = {"arrayflex": serving_phase(cfg, params)}
     for backend in ("arrayflex_int8", "arrayflex_w8a8"):
@@ -1010,30 +1414,44 @@ def main() -> int:
         f"{MOE_QUANT_LAYERS}")
     moe_serving = moe_serving_phase(moe_cfg)
 
-    log("[5/6] model parity: arrayflex vs ref on the card")
+    log(f"[6/8] full-sequence lm.prefill of full-width {cfg.name} on "
+        f"arrayflex/bf16 at S = {', '.join(map(str, FWD_SEQS))}")
+    prefill = forward_phase(cfg, params)
+    log(f"  K1/K2 at the prefill's site shapes (bf16 timed; card: {card})")
+    prefill_sites_rows, prefill_totals = prefill_kernel_phase(cfg)
+
+    log("[7/8] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
     parity.update(quant_parity_phase(cfg, params))
+    log(f"  full-sequence prefill (fp32) at S = "
+        f"{', '.join(map(str, FWD_SEQS))}")
+    parity.update(forward_parity_phase(cfg, params))
     del params
     _free()
     log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
     moe_parity = moe_parity_phase(moe_cfg)
 
-    # each form's launches over every serving run (each run counted from 0)
-    runs = list(serving.values()) + list(moe_serving.values())
+    # each GEMM form's launches over every serving and prefill run (each
+    # run counted from 0); K3's over its ops.attention run
+    runs = (list(serving.values()) + list(moe_serving.values())
+            + list(prefill.values()))
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     kernels, cells = summarize(results, max_err, launches)
+    kernels.append(k3_row(k3, k3_launches))
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
                   kernels=kernels, cells=cells, sites=results,
-                  kt_quantize=kt_quant, k3_yardstick=k3, serving=serving,
-                  moe_serving=moe_serving, parity=parity,
+                  kt_quantize=kt_quant, flash_attention=k3, serving=serving,
+                  moe_serving=moe_serving, prefill=prefill,
+                  prefill_sites=prefill_sites_rows,
+                  prefill_kernel_totals=prefill_totals, parity=parity,
                   moe_parity=moe_parity, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"[6/6] summary ({elapsed:.1f} s)")
+    log(f"[8/8] summary ({elapsed:.1f} s)")
     for cell, forms in cells.items():
         for name, t in forms.items():
             lib = t["library_ms"]
@@ -1041,6 +1459,11 @@ def main() -> int:
                 f"{t['plain_ms']:.3f} / library "
                 f"{'none' if lib is None else f'{lib:.3f}'} / bound "
                 f"{t['bound_ms']:.4f} ms per decode step ({t['bound_by']})")
+    t = kernels[-1]
+    log(f"  flash_attention over its cases with a library time: kernel "
+        f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "
+        f"{t['library_ms']:.3f} / bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -5,7 +5,8 @@ ArrayFlex-scheduled GEMM: the collapse factor k comes from core.planner
 (Eq. 6/7) for the GEMM's (M, N, T) shape, and an optional fused epilogue
 (bias / activation / dual-GEMM gate / residual) rides the carry-propagate
 store.  ``arrayflex_expert_matmul`` runs a stack of same-shape batched
-GEMMs in one launch.
+GEMMs in one launch.  ``attention`` is flash attention with the planner's
+KV chunk.
 
 Ragged M/N need no padding here: the CUDA kernel masks its ragged edges
 itself, so the result equals the reference's zero-padded one.  Ragged K is
@@ -22,9 +23,10 @@ from __future__ import annotations
 import functools
 import math
 
-from repro_torch.core import timing
+from repro_torch.core import planner, timing
 from repro_torch.kernels.arrayflex_gemm import (arrayflex_gemm,
                                                 arrayflex_expert_gemm)
+from repro_torch.kernels.flash_attention import flash_attention
 
 # The systolic tile the planner's Eq.(4) cycle counts schedule around (the
 # reference's MXU geometry).  The plan, not the CUDA tile, uses it, so the
@@ -115,3 +117,15 @@ def arrayflex_expert_matmul(x, w, *, w_scale=None, act_quant: bool = False,
                                    actq_ops=int(act_quant))
     return arrayflex_expert_gemm(x, w, w_scale=w_scale, act_quant=act_quant,
                                  k_collapse=k_collapse, out_dtype=out_dtype)
+
+
+def attention(q, k, v, *, causal=True, window=0, kv_chunk: int = 0):
+    """Flash attention with planner-chosen KV chunk.  (BH,S,D) layout.
+
+    The KV length need not divide the chunk: the kernel masks the ragged
+    tail, so the planner's pick is used as-is (a prime KV length does not
+    degenerate to chunk=1)."""
+    if not kv_chunk:
+        kv_chunk = planner.attention_plan(q.shape[1], k.shape[1])
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           kv_chunk=kv_chunk)

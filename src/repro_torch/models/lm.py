@@ -18,6 +18,11 @@ rmsnorm and ``nn.moe.moe_apply`` in one global dispatch group at decode
 capacity routing couples the rows of a dispatch, so MoE models prefill
 token by token (``supports_batched_prefill`` is False for them).
 
+``forward`` and ``prefill`` run the full sequence at once: attention is
+dense up to ``attn_dense_below`` query rows and the chunked scan above
+(``nn.attention.attention``), an MoE sub-layer routes one dispatch group
+per sequence at the config's capacity factor and adds its aux loss.
+
 Families other than ``dense`` and ``moe`` (hybrid, SSM, VLM, audio),
 sliding windows, paged K/V and the pipeline-sharded steps are not ported
 yet.
@@ -137,6 +142,23 @@ def _proj_qkv(p, x, cfg, cd, norm_scale=None):
     return q, k, v
 
 
+def attn_full(p, x, cfg: ModelConfig, positions, *, norm_scale=None):
+    """Full-sequence causal self-attention.  Returns (out, (k, v)) with
+    rope'd keys."""
+    cd = _cdtype(cfg)
+    q, k, v = _proj_qkv(p, x, cfg, cd, norm_scale)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    out = attn_lib.attention(
+        q, k, v, causal=True, window=cfg.sliding_window,
+        kv_chunk=cfg.attn_kv_chunk, dense_below=cfg.attn_dense_below,
+        backend=cfg.gemm_backend)
+    B, S = x.shape[0], x.shape[1]
+    out = layers.linear(p["wo"], out.reshape(B, S, -1), cd, site="attn.wo",
+                        backend=cfg.gemm_backend)
+    return out, (k, v)
+
+
 def attn_decode(p, x, cfg: ModelConfig, cache, pos, norm_scale=None):
     """Single-token attention.  x: (B,1,d); cache: {'k','v'} (B, T, KV, D).
 
@@ -239,6 +261,32 @@ def _mlp(p, cfg, x):
     return layers.swiglu(p["mlp"], h, _cdtype(cfg),
                          backend=cfg.gemm_backend, residual=x,
                          norm_scale=p["ln2"]["scale"])
+
+
+def sublayer_full(p, cfg: ModelConfig, pos: int, x, aux, positions):
+    """Full-sequence sub-layer.  Returns (x, aux, cache_entry): the rope'd
+    K/V of every position in bf16, as the reference caches them."""
+    kind = sublayer_kind(cfg, pos)
+    assert kind["mixer"] == "attn" and not kind["cross"] \
+        and kind["mlp"] in ("dense", "moe"), \
+        "check_supported() gates the callers"
+    # ln1 scale fuses into the q/k/v projection prologues
+    h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+    out, (k, v) = attn_full(p["attn"], h, cfg, positions,
+                            norm_scale=p["ln1"]["scale"])
+    cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    x = x + out
+    if kind["mlp"] == "moe":
+        h = layers.rmsnorm(p["ln2"], x, cfg.rms_eps)
+        m = cfg.moe
+        y, a = moe_lib.moe_apply(p["moe"], h, top_k=m.top_k,
+                                 capacity_factor=m.capacity_factor,
+                                 groups=0,  # one dispatch group per sequence
+                                 compute_dtype=_cdtype(cfg),
+                                 aux_loss_weight=m.aux_loss_weight,
+                                 backend=cfg.gemm_backend)
+        return x + y, aux + a, cache
+    return _mlp(p, cfg, x), aux, cache
 
 
 def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos):
@@ -416,6 +464,41 @@ def _logits(cfg, params, x, cd):
         return layers.unembed(params["embed"], x, backend=cfg.gemm_backend)
     return layers.linear(params["lm_head"], x, cd, site="unembed",
                          backend=cfg.gemm_backend).float()
+
+
+def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
+    """Returns (logits (B,S,V) fp32, aux_loss, caches-or-None).
+    batch['tokens']: (B,S).
+
+    ``caches`` is laid out as :func:`init_cache`'s with ``max_seq = S``:
+    per sub-layer of the period a dict ``{'k','v'}`` of bf16 tensors
+    (n_super, B, S, KV, hd), each layer's rope'd K/V written into its
+    slice as the layer runs."""
+    substrate.check_backend(cfg.gemm_backend)
+    check_supported(cfg)
+    P = period(cfg)
+    cd = _cdtype(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = layers.embed(params["embed"], tokens, cd)
+    positions = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = (init_cache(cfg, B, S, device=x.device) if return_cache
+              else None)
+    for l in range(n_super(cfg)):
+        for i in range(P):
+            x, aux, c = sublayer_full(_layer(params["blocks"][i], l), cfg, i,
+                                      x, aux, positions)
+            if caches is not None:
+                _put(caches[i], c, l)
+    x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    return _logits(cfg, params, x, cd), aux, caches
+
+
+def prefill(cfg: ModelConfig, params, batch):
+    """Returns (last-token logits (B,V), caches) of :func:`forward`."""
+    logits, _, caches = forward(cfg, params, batch, return_cache=True)
+    return logits[:, -1], caches
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (float, W8 and W8A8 forms, and K2's int8-only
-form of the MoE expert banks) against their plain versions, on the card.
+"""The port's CUDA kernels (float, W8 and W8A8 forms, K2's int8-only form
+of the MoE expert banks, and K3 flash attention) against their plain
+versions, and the full-sequence ``lm.prefill`` against the ``ref``
+backend, on the card.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -19,8 +21,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import planner
 from repro_torch.kernels import arrayflex_gemm as ag
-from repro_torch.kernels import substrate
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, substrate
 from repro_torch.models import lm
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -280,3 +284,80 @@ def test_quant_engine_launches_every_kernel(cuda, backend):
                     arrayflex_expert_gemm_w8a8=L * steps,
                     arrayflex_expert_gemm=L * steps)
     assert ag.LAUNCHES == want
+
+
+# ---------------------------------------------------------------- K3
+
+# (BH, S, T, D, causal, window): chip_smoke.py's shapes cut in BH, the
+# ragged two-chunk case (T = 4097: chunks of 4096 and 1), a window, and
+# rows that see no column (non-causal window with S > T)
+FLASH_CASES = [(8, 256, 256, 64, True, 0), (2, 4096, 4096, 64, True, 0),
+               (2, 1024, 1024, 128, True, 0), (4, 128, 4097, 64, False, 0),
+               (2, 4096, 4096, 64, True, 512), (2, 512, 256, 64, False, 64),
+               (3, 96, 200, 32, False, 0)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+def test_flash_attention_matches_plain(cuda, dt, case):
+    """One launch of K3 per ops.attention call, at the planner's chunk,
+    against the plain version; rows that see no column come out exactly
+    0.  Tolerance: ``_close_step`` (fp32 1e-5; bf16 one step at max
+    |value|: p is rounded to bf16 against the same chunk max in both)."""
+    BH, S, T, D, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(S + T + D)
+    q, k, v = (torch.randn(BH, n, D, generator=g, device=cuda).to(dt)
+               for n in (S, T, T))
+    before = fa.LAUNCHES["flash_attention"]
+    got = ops.attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    kv_chunk=planner.attention_plan(S, T))
+    _close_step(got, want, dt)
+    dead = want.float().abs().amax(dim=-1) == 0
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 256, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, q.to(torch.bfloat16), q)
+
+
+@pytest.mark.parametrize("path", ["dense", "chunked"])
+def test_prefill_matches_ref_backend(cuda, path):
+    """Full-width qwen2-0.5b at 2 layers, fp32: ``lm.prefill`` on the
+    kernels against the ``ref`` backend (1e-4 of max |logit|), K1 and K2
+    launched per layer and never K3."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), n_layers=2,
+                              compute_dtype="float32",
+                              attn_dense_below=1024 if path == "dense"
+                              else 256, attn_kv_chunk=256)
+    params = lm.init_params(cfg, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(
+                             0))
+    out = {}
+    for backend in ("arrayflex", "ref"):
+        c = dataclasses.replace(cfg, gemm_backend=backend)
+        ag.reset_launches()
+        fa.reset_launches()
+        out[backend], _ = lm.prefill(c, lm.prepare_params(c, params),
+                                     {"tokens": toks})
+        if backend == "arrayflex":
+            assert ag.LAUNCHES["arrayflex_gemm"] == 6 * 2 + 1
+            assert ag.LAUNCHES["arrayflex_expert_gemm"] == (
+                2 * 2 if path == "dense" else 0)
+            assert fa.LAUNCHES["flash_attention"] == 0
+    torch.cuda.synchronize()
+    scale = out["ref"].abs().max().item()
+    err = (out["arrayflex"] - out["ref"]).abs().max().item()
+    assert err <= 1e-4 * scale, (err, scale)

@@ -235,9 +235,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_keys():
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["arrayflex_gemm.cu"]
+    assert [s.name for s in srcs] == ["arrayflex_gemm.cu",
+                                      "flash_attention.cu"]
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build._digest(srcs[0]) == build._digest(srcs[0])
+    assert build._digest(srcs[0]) != build._digest(srcs[1])
 
 
 # ----------------------------------------------------------- planning
