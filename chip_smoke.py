@@ -8,7 +8,8 @@ failure of which exits non-zero:
 
 1. device: the card's name and power limit, torch's device name and count;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
-   register / shared-memory / spill lines;
+   register / shared-memory / spill lines, then the tensor-core kernels'
+   registers, spills and dynamic shared memory at the main path's shapes;
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -17,7 +18,9 @@ failure of which exits non-zero:
    each), in bf16 and fp32, k in {1, 2, 4}, each epilogue flag at least
    once; then the kernel, the plain version and one PyTorch library call
    timed with CUDA events, beside the least time the card could take (the
-   bound).  First the float forms (the ``arrayflex`` backend), then the
+   bound).  bf16 float-form K1 runs the tensor-core kernel and fp32 the
+   FFMA kernel (``gemm_kernel``): each check and time is booked under the
+   kernel that ran.  First the float forms (the ``arrayflex`` backend), then the
    int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
    on K2's int8-only form) and ``arrayflex_w8a8`` (W8A8, with attn.qk and
    the expert banks on K2's W8A8 form), and the plain-torch K^T quantize
@@ -27,6 +30,8 @@ failure of which exits non-zero:
    after: one launch each), each output held against
    ``flash_attention_plain`` on the same inputs; then the kernel, the plain
    version and ``scaled_dot_product_attention`` timed, beside the bound;
+   every bf16 case must have launched the tensor-core kernel (the ragged
+   one on its KV-split path), the fp32 case the FFMA kernel;
 5. serving: full-width qwen2-0.5b with random weights (seed 0) served in
    bf16 through ``ServingEngine`` on ``arrayflex``, then on
    ``arrayflex_int8`` and ``arrayflex_w8a8``; then full-width
@@ -35,13 +40,14 @@ failure of which exits non-zero:
    48-layer bf16 tree and its int8 copy do not fit one 80 GB card
    together): every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
-   it) must equal its forms' launches per step times the steps;
+   it) must equal its forms' launches per step times the steps, every
+   bf16 K1 launch on the tensor-core kernel;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
    launch counters set to 0 just before it and read just after (K1 and K2
-   per layer, never K3), with its host-clock time, device-busy time and
-   peak memory;
+   per layer, never K3; every K1 launch on the tensor-core kernel), with
+   its host-clock time, device-busy time and peak memory;
 7. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
    ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
@@ -51,7 +57,7 @@ failure of which exits non-zero:
    same three decode pairs on qwen3-moe-30b-a3b in fp32 at full width and
    4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
    ``ref``, each reporting whether both runs routed every token to the
-   same experts at every layer;
+   same experts at every layer; the fp32 runs launch the FFMA K1 only;
 8. summary: one JSON line of kernel numbers, the card's name and power
    limit, and the ``{"ok": true, ...}`` line last.
 
@@ -111,10 +117,25 @@ def step_tol(dt, scale: float) -> float:
     return KERNEL_TOL[dt] * scale
 
 
+# Float sites whose bf16 check on the tensor-core K1 exceeds KERNEL_TOL by
+# one rounding flip at the largest magnitude (the error is exactly the bf16
+# step of the top binade, 2^(floor(log2 scale) - 7): the tensor cores add
+# the fp32 products in another order, and with other rounding, than the
+# plain version's fp32 matmul): (cell, site, shape), on these seeded
+# inputs.  They take step_tol, whose docstring gives the reason.
+TC_FLIP_SITES = {
+    ("qwen2-0.5b", "attn.wq", (1024, 896, 896)),
+    ("qwen2-0.5b", "mlp.wo", (1024, 4864, 896)),
+    ("qwen3-moe-30b-a3b", "attn.wo", (4, 4096, 2048)),
+}
+
+
 def kernel_tol(site, dt, scale: float) -> float:
     """Absolute tolerance of a decode / prefill-chunk site's check: the
-    int8 forms take :func:`step_tol`; the float forms keep KERNEL_TOL."""
-    if site.form != "float":
+    int8 forms and TC_FLIP_SITES take :func:`step_tol`; the other float
+    sites keep KERNEL_TOL."""
+    if site.form != "float" or (site.cell, site.name,
+                                tuple(site.shape)) in TC_FLIP_SITES:
         return step_tol(dt, scale)
     return KERNEL_TOL[dt] * max(scale, 1.0)
 # Model logits, relative to max |ref logit|: fp32 (with an fp32 K/V cache,
@@ -182,6 +203,15 @@ class Site:
         """The wrapper's ``LAUNCHES`` key for this site's kernel form."""
         return self.kernel if self.form == "float" else \
             f"{self.kernel}_{self.form}"
+
+    def kernel_key(self, dt) -> str:
+        """The kernel that runs this site on operands of ``dt``: the
+        float-form K1 on bf16 is the tensor-core kernel
+        (``gemm_kernel``); every other form has one kernel."""
+        if (self.kernel == "arrayflex_gemm" and self.form == "float"
+                and ag.gemm_kernel(dt) == "af_gemm_tc"):
+            return "arrayflex_gemm_tc"
+        return self.launch_name
 
 
 # kernel form -> the backend whose plans (k) the form runs under
@@ -513,13 +543,20 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
             bf16_err = max(v for key, v in errs.items()
                            if key.startswith("bfloat16"))
             if phase == "decode":
-                max_err[site.launch_name] = max(
-                    max_err.get(site.launch_name, 0.0), bf16_err)
+                for dt in (torch.bfloat16, torch.float32):
+                    name = site.kernel_key(dt)
+                    err = max(v for key, v in errs.items()
+                              if key.startswith(str(dt).split(".")[-1]))
+                    # the FFMA K1 is booked with its fp32 checks, every
+                    # other kernel with its bf16 ones (the path's type)
+                    if dt == torch.bfloat16 or name == "arrayflex_gemm":
+                        max_err[name] = max(max_err.get(name, 0.0), err)
             iters = 10 if site.name == "unembed" else 2 * site.copies
             t = time_site(site, gen, iters)
             row = dict(phase=phase, cell=site.cell, site=site.name,
                        kernel=site.kernel, form=site.form,
-                       launch_name=site.launch_name, shape=site.shape,
+                       launch_name=site.kernel_key(site.time_dtype),
+                       shape=site.shape,
                        per_step=site.per_step, max_abs_err=errs, **t)
             results.append(row)
             log(f"  {phase:7s} {site.form:5s} {site.name:22s} "
@@ -625,14 +662,23 @@ def k3_phase():
     outs = [ops.attention(q, k, v, causal=case[5], window=case[6])
             for case, (q, k, v) in zip(K3_CASES, inputs)]
     torch.cuda.synchronize()
-    launches = fa.LAUNCHES["flash_attention"]   # read just after the run
-    if launches != len(K3_CASES):
-        raise AssertionError(f"flash_attention launches {launches} != "
-                             f"{len(K3_CASES)} ops.attention calls")
+    launches = dict(fa.LAUNCHES)            # read just after the run
+    n_bf16 = sum(case[-1] == torch.bfloat16 for case in K3_CASES)
+    if launches != {"flash_attention": len(K3_CASES),
+                    "flash_attention_tc": n_bf16}:
+        raise AssertionError(f"K3 launches {launches}: want one per "
+                             f"ops.attention call ({len(K3_CASES)}), every "
+                             f"bf16 one ({n_bf16}) on the tensor-core kernel")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     for case, (q, k, v), got in zip(K3_CASES, inputs, outs):
         name, BH, S, T, D, causal, window, dt = case
         kc = planner.attention_plan(S, T)
+        k3_kernel = ("flash_attention_tc"
+                     if fa.attention_kernel(dt) == "flash_attention_tc"
+                     else "flash_attention")
+        n_split = (fa.kv_splits(BH, S, T, kc, n_sm)
+                   if k3_kernel == "flash_attention_tc" else 1)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, kv_chunk=kc)
         err = (got.float() - want.float()).abs().max().item()
@@ -676,19 +722,24 @@ def k3_phase():
                                                   window, dt)
         row = dict(case=name, BH=BH, S=S, T=T, D=D, causal=causal,
                    window=window, dtype=str(dt).split(".")[-1], kv_chunk=kc,
+                   kernel=k3_kernel, kv_splits=n_split,
                    max_abs_err=err, tol=tol, fully_masked_rows=n_dead,
                    ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=byts, ops=ops_)
         results.append(row)
         log(f"  {name:32s} BH {BH:2d} S {S:4d} T {T:4d} D {D:3d} "
-            f"{row['dtype']:8s} chunk {kc:4d}: kernel {_us(ms)} us  plain "
+            f"{row['dtype']:8s} chunk {kc:4d} splits {n_split:2d} "
+            f"{k3_kernel}: kernel {_us(ms)} us  plain "
             f"{_us(plain_ms)} us  sdpa {_us(lib_ms)} us  bound "
             f"{bound_ms * 1e3:8.2f} us ({bound_by}); err {err:.3g} (tol "
             f"{tol:.3g}){f'; {n_dead} fully masked rows' if n_dead else ''}")
     del inputs, outs
     _free()
-    return results, launches
+    # per kernel: the FFMA kernel's launches are those not on tensor cores
+    return results, {"flash_attention": launches["flash_attention"]
+                     - launches["flash_attention_tc"],
+                     "flash_attention_tc": launches["flash_attention_tc"]}
 
 
 # ---------------------------------------------------------------------------
@@ -707,6 +758,10 @@ def expected_launches(cfg, steps: int):
     want = {name: 0 for name in ag.LAUNCHES}
     want["arrayflex_gemm" + suffix] += (4 * L + 1 + (0 if is_moe else 2 * L)) \
         * steps
+    if be == "arrayflex" and cfg.compute_dtype == "bfloat16":
+        # every bf16 K1 launch on the tensor-core kernel (the fp32 MoE
+        # router stays on the FFMA kernel)
+        want["arrayflex_gemm_tc"] = want["arrayflex_gemm"]
     if is_moe:
         want["arrayflex_gemm"] += L * steps                     # router
         want["arrayflex_expert_gemm" + suffix] += 3 * L * steps  # banks
@@ -715,6 +770,19 @@ def expected_launches(cfg, steps: int):
     want[qk] += L * steps
     want["arrayflex_expert_gemm"] += L * steps                  # attn.pv
     return want
+
+
+def check_launches(what: str, launches: dict, want: dict) -> None:
+    """Every count as planned; in particular, every bf16 K1 launch of the
+    run on the tensor-core kernel (``arrayflex_gemm_tc``)."""
+    if launches.get("arrayflex_gemm_tc") != want.get("arrayflex_gemm_tc"):
+        raise AssertionError(
+            f"{what}: {launches.get('arrayflex_gemm_tc')} K1 launches on the "
+            f"tensor-core kernel, want {want.get('arrayflex_gemm_tc')} "
+            f"(every bf16 K1 launch)")
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches} != "
+                             f"expected {want}")
 
 
 def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
@@ -756,9 +824,8 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         if not r.done or len(r.out_tokens) != max_new:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
                                  f"{len(r.out_tokens)} of {max_new} tokens")
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != expected "
-                             f"{want} ({steps} steps of {L} layers)")
+    check_launches(f"serving {cfg.name} on {cfg.gemm_backend} ({steps} "
+                   f"steps of {L} layers)", launches, want)
     ttft = [r.ttft_s for r in reqs]
     out = dict(
         model=cfg.name, n_layers=L, param_dtype=cfg.param_dtype,
@@ -902,6 +969,8 @@ def forward_launches(cfg, S: int):
     L = cfg.n_layers
     want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
     want["arrayflex_gemm"] = 6 * L + 1
+    if cfg.compute_dtype == "bfloat16":
+        want["arrayflex_gemm_tc"] = 6 * L + 1        # all on tensor cores
     if S <= cfg.attn_dense_below:
         want["arrayflex_expert_gemm"] = 2 * L
     return want
@@ -959,14 +1028,15 @@ def prefill_kernel_phase(cfg):
             _free()
             row = dict(phase=f"prefill S={S}", cell=site.cell,
                        site=site.name, kernel=site.kernel, form=site.form,
-                       launch_name=site.launch_name, shape=site.shape,
+                       launch_name=site.kernel_key(site.time_dtype),
+                       shape=site.shape,
                        per_step=site.per_step, max_abs_err=errs, **t)
             rows.append(row)
             log(f"  S={S} {site.name:22s} {str(site.shape):26s} k={t['k']} "
                 f"kernel {_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
                 f"library {_us(t['library_ms'])} us  bound "
                 f"{t['bound_ms'] * 1e3:8.2f} us ({t['bound_by']})")
-        for name in ("arrayflex_gemm", "arrayflex_expert_gemm"):
+        for name in ("arrayflex_gemm_tc", "arrayflex_expert_gemm"):
             sel = [r for r in rows if r["phase"] == f"prefill S={S}"
                    and r["launch_name"] == name]
             if sel:
@@ -1001,10 +1071,7 @@ def forward_phase(cfg, params):
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(ag.LAUNCHES, **fa.LAUNCHES)   # read just after
         peak = torch.cuda.max_memory_allocated()
-        want = forward_launches(cfg, S)
-        if launches != want:
-            raise AssertionError(f"prefill S={S}: launches {launches} != "
-                                 f"{want}")
+        check_launches(f"prefill S={S}", launches, forward_launches(cfg, S))
         kv = (lm.n_super(cfg), 1, S, cfg.n_kv_heads, cfg.resolved_head_dim)
         if (tuple(logits.shape) != (1, cfg.padded_vocab)
                 or not bool(torch.isfinite(logits).all())
@@ -1145,8 +1212,14 @@ def forward_parity_phase(cfg, params):
         logits = {}
         for backend in ("arrayflex", "ref"):
             c = dataclasses.replace(c32, gemm_backend=backend)
+            ag.reset_launches()
             logits[backend], _ = lm.prefill(c, lm.prepare_params(c, params),
                                             {"tokens": toks})
+            if backend == "arrayflex" and (
+                    ag.LAUNCHES["arrayflex_gemm_tc"]
+                    or not ag.LAUNCHES["arrayflex_gemm"]):
+                raise AssertionError(f"fp32 prefill S={S}: K1 launches "
+                                     f"{ag.LAUNCHES} are not all FFMA")
             _free()
         c = dataclasses.replace(c32, gemm_backend="arrayflex")
         p = lm.prepare_params(c, params)
@@ -1305,9 +1378,12 @@ def _step_totals(sel):
     return tot
 
 
-# kernel form -> the TPU kernel it replaces
+# kernel form -> the TPU kernel it replaces (arrayflex_gemm: the FFMA
+# kernel of the fp32 float form; arrayflex_gemm_tc: the tensor-core kernel
+# of the bf16 float form)
 REPLACES = {
     "arrayflex_gemm": "src/repro/kernels/arrayflex_gemm.py:177",
+    "arrayflex_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_expert_gemm": "src/repro/kernels/arrayflex_gemm.py:452",
@@ -1336,25 +1412,54 @@ def summarize(results, max_err, launches):
     return rows, cells
 
 
-def k3_row(k3, launches: int):
-    """K3's row of the kernels line: times and bounds summed over the K3
-    cases that have a library time (all but the case with fully masked
-    rows, where scaled_dot_product_attention returns NaN and is not
-    timed); ``launches`` is the K3 path's count (one per case); the error
-    is the largest over every case."""
-    sel = [r for r in k3 if r["library_ms"] is not None]
-    tot = {key: sum(r[key] for r in sel)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    t_bytes = sum(r["bytes"] for r in sel) / HBM_BYTES_PER_S
-    t_ops = sum(r["ops"] / PEAK_OPS_PER_S[getattr(torch, r["dtype"])]
-                for r in sel)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:27",
-                launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in k3),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                **tot)
+def k3_rows(k3, launches: dict):
+    """K3's rows of the kernels line, one per kernel (``flash_attention``:
+    the FFMA kernel of fp32; ``flash_attention_tc``: the tensor-core kernel
+    of bf16): times and bounds summed over the kernel's cases that have a
+    library time (all but the case with fully masked rows, where
+    scaled_dot_product_attention returns NaN and is not timed);
+    ``launches`` maps each kernel to its count in the K3 path's run (one
+    per case); the error is the largest over the kernel's cases."""
+    rows = []
+    for name in ("flash_attention", "flash_attention_tc"):
+        cases = [r for r in k3 if r["kernel"] == name]
+        sel = [r for r in cases if r["library_ms"] is not None]
+        tot = {key: sum(r[key] for r in sel)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        t_bytes = sum(r["bytes"] for r in sel) / HBM_BYTES_PER_S
+        t_ops = sum(r["ops"] / PEAK_OPS_PER_S[getattr(torch, r["dtype"])]
+                    for r in sel)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:27",
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in cases),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", **tot))
+    return rows
+
+
+def tc_report() -> None:
+    """The tensor-core kernels' registers and spills (ptxas, per
+    instantiation) and the dynamic shared memory their launchers take at
+    the main path's shapes (decode M = 4 at the planned k = 4, prefill at
+    k = 1 and 2; K3 at each head dim)."""
+    for stem, text in build.PTXAS_INFO.items():
+        entry = None
+        for line in text.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif entry and ("tc_kernel" in entry or "combine" in entry) and (
+                    "Used" in line or "spill" in line):
+                log(f"  tensor-core {stem} {entry}: {line.split(':', 1)[-1].strip()}")
+    glib, flib = ag._lib(), fa._lib()
+    for M, k in ((4, 4), (1024, 2), (2048, 1)):
+        log(f"  af_gemm_tc dynamic shared memory at M = {M}, k = {k}: "
+            f"{glib.af_gemm_tc_smem(M, k, 0)} B (dual "
+            f"{glib.af_gemm_tc_smem(M, k, 1)} B)")
+    log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
+        + " / ".join(str(flib.flash_attention_tc_smem(D))
+                     for D in (32, 64, 128)) + " B")
 
 
 def main() -> int:
@@ -1377,6 +1482,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line:
                 log(f"  {stem}: {line.strip()}")
+    tc_report()
 
     cfg = dataclasses.replace(get_config("qwen2-0.5b"),
                               gemm_backend="arrayflex",
@@ -1433,13 +1539,15 @@ def main() -> int:
     moe_parity = moe_parity_phase(moe_cfg)
 
     # each GEMM form's launches over every serving and prefill run (each
-    # run counted from 0); K3's over its ops.attention run
+    # run counted from 0); K3's over its ops.attention run.  The FFMA K1's
+    # are the float-form launches not on the tensor-core kernel.
     runs = (list(serving.values()) + list(moe_serving.values())
             + list(prefill.values()))
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
+    launches["arrayflex_gemm"] -= launches["arrayflex_gemm_tc"]
     kernels, cells = summarize(results, max_err, launches)
-    kernels.append(k3_row(k3, k3_launches))
+    kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
                   kernels=kernels, cells=cells, sites=results,
@@ -1459,11 +1567,11 @@ def main() -> int:
                 f"{t['plain_ms']:.3f} / library "
                 f"{'none' if lib is None else f'{lib:.3f}'} / bound "
                 f"{t['bound_ms']:.4f} ms per decode step ({t['bound_by']})")
-    t = kernels[-1]
-    log(f"  flash_attention over its cases with a library time: kernel "
-        f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "
-        f"{t['library_ms']:.3f} / bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']})")
+    for t in kernels[-2:]:
+        log(f"  {t['name']} over its cases with a library time: kernel "
+            f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "
+            f"{t['library_ms']:.3f} / bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -5,7 +5,9 @@ kernels ``_kernel`` and ``_expert_kernel`` become hand-written CUDA kernels
 in ``csrc/arrayflex_gemm.cu`` (the design notes are at the top of that
 file), one C entry per operand form:
 
-  ``af_gemm``           ``_kernel`` on fp32/bf16 weights;
+  ``af_gemm``           ``_kernel`` on fp32 operands (FFMA);
+  ``af_gemm_tc``        ``_kernel`` on bf16 operands (tensor cores,
+                        ``mma.sync`` bf16 x bf16 -> fp32);
   ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 (fp32/bf16 x,
                         dequant at the store) or, with ``act_quant``, W8A8
                         (per-tile int8 x, an int8 x int8 -> int32 chain);
@@ -29,7 +31,10 @@ plain PyTorch version (``*_plain``) only for CPU tensors.  The plain
 version computes the same function with the same prologue and store, cast
 once: the CPU tests hold it against the reference, and the on-card checks
 hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
-and nothing else.
+and nothing else; the float form's operand type picks its kernel by the
+written rule of :func:`gemm_kernel`, and ``arrayflex_gemm_tc`` counts the
+float-form launches that ran the tensor-core kernel (a subset of
+``arrayflex_gemm``, which counts every float-form launch).
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ ACTIVATIONS = ("none", "silu", "gelu")
 
 # kernel form -> kernel launches in this process (plain-version calls and
 # empty operands launch nothing and do not count)
-LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_int8": 0,
+LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_tc": 0,
+            "arrayflex_gemm_int8": 0,
             "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
             "arrayflex_expert_gemm_int8": 0,
             "arrayflex_expert_gemm_w8a8": 0}
@@ -62,6 +68,20 @@ _ACT_CODE = {"none": 0, "silu": 1, "gelu": 2}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def gemm_kernel(dtype) -> str:
+    """The kernel that :func:`arrayflex_gemm`'s float form launches for
+    operands of ``dtype``: bf16 -> ``af_gemm_tc`` (tensor cores, bf16
+    products into fp32 sums, the reference matrix unit's arithmetic), fp32
+    -> ``af_gemm`` (FFMA: tensor cores give no IEEE fp32).  The choice
+    follows the operand type only, never a failed build or launch."""
+    if dtype == torch.bfloat16:
+        return "af_gemm_tc"
+    if dtype == torch.float32:
+        return "af_gemm"
+    raise ValueError(f"arrayflex_gemm: operands must be float32 or "
+                     f"bfloat16, got {dtype}")
 
 
 def _act(y, activation: str):
@@ -212,6 +232,11 @@ def _lib():
         lib.af_gemm.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i,
                                 ll, ll, ll, ll, i, i, p]
         lib.af_gemm.restype = i
+        lib.af_gemm_tc.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i,
+                                   ll, ll, ll, ll, i, i, p]
+        lib.af_gemm_tc.restype = i
+        lib.af_gemm_tc_smem.argtypes = [i, i, i]
+        lib.af_gemm_tc_smem.restype = ll
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, ll, ll, ll, ll, i, i, i, i, p]
         lib.af_gemm_q.restype = i
@@ -311,7 +336,8 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
     prologue, the chain runs int8 x int8 -> int32, and each step's partial
     folds in times its tile's scale.
 
-    CUDA tensors launch ``af_gemm`` (fp32 or bf16 operands) or, with
+    CUDA tensors launch the kernel :func:`gemm_kernel` names for their
+    type (``af_gemm_tc`` on bf16 operands, ``af_gemm`` on fp32) or, with
     ``w_scale``, ``af_gemm_q`` (fp32 or bf16 x, int8 w) — fp32 or bf16
     out, unit stride along each operand's last axis — or raise; CPU
     tensors run :func:`arrayflex_gemm_plain`.
@@ -391,14 +417,20 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
             w.stride(0), ldr, out.stride(0), k_collapse,
             _ACT_CODE[activation], qbm, qkk, _stream(x.device))
     else:
-        rc = _lib().af_gemm(
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w),
-            _ptr(w2), _ptr(bias), _ptr(bias2), _ptr(residual), _ptr(g),
-            _ptr(out), M, N, K, x.stride(0), w.stride(0), ldr,
-            out.stride(0), k_collapse, _ACT_CODE[activation],
-            _stream(x.device))
+        entry = gemm_kernel(x.dtype)
+        ptrs = (_ptr(x), _ptr(w), _ptr(w2), _ptr(bias), _ptr(bias2),
+                _ptr(residual), _ptr(g), _ptr(out), M, N, K, x.stride(0),
+                w.stride(0), ldr, out.stride(0), k_collapse,
+                _ACT_CODE[activation], _stream(x.device))
+        if entry == "af_gemm_tc":
+            rc = _lib().af_gemm_tc(_DTYPE_CODE[out_dtype], *ptrs)
+        else:
+            rc = _lib().af_gemm(_DTYPE_CODE[x.dtype],
+                                _DTYPE_CODE[out_dtype], *ptrs)
     _check_rc(rc, name)
     LAUNCHES[name] += 1
+    if not quant and entry == "af_gemm_tc":
+        LAUNCHES["arrayflex_gemm_tc"] += 1
     return out
 
 

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Every ``csrc/*.cu`` source compiles into its own shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds).  All
+plain C interface (no PyTorch headers, so a build takes seconds); the
+``csrc/*.cuh`` headers they share are part of every source's key.  All
 sources compile in parallel, into ``build/kernels/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources and the flags, so an edited
 source rebuilds and an unchanged one is reused.  The build happens at the
@@ -47,8 +48,15 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(src: Path) -> str:
+    """Key of a source's build: its text, every shared header's, the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for hdr in headers():
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

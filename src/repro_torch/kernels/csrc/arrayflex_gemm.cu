@@ -40,10 +40,56 @@
 // weight byte is read once for a few rows of work, so the GEMM is bound by
 // streaming the weights from HBM (3.35 TB/s on an H100 SXM), and int8
 // codes halve those bytes against bf16; at a large prefill chunk the same
-// GEMM is bound by operations.  This version does neither optimally: it is
-// a plain kernel (FFMA, or __dp4a for W8A8) that is right first.
+// GEMM is bound by operations: 989 TFLOP/s for bf16 operands on the tensor
+// cores, 67 TFLOP/s for fp32 on the FFMA pipes.
 //
-// What the design does about it:
+// Two kernels for af_gemm, chosen by operand type (the wrapper's written
+// rule, counted per kernel): bf16 operands launch af_gemm_tc_kernel
+// (entry af_gemm_tc), fp32 operands the FFMA af_gemm_kernel (entry
+// af_gemm).  The int8 and expert forms keep their own FFMA / __dp4a
+// kernels.
+//
+// af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
+// cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32 -- the arithmetic of the
+// reference's matrix unit -- on operands staged by 16-byte cp.async into a
+// ring of shared-memory sub-tiles and loaded with ldmatrix (tc.cuh).
+// mma.sync rather than wgmma + TMA: its warp-level fragments are where the
+// prologue and the per-element epilogue are written, it takes a 16-row
+// tile for decode (wgmma's 64-row warpgroup tile would waste 4x there),
+// and it builds in seconds.  wgmma with TMA is the next step for speed.
+//   * k-collapse: one main-loop step stages k_collapse sub-tiles of
+//     TC_BK = 32 columns between two barriers and runs their products into
+//     the same fp32 fragments; the ring holds `stages` steps (up to 4,
+//     fewer when k_collapse sub-tiles fill the tile's budget), so the next
+//     steps' loads fly while one computes.  Every accumulator takes its
+//     k16 products in increasing K order whatever k_collapse, the tile or
+//     the stage count, so the output is bit-identical across them;
+//   * what bounded the first version was latency inside each warp, not
+//     bytes: staging recomputed each 16-byte chunk's addresses (~250
+//     cycles a chunk a thread) and the prologue read g from global memory
+//     in the product chain.  Each thread now computes its chunks' shared
+//     offsets and global addresses once (Chunks), slots advance without
+//     division, g rides the ring beside its x sub-tile, and decode tiles
+//     load both k16 halves' fragments before their products;
+//   * prologue: the rmsnorm scale multiplies each A-fragment element (x)
+//     in fp32 after ldmatrix and rounds it back to bf16: x_at's rounding;
+//   * epilogue: store_one's order and roundings per element of the C
+//     fragments, stored as column pairs (bf16x2 / float2) where aligned;
+//   * tiles: prefill (M > 16) 128 x 128 in 8 warps of 64 x 32 (dual: 128 x
+//     64, two accumulator sets of 32 x 32 a warp, so the swiglu does not
+//     spill); decode (M <= 16) one m16 row tile, rows past M zero, 32
+//     columns a block in 4 warps of one n8 tile each, so N / 32 blocks
+//     stream W (28 at the 896-wide sites, 4752 at the unembed) with a
+//     32 KB ring, small enough that several blocks share an SM; the
+//     896-wide sites stay latency-bound whatever the tiling;
+//   * ragged M, N and K are zero-filled in shared memory (cp.async's
+//     src-size at the edge chunk, zero stores past it), nothing is padded
+//     in device memory; a base or row stride that is not 16-byte aligned
+//     stages through scalar loads inside the same kernel, into the same
+//     main loop.
+//
+// The FFMA and __dp4a kernels (fp32 af_gemm, the int8 forms, the expert
+// forms), plain kernels that are right first:
 //   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
 //     outputs a thread) for large M and BM = 16 (1 x 4 outputs a thread)
 //     for decode-sized M, so a 4-row decode GEMM wastes 4x rather than 16x
@@ -70,12 +116,15 @@
 //     converts to float exactly), and a fold written __fmul_rn / __fadd_rn
 //     so nvcc cannot contract it into an FMA;
 //   * ragged M/N/K edges are masked on load (zeros) and on store; nothing
-//     is padded in device memory;
-//   * wgmma, TMA, cp.async pipelining and vector loads are left for later
-//     work: this kernel reads each element with a scalar load.
+//     is padded in device memory.  Each element is read with a scalar
+//     load.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -141,10 +190,29 @@ __device__ __forceinline__ float x_at(const Args& a, const TX* x, int r,
   return v;
 }
 
-// Carry-propagate store of one thread's TM x 4 outputs at rows r0.., columns
-// c0..: the epilogue once, in store_phase order.  The multiplies are
-// __fmul_rn so that nvcc does not fuse one with the add after it: each
-// rounds on its own, as in the plain version.
+// The epilogue of one output element (r, c), once, in store_phase order.
+// The multiplies are __fmul_rn so that nvcc does not fuse one with the add
+// after it: each rounds on its own, as in the plain version.
+template <typename TX, typename TO, bool DUAL>
+__device__ __forceinline__ void store_one(const Args& a, float y, float y2,
+                                          int r, int c, const float* ws,
+                                          const float* ws2, const TX* res,
+                                          TO* out) {
+  if (r >= a.M || c >= a.N) return;
+  if (ws != nullptr) y = __fmul_rn(y, ws[c]);
+  if (a.bias != nullptr) y = __fadd_rn(y, a.bias[c]);
+  float o = activate(y, a.activation);
+  if (DUAL) {
+    if (ws2 != nullptr) y2 = __fmul_rn(y2, ws2[c]);
+    if (a.bias2 != nullptr) y2 = __fadd_rn(y2, a.bias2[c]);
+    o = __fmul_rn(o, y2);
+  }
+  if (res != nullptr) o = __fadd_rn(to_f(res[(long long)r * a.ldr + c]), o);
+  out[(long long)r * a.ldo + c] = from_f<TO>(o);
+}
+
+// Carry-propagate store of one thread's TM x 4 outputs at rows r0..,
+// columns c0..: the epilogue once per element.
 template <typename TX, typename TO, int TM, bool DUAL>
 __device__ __forceinline__ void store_tile(const Args& a,
                                            float (&acc)[TM][4],
@@ -155,27 +223,11 @@ __device__ __forceinline__ void store_tile(const Args& a,
   const float* ws = a.w_scale ? a.w_scale + blockIdx.z * a.bss : nullptr;
   const float* ws2 = a.w2_scale ? a.w2_scale + blockIdx.z * a.bss : nullptr;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = r0 + i;
-    if (r >= a.M) continue;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + j;
-      if (c >= a.N) continue;
-      float y = acc[i][j];
-      if (ws != nullptr) y = __fmul_rn(y, ws[c]);
-      if (a.bias != nullptr) y = __fadd_rn(y, a.bias[c]);
-      float o = activate(y, a.activation);
-      if (DUAL) {
-        float y2 = acc2[i][j];
-        if (ws2 != nullptr) y2 = __fmul_rn(y2, ws2[c]);
-        if (a.bias2 != nullptr) y2 = __fadd_rn(y2, a.bias2[c]);
-        o = __fmul_rn(o, y2);
-      }
-      if (res != nullptr) o = __fadd_rn(to_f(res[(long long)r * a.ldr + c]), o);
-      out[(long long)r * a.ldo + c] = from_f<TO>(o);
-    }
-  }
+    for (int j = 0; j < 4; ++j)
+      store_one<TX, TO, DUAL>(a, acc[i][j], acc2[i][j], r0 + i, c0 + j, ws,
+                              ws2, res, out);
 }
 
 // One (BM x BN) output tile of batch element blockIdx.z, float chain.  TX: x
@@ -418,6 +470,360 @@ af_gemm_w8a8_kernel(Args a) {
   store_tile<TX, TO, TM, DUAL>(a, acc, acc2, m0 + ty * TM, n0 + tx * 4);
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core kernel (bf16 operands)
+
+constexpr int TC_BK = 32;            // K columns of one staged sub-tile
+constexpr int TC_MAX_STAGES = 4;     // main-loop steps the ring holds
+
+template <int BM, int BN, bool DUAL>
+struct TcLayout {                    // one ring slot
+  static constexpr int LDA = TC_BK + 8;   // padded rows (elements): the 8
+  static constexpr int LDB = BN + 8;      // row addresses of an ldmatrix
+  static constexpr int A_BYTES = 2 * BM * LDA;   // land on distinct banks
+  static constexpr int B_BYTES = 2 * TC_BK * LDB;
+  static constexpr int G_OFF = A_BYTES + B_BYTES * (DUAL ? 2 : 1);
+  static constexpr int SLOT = G_OFF + 4 * TC_BK;  // + the sub-tile's g
+  // the fp32 output tile(s) the epilogue reads, over the ring
+  static constexpr int LDC = BN + 8;
+  static constexpr int CTILE = BM * LDC * (DUAL ? 2 : 1);   // floats
+  // the ring's budget: a prefill tile's about half the SM's shared memory
+  // (two blocks an SM); a decode tile's 32 KB, so that enough 4-warp
+  // blocks share an SM to keep W streaming (fewer stages at a deep k)
+  static constexpr size_t BUDGET = BM <= 16 ? 32768 : 115712;
+};
+
+// One thread's share of staging a ROWS x COLS bf16 tile in 16-byte chunks,
+// its chunks' shared offsets and global addresses computed once.
+template <int ROWS, int COLS, int NTHR>
+struct Chunks {
+  static constexpr int CPR = COLS / 8;
+  static constexpr int N = (ROWS * CPR + NTHR - 1) / NTHR;
+  uint32_t off[N];   // byte offset in the tile
+  int r[N], c[N];    // tile row and column of the chunk (r = -1: none)
+  __device__ void init(int lds) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * NTHR;
+      r[j] = i < ROWS * CPR ? i / CPR : -1;
+      c[j] = (i % CPR) * 8;
+      off[j] = 2 * (r[j] * lds + c[j]);
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t prologue2(uint32_t v, float2 g) {
+  // x_at's rounding on two packed bf16: x * g in fp32, back to bf16
+  return tc::pack_bf16(tc::bf16_lo(v) * g.x, tc::bf16_hi(v) * g.y);
+}
+
+// The epilogue of one output pair (r, c), (r, c + 1), c even: the same
+// per-element math as store_one, one paired store where both columns
+// exist and the pair is aligned.
+template <typename TO, bool DUAL>
+__device__ __forceinline__ void store_pair(const Args& a, const float (&y)[2],
+                                           const float (&y2)[2], int r, int c,
+                                           const tc::bf16* res, TO* out,
+                                           bool pairs) {
+  if (r >= a.M || c >= a.N) return;
+  if (!pairs || c + 1 >= a.N) {
+    for (int e = 0; e < 2; ++e)
+      store_one<tc::bf16, TO, DUAL>(a, y[e], y2[e], r, c + e, nullptr,
+                                    nullptr, res, out);
+    return;
+  }
+  float o[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float v = y[e];
+    if (a.bias != nullptr) v = __fadd_rn(v, a.bias[c + e]);
+    o[e] = activate(v, a.activation);
+    if (DUAL) {
+      float v2 = y2[e];
+      if (a.bias2 != nullptr) v2 = __fadd_rn(v2, a.bias2[c + e]);
+      o[e] = __fmul_rn(o[e], v2);
+    }
+  }
+  if (res != nullptr) {
+    const uint32_t rv =
+        *reinterpret_cast<const uint32_t*>(res + (long long)r * a.ldr + c);
+    o[0] = __fadd_rn(tc::bf16_lo(rv), o[0]);
+    o[1] = __fadd_rn(tc::bf16_hi(rv), o[1]);
+  }
+  TO* d = out + (long long)r * a.ldo + c;
+  if constexpr (sizeof(TO) == 4)
+    *reinterpret_cast<float2*>(d) = make_float2(o[0], o[1]);
+  else
+    *reinterpret_cast<uint32_t*>(d) = tc::pack_bf16(o[0], o[1]);
+}
+
+// One (BM x BN) output tile in WM x WN warps, bf16 operands, fp32
+// fragments; `stages` main-loop steps of k_collapse sub-tiles in the ring.
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+__global__ void __launch_bounds__(WM * WN * 32)
+af_gemm_tc_kernel(Args a, int stages) {
+  using L = TcLayout<BM, BN, DUAL>;
+  using tc::bf16;
+  constexpr int NTHR = WM * WN * 32;
+  constexpr int TMW = BM / WM, TNW = BN / WN;   // a warp's tile
+  constexpr int MT = TMW / 16, NT = TNW / 8;    // its m16 / n8 tiles
+  // decode-sized warp tiles load both k16 halves' fragments of a sub-tile
+  // before their products, so the ldmatrix latencies overlap
+  constexpr bool BATCH = MT * NT <= 2;
+  constexpr int KH = TC_BK / 16;
+  static_assert(TMW % 16 == 0 && (NT == 1 || NT % 2 == 0), "warp tile");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t ring = tc::smem_addr(tc_smem);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int M = a.M, N = a.N, K = a.K, kc = a.k_collapse;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w = static_cast<const bf16*>(a.w);
+  const bf16* w2 = static_cast<const bf16*>(a.w2);
+  const float* g = a.g;
+  const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 8 == 0;
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    a.ldw % 8 == 0 &&
+                    (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
+  const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int n_sub = (K + TC_BK - 1) / TC_BK;
+  const int n_steps = (n_sub + kc - 1) / kc;
+
+  using XC = Chunks<BM, TC_BK, NTHR>;
+  using WC = Chunks<TC_BK, BN, NTHR>;
+  XC xs;
+  WC ws;
+  xs.init(L::LDA);
+  ws.init(L::LDB);
+  const bf16* xp[XC::N];
+  int x_ok[XC::N];                     // the chunk's row exists
+  long long wo[WC::N];                 // the chunk's column offset in W
+  int w_n[WC::N];                      // its valid columns
+#pragma unroll
+  for (int j = 0; j < XC::N; ++j) {
+    x_ok[j] = xs.r[j] >= 0 && m0 + xs.r[j] < M;
+    xp[j] = x + (x_ok[j] ? (long long)(m0 + xs.r[j]) * a.ldx + xs.c[j] : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < WC::N; ++j) {
+    w_n[j] = ws.r[j] >= 0 ? min(8, N - n0 - ws.c[j]) : 0;
+    wo[j] = (long long)max(ws.r[j], 0) * a.ldw + n0 + ws.c[j];
+  }
+
+  float acc[MT][NT][4];
+  float acc2[DUAL ? MT : 1][DUAL ? NT : 1][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        if (DUAL) acc2[DUAL ? i : 0][DUAL ? j : 0][e] = 0.f;
+      }
+
+  // stage one sub-tile (x, w, w2 and g columns k0..k0+31) into a slot
+  auto stage = [&](int sub, uint32_t slot) {
+    const int k0 = sub * TC_BK;
+    if (xvec) {
+#pragma unroll
+      for (int j = 0; j < XC::N; ++j)
+        if (xs.r[j] >= 0)
+          tc::cp_chunk(slot + xs.off[j], xp[j] + k0,
+                       x_ok[j] ? K - k0 - xs.c[j] : 0, 8);
+    } else {
+      tc::stage_tile<BM, TC_BK, NTHR>(
+          reinterpret_cast<bf16*>(tc_smem + (slot - ring)), L::LDA, x, a.ldx,
+          m0, M, k0, K, false);
+    }
+    if (wvec) {
+      const long long kofs = (long long)k0 * a.ldw;
+#pragma unroll
+      for (int j = 0; j < WC::N; ++j) {
+        if (ws.r[j] < 0) continue;
+        const int n = k0 + ws.r[j] < K ? w_n[j] : 0;
+        tc::cp_chunk(slot + L::A_BYTES + ws.off[j], w + kofs + wo[j], n, 8);
+        if (DUAL)
+          tc::cp_chunk(slot + L::A_BYTES + L::B_BYTES + ws.off[j],
+                       w2 + kofs + wo[j], n, 8);
+      }
+    } else {
+      bf16* base = reinterpret_cast<bf16*>(tc_smem + (slot - ring) + L::A_BYTES);
+      tc::stage_tile<TC_BK, BN, NTHR>(base, L::LDB, w, a.ldw, k0, K, n0, N,
+                                      false);
+      if (DUAL)
+        tc::stage_tile<TC_BK, BN, NTHR>(base + L::B_BYTES / 2, L::LDB, w2,
+                                        a.ldw, k0, K, n0, N, false);
+    }
+    if (g != nullptr && threadIdx.x < TC_BK / 4) {
+      const int c = k0 + 4 * threadIdx.x;
+      const uint32_t d = slot + L::G_OFF + 16 * threadIdx.x;
+      if (gvec) {
+        tc::cp_chunk(d, c < K ? g + c : g, K - c, 4);
+      } else {
+        float* gd = reinterpret_cast<float*>(tc_smem + (d - ring));
+        for (int e = 0; e < 4; ++e) gd[e] = c + e < K ? g[c + e] : 0.f;
+      }
+    }
+  };
+
+  // the products of one staged sub-tile, k16 by k16, in K order
+  auto compute = [&](int sub, uint32_t slot) {
+    const unsigned char* S = tc_smem + (slot - ring);
+    const bf16* As = reinterpret_cast<const bf16*>(S);
+    const bf16* Bs = reinterpret_cast<const bf16*>(S + L::A_BYTES);
+    const float* Gs = reinterpret_cast<const float*>(S + L::G_OFF);
+    const int k0 = sub * TC_BK;
+    const int brow = lane % 8 + ((lane / 8) % 2) * 8;
+    uint32_t af[BATCH ? KH : 1][MT][4];
+    uint32_t bf[BATCH ? KH : 1][NT][2], bf2[BATCH ? KH : 1][NT][2];
+    auto load = [&](int kk, int h) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tc::ldmatrix_x4(af[h][mt], As + (wm * TMW + mt * 16 + lane % 16) *
+                                            L::LDA + kk + (lane / 16) * 8);
+      if (g != nullptr) {
+        const float2 g01 = *reinterpret_cast<const float2*>(Gs + kk + 2 * (lane % 4));
+        const float2 g89 = *reinterpret_cast<const float2*>(Gs + kk + 8 + 2 * (lane % 4));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          af[h][mt][0] = prologue2(af[h][mt][0], g01);
+          af[h][mt][1] = prologue2(af[h][mt][1], g01);
+          af[h][mt][2] = prologue2(af[h][mt][2], g89);
+          af[h][mt][3] = prologue2(af[h][mt][3], g89);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < (DUAL ? 2 : 1); ++b) {
+        const bf16* Bm = Bs + b * (L::B_BYTES / 2);
+        auto& dst = b ? bf2 : bf;
+        if constexpr (NT == 1) {
+          uint32_t r2[2];
+          tc::ldmatrix_x2_trans(r2, Bm + (kk + brow) * L::LDB + wn * TNW);
+          dst[h][0][0] = r2[0];
+          dst[h][0][1] = r2[1];
+        } else {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t r4[4];
+            tc::ldmatrix_x4_trans(r4, Bm + (kk + brow) * L::LDB + wn * TNW +
+                                          np * 16 + (lane / 16) * 8);
+            dst[h][2 * np][0] = r4[0];
+            dst[h][2 * np][1] = r4[1];
+            dst[h][2 * np + 1][0] = r4[2];
+            dst[h][2 * np + 1][1] = r4[3];
+          }
+        }
+      }
+    };
+    auto product = [&](int h) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          tc::mma(acc[mt][nt], af[h][mt], bf[h][nt][0], bf[h][nt][1]);
+          if (DUAL)
+            tc::mma(acc2[DUAL ? mt : 0][DUAL ? nt : 0], af[h][mt],
+                    bf2[h][nt][0], bf2[h][nt][1]);
+        }
+    };
+    if constexpr (BATCH) {
+#pragma unroll
+      for (int h = 0; h < KH; ++h)
+        if (k0 + 16 * h < K) load(16 * h, h);
+#pragma unroll
+      for (int h = 0; h < KH; ++h)
+        if (k0 + 16 * h < K) product(h);
+    } else {
+#pragma unroll
+      for (int h = 0; h < KH; ++h)
+        if (k0 + 16 * h < K) {
+          load(16 * h, 0);
+          product(0);
+        }
+    }
+  };
+
+  // stage ring slots as (stage, sub-tile): stage st holds step st + j
+  // stages for j = 0, 1, ...; slots advance without division
+  const uint32_t step_bytes = (uint32_t)L::SLOT * kc;
+  auto issue = [&](int step, uint32_t base) {
+    if (step < n_steps)
+      for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+        stage(sub, base + s * L::SLOT);
+    tc::cp_async_commit();
+  };
+  auto run = [&](int step, uint32_t base) {
+    for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+      compute(sub, base + s * L::SLOT);
+  };
+  const uint32_t ring_end = ring + step_bytes * stages;
+  if (stages >= 2) {
+    // single barrier a step: the barrier that makes step j visible also
+    // frees the slots of step j - 1, which then take step j + stages - 1
+    uint32_t fill = ring, use = ring;
+    for (int s = 0; s < stages - 1; ++s, fill += step_bytes) issue(s, fill);
+    for (int step = 0; step < n_steps; ++step) {
+      tc::cp_async_wait(stages - 2);
+      __syncthreads();
+      issue(step + stages - 1, fill);
+      fill = fill + step_bytes == ring_end ? ring : fill + step_bytes;
+      run(step, use);
+      use = use + step_bytes == ring_end ? ring : use + step_bytes;
+    }
+  } else {
+    for (int step = 0; step < n_steps; ++step) {
+      __syncthreads();
+      issue(step, ring);
+      tc::cp_async_wait(0);
+      __syncthreads();
+      run(step, ring);
+    }
+  }
+  tc::cp_async_wait(0);
+
+  // The epilogue reads the fp32 tile back from shared memory (the ring is
+  // free now) in a loop that is not unrolled, one column pair a thread at
+  // a time: a compact body for any activation, and consecutive threads on
+  // consecutive pairs of a row, so the stores coalesce.
+  __syncthreads();                      // every warp is done with the ring
+  float* Cs = reinterpret_cast<float*>(tc_smem);
+  float* Cs2 = Cs + L::CTILE / (DUAL ? 2 : 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = wm * TMW + mt * 16 + lane / 4 + 8 * h;
+        const int cc = wn * TNW + nt * 8 + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(Cs + rr * L::LDC + cc) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (DUAL)
+          *reinterpret_cast<float2*>(Cs2 + rr * L::LDC + cc) = make_float2(
+              acc2[DUAL ? mt : 0][DUAL ? nt : 0][2 * h],
+              acc2[DUAL ? mt : 0][DUAL ? nt : 0][2 * h + 1]);
+      }
+  __syncthreads();
+  const bf16* res = static_cast<const bf16*>(a.residual);
+  TO* out = static_cast<TO*>(a.out);
+  const bool pairs =
+      a.ldo % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
+      (res == nullptr ||
+       (a.ldr % 2 == 0 && reinterpret_cast<uintptr_t>(res) % 4 == 0));
+#pragma unroll 1
+  for (int i = threadIdx.x; i < BM * BN / 2; i += NTHR) {
+    const int rr = i / (BN / 2), cc = 2 * (i % (BN / 2));
+    const float2 v = *reinterpret_cast<const float2*>(Cs + rr * L::LDC + cc);
+    float2 v2 = make_float2(0.f, 0.f);
+    if (DUAL) v2 = *reinterpret_cast<const float2*>(Cs2 + rr * L::LDC + cc);
+    const float y[2] = {v.x, v.y}, y2[2] = {v2.x, v2.y};
+    store_pair<TO, DUAL>(a, y, y2, m0 + rr, n0 + cc, res, out, pairs);
+  }
+}
+
 template <typename TX, typename TW, typename TO, int BM, bool DUAL>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   const int kk = BK * a.k_collapse;
@@ -442,6 +848,46 @@ int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
   af_gemm_w8a8_kernel<TX, TO, BM, DUAL><<<grid, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Launch with the deepest ring (up to TC_MAX_STAGES steps) inside the
+// tile's budget, at least two steps where they fit the SM, else one.
+// smem_only: report the dynamic shared memory the launch takes, and
+// launch nothing.
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+int launch_tc(const Args& a, cudaStream_t stream, size_t* smem_only) {
+  using L = TcLayout<BM, BN, DUAL>;
+  const size_t step_bytes = (size_t)L::SLOT * a.k_collapse;
+  int stages = TC_MAX_STAGES;
+  while (stages > 2 && stages * step_bytes > L::BUDGET) --stages;
+  if (stages * step_bytes > (size_t)MAX_SMEM) stages = 1;
+  const size_t smem = std::max(stages * step_bytes, sizeof(float) * L::CTILE);
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem_only != nullptr) {
+    *smem_only = smem;
+    return 0;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
+  af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL>
+      <<<grid, WM * WN * 32, smem, stream>>>(a, stages);
+  return (int)cudaGetLastError();
+}
+
+// decode-sized M (one m16 row tile, 32 columns a block in 4 warps) or the
+// prefill tiles (128 x 128; dual 128 x 64)
+template <typename TO, bool DUAL>
+int launch_tc_m(const Args& a, cudaStream_t stream,
+                size_t* smem_only = nullptr) {
+  if (a.M <= 16)
+    return launch_tc<TO, 16, 32, 1, 4, DUAL>(a, stream, smem_only);
+  if constexpr (DUAL)
+    return launch_tc<TO, 128, 64, 4, 2, DUAL>(a, stream, smem_only);
+  else
+    return launch_tc<TO, 128, 128, 2, 4, DUAL>(a, stream, smem_only);
 }
 
 // W8A8 (act_quant) or the float chain, at BM = 16 for decode-sized M.
@@ -478,9 +924,10 @@ int launch_x(const Args& a, int x_dtype, int out_dtype, bool act_quant,
 
 }  // namespace
 
-// X[M,K] @ W[K,N] (+ W2) with the fused prologue/epilogue.  x/w/w2 and the
-// residual share dtype `in_dtype`; bias, bias2 and g are fp32.  A null
-// pointer turns its operand off.  Returns cudaGetLastError() of the launch.
+// X[M,K] @ W[K,N] (+ W2) with the fused prologue/epilogue on the FFMA
+// kernel: x/w/w2 and the residual fp32 (in_dtype 0; bf16 operands take
+// af_gemm_tc); bias, bias2 and g are fp32.  A null pointer turns its
+// operand off.  Returns cudaGetLastError() of the launch.
 extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
                        const void* w, const void* w2, const float* bias,
                        const float* bias2, const void* residual,
@@ -488,21 +935,52 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
                        long long ldx, long long ldw, long long ldr,
                        long long ldo, int k_collapse, int activation,
                        void* stream) {
+  if (k_collapse < 1 || M < 1 || N < 1 || K < 1 || in_dtype != F32)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, w, w2, nullptr, nullptr, bias, bias2, residual, g, out, M, N, K,
+         ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w2 != nullptr
+             ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
+             : launch_out<float, float, false>(a, out_dtype, false, 1, s);
+}
+
+// The same function on the tensor-core kernel: x/w/w2 and the residual
+// bf16, out fp32 or bf16 (out_dtype), bias, bias2 and g fp32.  Returns
+// cudaGetLastError() of the launch.
+extern "C" int af_gemm_tc(int out_dtype, const void* x, const void* w,
+                          const void* w2, const float* bias,
+                          const float* bias2, const void* residual,
+                          const float* g, void* out, int M, int N, int K,
+                          long long ldx, long long ldw, long long ldr,
+                          long long ldo, int k_collapse, int activation,
+                          void* stream) {
   if (k_collapse < 1 || M < 1 || N < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   Args a{x, w, w2, nullptr, nullptr, bias, bias2, residual, g, out, M, N, K,
          ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dual = w2 != nullptr;
-  if (in_dtype == F32)
-    return dual ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
-                : launch_out<float, float, false>(a, out_dtype, false, 1, s);
-  if (in_dtype == BF16)
-    return dual ? launch_out<__nv_bfloat16, __nv_bfloat16, true>(
-                      a, out_dtype, false, 1, s)
-                : launch_out<__nv_bfloat16, __nv_bfloat16, false>(
-                      a, out_dtype, false, 1, s);
+  if (out_dtype == F32)
+    return dual ? launch_tc_m<float, true>(a, s)
+                : launch_tc_m<float, false>(a, s);
+  if (out_dtype == BF16)
+    return dual ? launch_tc_m<__nv_bfloat16, true>(a, s)
+                : launch_tc_m<__nv_bfloat16, false>(a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory (bytes) af_gemm_tc takes at M rows, k_collapse and
+// dual; -1 where it refuses the launch.
+extern "C" long long af_gemm_tc_smem(int M, int k_collapse, int dual) {
+  if (M < 1 || k_collapse < 1) return -1;
+  Args a{};
+  a.M = M;
+  a.k_collapse = k_collapse;
+  size_t smem = 0;
+  const int rc = dual ? launch_tc_m<float, true>(a, nullptr, &smem)
+                      : launch_tc_m<float, false>(a, nullptr, &smem);
+  return rc == 0 ? (long long)smem : -1;
 }
 
 // X[M,K] @ W[K,N] (+ W2) on int8 weight codes w/w2 with fp32 per-column

@@ -38,26 +38,61 @@
 // 4096, D 64, causal: 3.0e10 multiply-add operations, 30 us at the bf16
 // tensor-core peak, while q, k, v and o are 29 MB, 9 us at 3.35 TB/s), bytes
 // at short S (BH 56, S = T = 256, D 64: 2.2 us of bytes, 0.9 us of
-// operations).
+// operations).  At short S and long T (S 128, T 4097) it is the number of
+// query tiles: 2 tiles x 14 heads are 28 blocks for 132 SMs.
 //
-// What the design does about it (a plain kernel that is right first):
-//   * one block per (bh, 64-row query tile), 256 threads; the q tile stays
-//     in shared memory as fp32 for the whole KV loop, so q is read once;
-//   * K and V are staged 64 columns at a time through shared memory as fp32
-//     (zero-filled past the ragged edge, nothing read past T), and both
-//     products run as fp32 FFMA: each thread owns query rows ty + 16 i and
-//     key columns tx + 16 j (4 x 4 scores), and output columns tx + 16 jj;
-//   * the running m, l and the fp32 output accumulator live in registers;
-//     a row's max and sum reduce across the 16 lanes that own it with warp
-//     shuffles;
-//   * a sub-tile or chunk whose every (row, column) pair is masked for the
-//     whole block is skipped (the reference's step leaves o, m and l
-//     unchanged there), and the causally heaviest query tiles launch first;
-//   * wgmma, TMA, cp.async pipelining and bf16 tensor-core products are left
-//     for later work.
+// Two kernels, chosen by operand type (the wrapper's written rule, counted
+// per kernel): bf16 q, k, v launch flash_tc_kernel (entry
+// flash_attention_tc), fp32 the FFMA flash_fwd_kernel (entry
+// flash_attention_fwd; the tensor cores cannot give IEEE fp32).
+//
+// flash_tc_kernel, bf16: both products on the tensor cores as
+// mma.sync.m16n8k16 bf16 x bf16 -> fp32 (tc.cuh), FlashAttention-2's
+// layout.  mma.sync rather than wgmma: the second pass needs each score in
+// the registers of the thread that holds its output row (mask, exp, bf16
+// rounding, the row sums), which the m16n8 fragments give directly, and
+// the per-warp 16-row tiles keep the diagonal and ragged tiles cheap.
+//   * one block per (bh, 64-row query tile), 4 warps, one per 16 rows; the
+//     q tile is staged once and held as A fragments in registers;
+//   * K and V sub-tiles of 64 columns stream through a two-slot ring by
+//     16-byte cp.async, each thread's chunk offsets computed once
+//     (KvChunks; zero-filled past the ragged edge and past D, padded to
+//     the k16/n8 granularity: DM = 32, 64 or 128; nothing read past T;
+//     scalar staging when D is not a multiple of 8);
+//   * each chunk keeps the two passes of choice (a): pass 1 computes
+//     S = Q K^T for the row max only, pass 2 recomputes S with the same
+//     fragment sequence (so it never sees a score above pass 1's max),
+//     p = ok ? exp(s * scale - m) : 0, rounds p to bf16 in registers and
+//     feeds it as the A operand of P V (the m16n8 C fragments of two
+//     column tiles are the m16k16 A fragment: S and P never touch shared
+//     memory); l sums the fp32 p;
+//   * the row max and sums reduce over the 4 lanes of a quad; the causally
+//     heaviest query tiles launch first, sub-tiles no row of the block can
+//     see are skipped, and a warp whose 16 rows see a whole sub-tile skips
+//     the per-element mask (the same numbers);
+//   * short S, long T: the wrapper splits each chunk's columns into
+//     n_split ranges (kv_splits in flash_attention.py, a pure function of
+//     BH, S, T, kv_chunk and the SM count).  A first launch (MODE_MAX)
+//     writes each split's row max; a second (MODE_PV) takes the running max
+//     up to its chunk from those -- the m_new of the unsplit kernel -- and
+//     writes its split's l and unnormalized o against it, so the splits of a
+//     chunk add with no rescaling; the combine kernel folds the chunks in
+//     order with corr = exp(m - m_new) and divides.  Only the order of the
+//     fp32 sums changes.
+//
+// flash_fwd_kernel, fp32 (a plain kernel that is right first): one block
+// per (bh, 64-row query tile), 256 threads; the q tile stays in shared
+// memory for the whole KV loop; K and V are staged 64 columns at a time,
+// and both products run as FFMA: each thread owns query rows ty + 16 i and
+// key columns tx + 16 j (4 x 4 scores), and output columns tx + 16 jj; the
+// running m, l and the output accumulator live in registers, a row's max
+// and sum reduce across its 16 lanes with warp shuffles; the same two
+// passes a chunk, the same skips and launch order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -65,21 +100,7 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BKV = 64;       // key/value columns per staged sub-tile
 constexpr int THREADS = 256;  // 16 x 16: ty owns rows, tx owns columns
 constexpr float NEG_INF = -1e30f;
-enum { F32 = 0, BF16 = 1 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+enum { F32 = 0 };
 
 struct Args {
   const void* q;
@@ -98,13 +119,13 @@ constexpr size_t smem_bytes() {
 
 // rows [t0, t0 + BKV) of a (T, D) matrix into dst (fp32, row stride ld);
 // rows at or past hi and columns at or past D read as zero
-template <typename T, int DM>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+template <int DM>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       int t0, int hi, int D) {
   for (int idx = threadIdx.x; idx < BKV * DM; idx += THREADS) {
     const int c = idx / DM, d = idx % DM, col = t0 + c;
     dst[c * ld + d] =
-        (col < hi && d < D) ? to_f(src[(size_t)col * D + d]) : 0.f;
+        (col < hi && d < D) ? src[(size_t)col * D + d] : 0.f;
   }
 }
 
@@ -136,27 +157,27 @@ __device__ __forceinline__ bool visible(const Args& a, int row, int col,
          (!a.window || col > row - a.window);
 }
 
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
   extern __shared__ float smem[];
   float* Qs = smem;                   // [BQ][DM + 1]
   float* Ks = Qs + BQ * (DM + 1);     // [BKV][DM + 1]
   float* Vs = Ks + BKV * (DM + 1);    // [BKV][DM]
-  float* Ps = Vs + BKV * DM;          // [BQ][BKV + 1], p rounded to T
+  float* Ps = Vs + BKV * DM;          // [BQ][BKV + 1], p (fp32: v is fp32)
   constexpr int DJ = DM / 16;         // output columns per thread
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   // the causally heaviest (last) query tiles launch first
   const int row0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const size_t bh = blockIdx.y;
-  const T* q = static_cast<const T*>(a.q) + bh * a.S * a.D;
-  const T* k = static_cast<const T*>(a.k) + bh * a.T * a.D;
-  const T* v = static_cast<const T*>(a.v) + bh * a.T * a.D;
-  T* o = static_cast<T*>(a.o) + bh * a.S * a.D;
+  const float* q = static_cast<const float*>(a.q) + bh * a.S * a.D;
+  const float* k = static_cast<const float*>(a.k) + bh * a.T * a.D;
+  const float* v = static_cast<const float*>(a.v) + bh * a.T * a.D;
+  float* o = static_cast<float*>(a.o) + bh * a.S * a.D;
 
   for (int idx = threadIdx.x; idx < BQ * DM; idx += THREADS) {
     const int r = idx / DM, d = idx % DM, row = row0 + r;
     Qs[r * (DM + 1) + d] =
-        (row < a.S && d < a.D) ? to_f(q[(size_t)row * a.D + d]) : 0.f;
+        (row < a.S && d < a.D) ? q[(size_t)row * a.D + d] : 0.f;
   }
 
   int rows[4];
@@ -184,7 +205,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
     float cmax[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
     for (int t0 = lo; t0 < hi; t0 += BKV) {
       __syncthreads();
-      stage<T, DM>(Ks, DM + 1, k, t0, hi, a.D);
+      stage<DM>(Ks, DM + 1, k, t0, hi, a.D);
       __syncthreads();
       float s[4][4];
       scores<DM>(Qs, Ks, ty, tx, s);
@@ -214,8 +235,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
     // pass 2: p against the chunk's max, o += p v
     for (int t0 = lo; t0 < hi; t0 += BKV) {
       __syncthreads();
-      stage<T, DM>(Ks, DM + 1, k, t0, hi, a.D);
-      stage<T, DM>(Vs, DM, v, t0, hi, a.D);
+      stage<DM>(Ks, DM + 1, k, t0, hi, a.D);
+      stage<DM>(Vs, DM, v, t0, hi, a.D);
       __syncthreads();
       float s[4][4];
       scores<DM>(Qs, Ks, ty, tx, s);
@@ -227,7 +248,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
                               ? expf(s[i][j] * a.scale - m_new[i])
                               : 0.f;
           lsum[i] += p;
-          Ps[(ty + 16 * i) * (BKV + 1) + tx + 16 * j] = to_f(from_f<T>(p));
+          Ps[(ty + 16 * i) * (BKV + 1) + tx + 16 * j] = p;
         }
       __syncthreads();
       const int n = min(BKV, hi - t0);
@@ -261,46 +282,498 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) {
       const int d = tx + 16 * jj;
-      if (d < a.D) o[(size_t)rows[i] * a.D + d] = from_f<T>(acc[i][jj] / den);
+      if (d < a.D) o[(size_t)rows[i] * a.D + d] = acc[i][jj] / den;
     }
   }
 }
 
-template <typename T, int DM>
+template <int DM>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DM>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.S + BQ - 1) / BQ, a.BH);
-  flash_fwd_kernel<T, DM><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_kernel<DM><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_d(const Args& a, cudaStream_t stream) {
-  if (a.D <= 32) return launch<T, 32>(a, stream);
-  if (a.D <= 64) return launch<T, 64>(a, stream);
-  return launch<T, 128>(a, stream);
+  if (a.D <= 32) return launch<32>(a, stream);
+  if (a.D <= 64) return launch<64>(a, stream);
+  return launch<128>(a, stream);
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core kernel (bf16)
+
+constexpr int TQ = 64;          // query rows per block, 16 per warp
+constexpr int TKV = 64;         // key/value columns per staged sub-tile
+constexpr int TC_THREADS = 128;
+enum { MODE_FULL = 0, MODE_MAX = 1, MODE_PV = 2 };
+
+struct TcArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  int BH, S, T, D, kv_chunk, causal, window;
+  float scale;
+  int n_chunks, n_split;
+  float* mpart;   // split path: (BH, n_chunks, n_split, S) row maxima
+  float* lpart;   // (BH, n_chunks, n_split, S) row sums of p
+  float* opart;   // (BH, n_chunks, n_split, S, D) unnormalized p v
+};
+
+template <int DM>
+constexpr size_t tc_smem_bytes() {   // q tile + two K and two V slots
+  return sizeof(__nv_bfloat16) * (size_t)(TQ + 4 * TKV) * (DM + 8);
+}
+
+// One thread's 16-byte chunks of a 64-row K or V sub-tile (DM / 16 of
+// them), their rows, columns and shared offsets computed once; staging a
+// sub-tile at key row t0 then costs an address and a bound per chunk.
+template <int DM>
+struct KvChunks {
+  static constexpr int LD = DM + 8;
+  static constexpr int N = TKV * (DM / 8) / TC_THREADS;
+  int r[N], c[N];
+  uint32_t off[N];
+  __device__ KvChunks() {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * TC_THREADS;
+      r[j] = i / (DM / 8);
+      c[j] = (i % (DM / 8)) * 8;
+      off[j] = 2 * (r[j] * LD + c[j]);
+    }
+  }
+  // rows t0.. of the (T, D) matrix src into the slot at shared address
+  // dst; rows at or past hi and columns at or past D as zeros
+  __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
+                                        int t0, int hi, int D) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int row = t0 + r[j];
+      const int n = row < hi ? D - c[j] : 0;
+      tc::cp_chunk(dst + off[j],
+                   n > 0 ? src + (size_t)row * D + c[j] : src, n, 8);
+    }
+  }
+};
+
+__device__ __forceinline__ bool tc_visible(const TcArgs& a, int row, int col,
+                                           int hi) {
+  return col < hi && (!a.causal || col <= row) &&
+         (!a.window || col > row - a.window);
+}
+
+// every (row, column) of warp rows r0..r0+15 x columns t0..t0+TKV-1 is
+// visible: the warp skips the per-element mask
+__device__ __forceinline__ bool tc_all_visible(const TcArgs& a, int r0, int t0,
+                                               int hi) {
+  return t0 + TKV <= hi && (!a.causal || t0 + TKV - 1 <= r0) &&
+         (!a.window || t0 > r0 + 15 - a.window);
+}
+
+// Unscaled scores of the warp's 16 rows against the 64 columns of one K
+// slot: s[nt] holds columns 8 nt + 2t, +1 of rows g and g + 8.  Both passes
+// call this, so both compute each score with the same mma sequence.
+template <int DM>
+__device__ __forceinline__ void tc_scores(const uint32_t (&qf)[DM / 16][4],
+                                          const __nv_bfloat16* Ks,
+                                          float (&s)[TKV / 8][4]) {
+  constexpr int LD = DM + 8;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int nt = 0; nt < TKV / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DM / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < TKV / 16; ++np) {
+      uint32_t b[4];
+      tc::ldmatrix_x4(b, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                             kk * 16 + ((lane / 8) % 2) * 8);
+      tc::mma(s[2 * np], qf[kk], b[0], b[1]);
+      tc::mma(s[2 * np + 1], qf[kk], b[2], b[3]);
+    }
+}
+
+// at D <= 64 four blocks (16 warps) share an SM: the kernel is bound by
+// latency (exp, the mask, the staging), so registers are capped at 128
+template <int DM, int MODE>
+__global__ void __launch_bounds__(TC_THREADS, DM <= 64 ? 4 : 2)
+    flash_tc_kernel(TcArgs a) {
+  using tc::bf16;
+  constexpr int LD = DM + 8;          // padded rows (ldmatrix banks)
+  constexpr int NTD = DM / 8;         // output n8 tiles
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(fa_smem);   // [TQ][LD]
+  bf16* Ks = Qs + TQ * LD;                       // [2][TKV][LD]
+  bf16* Vs = Ks + 2 * TKV * LD;                  // [2][TKV][LD]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * TQ;   // heaviest first
+  const size_t bh = blockIdx.y;
+  const bf16* q = a.q + bh * a.S * a.D;
+  const bf16* k = a.k + bh * a.T * a.D;
+  const bf16* v = a.v + bh * a.T * a.D;
+  const bool vec = a.D % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+
+  const KvChunks<DM> kv;
+  const uint32_t ks_addr = tc::smem_addr(Ks), vs_addr = tc::smem_addr(Vs);
+  // K (and V) rows t0.. into ring slot `slot`
+  auto stage_k = [&](int slot, int t0, int hi) {
+    if (vec)
+      kv.stage(ks_addr + slot * 2 * TKV * LD, k, t0, hi, a.D);
+    else
+      tc::stage_tile<TKV, DM, TC_THREADS>(Ks + slot * TKV * LD, LD, k, a.D,
+                                          t0, hi, 0, a.D, false);
+  };
+  auto stage_v = [&](int slot, int t0, int hi) {
+    if (vec)
+      kv.stage(vs_addr + slot * 2 * TKV * LD, v, t0, hi, a.D);
+    else
+      tc::stage_tile<TKV, DM, TC_THREADS>(Vs + slot * TKV * LD, LD, v, a.D,
+                                          t0, hi, 0, a.D, false);
+  };
+
+  tc::stage_tile<TQ, DM, TC_THREADS>(Qs, LD, q, a.D, row0, a.S, 0, a.D, vec);
+  tc::cp_async_commit();
+  tc::cp_async_wait(0);
+  __syncthreads();
+  uint32_t qf[DM / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DM / 16; ++kk)
+    tc::ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 +
+                                (lane / 16) * 8);
+
+  const int wrow0 = row0 + warp * 16;   // the warp's first query row
+  const int rows[2] = {wrow0 + lane / 4, wrow0 + lane / 4 + 8};
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[NTD][4];
+#pragma unroll
+  for (int nt = 0; nt < NTD; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  // the columns any row of this block may see
+  const int row_last = min(row0 + TQ, a.S) - 1;
+  const int col_hi = a.causal ? min(a.T, row_last + 1) : a.T;
+  const int col_lo = a.window ? max(0, row0 - a.window + 1) : 0;
+
+  // chunks this block walks: all of them, or (split) one chunk's one range
+  int c_first = 0, c_last = a.n_chunks, split = 0;
+  if (MODE != MODE_FULL) {
+    c_first = blockIdx.z / a.n_split;
+    c_last = c_first + 1;
+    split = blockIdx.z % a.n_split;
+  }
+  for (int c = c_first; c < c_last; ++c) {
+    const int c0 = c * a.kv_chunk;
+    int lo = max(c0, col_lo);
+    int hi = min(c0 + a.kv_chunk, col_hi);
+    if (MODE != MODE_FULL && lo < hi) {   // this split's sub-tile range
+      const int per = (hi - lo + a.n_split - 1) / a.n_split;
+      const int w = (per + TKV - 1) / TKV * TKV;
+      lo = lo + split * w;
+      hi = min(lo + w, hi);
+    }
+    const int n_sub = lo < hi ? (hi - lo + TKV - 1) / TKV : 0;
+    const size_t part = ((bh * a.n_chunks + c) * a.n_split + split) *
+                        (size_t)a.S;
+    if (MODE == MODE_FULL && n_sub == 0) continue;   // o, m, l unchanged
+
+    float m_new[2], corr[2] = {1.f, 1.f};
+    if (MODE != MODE_PV) {
+      // pass 1: the row max over this chunk (or split)
+      float cmax[2] = {NEG_INF, NEG_INF};
+      if (n_sub > 0) {
+        __syncthreads();                // the slots' last readers are done
+        stage_k(0, lo, hi);
+        tc::cp_async_commit();
+      }
+      for (int j = 0; j < n_sub; ++j) {
+        tc::cp_async_wait(0);
+        __syncthreads();
+        if (j + 1 < n_sub) {
+          stage_k((j + 1) % 2, lo + (j + 1) * TKV, hi);
+          tc::cp_async_commit();
+        }
+        float s[TKV / 8][4];
+        tc_scores<DM>(qf, Ks + (j % 2) * TKV * LD, s);
+        const int t0 = lo + j * TKV;
+        if (tc_all_visible(a, wrow0, t0, hi)) {
+#pragma unroll
+          for (int nt = 0; nt < TKV / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              cmax[e / 2] = fmaxf(cmax[e / 2], __fmul_rn(s[nt][e], a.scale));
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < TKV / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = t0 + nt * 8 + 2 * (lane % 4) + e % 2;
+              if (tc_visible(a, rows[e / 2], col, hi))
+                cmax[e / 2] =
+                    fmaxf(cmax[e / 2], __fmul_rn(s[nt][e], a.scale));
+            }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+      }
+      if (MODE == MODE_MAX) {
+        if (lane % 4 == 0)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (rows[h] < a.S) a.mpart[part + rows[h]] = cmax[h];
+        return;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m[h], cmax[h]);
+        corr[h] = expf(m[h] - m_new[h]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTD; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e / 2];
+    } else {
+      // split pass 2: m_new is the running max through chunk c, from every
+      // split's row max of chunks 0..c
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = NEG_INF;
+        if (rows[h] < a.S)
+          for (int cc = 0; cc <= c; ++cc)
+            for (int i = 0; i < a.n_split; ++i)
+              m_new[h] = fmaxf(
+                  m_new[h],
+                  a.mpart[((bh * a.n_chunks + cc) * a.n_split + i) *
+                              (size_t)a.S + rows[h]]);
+      }
+    }
+
+    // pass 2: p against m_new, rounded to bf16, o += p v
+    float lsum[2] = {0.f, 0.f};
+    if (n_sub > 0) {
+      __syncthreads();
+      stage_k(0, lo, hi);
+      stage_v(0, lo, hi);
+      tc::cp_async_commit();
+    }
+    for (int j = 0; j < n_sub; ++j) {
+      tc::cp_async_wait(0);
+      __syncthreads();
+      if (j + 1 < n_sub) {
+        stage_k((j + 1) % 2, lo + (j + 1) * TKV, hi);
+        stage_v((j + 1) % 2, lo + (j + 1) * TKV, hi);
+        tc::cp_async_commit();
+      }
+      const int cur = (j % 2) * TKV * LD, t0 = lo + j * TKV;
+      float s[TKV / 8][4];
+      tc_scores<DM>(qf, Ks + cur, s);
+      if (tc_all_visible(a, wrow0, t0, hi)) {
+#pragma unroll
+        for (int nt = 0; nt < TKV / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p =
+                expf(__fmul_rn(s[nt][e], a.scale) - m_new[e / 2]);
+            lsum[e / 2] += p;
+            s[nt][e] = p;
+          }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < TKV / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = t0 + nt * 8 + 2 * (lane % 4) + e % 2;
+            const float p = tc_visible(a, rows[e / 2], col, hi)
+                                ? expf(__fmul_rn(s[nt][e], a.scale) -
+                                       m_new[e / 2])
+                                : 0.f;
+            lsum[e / 2] += p;
+            s[nt][e] = p;
+          }
+      }
+      // P (16 x 64 keys) as four m16k16 A fragments; V^T through
+      // ldmatrix.trans as the B operand
+#pragma unroll
+      for (int kk = 0; kk < TKV / 16; ++kk) {
+        const uint32_t pa[4] = {
+            tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < DM / 16; ++np) {
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(
+              b, Vs + cur + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                     np * 16 + (lane / 16) * 8);
+          tc::mma(o[2 * np], pa, b[0], b[1]);
+          tc::mma(o[2 * np + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 1);
+      lsum[h] += __shfl_xor_sync(0xffffffffu, lsum[h], 2);
+    }
+    if (MODE == MODE_PV) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= a.S) continue;
+        if (lane % 4 == 0) a.lpart[part + rows[h]] = lsum[h];
+        float* op = a.opart + (part + rows[h]) * a.D;
+#pragma unroll
+        for (int nt = 0; nt < NTD; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = nt * 8 + 2 * (lane % 4) + e;
+            if (d < a.D) op[d] = o[nt][2 * h + e];
+          }
+      }
+      return;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), lsum[h]);
+      m[h] = m_new[h];
+    }
+  }
+
+  bf16* out = a.o + bh * a.S * a.D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= a.S) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int nt = 0; nt < NTD; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = nt * 8 + 2 * (lane % 4) + e;
+        if (d < a.D)
+          out[(size_t)rows[h] * a.D + d] =
+              __float2bfloat16_rn(o[nt][2 * h + e] / den);
+      }
+  }
+}
+
+// Split path, last step: per (bh, row, d) the chunks in order, each chunk's
+// splits added against their shared running max, then o / max(l, 1e-30).
+__global__ void flash_combine_kernel(TcArgs a) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= a.S * a.D) return;
+  const int row = idx / a.D, d = idx % a.D;
+  const size_t bh = blockIdx.y;
+  float m = NEG_INF, l = 0.f, o = 0.f;
+  for (int c = 0; c < a.n_chunks; ++c) {
+    const size_t base = (bh * a.n_chunks + c) * a.n_split * (size_t)a.S;
+    float cmax = NEG_INF;
+    for (int i = 0; i < a.n_split; ++i)
+      cmax = fmaxf(cmax, a.mpart[base + i * (size_t)a.S + row]);
+    const float m_new = fmaxf(m, cmax);
+    const float corr = expf(m - m_new);
+    float ls = 0.f, os = 0.f;
+    for (int i = 0; i < a.n_split; ++i) {
+      const size_t r = base + i * (size_t)a.S + row;
+      ls += a.lpart[r];
+      os += a.opart[r * a.D + d];
+    }
+    l = __fadd_rn(__fmul_rn(l, corr), ls);
+    o = __fadd_rn(__fmul_rn(o, corr), os);
+    m = m_new;
+  }
+  a.o[(bh * a.S + row) * a.D + d] = __float2bfloat16_rn(o / fmaxf(l, 1e-30f));
+}
+
+template <int DM, int MODE>
+int launch_tc_mode(const TcArgs& a, int splits, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<DM>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_tc_kernel<DM, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.S + TQ - 1) / TQ, a.BH, splits);
+  flash_tc_kernel<DM, MODE><<<grid, TC_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DM>
+int launch_tc(const TcArgs& a, cudaStream_t stream) {
+  if (a.n_split == 1) return launch_tc_mode<DM, MODE_FULL>(a, 1, stream);
+  const int z = a.n_chunks * a.n_split;
+  int rc = launch_tc_mode<DM, MODE_MAX>(a, z, stream);
+  if (rc != 0) return rc;
+  rc = launch_tc_mode<DM, MODE_PV>(a, z, stream);
+  if (rc != 0) return rc;
+  const dim3 grid((a.S * a.D + 255) / 256, a.BH);
+  flash_combine_kernel<<<grid, 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (BH, S, D), k/v (BH, T, D), o (BH, S, D), all contiguous and of dtype
-// `dtype` (0 fp32, 1 bf16); D <= 128; KV consumed in chunks of kv_chunk
-// columns (the last one ragged).  causal / window as in the reference
-// (window 0 = none).  Returns cudaGetLastError() of the launch.
+// q (BH, S, D), k/v (BH, T, D), o (BH, S, D), all contiguous fp32 (dtype
+// 0; bf16 takes flash_attention_tc); D <= 128; KV consumed in chunks of
+// kv_chunk columns (the last one ragged).  causal / window as in the
+// reference (window 0 = none).  Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int BH, int S,
                                    int T, int D, int kv_chunk, int causal,
                                    int window, float scale, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || T < 1 || D < 1 || D > 128 ||
-      kv_chunk < 1 || window < 0)
+      kv_chunk < 1 || window < 0 || dtype != F32)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, BH, S, T, D, kv_chunk, causal, window, scale};
+  return launch_d(a, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory (bytes) each flash_attention_tc launch takes at
+// head dim D (<= 128).
+extern "C" long long flash_attention_tc_smem(int D) {
+  if (D < 1 || D > 128) return -1;
+  return (long long)(D <= 32   ? tc_smem_bytes<32>()
+                     : D <= 64 ? tc_smem_bytes<64>()
+                               : tc_smem_bytes<128>());
+}
+
+// The same function on the tensor-core kernel, q/k/v/o bf16.  n_split = 1:
+// one launch; n_split > 1: the split path's three launches, with fp32
+// scratch mpart and lpart of (BH, ceil(T / kv_chunk), n_split, S) and
+// opart of (BH, ceil(T / kv_chunk), n_split, S, D) elements.
+extern "C" int flash_attention_tc(const void* q, const void* k,
+                                  const void* v, void* o, int BH, int S,
+                                  int T, int D, int kv_chunk, int causal,
+                                  int window, float scale, int n_split,
+                                  float* mpart, float* lpart, float* opart,
+                                  void* stream) {
+  const int n_chunks = kv_chunk > 0 ? (T + kv_chunk - 1) / kv_chunk : 0;
+  if (BH < 1 || BH > 65535 || S < 1 || T < 1 || D < 1 || D > 128 ||
+      kv_chunk < 1 || window < 0 || n_split < 1 ||
+      n_chunks * n_split > 65535 ||
+      (n_split > 1 && (!mpart || !lpart || !opart)))
+    return (int)cudaErrorInvalidValue;
+  const TcArgs a{static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v),
+                 static_cast<__nv_bfloat16*>(o), BH, S, T, D, kv_chunk,
+                 causal, window, scale, n_chunks, n_split, mpart, lpart,
+                 opart};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == F32) return launch_d<float>(a, s);
-  if (dtype == BF16) return launch_d<__nv_bfloat16>(a, s);
-  return (int)cudaErrorInvalidValue;
+  if (D <= 32) return launch_tc<32>(a, s);
+  if (D <= 64) return launch_tc<64>(a, s);
+  return launch_tc<128>(a, s);
 }

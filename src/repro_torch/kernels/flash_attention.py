@@ -2,10 +2,14 @@
 version.
 
 Port of the reference's ``kernels/flash_attention.py``.  The Pallas TPU
-kernel ``_kernel`` becomes the hand-written CUDA kernel
-``flash_attention_fwd`` in ``csrc/flash_attention.cu`` (the design notes
-are at the top of that file).  Scores and probabilities never reach device
-memory: q, k and v are read and o is written.
+kernel ``_kernel`` becomes two hand-written CUDA kernels in
+``csrc/flash_attention.cu`` (the design notes are at the top of that
+file), picked by the operand type (:func:`attention_kernel`):
+``flash_attention_tc`` on the tensor cores for bf16, the FFMA
+``flash_attention_fwd`` for fp32.  Scores and probabilities never reach
+device memory: q, k and v are read and o is written (and, where
+:func:`kv_splits` splits a chunk's columns across blocks at short S, one
+fp32 partial per split and row).
 
 Layout: q (BH, S, D), k/v (BH, T, D); callers fold batch x heads (GQA
 callers repeat or fold kv heads).  KV is consumed in ``kv_chunk``-column
@@ -17,7 +21,9 @@ and takes :func:`flash_attention_plain` only for CPU tensors.  The plain
 version mirrors the reference kernel chunk for chunk: fp32 scores, the
 finite ``NEG_INF`` mask, ``p`` cast to v's dtype before the PV product,
 ``o / max(l, 1e-30)`` cast once to q's dtype.  ``LAUNCHES`` counts kernel
-launches, and nothing else.
+launches, and nothing else: ``flash_attention`` every K3 launch,
+``flash_attention_tc`` those of the tensor-core kernel (one launch is one
+call of the C entry: one kernel, or the split path's three).
 """
 from __future__ import annotations
 
@@ -29,15 +35,49 @@ import torch
 NEG_INF = -1e30
 
 # kernel launches in this process (plain-version calls launch nothing)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# the tensor-core kernel's tiles (csrc/flash_attention.cu TQ, TKV)
+TC_QUERY_ROWS = 64
+TC_KV_COLS = 64
+# a split covers at least this many sub-tiles, so its launch pays off
+MIN_SPLIT_SUBTILES = 4
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def attention_kernel(dtype) -> str:
+    """The kernel :func:`flash_attention` launches for q, k, v of
+    ``dtype``: bf16 -> ``flash_attention_tc`` (tensor cores, bf16 products
+    into fp32 sums), fp32 -> ``flash_attention_fwd`` (FFMA: tensor cores
+    give no IEEE fp32).  The choice follows the operand type only, never a
+    failed build or launch."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_tc"
+    if dtype == torch.float32:
+        return "flash_attention_fwd"
+    raise ValueError(f"flash_attention: dtype {dtype} must be float32 or "
+                     f"bfloat16")
+
+
+def kv_splits(BH: int, S: int, T: int, kv_chunk: int, n_sm: int) -> int:
+    """How many column ranges the tensor-core kernel splits each KV chunk
+    into: 1 while the query tiles alone (ceil(S / 64) x BH blocks) fill
+    the ``n_sm`` SMs; otherwise enough splits to fill them, each at least
+    ``MIN_SPLIT_SUBTILES`` sub-tiles of 64 columns of the (clamped)
+    chunk."""
+    if min(BH, S, T, kv_chunk, n_sm) < 1:
+        raise ValueError(f"kv_splits needs positive sizes, got BH {BH}, "
+                         f"S {S}, T {T}, kv_chunk {kv_chunk}, n_sm {n_sm}")
+    blocks = -(-S // TC_QUERY_ROWS) * BH
+    subtiles = -(-min(kv_chunk, T) // TC_KV_COLS)
+    if blocks >= n_sm or subtiles < 2 * MIN_SPLIT_SUBTILES:
+        return 1
+    return min(-(-n_sm // blocks), subtiles // MIN_SPLIT_SUBTILES)
 
 
 def _check(q, k, v, bq: int, kv_chunk: int) -> int:
@@ -114,8 +154,51 @@ def _lib():
         lib.flash_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
                                             i, ctypes.c_float, p]
         lib.flash_attention_fwd.restype = i
+        lib.flash_attention_tc.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                           ctypes.c_float, i, p, p, p, p]
+        lib.flash_attention_tc.restype = i
+        lib.flash_attention_tc_smem.argtypes = [i]
+        lib.flash_attention_tc_smem.restype = ctypes.c_longlong
         _BOUND = lib
     return _BOUND
+
+
+def _launch(q, k, v, causal: bool, window: int, kv_chunk: int,
+            n_split: int = 1):
+    """Launch the kernel :func:`attention_kernel` names for q's type on
+    checked CUDA operands, and count it.  ``n_split`` (tensor-core kernel
+    only) splits each chunk's columns across that many blocks, with fp32
+    scratch for the per-split partials."""
+    BH, S, D = q.shape
+    T = k.shape[1]
+    entry = attention_kernel(q.dtype)
+    if n_split < 1 or (n_split > 1 and entry != "flash_attention_tc"):
+        raise ValueError(f"flash_attention: n_split {n_split} needs >= 1 "
+                         f"(> 1 only on the tensor-core kernel)")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(D)
+    if entry == "flash_attention_tc":
+        parts = [None] * 3
+        if n_split > 1:
+            rows = BH * -(-T // kv_chunk) * n_split * S
+            f32 = dict(dtype=torch.float32, device=q.device)
+            parts = [torch.empty(rows, **f32), torch.empty(rows, **f32),
+                     torch.empty(rows * D, **f32)]
+        rc = _lib().flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
+            T, D, kv_chunk, int(bool(causal)), int(window), scale, n_split,
+            *(None if t is None else t.data_ptr() for t in parts), stream)
+    else:
+        rc = _lib().flash_attention_fwd(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+            S, T, D, kv_chunk, int(bool(causal)), int(window), scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attention"] += 1
+    if entry == "flash_attention_tc":
+        LAUNCHES["flash_attention_tc"] += 1
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -127,9 +210,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     reference's query block: it changes no number, but ``S`` must be a
     multiple of ``min(bq, S)`` as the reference asserts.
 
-    CUDA tensors launch ``flash_attention_fwd`` (q, k, v of one dtype,
-    fp32 or bf16, contiguous, D <= 128) or raise; CPU tensors run
-    :func:`flash_attention_plain`."""
+    CUDA tensors launch the kernel :func:`attention_kernel` names for
+    their type (q, k, v of one dtype, fp32 or bf16, contiguous, D <= 128;
+    bf16 at the :func:`kv_splits` split of this card's SMs) or raise; CPU
+    tensors run :func:`flash_attention_plain`."""
     kv_chunk = _check(q, k, v, bq, kv_chunk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -144,9 +228,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if t.dtype != q.dtype:
             raise ValueError(f"{name}: {arg} dtype {t.dtype} differs from "
                              f"q's {q.dtype}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name}: dtype {q.dtype} must be float32 or "
-                         f"bfloat16")
+    entry = attention_kernel(q.dtype)
     BH, S, D = q.shape
     T = k.shape[1]
     if D > MAX_HEAD_DIM:
@@ -155,13 +237,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"{name}: window must be >= 0, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k and v must be contiguous")
-    out = torch.empty_like(q)
-    rc = _lib().flash_attention_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), BH, S, T, D, kv_chunk, int(bool(causal)),
-        int(window), 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return out
+    n_split = 1
+    if entry == "flash_attention_tc":
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = kv_splits(BH, S, T, kv_chunk, n_sm)
+    return _launch(q, k, v, causal, window, kv_chunk, n_split)

@@ -141,6 +141,64 @@ def test_plain_version_launches_nothing():
     assert fa.LAUNCHES == before
 
 
+def test_attention_kernel_rule():
+    """The written dtype -> kernel rule: bf16 launches the tensor-core
+    kernel, fp32 the FFMA kernel, anything else raises."""
+    assert fa.attention_kernel(torch.bfloat16) == "flash_attention_tc"
+    assert fa.attention_kernel(torch.float32) == "flash_attention_fwd"
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fa.attention_kernel(dt)
+
+
+@pytest.mark.parametrize("args,want", [
+    ((14, 4096, 4096, 4096, 132), 1),     # qwen2 long prefill: 896 blocks
+    ((32, 4096, 4096, 4096, 132), 1),     # qwen3-moe long prefill
+    ((56, 256, 256, 256, 132), 1),        # the prefill-chunk yardstick
+    ((14, 512, 256, 256, 132), 1),        # 4 sub-tiles: too few to split
+    ((14, 128, 4097, 4096, 132), 5),      # ragged: 28 blocks -> 140
+    ((4, 128, 4097, 4096, 132), 16),      # capped at 64 / 4 sub-tiles
+    ((1, 64, 512, 512, 132), 2)])
+def test_kv_splits(args, want):
+    assert fa.kv_splits(*args) == want
+
+
+@pytest.mark.parametrize("BH", [1, 3, 14, 40])
+@pytest.mark.parametrize("S", [1, 64, 128, 500, 4096])
+@pytest.mark.parametrize("T,kv_chunk", [(64, 64), (300, 256), (4097, 4096),
+                                        (2048, 1024), (700, 256)])
+def test_kv_splits_bounds(BH, S, T, kv_chunk):
+    """Never a split below MIN_SPLIT_SUBTILES sub-tiles of the chunk (so
+    never below one), and a split only while the query tiles alone leave
+    SMs idle."""
+    n = fa.kv_splits(BH, S, T, kv_chunk, 132)
+    assert n >= 1
+    if n > 1:
+        assert -(-S // fa.TC_QUERY_ROWS) * BH < 132
+        width = -(-min(kv_chunk, T) // n)
+        assert width >= fa.MIN_SPLIT_SUBTILES * fa.TC_KV_COLS - fa.TC_KV_COLS
+        assert -(-min(kv_chunk, T) // fa.TC_KV_COLS) >= n * \
+            fa.MIN_SPLIT_SUBTILES
+
+
+def test_kv_splits_refuses_empty_sizes():
+    for args in ((0, 1, 1, 1, 1), (1, 1, 1, 0, 1), (1, 1, 1, 1, 0)):
+        with pytest.raises(ValueError, match="positive"):
+            fa.kv_splits(*args)
+
+
+def test_launch_refuses_bad_splits():
+    """The launcher refuses a split count below 1, and any split of the
+    fp32 (FFMA) kernel, before it allocates or builds anything."""
+    q = torch.zeros(1, 8, 16)
+    with pytest.raises(ValueError, match="n_split"):
+        fa._launch(q, q, q, True, 0, 8, 2)
+    with pytest.raises(ValueError, match="n_split"):
+        fa._launch(q.bfloat16(), q.bfloat16(), q.bfloat16(), True, 0, 8, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._launch(q.half(), q.half(), q.half(), True, 0, 8, 1)
+
+
 def test_wrapper_never_runs_the_plain_version_off_the_cpu():
     """A tensor on any device but the CPU launches the kernel or raises:
     on a device the kernel does not take it raises, and without a card a

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (float, W8 and W8A8 forms, K2's int8-only form
 of the MoE expert banks, and K3 flash attention) against their plain
 versions, and the full-sequence ``lm.prefill`` against the ``ref``
-backend, on the card.
+backend, on the card.  bf16 K1 float and bf16 K3 run the tensor-core
+kernels, fp32 the FFMA ones (``gemm_kernel`` / ``attention_kernel``); the
+per-kernel launch counters show which ran.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -82,10 +84,77 @@ def test_arrayflex_gemm_matches_plain(cuda, dt, k, mkn, flags):
                              bias=r(N, dtype=torch.float32),
                              bias2=r(N, dtype=torch.float32)),
           "f32_out": dict(out_dtype=torch.float32)}[flags]
-    before = ag.LAUNCHES["arrayflex_gemm"]
+    before = dict(ag.LAUNCHES)
     got = ag.arrayflex_gemm(x, w, k_collapse=k, **kw)
-    assert ag.LAUNCHES["arrayflex_gemm"] == before + 1
+    tc = int(dt == torch.bfloat16)          # the tensor-core kernel ran
+    assert ag.LAUNCHES == dict(
+        before, arrayflex_gemm=before["arrayflex_gemm"] + 1,
+        arrayflex_gemm_tc=before["arrayflex_gemm_tc"] + tc)
     _close(got, ag.arrayflex_gemm_plain(x, w, **kw), dt)
+
+
+def _tc_operands(g, M, K, N, flags):
+    def r(*s, dtype=torch.bfloat16):
+        return torch.randn(*s, generator=g, device="cuda").to(dtype)
+
+    kw = {"qkv": dict(bias=r(N, dtype=torch.float32),
+                      norm_scale=1.0 + 0.1 * r(K, dtype=torch.float32)),
+          "swiglu": dict(w2=r(K, N) * K ** -0.5, activation="silu",
+                         norm_scale=1.0 + 0.1 * r(K, dtype=torch.float32)),
+          "residual": dict(residual=r(M, N))}[flags]
+    return r(M, K), r(K, N) * K ** -0.5, kw
+
+
+@pytest.mark.parametrize("mkn,flags", [
+    ((4, 896, 896), "qkv"), ((4, 896, 4864), "swiglu"),
+    ((4, 4864, 896), "residual"), ((37, 130, 200), "swiglu"),
+    ((300, 896, 4864), "swiglu"), ((1024, 4864, 896), "residual"),
+    ((200, 896, 128), "qkv")])
+def test_arrayflex_gemm_tc_bit_identical_across_k(cuda, mkn, flags):
+    """The tensor-core K1 takes its k16 products in increasing K order
+    whatever k_collapse (and whatever its ring depth, which k changes), so
+    its bf16 output is the same bits at k = 1, 2, 4, 8; and it matches the
+    plain version."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M * N + K)
+    x, w, kw = _tc_operands(g, M, K, N, flags)
+    outs = []
+    for k in (1, 2, 4, 8):
+        before = ag.LAUNCHES["arrayflex_gemm_tc"]
+        outs.append(ag.arrayflex_gemm(x, w, k_collapse=k, **kw))
+        assert ag.LAUNCHES["arrayflex_gemm_tc"] == before + 1
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_gemm_plain(x, w, **kw),
+                torch.bfloat16)
+
+
+@pytest.mark.parametrize("mkn", [(4, 896, 896), (37, 130, 200),
+                                 (300, 264, 136)])
+def test_arrayflex_gemm_tc_scalar_staging(cuda, mkn):
+    """Operands whose base is not 16-byte aligned stage through the scalar
+    path of the same kernel: the same main loop, so the same bits as the
+    aligned copies (and the plain version's numbers)."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + 3 * K + N)
+    x, w, kw = _tc_operands(g, M, K, N, "swiglu")
+    kw["residual"] = torch.randn(M, N, generator=g, device=cuda).to(
+        torch.bfloat16)
+
+    def shifted(t):                     # same values, base 2 bytes off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    want = ag.arrayflex_gemm(x, w, k_collapse=2, **kw)
+    got = ag.arrayflex_gemm(shifted(x), shifted(w), k_collapse=2,
+                            **dict(kw, w2=shifted(kw["w2"]),
+                                   residual=shifted(kw["residual"])))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close_step(got, ag.arrayflex_gemm_plain(x, w, **kw), torch.bfloat16)
 
 
 @pytest.mark.parametrize("combo", ["f32", "bf16", "f32xbf16"])
@@ -132,10 +201,12 @@ def _serve_reduced(backend, arch="qwen2-0.5b"):
 
 
 def test_engine_launches_every_kernel(cuda):
+    """bf16 serving: every K1 launch on the tensor-core kernel."""
     L, steps = _serve_reduced("arrayflex")
     assert ag.LAUNCHES == dict(
         {name: 0 for name in ag.LAUNCHES},
         arrayflex_gemm=(6 * L + 1) * steps,
+        arrayflex_gemm_tc=(6 * L + 1) * steps,
         arrayflex_expert_gemm=2 * L * steps)
 
 
@@ -246,8 +317,9 @@ def test_moe_engine_launches_every_kernel(cuda, backend):
     backend's K2 form; the unembed once per step."""
     L, steps = _serve_reduced(backend, "qwen3-moe-30b-a3b")
     want = {name: 0 for name in ag.LAUNCHES}
-    if backend == "arrayflex":
+    if backend == "arrayflex":        # all but the fp32 router on tensor cores
         want.update(arrayflex_gemm=(5 * L + 1) * steps,
+                    arrayflex_gemm_tc=(4 * L + 1) * steps,
                     arrayflex_expert_gemm=5 * L * steps)
     elif backend == "arrayflex_int8":
         want.update(arrayflex_gemm_int8=(4 * L + 1) * steps,
@@ -309,15 +381,52 @@ def test_flash_attention_matches_plain(cuda, dt, case):
     g = torch.Generator(device=cuda).manual_seed(S + T + D)
     q, k, v = (torch.randn(BH, n, D, generator=g, device=cuda).to(dt)
                for n in (S, T, T))
-    before = fa.LAUNCHES["flash_attention"]
+    before = dict(fa.LAUNCHES)
     got = ops.attention(q, k, v, causal=causal, window=window)
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    tc = int(dt == torch.bfloat16)          # the tensor-core kernel ran
+    assert fa.LAUNCHES == dict(
+        flash_attention=before["flash_attention"] + 1,
+        flash_attention_tc=before["flash_attention_tc"] + tc)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     kv_chunk=planner.attention_plan(S, T))
     _close_step(got, want, dt)
     dead = want.float().abs().amax(dim=-1) == 0
     assert torch.equal(got[dead], torch.zeros_like(got[dead]))
     assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("case", [(14, 128, 4097, 64, False, 0),
+                                  (4, 128, 4097, 64, False, 0),
+                                  (4, 128, 4097, 128, True, 0),
+                                  (2, 256, 3000, 32, False, 700)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_split_matches_unsplit(cuda, case):
+    """Short S, long T: the split path (the ragged case's kv_splits count,
+    and 2 and 7 splits) against the unsplit tensor-core kernel and the
+    plain version, one bf16 step at max |value|; rows that see no column
+    come out exactly 0."""
+    BH, S, T, D, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(BH + S + T + D)
+    q, k, v = (torch.randn(BH, n, D, generator=g, device=cuda).to(
+        torch.bfloat16) for n in (S, T, T))
+    kc = planner.attention_plan(S, T)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    auto = fa.kv_splits(BH, S, T, kc, n_sm)
+    if (BH, S, T) == (14, 128, 4097):
+        assert auto > 1
+    whole = fa._launch(q, k, v, causal, window, kc, 1)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    kv_chunk=kc)
+    _close_step(whole, want, torch.bfloat16)
+    dead = want.float().abs().amax(dim=-1) == 0
+    for n in sorted({auto, 2, 7}):
+        before = dict(fa.LAUNCHES)
+        got = fa._launch(q, k, v, causal, window, kc, n)
+        assert fa.LAUNCHES == {key: val + 1 for key, val in before.items()}
+        _close_step(got, whole, torch.bfloat16)
+        _close_step(got, want, torch.bfloat16)
+        assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+        assert bool(torch.isfinite(got).all())
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
@@ -354,6 +463,7 @@ def test_prefill_matches_ref_backend(cuda, path):
                                      {"tokens": toks})
         if backend == "arrayflex":
             assert ag.LAUNCHES["arrayflex_gemm"] == 6 * 2 + 1
+            assert ag.LAUNCHES["arrayflex_gemm_tc"] == 0     # fp32: FFMA
             assert ag.LAUNCHES["arrayflex_expert_gemm"] == (
                 2 * 2 if path == "dense" else 0)
             assert fa.LAUNCHES["flash_attention"] == 0

@@ -217,6 +217,23 @@ def test_wrapper_validation():
                           residual=torch.zeros(4, 5))
 
 
+def test_gemm_kernel_rule():
+    """The float form's written dtype -> kernel rule: bf16 operands launch
+    the tensor-core kernel, fp32 the FFMA kernel, anything else raises."""
+    assert ag.gemm_kernel(torch.bfloat16) == "af_gemm_tc"
+    assert ag.gemm_kernel(torch.float32) == "af_gemm"
+    for dt in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            ag.gemm_kernel(dt)
+
+
+def test_tc_counter_resets_with_the_others():
+    ag.LAUNCHES["arrayflex_gemm_tc"] += 3
+    ag.reset_launches()
+    assert set(ag.LAUNCHES) >= {"arrayflex_gemm", "arrayflex_gemm_tc"}
+    assert not any(ag.LAUNCHES.values())
+
+
 def test_resolve_device():
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
@@ -240,6 +257,19 @@ def test_build_sources_and_keys():
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build._digest(srcs[0]) == build._digest(srcs[0])
     assert build._digest(srcs[0]) != build._digest(srcs[1])
+
+
+def test_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    """A source's build key changes with any ``csrc/*.cuh`` it may include,
+    so an edited header rebuilds every library."""
+    for f in list(build.sources()) + list(build.headers()):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [h.name for h in build.headers()] == ["tc.cuh"]
+    src = build.sources()[0]
+    before = build._digest(src)
+    (tmp_path / "tc.cuh").write_text("// edited\n")
+    assert build._digest(src) != before
 
 
 # ----------------------------------------------------------- planning
