@@ -9,7 +9,8 @@ failure of which exits non-zero:
 1. device: the card's name and power limit, torch's device name and count;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
    register / shared-memory / spill lines, then the tensor-core kernels'
-   registers, spills and dynamic shared memory at the main path's shapes;
+   (and the FFMA K1's narrow decode tile's) registers, spills and dynamic
+   shared memory at the main path's shapes;
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -18,9 +19,11 @@ failure of which exits non-zero:
    each), in bf16 and fp32, k in {1, 2, 4}, each epilogue flag at least
    once; then the kernel, the plain version and one PyTorch library call
    timed with CUDA events, beside the least time the card could take (the
-   bound).  bf16 float-form K1 runs the tensor-core kernel and fp32 the
-   FFMA kernel (``gemm_kernel``): each check and time is booked under the
-   kernel that ran.  First the float forms (the ``arrayflex`` backend), then the
+   bound).  bf16 float-form K1 and K2 run the tensor-core kernels and fp32
+   the FFMA kernels (``gemm_kernel`` / ``expert_gemm_kernel``): each check
+   and time is booked under the kernel that ran, and the float K2's
+   decode sites are timed in fp32 as well (the FFMA kernel, which only the
+   fp32 path runs).  First the float forms (the ``arrayflex`` backend), then the
    int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
    on K2's int8-only form) and ``arrayflex_w8a8`` (W8A8, with attn.qk and
    the expert banks on K2's W8A8 form), and the plain-torch K^T quantize
@@ -41,19 +44,21 @@ failure of which exits non-zero:
    together): every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
    it) must equal its forms' launches per step times the steps, every
-   bf16 K1 launch on the tensor-core kernel;
+   bf16 K1 and K2 launch on the tensor-core kernels;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
    launch counters set to 0 just before it and read just after (K1 and K2
-   per layer, never K3; every K1 launch on the tensor-core kernel), with
+   per layer, never K3; every launch on the tensor-core kernels), with
    its host-clock time, device-busy time and peak memory;
 7. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
    ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
    ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32; then the
    full-width prefill of phase 6 in fp32 against ``ref`` and against the
-   engine's chunked ``prefill_step`` path on the same tokens; then the
+   engine's chunked ``prefill_step`` path on the same tokens (the kernels'
+   run with its launch counters set to 0 just before and read just after:
+   every launch on the FFMA kernels); then the
    same three decode pairs on qwen3-moe-30b-a3b in fp32 at full width and
    4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
    ``ref``, each reporting whether both runs routed every token to the
@@ -206,13 +211,22 @@ class Site:
 
     def kernel_key(self, dt) -> str:
         """The kernel that runs this site on operands of ``dt``: the
-        float-form K1 on bf16 is the tensor-core kernel
-        (``gemm_kernel``); every other form has one kernel."""
-        if (self.kernel == "arrayflex_gemm" and self.form == "float"
-                and ag.gemm_kernel(dt) == "af_gemm_tc"):
-            return "arrayflex_gemm_tc"
+        float-form K1 and K2 on bf16 are the tensor-core kernels
+        (``gemm_kernel`` / ``expert_gemm_kernel``; K2's fp32 query meets
+        a bf16 cache on the FFMA kernel); every other form has one
+        kernel."""
+        if self.form == "float" and dt == torch.bfloat16:
+            if (self.kernel == "arrayflex_gemm"
+                    and ag.gemm_kernel(dt) == "af_gemm_tc"):
+                return "arrayflex_gemm_tc"
+            if (self.kernel == "arrayflex_expert_gemm"
+                    and ag.expert_gemm_kernel(dt, dt) == "af_expert_gemm_tc"):
+                return "arrayflex_expert_gemm_tc"
         return self.launch_name
 
+
+# the FFMA kernels of the float forms (fp32 operands)
+FFMA_FLOAT = ("arrayflex_gemm", "arrayflex_expert_gemm")
 
 # kernel form -> the backend whose plans (k) the form runs under
 FORM_BACKEND = {"float": "arrayflex", "int8": "arrayflex_int8",
@@ -547,27 +561,35 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
                     name = site.kernel_key(dt)
                     err = max(v for key, v in errs.items()
                               if key.startswith(str(dt).split(".")[-1]))
-                    # the FFMA K1 is booked with its fp32 checks, every
-                    # other kernel with its bf16 ones (the path's type)
-                    if dt == torch.bfloat16 or name == "arrayflex_gemm":
+                    # the FFMA float kernels are booked with their fp32
+                    # checks, every other kernel with its bf16 ones (the
+                    # path's type)
+                    if dt == torch.bfloat16 or name in FFMA_FLOAT:
                         max_err[name] = max(max_err.get(name, 0.0), err)
             iters = 10 if site.name == "unembed" else 2 * site.copies
-            t = time_site(site, gen, iters)
-            row = dict(phase=phase, cell=site.cell, site=site.name,
-                       kernel=site.kernel, form=site.form,
-                       launch_name=site.kernel_key(site.time_dtype),
-                       shape=site.shape,
-                       per_step=site.per_step, max_abs_err=errs, **t)
-            results.append(row)
-            log(f"  {phase:7s} {site.form:5s} {site.name:22s} "
-                f"{str(site.shape):26s} k={t['k']} kernel "
-                f"{_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
-                f"library {_us(t['library_ms'])} us  bound "
-                f"{t['bound_ms']*1e3:7.2f} us ({t['bound_by']})  eager "
-                f"kernel/plain/library {_us(t['eager_ms'])}/"
-                f"{_us(t['plain_eager_ms'])}/"
-                f"{_us(t['library_eager_ms'])} us  "
-                f"bf16 err {bf16_err:.3g}")
+            timed = [site]
+            if (phase == "decode" and form == "float"
+                    and site.kernel == "arrayflex_expert_gemm"):
+                # the FFMA K2 runs only on the fp32 path: time it there too
+                timed.append(dataclasses.replace(site,
+                                                 time_dtype=torch.float32))
+            for ts in timed:
+                t = time_site(ts, gen, iters)
+                row = dict(phase=phase, cell=ts.cell, site=ts.name,
+                           kernel=ts.kernel, form=ts.form,
+                           launch_name=ts.kernel_key(ts.time_dtype),
+                           shape=ts.shape,
+                           per_step=ts.per_step, max_abs_err=errs, **t)
+                results.append(row)
+                log(f"  {phase:7s} {ts.form:5s} {ts.name:22s} "
+                    f"{str(ts.shape):26s} {t['dtype']:8s} k={t['k']} kernel "
+                    f"{_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
+                    f"library {_us(t['library_ms'])} us  bound "
+                    f"{t['bound_ms']*1e3:7.2f} us ({t['bound_by']})  eager "
+                    f"kernel/plain/library {_us(t['eager_ms'])}/"
+                    f"{_us(t['plain_eager_ms'])}/"
+                    f"{_us(t['library_eager_ms'])} us  "
+                    f"bf16 err {bf16_err:.3g}")
     for name, flags in EXTRA_FLAGS:
         site = Site(name, "arrayflex_gemm", (BATCH, cfg.d_model, cfg.d_ff),
                     0, flags, form=form)
@@ -769,17 +791,24 @@ def expected_launches(cfg, steps: int):
           else "arrayflex_expert_gemm")
     want[qk] += L * steps
     want["arrayflex_expert_gemm"] += L * steps                  # attn.pv
+    if cfg.compute_dtype == "bfloat16":
+        # every float K2 launch (bf16 cache, bf16 banks) on the tensor-core
+        # kernel, on every backend
+        want["arrayflex_expert_gemm_tc"] = want["arrayflex_expert_gemm"]
     return want
 
 
 def check_launches(what: str, launches: dict, want: dict) -> None:
-    """Every count as planned; in particular, every bf16 K1 launch of the
-    run on the tensor-core kernel (``arrayflex_gemm_tc``)."""
-    if launches.get("arrayflex_gemm_tc") != want.get("arrayflex_gemm_tc"):
-        raise AssertionError(
-            f"{what}: {launches.get('arrayflex_gemm_tc')} K1 launches on the "
-            f"tensor-core kernel, want {want.get('arrayflex_gemm_tc')} "
-            f"(every bf16 K1 launch)")
+    """Every count as planned; in particular, every bf16 K1 and K2 launch
+    of the run on the tensor-core kernels (``arrayflex_gemm_tc``,
+    ``arrayflex_expert_gemm_tc``) and every fp32 one on FFMA."""
+    for tc, form in (("arrayflex_gemm_tc", "K1"),
+                     ("arrayflex_expert_gemm_tc", "K2")):
+        if launches.get(tc) != want.get(tc):
+            raise AssertionError(
+                f"{what}: {launches.get(tc)} {form} launches on the "
+                f"tensor-core kernel, want {want.get(tc)} (every bf16 "
+                f"{form} launch, no fp32 one)")
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches} != "
                              f"expected {want}")
@@ -969,10 +998,11 @@ def forward_launches(cfg, S: int):
     L = cfg.n_layers
     want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
     want["arrayflex_gemm"] = 6 * L + 1
-    if cfg.compute_dtype == "bfloat16":
-        want["arrayflex_gemm_tc"] = 6 * L + 1        # all on tensor cores
     if S <= cfg.attn_dense_below:
         want["arrayflex_expert_gemm"] = 2 * L
+    if cfg.compute_dtype == "bfloat16":              # all on tensor cores
+        want["arrayflex_gemm_tc"] = want["arrayflex_gemm"]
+        want["arrayflex_expert_gemm_tc"] = want["arrayflex_expert_gemm"]
     return want
 
 
@@ -1036,7 +1066,7 @@ def prefill_kernel_phase(cfg):
                 f"kernel {_us(t['ms'])} us  plain {_us(t['plain_ms'])} us  "
                 f"library {_us(t['library_ms'])} us  bound "
                 f"{t['bound_ms'] * 1e3:8.2f} us ({t['bound_by']})")
-        for name in ("arrayflex_gemm_tc", "arrayflex_expert_gemm"):
+        for name in ("arrayflex_gemm_tc", "arrayflex_expert_gemm_tc"):
             sel = [r for r in rows if r["phase"] == f"prefill S={S}"
                    and r["launch_name"] == name]
             if sel:
@@ -1202,24 +1232,31 @@ def forward_parity_phase(cfg, params):
     FWD_SEQS (B = 1): on the kernels against the ``ref`` backend, and
     against the engine's path on the same tokens — ``prefill_step`` over
     the engine's planner-picked chunks into an fp32 cache — each within
-    MODEL_TOL of max |reference logit|."""
+    MODEL_TOL of max |reference logit|.  The kernels' run is the fp32
+    path: its launch counters, set to 0 just before it and read just
+    after, must show every K1 and K2 launch on the FFMA kernels
+    (returned under ``launches``)."""
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
     rng = np.random.default_rng(5)
-    out = {}
+    out = {"launches": {}}
     for S in FWD_SEQS:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, S)),
                                device="cuda")
         logits = {}
         for backend in ("arrayflex", "ref"):
             c = dataclasses.replace(c32, gemm_backend=backend)
-            ag.reset_launches()
-            logits[backend], _ = lm.prefill(c, lm.prepare_params(c, params),
-                                            {"tokens": toks})
-            if backend == "arrayflex" and (
-                    ag.LAUNCHES["arrayflex_gemm_tc"]
-                    or not ag.LAUNCHES["arrayflex_gemm"]):
-                raise AssertionError(f"fp32 prefill S={S}: K1 launches "
-                                     f"{ag.LAUNCHES} are not all FFMA")
+            params_c = lm.prepare_params(c, params)
+            torch.cuda.synchronize()
+            ag.reset_launches()                 # counts: 0 just before
+            fa.reset_launches()
+            logits[backend], _ = lm.prefill(c, params_c, {"tokens": toks})
+            torch.cuda.synchronize()
+            if backend == "arrayflex":
+                launches = dict(ag.LAUNCHES, **fa.LAUNCHES)  # just after
+                check_launches(f"fp32 prefill S={S}", launches,
+                               forward_launches(c, S))
+                out["launches"][S] = launches
+            del params_c
             _free()
         c = dataclasses.replace(c32, gemm_backend="arrayflex")
         p = lm.prepare_params(c, params)
@@ -1378,15 +1415,17 @@ def _step_totals(sel):
     return tot
 
 
-# kernel form -> the TPU kernel it replaces (arrayflex_gemm: the FFMA
-# kernel of the fp32 float form; arrayflex_gemm_tc: the tensor-core kernel
-# of the bf16 float form)
+# kernel form -> the TPU kernel it replaces (arrayflex_gemm /
+# arrayflex_expert_gemm: the FFMA kernels of the fp32 float forms;
+# arrayflex_gemm_tc / arrayflex_expert_gemm_tc: the tensor-core kernels of
+# the bf16 float forms)
 REPLACES = {
     "arrayflex_gemm": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_expert_gemm": "src/repro/kernels/arrayflex_gemm.py:452",
+    "arrayflex_expert_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:452",
 }
@@ -1440,23 +1479,33 @@ def k3_rows(k3, launches: dict):
 
 
 def tc_report() -> None:
-    """The tensor-core kernels' registers and spills (ptxas, per
-    instantiation) and the dynamic shared memory their launchers take at
-    the main path's shapes (decode M = 4 at the planned k = 4, prefill at
-    k = 1 and 2; K3 at each head dim)."""
+    """The tensor-core kernels' and the narrow FFMA tile's registers and
+    spills (ptxas, per instantiation) and the dynamic shared memory the
+    tensor-core launchers take at the main path's shapes (K1: decode M = 4
+    at the planned k = 4, prefill at k = 1 and 2; K2: an MoE bank's T = 1,
+    the prefill chunk's and the 2048-token prefill's attn.qk (N = S) and
+    attn.pv (N = 64, the 128 x 64 tile); K3 at each head dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif entry and ("tc_kernel" in entry or "combine" in entry) and (
+            elif entry and any(key in entry for key in (
+                    "tc_kernel", "combine", "narrow_kernel")) and (
                     "Used" in line or "spill" in line):
-                log(f"  tensor-core {stem} {entry}: {line.split(':', 1)[-1].strip()}")
+                log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}")
     glib, flib = ag._lib(), fa._lib()
     for M, k in ((4, 4), (1024, 2), (2048, 1)):
         log(f"  af_gemm_tc dynamic shared memory at M = {M}, k = {k}: "
-            f"{glib.af_gemm_tc_smem(M, k, 0)} B (dual "
-            f"{glib.af_gemm_tc_smem(M, k, 1)} B)")
+            f"{glib.af_gemm_tc_smem(M, 896, k, 0)} B (dual "
+            f"{glib.af_gemm_tc_smem(M, 896, k, 1)} B)")
+    for what, (T, N, k) in (("MoE bank", (1, 768, 4)),
+                            ("prefill-chunk attn.qk", (1792, 256, 2)),
+                            ("prefill-chunk attn.pv", (1792, 64, 2)),
+                            ("S = 2048 attn.qk", (14336, 2048, 1)),
+                            ("S = 2048 attn.pv", (14336, 64, 1))):
+        log(f"  af_expert_gemm_tc dynamic shared memory at the {what} (T = "
+            f"{T}, N = {N}, k = {k}): {glib.af_gemm_tc_smem(T, N, k, 0)} B")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")
@@ -1538,14 +1587,17 @@ def main() -> int:
     log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
     moe_parity = moe_parity_phase(moe_cfg)
 
-    # each GEMM form's launches over every serving and prefill run (each
-    # run counted from 0); K3's over its ops.attention run.  The FFMA K1's
-    # are the float-form launches not on the tensor-core kernel.
+    # each GEMM form's launches over every serving run, the bf16 prefill
+    # runs and the fp32 prefill runs of phase 7 (each run counted from 0);
+    # K3's over its ops.attention run.  The FFMA kernels' are the
+    # float-form launches not on the tensor-core kernels.
     runs = (list(serving.values()) + list(moe_serving.values())
-            + list(prefill.values()))
+            + list(prefill.values())
+            + [{"launches": v} for v in parity.pop("launches").values()])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     launches["arrayflex_gemm"] -= launches["arrayflex_gemm_tc"]
+    launches["arrayflex_expert_gemm"] -= launches["arrayflex_expert_gemm_tc"]
     kernels, cells = summarize(results, max_err, launches)
     kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start

@@ -5,13 +5,17 @@ kernels ``_kernel`` and ``_expert_kernel`` become hand-written CUDA kernels
 in ``csrc/arrayflex_gemm.cu`` (the design notes are at the top of that
 file), one C entry per operand form:
 
-  ``af_gemm``           ``_kernel`` on fp32 operands (FFMA);
+  ``af_gemm``           ``_kernel`` on fp32 operands (FFMA; a narrow
+                        decode tile at M <= 16, the MoE router's shape);
   ``af_gemm_tc``        ``_kernel`` on bf16 operands (tensor cores,
                         ``mma.sync`` bf16 x bf16 -> fp32);
   ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 (fp32/bf16 x,
                         dequant at the store) or, with ``act_quant``, W8A8
                         (per-tile int8 x, an int8 x int8 -> int32 chain);
-  ``af_expert_gemm``    ``_expert_kernel`` on fp32/bf16 operands;
+  ``af_expert_gemm``    ``_expert_kernel`` on fp32 x (fp32 or bf16 w; FFMA);
+  ``af_expert_gemm_tc`` ``_expert_kernel`` on bf16 operands (the tensor-core
+                        kernel of ``af_gemm_tc``, the expert axis on the
+                        grid's z);
   ``af_expert_gemm_q``  ``_expert_kernel`` on int8 weight codes: the
                         int8-only form (MoE expert banks under W8, dequant
                         per (expert, column) at the store) or, with
@@ -31,10 +35,12 @@ plain PyTorch version (``*_plain``) only for CPU tensors.  The plain
 version computes the same function with the same prologue and store, cast
 once: the CPU tests hold it against the reference, and the on-card checks
 hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
-and nothing else; the float form's operand type picks its kernel by the
-written rule of :func:`gemm_kernel`, and ``arrayflex_gemm_tc`` counts the
-float-form launches that ran the tensor-core kernel (a subset of
-``arrayflex_gemm``, which counts every float-form launch).
+and nothing else; the float forms' operand types pick their kernels by
+the written rules of :func:`gemm_kernel` and :func:`expert_gemm_kernel`,
+and ``arrayflex_gemm_tc`` / ``arrayflex_expert_gemm_tc`` count the
+float-form launches that ran the tensor-core kernel (subsets of
+``arrayflex_gemm`` / ``arrayflex_expert_gemm``, which count every
+float-form launch).
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ ACTIVATIONS = ("none", "silu", "gelu")
 LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_tc": 0,
             "arrayflex_gemm_int8": 0,
             "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
+            "arrayflex_expert_gemm_tc": 0,
             "arrayflex_expert_gemm_int8": 0,
             "arrayflex_expert_gemm_w8a8": 0}
 
@@ -74,14 +81,33 @@ def gemm_kernel(dtype) -> str:
     """The kernel that :func:`arrayflex_gemm`'s float form launches for
     operands of ``dtype``: bf16 -> ``af_gemm_tc`` (tensor cores, bf16
     products into fp32 sums, the reference matrix unit's arithmetic), fp32
-    -> ``af_gemm`` (FFMA: tensor cores give no IEEE fp32).  The choice
-    follows the operand type only, never a failed build or launch."""
+    -> ``af_gemm`` (FFMA: tensor cores give no IEEE fp32; its C entry
+    takes a narrow decode tile, K in 16 fixed slices, for one contraction
+    at M <= 16, N <= 4096).  The choice follows the operand type only,
+    never a failed build or launch."""
     if dtype == torch.bfloat16:
         return "af_gemm_tc"
     if dtype == torch.float32:
         return "af_gemm"
     raise ValueError(f"arrayflex_gemm: operands must be float32 or "
                      f"bfloat16, got {dtype}")
+
+
+def expert_gemm_kernel(x_dtype, w_dtype) -> str:
+    """The kernel that :func:`arrayflex_expert_gemm`'s float form launches
+    for x of ``x_dtype`` and w of ``w_dtype``: bf16 x bf16 ->
+    ``af_expert_gemm_tc`` (tensor cores, as :func:`gemm_kernel`), fp32 x
+    with fp32 w, or with a bf16 K/V cache, -> ``af_expert_gemm`` (FFMA:
+    an fp32 operand has no IEEE fp32 tensor-core product).  The choice
+    follows the operand types only, never a failed build or launch."""
+    if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
+        return "af_expert_gemm_tc"
+    if x_dtype == torch.float32 and w_dtype in (torch.float32,
+                                                torch.bfloat16):
+        return "af_expert_gemm"
+    raise ValueError(f"arrayflex_expert_gemm: unsupported dtypes x "
+                     f"{x_dtype}, w {w_dtype} (bf16 x bf16, or fp32 x with "
+                     f"fp32 or bf16 w)")
 
 
 def _act(y, activation: str):
@@ -235,13 +261,15 @@ def _lib():
         lib.af_gemm_tc.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i,
                                    ll, ll, ll, ll, i, i, p]
         lib.af_gemm_tc.restype = i
-        lib.af_gemm_tc_smem.argtypes = [i, i, i]
+        lib.af_gemm_tc_smem.argtypes = [i, i, i, i]
         lib.af_gemm_tc_smem.restype = ll
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, ll, ll, ll, ll, i, i, i, i, p]
         lib.af_gemm_q.restype = i
         lib.af_expert_gemm.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
         lib.af_expert_gemm.restype = i
+        lib.af_expert_gemm_tc.argtypes = [i, p, p, p, i, i, i, i, i, p]
+        lib.af_expert_gemm_tc.restype = i
         lib.af_expert_gemm_q.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
                                          i, i, i, p]
         lib.af_expert_gemm_q.restype = i
@@ -458,8 +486,9 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     ``w_scale``) adds the W8A8 per-tile x quantizer, each expert's rows
     tiled as :func:`quant_tiles` says.  Empty E/T/N/K returns exact zeros.
 
-    CUDA tensors launch ``af_expert_gemm`` (contiguous operands; x/w dtypes
-    fp32/fp32, bf16/bf16 or fp32/bf16) or, with ``w_scale``,
+    CUDA tensors launch the kernel :func:`expert_gemm_kernel` names for
+    their types (contiguous operands; ``af_expert_gemm_tc`` on bf16/bf16,
+    ``af_expert_gemm`` on fp32/fp32 or fp32/bf16) or, with ``w_scale``,
     ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
     the MoE expert banks, or W8A8 under ``act_quant``) — fp32 or bf16 out
     — or raise; CPU tensors run :func:`arrayflex_expert_gemm_plain`."""
@@ -504,16 +533,21 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
             _ptr(x), _ptr(w), _ptr(s), _ptr(out), E, T, K, N, k_collapse,
             qbm, qkk, _stream(x.device))
     else:
-        if ((x.dtype, w.dtype) not in ((torch.float32, torch.float32),
-                                       (torch.bfloat16, torch.bfloat16),
-                                       (torch.float32, torch.bfloat16))
-                or out_dtype not in _DTYPE_CODE):
+        entry = expert_gemm_kernel(x.dtype, w.dtype)
+        if out_dtype not in _DTYPE_CODE:
             raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
                              f"w {w.dtype}, out {out_dtype}")
-        rc = _lib().af_expert_gemm(
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-            _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(out), E, T, K, N,
-            k_collapse, _stream(x.device))
+        if entry == "af_expert_gemm_tc":
+            rc = _lib().af_expert_gemm_tc(
+                _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(out), E, T, K,
+                N, k_collapse, _stream(x.device))
+        else:
+            rc = _lib().af_expert_gemm(
+                _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+                _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(out), E, T, K,
+                N, k_collapse, _stream(x.device))
     _check_rc(rc, name)
     LAUNCHES[name] += 1
+    if not quant and entry == "af_expert_gemm_tc":
+        LAUNCHES["arrayflex_expert_gemm_tc"] += 1
     return out

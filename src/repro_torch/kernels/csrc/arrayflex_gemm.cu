@@ -3,10 +3,12 @@
 // each on float weights and on int8 weight codes.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/arrayflex_gemm.py:
-//   af_gemm           <- _kernel, fp32/bf16 operands
+//   af_gemm           <- _kernel, fp32 operands (FFMA)
+//   af_gemm_tc        <- _kernel, bf16 operands (tensor cores)
 //   af_gemm_q         <- _kernel, int8 weights: W8 (quant) and W8A8
 //                        (quant + act_quant)
-//   af_expert_gemm    <- _expert_kernel, fp32/bf16 operands
+//   af_expert_gemm    <- _expert_kernel, fp32 x with fp32 or bf16 w
+//   af_expert_gemm_tc <- _expert_kernel, bf16 operands (tensor cores)
 //   af_expert_gemm_q  <- _expert_kernel, int8 weights: the int8-only form
 //                        of the MoE expert banks (quant) and W8A8
 //                        (quant + act_quant)
@@ -43,10 +45,11 @@
 // GEMM is bound by operations: 989 TFLOP/s for bf16 operands on the tensor
 // cores, 67 TFLOP/s for fp32 on the FFMA pipes.
 //
-// Two kernels for af_gemm, chosen by operand type (the wrapper's written
-// rule, counted per kernel): bf16 operands launch af_gemm_tc_kernel
-// (entry af_gemm_tc), fp32 operands the FFMA af_gemm_kernel (entry
-// af_gemm).  The int8 and expert forms keep their own FFMA / __dp4a
+// The float forms' kernels are chosen by operand type (the wrapper's
+// written rules, counted per kernel): bf16 operands launch
+// af_gemm_tc_kernel (entries af_gemm_tc, and af_expert_gemm_tc with the
+// expert axis on blockIdx.z), fp32 operands the FFMA kernels (entries
+// af_gemm, af_expert_gemm).  The int8 forms keep their own FFMA / __dp4a
 // kernels.
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
@@ -86,10 +89,39 @@
 //     src-size at the edge chunk, zero stores past it), nothing is padded
 //     in device memory; a base or row stride that is not 16-byte aligned
 //     stages through scalar loads inside the same kernel, into the same
-//     main loop.
+//     main loop;
+//   * the batch axis (K2: an MoE expert, or one batch x kv-head of
+//     attn.qk / attn.pv) is blockIdx.z: x, w and out are offset by their
+//     batch strides before anything else, so the alignment test is taken
+//     per element (with T * K not a multiple of 8, some experts' bases are
+//     misaligned and stage through the scalar path), and an element's
+//     bits do not depend on how many others share the launch.  K2's
+//     tiles: the decode tile for T <= 16 (an MoE bank's one capacity row
+//     is one row of 16, 24 or 64 column blocks an expert), the 128 x 128
+//     prefill tile, and 128 x 64 where N <= 64 (attn.pv's head dim).  The
+//     fp32 score tile of attn.qk leaves through the same shared-memory
+//     epilogue.
 //
-// The FFMA and __dp4a kernels (fp32 af_gemm, the int8 forms, the expert
-// forms), plain kernels that are right first:
+// af_gemm_narrow_kernel, fp32 af_gemm at decode (M <= 16) with one
+// contraction and N <= 4096: the MoE router (4, 2048, 128) is fp32 on every
+// backend, as in the reference, and on the 64-column tile below it ran 2
+// blocks on 132 SMs, each walking K with scalar loads between two barriers
+// (~104 us a launch).  Here a block owns 8 columns (16 blocks at N = 128; a
+// warp's lanes on neighbouring columns) and splits K into 16 fixed slices,
+// one warp each: a warp stages its slice's w panel and x rows as 16-byte
+// cp.async chunks into its own ring of main-loop steps (k_collapse 32-row
+// sub-tiles, up to half the ring), keeps its outputs as fmaf chains over
+// the slice in K order, and the slices' partials add in slice order at the
+// end.  The split is fixed by K alone, so the output is the same bits at
+// every k_collapse, though not the 64-column tile's single chain (both
+// hold the plain version's fp32 tolerance).  Why not that single chain
+// here: with one output a thread, each SM holds one computing warp whose
+// chain waits on a shared-memory load every K step, and few warps stage
+// the scattered 32-byte rows of w; 16 slices give an SM 16 warps for
+// both.
+//
+// The FFMA and __dp4a kernels (fp32 af_gemm, the int8 forms, the fp32
+// expert form), plain kernels that are right first:
 //   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
 //     outputs a thread) for large M and BM = 16 (1 x 4 outputs a thread)
 //     for decode-sized M, so a 4-row decode GEMM wastes 4x rather than 16x
@@ -312,6 +344,207 @@ af_gemm_kernel(Args a) {
     __syncthreads();
   }
   store_tile<TX, TO, TM, DUAL>(a, acc, acc2, m0 + ty * TM, n0 + tx * 4);
+}
+
+// The main loop over a ring of `stages` slots of step_bytes each at shared
+// address `ring`: issue(step, slot) stages a step's sub-tiles with
+// cp.async (and commits one group), run(step, slot) computes them.  WARP:
+// the ring is one warp's own (its lanes stage and compute it), so the
+// barriers are the warp's.
+template <bool WARP = false>
+__device__ __forceinline__ void ring_sync() {
+  if (WARP) __syncwarp(); else __syncthreads();
+}
+
+template <bool WARP = false, typename Issue, typename Run>
+__device__ __forceinline__ void run_ring(uint32_t ring, uint32_t step_bytes,
+                                         int stages, int n_steps,
+                                         Issue& issue, Run& run) {
+  const uint32_t ring_end = ring + step_bytes * stages;
+  if (stages >= 2) {
+    // single barrier a step: the barrier that makes step j visible also
+    // frees the slots of step j - 1, which then take step j + stages - 1
+    uint32_t fill = ring, use = ring;
+    for (int s = 0; s < stages - 1; ++s, fill += step_bytes) issue(s, fill);
+    for (int step = 0; step < n_steps; ++step) {
+      tc::cp_async_wait(stages - 2);
+      ring_sync<WARP>();
+      issue(step + stages - 1, fill);
+      fill = fill + step_bytes == ring_end ? ring : fill + step_bytes;
+      run(step, use);
+      use = use + step_bytes == ring_end ? ring : use + step_bytes;
+    }
+  } else {
+    for (int step = 0; step < n_steps; ++step) {
+      ring_sync<WARP>();
+      issue(step, ring);
+      tc::cp_async_wait(0);
+      ring_sync<WARP>();
+      run(step, ring);
+    }
+  }
+  tc::cp_async_wait(0);
+}
+
+// ---------------------------------------------------------------------------
+// FFMA narrow decode tile (fp32 af_gemm at M <= 16, N <= NW_MAX_N, one
+// contraction: the MoE router, (4, 2048, 128) at decode)
+
+constexpr int NW_COLS = 8;          // output columns a block
+constexpr int NW_SPLIT = 16;        // K slices a block: one warp each
+constexpr int NW_THREADS = 32 * NW_SPLIT;
+constexpr int NW_BK = 32;           // K rows of one staged sub-tile
+constexpr int NW_LDX = NW_BK + 4;   // x row stride (floats): the 4 rows a
+                                    // warp reads start on other banks
+constexpr int NW_W_BYTES = 4 * NW_BK * NW_COLS;
+constexpr int NW_RING = 8;          // sub-tiles a warp's ring holds (at
+                                    // most; 4 at M = 16)
+constexpr int NW_MAX_N = 4096;      // wider: the 64-column tile fills the card
+
+// bytes of one ring slot (one sub-tile): x (M rows), w, g
+__host__ __device__ __forceinline__ int nw_slot(int M) {
+  return 4 * M * NW_LDX + NW_W_BYTES + 4 * NW_BK;
+}
+
+// sub-tiles of one main-loop step: k_collapse, up to half the warp's ring
+// (what fits the SM bounds the ring, so k_collapse never bounds the tile)
+__host__ __device__ __forceinline__ int nw_step_subs(int M, int k_collapse) {
+  const int fit = MAX_SMEM / NW_SPLIT / nw_slot(M);
+  const int half = (fit < NW_RING ? fit : NW_RING) / 2;
+  return k_collapse < half ? k_collapse : half;
+}
+
+// One (M x 8) output tile, fp32.  Warp s of the block sums K slice s (the
+// s-th of NW_SPLIT runs of whole 32-row sub-tiles, fixed by K alone)
+// through a private cp.async ring of `stages` main-loop steps of
+// nw_step_subs sub-tiles (x rows, the 8-column w panel, g); lane (r, c)
+// keeps outputs (r, c), (r + 4, c), ... as fmaf chains over the slice in
+// increasing K order.  The slices' partials then add in slice order.  So
+// every output is the same sum whatever k_collapse, the ring depth or the
+// launch.
+template <typename TO>
+__global__ void __launch_bounds__(NW_THREADS)
+af_gemm_narrow_kernel(Args a, int stages) {
+  extern __shared__ __align__(16) unsigned char nw_smem[];
+  const int M = a.M, N = a.N, K = a.K, kc = nw_step_subs(M, a.k_collapse);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = lane / NW_COLS, col = lane % NW_COLS;
+  const int n0 = blockIdx.x * NW_COLS;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
+  const float* g = a.g;
+  const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 4 == 0;
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && a.ldw % 4 == 0;
+  const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const int x_bytes = 4 * M * NW_LDX;
+  const int slot = nw_slot(M);
+  // this warp's K slice: sub-tiles [sub0, sub0 + n_sub)
+  const int n_all = (K + NW_BK - 1) / NW_BK;
+  const int per = (n_all + NW_SPLIT - 1) / NW_SPLIT;
+  const int sub0 = warp * per;
+  const int n_sub = max(0, min(per, n_all - sub0));
+  const int n_steps = (n_sub + kc - 1) / kc;
+  const uint32_t step_bytes = (uint32_t)slot * kc;
+  const uint32_t ring = tc::smem_addr(nw_smem) + warp * stages * step_bytes;
+  unsigned char* const base_ptr = nw_smem + warp * stages * step_bytes;
+
+  // one 4-float chunk of n valid floats at src into shared address d: a
+  // 16-byte cp.async where the source allows, else scalar
+  auto chunk = [&](uint32_t d, const float* src, int n, bool vec) {
+    if (vec) {
+      tc::cp_chunk(d, n > 0 ? src : x, n, 4);
+    } else {
+      float* dp = reinterpret_cast<float*>(base_ptr + (d - ring));
+      for (int e = 0; e < 4; ++e) dp[e] = e < n ? src[e] : 0.f;
+    }
+  };
+  auto stage = [&](int sub, uint32_t b) {
+    const int k0 = (sub0 + sub) * NW_BK;
+    for (int i = lane; i < M * (NW_BK / 4); i += 32) {        // x rows
+      const int rr = i / (NW_BK / 4), cc = 4 * (i % (NW_BK / 4));
+      chunk(b + 4 * (rr * NW_LDX + cc), x + (long long)rr * a.ldx + k0 + cc,
+            K - k0 - cc, xvec);
+    }
+    for (int i = lane; i < 2 * NW_BK; i += 32) {              // w: 2 a row
+      const int rr = i / 2, cc = 4 * (i % 2), gk = k0 + rr;
+      chunk(b + x_bytes + 4 * (rr * NW_COLS + cc),
+            w + (long long)gk * a.ldw + n0 + cc,
+            gk < K ? min(4, N - n0 - cc) : 0, wvec);
+    }
+    if (g != nullptr && lane < NW_BK / 4) {                  // g
+      const int cc = 4 * lane;
+      chunk(b + x_bytes + NW_W_BYTES + 4 * cc, g + k0 + cc, K - k0 - cc,
+            gvec);
+    }
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // rows rl, rl + 4, rl + 8, rl + 12
+  auto compute = [&](int sub, uint32_t b) {
+    const float* S = reinterpret_cast<const float*>(base_ptr + (b - ring));
+    const float* Ws = S + x_bytes / 4 + col;
+    const float* Gs = S + (x_bytes + NW_W_BYTES) / 4;
+    const int nk = min(NW_BK, K - (sub0 + sub) * NW_BK);
+    if (nk == NW_BK) {
+#pragma unroll
+      for (int kb = 0; kb < NW_BK; kb += 4) {
+        float wv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wv[e] = Ws[(kb + e) * NW_COLS];
+        float4 gv = make_float4(1.f, 1.f, 1.f, 1.f);
+        if (g != nullptr) gv = *reinterpret_cast<const float4*>(Gs + kb);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (rl + 4 * j >= M) break;
+          float4 xv = *reinterpret_cast<const float4*>(
+              S + (rl + 4 * j) * NW_LDX + kb);
+          if (g != nullptr)       // the prologue: x_at's fp32 product
+            xv = make_float4(__fmul_rn(xv.x, gv.x), __fmul_rn(xv.y, gv.y),
+                             __fmul_rn(xv.z, gv.z), __fmul_rn(xv.w, gv.w));
+          acc[j] = fmaf(xv.x, wv[0], acc[j]);
+          acc[j] = fmaf(xv.y, wv[1], acc[j]);
+          acc[j] = fmaf(xv.z, wv[2], acc[j]);
+          acc[j] = fmaf(xv.w, wv[3], acc[j]);
+        }
+      }
+    } else {
+      for (int kb = 0; kb < nk; ++kb) {
+        const float wv = Ws[kb * NW_COLS];
+        for (int j = 0; j < 4 && rl + 4 * j < M; ++j) {
+          const float* Xs = S + (rl + 4 * j) * NW_LDX;
+          const float xv = g != nullptr ? __fmul_rn(Xs[kb], Gs[kb]) : Xs[kb];
+          acc[j] = fmaf(xv, wv, acc[j]);
+        }
+      }
+    }
+  };
+
+  auto issue = [&](int step, uint32_t b) {
+    if (step < n_steps)
+      for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+        stage(sub, b + s * slot);
+    tc::cp_async_commit();
+  };
+  auto run = [&](int step, uint32_t b) {
+    for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+      compute(sub, b + s * slot);
+  };
+  run_ring<true>(ring, step_bytes, stages, n_steps, issue, run);
+
+  // the slices' partials, [slice][16 rows][8 columns], over the rings
+  __syncthreads();
+  float* P = reinterpret_cast<float*>(nw_smem);
+  for (int j = 0; j < 4; ++j)
+    P[(warp * 16 + rl + 4 * j) * NW_COLS + col] = acc[j];
+  __syncthreads();
+  if (threadIdx.x < 16 * NW_COLS) {
+    const int r = threadIdx.x / NW_COLS, c = threadIdx.x % NW_COLS;
+    float y = P[r * NW_COLS + c];
+    for (int sl = 1; sl < NW_SPLIT; ++sl)
+      y = __fadd_rn(y, P[(sl * 16 + r) * NW_COLS + c]);
+    store_one<float, TO, false>(a, y, 0.f, r, n0 + c, nullptr, nullptr,
+                                static_cast<const float*>(a.residual),
+                                static_cast<TO*>(a.out));
+  }
 }
 
 // quantize_tile's element rule: round(v / scale) half to even, clip +-127.
@@ -559,7 +792,10 @@ __device__ __forceinline__ void store_pair(const Args& a, const float (&y)[2],
 
 // One (BM x BN) output tile in WM x WN warps, bf16 operands, fp32
 // fragments; `stages` main-loop steps of k_collapse sub-tiles in the ring.
-template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+// EXPERT: of batch element blockIdx.z (K2); K1's instantiations keep their
+// operand pointers in the parameter space (a batch offset costs the
+// 128 x 128 tile, at its register budget, 3-8% at the prefill sites).
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT>
 __global__ void __launch_bounds__(WM * WN * 32)
 af_gemm_tc_kernel(Args a, int stages) {
   using L = TcLayout<BM, BN, DUAL>;
@@ -579,8 +815,12 @@ af_gemm_tc_kernel(Args a, int stages) {
   const int wm = warp / WN, wn = warp % WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int M = a.M, N = a.N, K = a.K, kc = a.k_collapse;
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w = static_cast<const bf16*>(a.w);
+  // K2: batch element blockIdx.z (an expert, or a batch x kv-head), offset
+  // before the alignment tests, so each element's base decides its own
+  // staging path
+  const long long z = EXPERT ? blockIdx.z : 0;
+  const bf16* x = static_cast<const bf16*>(a.x) + z * a.bsx;
+  const bf16* w = static_cast<const bf16*>(a.w) + z * a.bsw;
   const bf16* w2 = static_cast<const bf16*>(a.w2);
   const float* g = a.g;
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 8 == 0;
@@ -759,30 +999,7 @@ af_gemm_tc_kernel(Args a, int stages) {
     for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
       compute(sub, base + s * L::SLOT);
   };
-  const uint32_t ring_end = ring + step_bytes * stages;
-  if (stages >= 2) {
-    // single barrier a step: the barrier that makes step j visible also
-    // frees the slots of step j - 1, which then take step j + stages - 1
-    uint32_t fill = ring, use = ring;
-    for (int s = 0; s < stages - 1; ++s, fill += step_bytes) issue(s, fill);
-    for (int step = 0; step < n_steps; ++step) {
-      tc::cp_async_wait(stages - 2);
-      __syncthreads();
-      issue(step + stages - 1, fill);
-      fill = fill + step_bytes == ring_end ? ring : fill + step_bytes;
-      run(step, use);
-      use = use + step_bytes == ring_end ? ring : use + step_bytes;
-    }
-  } else {
-    for (int step = 0; step < n_steps; ++step) {
-      __syncthreads();
-      issue(step, ring);
-      tc::cp_async_wait(0);
-      __syncthreads();
-      run(step, ring);
-    }
-  }
-  tc::cp_async_wait(0);
+  run_ring(ring, step_bytes, stages, n_steps, issue, run);
 
   // The epilogue reads the fp32 tile back from shared memory (the ring is
   // free now) in a loop that is not unrolled, one column pair a thread at
@@ -807,8 +1024,8 @@ af_gemm_tc_kernel(Args a, int stages) {
               acc2[DUAL ? mt : 0][DUAL ? nt : 0][2 * h + 1]);
       }
   __syncthreads();
-  const bf16* res = static_cast<const bf16*>(a.residual);
-  TO* out = static_cast<TO*>(a.out);
+  const bf16* res = static_cast<const bf16*>(a.residual);   // K1 only
+  TO* out = static_cast<TO*>(a.out) + z * a.bso;
   const bool pairs =
       a.ldo % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
       (res == nullptr ||
@@ -850,12 +1067,31 @@ int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The narrow FFMA tile: each warp's ring holds as many steps of
+// nw_step_subs sub-tiles as fit its share of the SM (at least two).
+template <typename TO>
+int launch_narrow(const Args& a, cudaStream_t stream) {
+  const int slot = nw_slot(a.M), subs = nw_step_subs(a.M, a.k_collapse);
+  const int ring = std::min(NW_RING, MAX_SMEM / NW_SPLIT / slot);
+  const int stages = ring / subs;
+  const size_t smem = std::max((size_t)NW_SPLIT * stages * subs * slot,
+                               sizeof(float) * NW_SPLIT * 16 * NW_COLS);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      af_gemm_narrow_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + NW_COLS - 1) / NW_COLS);
+  af_gemm_narrow_kernel<TO><<<grid, NW_THREADS, smem, stream>>>(a, stages);
+  return (int)cudaGetLastError();
+}
+
 // Launch with the deepest ring (up to TC_MAX_STAGES steps) inside the
 // tile's budget, at least two steps where they fit the SM, else one.
 // smem_only: report the dynamic shared memory the launch takes, and
 // launch nothing.
-template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
-int launch_tc(const Args& a, cudaStream_t stream, size_t* smem_only) {
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT>
+int launch_tc_k(const Args& a, int batch, cudaStream_t stream,
+                size_t* smem_only) {
   using L = TcLayout<BM, BN, DUAL>;
   const size_t step_bytes = (size_t)L::SLOT * a.k_collapse;
   int stages = TC_MAX_STAGES;
@@ -868,26 +1104,40 @@ int launch_tc(const Args& a, cudaStream_t stream, size_t* smem_only) {
     return 0;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL>,
+      af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
-  af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL>
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
+  af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT>
       <<<grid, WM * WN * 32, smem, stream>>>(a, stages);
   return (int)cudaGetLastError();
 }
 
+// K1 (batch 1) or K2's expert axis (batch > 1): only the latter offsets
+// its operands per blockIdx.z
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+int launch_tc(const Args& a, int batch, cudaStream_t stream,
+              size_t* smem_only) {
+  if (batch > 1)
+    return launch_tc_k<TO, BM, BN, WM, WN, DUAL, true>(a, batch, stream,
+                                                        smem_only);
+  return launch_tc_k<TO, BM, BN, WM, WN, DUAL, false>(a, 1, stream,
+                                                       smem_only);
+}
+
 // decode-sized M (one m16 row tile, 32 columns a block in 4 warps) or the
-// prefill tiles (128 x 128; dual 128 x 64)
+// prefill tiles (128 x 128; 128 x 64 for the dual pair and for N <= 64,
+// attn.pv's head dim, which would leave half of a 128-wide tile empty);
+// `batch` blocks along z
 template <typename TO, bool DUAL>
-int launch_tc_m(const Args& a, cudaStream_t stream,
+int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                 size_t* smem_only = nullptr) {
   if (a.M <= 16)
-    return launch_tc<TO, 16, 32, 1, 4, DUAL>(a, stream, smem_only);
-  if constexpr (DUAL)
-    return launch_tc<TO, 128, 64, 4, 2, DUAL>(a, stream, smem_only);
-  else
-    return launch_tc<TO, 128, 128, 2, 4, DUAL>(a, stream, smem_only);
+    return launch_tc<TO, 16, 32, 1, 4, DUAL>(a, batch, stream, smem_only);
+  if constexpr (!DUAL)
+    if (a.N > 64)
+      return launch_tc<TO, 128, 128, 2, 4, false>(a, batch, stream, smem_only);
+  return launch_tc<TO, 128, 64, 4, 2, DUAL>(a, batch, stream, smem_only);
 }
 
 // W8A8 (act_quant) or the float chain, at BM = 16 for decode-sized M.
@@ -925,9 +1175,12 @@ int launch_x(const Args& a, int x_dtype, int out_dtype, bool act_quant,
 }  // namespace
 
 // X[M,K] @ W[K,N] (+ W2) with the fused prologue/epilogue on the FFMA
-// kernel: x/w/w2 and the residual fp32 (in_dtype 0; bf16 operands take
+// kernels: x/w/w2 and the residual fp32 (in_dtype 0; bf16 operands take
 // af_gemm_tc); bias, bias2 and g are fp32.  A null pointer turns its
-// operand off.  Returns cudaGetLastError() of the launch.
+// operand off.  A single contraction at M <= 16 and N <= NW_MAX_N takes
+// the narrow decode tile (K in 16 fixed slices), anything else the
+// 64-column tile (one fmaf chain an output).  Returns cudaGetLastError() of
+// the launch.
 extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
                        const void* w, const void* w2, const float* bias,
                        const float* bias2, const void* residual,
@@ -940,6 +1193,11 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
   Args a{x, w, w2, nullptr, nullptr, bias, bias2, residual, g, out, M, N, K,
          ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w2 == nullptr && M <= 16 && N <= NW_MAX_N) {
+    if (out_dtype == F32) return launch_narrow<float>(a, s);
+    if (out_dtype == BF16) return launch_narrow<__nv_bfloat16>(a, s);
+    return (int)cudaErrorInvalidValue;
+  }
   return w2 != nullptr
              ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
              : launch_out<float, float, false>(a, out_dtype, false, 1, s);
@@ -962,24 +1220,26 @@ extern "C" int af_gemm_tc(int out_dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dual = w2 != nullptr;
   if (out_dtype == F32)
-    return dual ? launch_tc_m<float, true>(a, s)
-                : launch_tc_m<float, false>(a, s);
+    return dual ? launch_tc_m<float, true>(a, 1, s)
+                : launch_tc_m<float, false>(a, 1, s);
   if (out_dtype == BF16)
-    return dual ? launch_tc_m<__nv_bfloat16, true>(a, s)
-                : launch_tc_m<__nv_bfloat16, false>(a, s);
+    return dual ? launch_tc_m<__nv_bfloat16, true>(a, 1, s)
+                : launch_tc_m<__nv_bfloat16, false>(a, 1, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory (bytes) af_gemm_tc takes at M rows, k_collapse and
-// dual; -1 where it refuses the launch.
-extern "C" long long af_gemm_tc_smem(int M, int k_collapse, int dual) {
-  if (M < 1 || k_collapse < 1) return -1;
+// Dynamic shared memory (bytes) af_gemm_tc / af_expert_gemm_tc take at M
+// rows (T for the expert form), N columns, k_collapse and dual; -1 where
+// they refuse the launch.
+extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual) {
+  if (M < 1 || N < 1 || k_collapse < 1) return -1;
   Args a{};
   a.M = M;
+  a.N = N;
   a.k_collapse = k_collapse;
   size_t smem = 0;
-  const int rc = dual ? launch_tc_m<float, true>(a, nullptr, &smem)
-                      : launch_tc_m<float, false>(a, nullptr, &smem);
+  const int rc = dual ? launch_tc_m<float, true>(a, 1, nullptr, &smem)
+                      : launch_tc_m<float, false>(a, 1, nullptr, &smem);
   return rc == 0 ? (long long)smem : -1;
 }
 
@@ -1012,8 +1272,9 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                         act_quant != 0, 1, s);
 }
 
-// X[E,T,K] @ W[E,K,N] -> out[E,T,N], all contiguous; x and w may differ in
-// dtype only as (fp32, bf16), the fp32-query x bf16-cache attention product.
+// X[E,T,K] @ W[E,K,N] -> out[E,T,N] on the FFMA kernel, all contiguous:
+// x and w fp32, or (fp32, bf16), the fp32-query x bf16-cache attention
+// product (bf16 x bf16 takes af_expert_gemm_tc).
 extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
                               const void* x, const void* w, void* out, int E,
                               int T, int K, int N, int k_collapse,
@@ -1026,11 +1287,25 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == F32 && w_dtype == F32)
     return launch_out<float, float, false>(a, out_dtype, false, E, s);
-  if (x_dtype == BF16 && w_dtype == BF16)
-    return launch_out<__nv_bfloat16, __nv_bfloat16, false>(a, out_dtype,
-                                                           false, E, s);
   if (x_dtype == F32 && w_dtype == BF16)
     return launch_out<float, __nv_bfloat16, false>(a, out_dtype, false, E, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same batched product on the tensor-core kernel: x and w bf16, out
+// fp32 or bf16 (out_dtype), all contiguous; each expert a z-slice of the
+// af_gemm_tc grid (E <= 65535).  Returns cudaGetLastError() of the launch.
+extern "C" int af_expert_gemm_tc(int out_dtype, const void* x, const void* w,
+                                 void* out, int E, int T, int K, int N,
+                                 int k_collapse, void* stream) {
+  if (k_collapse < 1 || E < 1 || E > 65535 || T < 1 || N < 1 || K < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, w, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
+         (long long)T * N, 0, k_collapse, ACT_NONE, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == F32) return launch_tc_m<float, false>(a, E, s);
+  if (out_dtype == BF16) return launch_tc_m<__nv_bfloat16, false>(a, E, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -64,13 +64,17 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// wait until at most n of this thread's committed groups are in flight
+// wait until at most n of this thread's committed groups are in flight (a
+// larger n than 6 waits as for 6)
 __device__ __forceinline__ void cp_async_wait(int n) {
   switch (n) {
     case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
     case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
     case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::); break;
   }
 }
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels (float, W8 and W8A8 forms, K2's int8-only form
 of the MoE expert banks, and K3 flash attention) against their plain
 versions, and the full-sequence ``lm.prefill`` against the ``ref``
-backend, on the card.  bf16 K1 float and bf16 K3 run the tensor-core
-kernels, fp32 the FFMA ones (``gemm_kernel`` / ``attention_kernel``); the
-per-kernel launch counters show which ran.
+backend, on the card.  bf16 K1 float, bf16 K2 float and bf16 K3 run the
+tensor-core kernels, fp32 the FFMA ones (``gemm_kernel`` /
+``expert_gemm_kernel`` / ``attention_kernel``); the per-kernel launch
+counters show which ran.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -157,10 +158,23 @@ def test_arrayflex_gemm_tc_scalar_staging(cuda, mkn):
     _close_step(got, ag.arrayflex_gemm_plain(x, w, **kw), torch.bfloat16)
 
 
+# K2's site shapes (E, T, K, N): qwen2-0.5b attn.qk / attn.pv at decode
+# (B = 4), at the prefill chunk and at the 2048-token prefill (B = 1);
+# qwen3-moe-30b-a3b's attention at decode (max_seq 64) and its expert banks
+# (128 experts of one capacity row); then ragged T / N / K, and T = 1
+K2_SHAPES = [(8, 7, 64, 256), (8, 7, 256, 64), (8, 1792, 64, 256),
+             (8, 1792, 256, 64), (2, 14336, 64, 2048), (2, 14336, 2048, 64),
+             (16, 8, 128, 64), (16, 8, 64, 128), (128, 1, 2048, 768),
+             (128, 1, 768, 2048), (3, 5, 130, 70), (5, 1, 100, 36),
+             (4, 300, 72, 200)]
+
+
 @pytest.mark.parametrize("combo", ["f32", "bf16", "f32xbf16"])
-@pytest.mark.parametrize("etkn", [(8, 7, 64, 256), (8, 7, 256, 64),
-                                  (8, 1792, 64, 256), (3, 5, 130, 70)])
+@pytest.mark.parametrize("etkn", K2_SHAPES)
 def test_arrayflex_expert_gemm_matches_plain(cuda, combo, etkn):
+    """K2's float form at every site shape: bf16 x bf16 on the tensor-core
+    kernel, fp32 x (fp32 or bf16 w) on the FFMA kernel, one launch each;
+    fp32 out within 1e-5 of max |plain| (fp32 sums in another order)."""
     E, T, K, N = etkn
     dx, dw = {"f32": (torch.float32, torch.float32),
               "bf16": (torch.bfloat16, torch.bfloat16),
@@ -168,11 +182,133 @@ def test_arrayflex_expert_gemm_matches_plain(cuda, combo, etkn):
     g = torch.Generator(device=cuda).manual_seed(T + K)
     x = torch.randn(E, T, K, generator=g, device=cuda).to(dx)
     w = torch.randn(E, K, N, generator=g, device=cuda).to(dw)
+    before = dict(ag.LAUNCHES)
     got = ag.arrayflex_expert_gemm(x, w, k_collapse=2,
                                    out_dtype=torch.float32)
+    tc = int(combo == "bf16")               # the tensor-core kernel ran
+    assert ag.LAUNCHES == dict(
+        before, arrayflex_expert_gemm=before["arrayflex_expert_gemm"] + 1,
+        arrayflex_expert_gemm_tc=before["arrayflex_expert_gemm_tc"] + tc)
     _close(got, ag.arrayflex_expert_gemm_plain(x, w,
                                                out_dtype=torch.float32),
            torch.float32)
+
+
+def _bf16(g, *shape, scale=1.0):
+    return (scale * torch.randn(*shape, generator=g, device="cuda")).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", K2_SHAPES)
+def test_expert_gemm_tc_bit_identical_across_k(cuda, out, etkn):
+    """The tensor-core K2 takes every accumulator's k16 products in
+    increasing K order whatever k_collapse, so its output is the same bits
+    at k = 1, 2, 4; and it holds the plain version (bf16 out: one bf16
+    step at max |value|)."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + N)
+    x, w = _bf16(g, E, T, K), _bf16(g, E, K, N, scale=K ** -0.5)
+    outs = [ag.arrayflex_expert_gemm(x, w, k_collapse=k, out_dtype=out)
+            for k in (1, 2, 4)]
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_expert_gemm_plain(x, w, out_dtype=out),
+                torch.bfloat16 if out == torch.bfloat16 else torch.float32)
+
+
+@pytest.mark.parametrize("etkn", [(128, 1, 2048, 768), (8, 7, 64, 256),
+                                  (6, 5, 130, 70), (3, 300, 100, 64)])
+def test_expert_gemm_tc_bits_do_not_depend_on_E(cuda, etkn):
+    """An expert's output in an E-expert launch is the same bits as its
+    own one-expert launch, including experts whose base is not 16-byte
+    aligned in the E-expert tensor (T * K not a multiple of 8: they stage
+    through the scalar path there, the cp.async path alone)."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T * K + N)
+    x, w = _bf16(g, E, T, K), _bf16(g, E, K, N, scale=K ** -0.5)
+    for out in (torch.float32, torch.bfloat16):
+        whole = ag.arrayflex_expert_gemm(x, w, k_collapse=2, out_dtype=out)
+        for e in sorted({0, 1, E // 2, E - 1}):
+            one = ag.arrayflex_expert_gemm(x[e:e + 1].clone(),
+                                           w[e:e + 1].clone(), k_collapse=2,
+                                           out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(whole[e:e + 1], one), (out, e)
+
+
+@pytest.mark.parametrize("etkn", [(8, 7, 64, 256), (128, 1, 768, 2048),
+                                  (4, 300, 72, 200)])
+def test_expert_gemm_tc_misaligned_base(cuda, etkn):
+    """Operands whose base is 2 bytes off a 16-byte boundary (every batch
+    element misaligned) stage through the scalar path of the same kernel:
+    the same bits as the aligned copies."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
+    x, w = _bf16(g, E, T, K), _bf16(g, E, K, N, scale=K ** -0.5)
+
+    def shifted(t):                     # same values, base 2 bytes off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for out in (torch.float32, torch.bfloat16):
+        want = ag.arrayflex_expert_gemm(x, w, k_collapse=4, out_dtype=out)
+        got = ag.arrayflex_expert_gemm(shifted(x), shifted(w), k_collapse=4,
+                                       out_dtype=out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), out
+
+
+# fp32 K1 at decode M (the narrow FFMA tile): the MoE router (4, 2048,
+# 128), qwen2-0.5b's attention projections, and ragged M / N / K
+NARROW_SHAPES = [(4, 2048, 128), (4, 896, 896), (4, 896, 128), (1, 64, 8),
+                 (16, 1000, 130), (3, 37, 4096), (7, 2050, 60)]
+
+
+@pytest.mark.parametrize("mkn", NARROW_SHAPES)
+@pytest.mark.parametrize("flags", ["none", "qkv", "residual_bf16_out"])
+def test_fp32_narrow_tile_bit_identical_across_k(cuda, mkn, flags):
+    """The FFMA K1's narrow decode tile sums fixed K slices (one warp
+    each, each an fmaf chain in increasing K order) and adds the slices
+    in order: the same bits at k = 1, 2, 4, 8, one launch of the FFMA K1
+    each, and within 1e-5 of max |plain| (fp32 sums in another order)."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=cuda)
+
+    x, w = r(M, K), r(K, N) * K ** -0.5
+    kw = {"none": {},
+          "qkv": dict(bias=r(N), norm_scale=1.0 + 0.1 * r(K)),
+          "residual_bf16_out": dict(residual=r(M, N),
+                                    out_dtype=torch.bfloat16)}[flags]
+    outs = []
+    for k in (1, 2, 4, 8):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_gemm(x, w, k_collapse=k, **kw))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_gemm=before["arrayflex_gemm"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_gemm_plain(x, w, **kw),
+                kw.get("out_dtype", torch.float32))
+
+
+def test_fp32_narrow_tile_takes_any_k(cuda):
+    """A deep k_collapse at M = 16 (steps of more sub-tiles than a warp's
+    ring holds) runs the same tile: the same bits as k = 1."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(16, 2048, generator=g, device=cuda)
+    w = torch.randn(2048, 128, generator=g, device=cuda) * 2048 ** -0.5
+    outs = [ag.arrayflex_gemm(x, w, k_collapse=k) for k in (1, 16, 64)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+    _close(outs[0], ag.arrayflex_gemm_plain(x, w), torch.float32)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -201,13 +337,14 @@ def _serve_reduced(backend, arch="qwen2-0.5b"):
 
 
 def test_engine_launches_every_kernel(cuda):
-    """bf16 serving: every K1 launch on the tensor-core kernel."""
+    """bf16 serving: every K1 and K2 launch on the tensor-core kernels."""
     L, steps = _serve_reduced("arrayflex")
     assert ag.LAUNCHES == dict(
         {name: 0 for name in ag.LAUNCHES},
         arrayflex_gemm=(6 * L + 1) * steps,
         arrayflex_gemm_tc=(6 * L + 1) * steps,
-        arrayflex_expert_gemm=2 * L * steps)
+        arrayflex_expert_gemm=2 * L * steps,
+        arrayflex_expert_gemm_tc=2 * L * steps)
 
 
 # ---------------------------------------------------------------- int8 forms
@@ -278,16 +415,18 @@ def test_expert_w8a8_matches_plain(cuda, dx, etkn):
 
 # the MoE expert sites at full width (E = 128 experts, one capacity row
 # each at decode): moe.wi_gate / wi_up, moe.wo; and a ragged multi-step one
-MOE_SHAPES = [(128, 1, 2048, 768), (128, 1, 768, 2048), (4, 9, 300, 70)]
+MOE_SHAPES = [(128, 1, 2048, 768), (128, 1, 768, 2048), (4, 9, 300, 70),
+              (6, 1, 130, 70)]
 
 
 @pytest.mark.parametrize("form", ["float", "int8", "w8a8"])
 @pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("etkn", MOE_SHAPES)
 def test_expert_forms_match_plain_at_moe_shapes(cuda, form, dx, etkn):
-    """K2 on the expert banks: the float form (bf16 banks), the int8-only
-    form (W8) and the W8A8 form, several main-loop steps at every k, one
-    launch of the form's own kernel per call."""
+    """K2 on the expert banks: the float form (bf16 banks, on the
+    tensor-core kernel), the int8-only form (W8) and the W8A8 form, several
+    main-loop steps at every k, one launch of the form's own kernel per
+    call."""
     E, T, K, N = etkn
     g = torch.Generator(device=cuda).manual_seed(T + K + N)
     x = torch.randn(E, T, K, generator=g, device=cuda).to(dx)
@@ -299,11 +438,14 @@ def test_expert_forms_match_plain_at_moe_shapes(cuda, form, dx, etkn):
         w, s = substrate._quantize(w)
         kw = dict(w_scale=s, act_quant=form == "w8a8")
         name = f"arrayflex_expert_gemm_{form}"
+    counted = [name] + (["arrayflex_expert_gemm_tc"] if form == "float"
+                        else [])
     for k in (1, 2, 4):
         before = dict(ag.LAUNCHES)
         got = ag.arrayflex_expert_gemm(x, w, k_collapse=k,
                                        out_dtype=torch.float32, **kw)
-        assert ag.LAUNCHES == dict(before, **{name: before[name] + 1})
+        assert ag.LAUNCHES == dict(before,
+                                   **{n: before[n] + 1 for n in counted})
         _close(got, ag.arrayflex_expert_gemm_plain(
             x, w, k_collapse=k, out_dtype=torch.float32, **kw),
             torch.float32)
@@ -314,23 +456,27 @@ def test_expert_forms_match_plain_at_moe_shapes(cuda, form, dx, etkn):
 def test_moe_engine_launches_every_kernel(cuda, backend):
     """Reduced qwen3-moe-30b-a3b: per layer 4 attention K1, the router on
     the float K1, attn.qk/attn.pv on K2 and the three expert sites on the
-    backend's K2 form; the unembed once per step."""
+    backend's K2 form; the unembed once per step.  Every bf16 float-form
+    launch is on a tensor-core kernel, the fp32 router on the FFMA K1."""
     L, steps = _serve_reduced(backend, "qwen3-moe-30b-a3b")
     want = {name: 0 for name in ag.LAUNCHES}
-    if backend == "arrayflex":        # all but the fp32 router on tensor cores
+    if backend == "arrayflex":
         want.update(arrayflex_gemm=(5 * L + 1) * steps,
                     arrayflex_gemm_tc=(4 * L + 1) * steps,
-                    arrayflex_expert_gemm=5 * L * steps)
+                    arrayflex_expert_gemm=5 * L * steps,
+                    arrayflex_expert_gemm_tc=5 * L * steps)
     elif backend == "arrayflex_int8":
         want.update(arrayflex_gemm_int8=(4 * L + 1) * steps,
                     arrayflex_gemm=L * steps,
                     arrayflex_expert_gemm_int8=3 * L * steps,
-                    arrayflex_expert_gemm=2 * L * steps)
+                    arrayflex_expert_gemm=2 * L * steps,
+                    arrayflex_expert_gemm_tc=2 * L * steps)
     else:
         want.update(arrayflex_gemm_w8a8=(4 * L + 1) * steps,
                     arrayflex_gemm=L * steps,
                     arrayflex_expert_gemm_w8a8=4 * L * steps,
-                    arrayflex_expert_gemm=L * steps)
+                    arrayflex_expert_gemm=L * steps,
+                    arrayflex_expert_gemm_tc=L * steps)
     assert ag.LAUNCHES == want
 
 
@@ -344,17 +490,19 @@ def test_quant_kernel_refuses_float_weights(cuda):
 @pytest.mark.parametrize("backend", ["arrayflex_int8", "arrayflex_w8a8"])
 def test_quant_engine_launches_every_kernel(cuda, backend):
     """Every weight GEMM on the form's kernel; attn.qk on K2's W8A8 form
-    under arrayflex_w8a8, on the fp32 K2 otherwise; attn.pv on the fp32
-    K2."""
+    under arrayflex_w8a8, on the float K2 otherwise; attn.pv on the float
+    K2 (bf16 operands: the tensor-core kernel)."""
     L, steps = _serve_reduced(backend)
     want = {name: 0 for name in ag.LAUNCHES}
     if backend == "arrayflex_int8":
         want.update(arrayflex_gemm_int8=(6 * L + 1) * steps,
-                    arrayflex_expert_gemm=2 * L * steps)
+                    arrayflex_expert_gemm=2 * L * steps,
+                    arrayflex_expert_gemm_tc=2 * L * steps)
     else:
         want.update(arrayflex_gemm_w8a8=(6 * L + 1) * steps,
                     arrayflex_expert_gemm_w8a8=L * steps,
-                    arrayflex_expert_gemm=L * steps)
+                    arrayflex_expert_gemm=L * steps,
+                    arrayflex_expert_gemm_tc=L * steps)
     assert ag.LAUNCHES == want
 
 
@@ -466,6 +614,7 @@ def test_prefill_matches_ref_backend(cuda, path):
             assert ag.LAUNCHES["arrayflex_gemm_tc"] == 0     # fp32: FFMA
             assert ag.LAUNCHES["arrayflex_expert_gemm"] == (
                 2 * 2 if path == "dense" else 0)
+            assert ag.LAUNCHES["arrayflex_expert_gemm_tc"] == 0  # fp32: FFMA
             assert fa.LAUNCHES["flash_attention"] == 0
     torch.cuda.synchronize()
     scale = out["ref"].abs().max().item()

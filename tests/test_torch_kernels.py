@@ -227,10 +227,28 @@ def test_gemm_kernel_rule():
             ag.gemm_kernel(dt)
 
 
-def test_tc_counter_resets_with_the_others():
-    ag.LAUNCHES["arrayflex_gemm_tc"] += 3
+def test_expert_gemm_kernel_rule():
+    """K2's float form: bf16 x with bf16 w launches the tensor-core
+    kernel; fp32 x with fp32 w, or with a bf16 K/V cache, the FFMA
+    kernel; every other pairing raises."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert ag.expert_gemm_kernel(bf, bf) == "af_expert_gemm_tc"
+    assert ag.expert_gemm_kernel(f32, f32) == "af_expert_gemm"
+    assert ag.expert_gemm_kernel(f32, bf) == "af_expert_gemm"
+    for xd, wd in ((bf, f32), (torch.float16, torch.float16),
+                   (bf, torch.float16), (f32, torch.float64),
+                   (torch.int8, torch.int8)):
+        with pytest.raises(ValueError, match="unsupported dtypes"):
+            ag.expert_gemm_kernel(xd, wd)
+
+
+@pytest.mark.parametrize("counter,parent", [
+    ("arrayflex_gemm_tc", "arrayflex_gemm"),
+    ("arrayflex_expert_gemm_tc", "arrayflex_expert_gemm")])
+def test_tc_counter_resets_with_the_others(counter, parent):
+    ag.LAUNCHES[counter] += 3
     ag.reset_launches()
-    assert set(ag.LAUNCHES) >= {"arrayflex_gemm", "arrayflex_gemm_tc"}
+    assert set(ag.LAUNCHES) >= {parent, counter}
     assert not any(ag.LAUNCHES.values())
 
 
@@ -270,6 +288,22 @@ def test_build_key_covers_shared_headers(monkeypatch, tmp_path):
     before = build._digest(src)
     (tmp_path / "tc.cuh").write_text("// edited\n")
     assert build._digest(src) != before
+
+
+def test_every_source_includes_and_keys_the_tensor_core_header(
+        monkeypatch, tmp_path):
+    """Both sources' tensor-core kernels (K1/K2's ``af_gemm_tc_kernel``, K3's
+    ``flash_attention_tc``) include ``tc.cuh``, and each source's build key
+    changes with it."""
+    for f in list(build.sources()) + list(build.headers()):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {s.name: build._digest(s) for s in build.sources()}
+    for src in build.sources():
+        assert '#include "tc.cuh"' in src.read_text(), src.name
+    (tmp_path / "tc.cuh").write_text("// edited\n")
+    for src in build.sources():
+        assert build._digest(src) != before[src.name], src.name
 
 
 # ----------------------------------------------------------- planning
