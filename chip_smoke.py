@@ -9,8 +9,8 @@ failure of which exits non-zero:
 1. device: the card's name and power limit, torch's device name and count;
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
    register / shared-memory / spill lines, then the tensor-core kernels'
-   (and the FFMA K1's narrow decode tile's) registers, spills and dynamic
-   shared memory at the main path's shapes;
+   (W8's too) and the FFMA narrow decode tile's (K1 and K2) registers,
+   spills and dynamic shared memory at the main path's shapes;
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -19,11 +19,12 @@ failure of which exits non-zero:
    each), in bf16 and fp32, k in {1, 2, 4}, each epilogue flag at least
    once; then the kernel, the plain version and one PyTorch library call
    timed with CUDA events, beside the least time the card could take (the
-   bound).  bf16 float-form K1 and K2 run the tensor-core kernels and fp32
-   the FFMA kernels (``gemm_kernel`` / ``expert_gemm_kernel``): each check
-   and time is booked under the kernel that ran, and the float K2's
-   decode sites are timed in fp32 as well (the FFMA kernel, which only the
-   fp32 path runs).  First the float forms (the ``arrayflex`` backend), then the
+   bound).  bf16 float-form K1 and K2 and the bf16-x W8 K1 run the
+   tensor-core kernels, fp32 the FFMA kernels (``gemm_kernel`` /
+   ``gemm_q_kernel`` / ``expert_gemm_kernel``): each check and time is
+   booked under the kernel that ran, and the decode sites of the float K1,
+   the float K2 and the W8 K1 are timed in fp32 as well (the FFMA kernels,
+   which only the fp32 path runs).  First the float forms (the ``arrayflex`` backend), then the
    int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
    on K2's int8-only form) and ``arrayflex_w8a8`` (W8A8, with attn.qk and
    the expert banks on K2's W8A8 form), and the plain-torch K^T quantize
@@ -44,7 +45,7 @@ failure of which exits non-zero:
    together): every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
    it) must equal its forms' launches per step times the steps, every
-   bf16 K1 and K2 launch on the tensor-core kernels;
+   bf16 K1 and K2 launch (the W8 K1's too) on the tensor-core kernels;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
@@ -53,8 +54,10 @@ failure of which exits non-zero:
    its host-clock time, device-busy time and peak memory;
 7. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
-   ``arrayflex_int8`` against ``ref`` on the dequantized weights, and
-   ``arrayflex_w8a8`` against fp32 ``arrayflex``, both in fp32; then the
+   ``arrayflex_int8`` against ``ref`` on the dequantized weights (its
+   launch counters set to 0 just before and read just after: every W8 K1
+   launch on the FFMA kernel), and ``arrayflex_w8a8`` against fp32
+   ``arrayflex``, both in fp32; then the
    full-width prefill of phase 6 in fp32 against ``ref`` and against the
    engine's chunked ``prefill_step`` path on the same tokens (the kernels'
    run with its launch counters set to 0 just before and read just after:
@@ -62,7 +65,8 @@ failure of which exits non-zero:
    same three decode pairs on qwen3-moe-30b-a3b in fp32 at full width and
    4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
    ``ref``, each reporting whether both runs routed every token to the
-   same experts at every layer; the fp32 runs launch the FFMA K1 only;
+   same experts at every layer (the W8 run counted as above); the fp32
+   runs launch the FFMA K1 only;
 8. summary: one JSON line of kernel numbers, the card's name and power
    limit, and the ``{"ok": true, ...}`` line last.
 
@@ -211,10 +215,13 @@ class Site:
 
     def kernel_key(self, dt) -> str:
         """The kernel that runs this site on operands of ``dt``: the
-        float-form K1 and K2 on bf16 are the tensor-core kernels
-        (``gemm_kernel`` / ``expert_gemm_kernel``; K2's fp32 query meets
-        a bf16 cache on the FFMA kernel); every other form has one
-        kernel."""
+        float-form K1 and K2 and the W8 K1 on bf16 are the tensor-core
+        kernels (``gemm_kernel`` / ``expert_gemm_kernel`` /
+        ``gemm_q_kernel``; K2's fp32 query meets a bf16 cache on the FFMA
+        kernel); every other form has one kernel."""
+        if (self.form == "int8" and self.kernel == "arrayflex_gemm"
+                and ag.gemm_q_kernel(dt, False) == "af_gemm_q_tc"):
+            return "arrayflex_gemm_int8_tc"
         if self.form == "float" and dt == torch.bfloat16:
             if (self.kernel == "arrayflex_gemm"
                     and ag.gemm_kernel(dt) == "af_gemm_tc"):
@@ -225,8 +232,9 @@ class Site:
         return self.launch_name
 
 
-# the FFMA kernels of the float forms (fp32 operands)
-FFMA_FLOAT = ("arrayflex_gemm", "arrayflex_expert_gemm")
+# the FFMA kernels that only fp32 x runs (the float forms' and the W8
+# K1's): booked with their fp32 checks, their decode sites timed in fp32
+FFMA_FP32 = ("arrayflex_gemm", "arrayflex_expert_gemm", "arrayflex_gemm_int8")
 
 # kernel form -> the backend whose plans (k) the form runs under
 FORM_BACKEND = {"float": "arrayflex", "int8": "arrayflex_int8",
@@ -537,6 +545,11 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
     the dense model ``cfg`` at decode and at the prefill chunk, and on the
     MoE model ``moe_cfg`` at decode (its prefill runs decode steps)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the K1 sites' fp32 timings draw from a generator of their own, so the
+    # operands every check draws from ``gen`` do not depend on them (a
+    # float check's KERNEL_TOL is tighter than one bf16 step just below a
+    # power of two: other operands can flip a site, TC_FLIP_SITES)
+    gen_k1_fp32 = torch.Generator(device="cuda").manual_seed(1)
     results, max_err = [], {}
     plan = [(phase, main_path_sites(cfg, rows) if form == "float"
              else quant_sites(cfg, rows, form))
@@ -561,20 +574,23 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
                     name = site.kernel_key(dt)
                     err = max(v for key, v in errs.items()
                               if key.startswith(str(dt).split(".")[-1]))
-                    # the FFMA float kernels are booked with their fp32
-                    # checks, every other kernel with its bf16 ones (the
-                    # path's type)
-                    if dt == torch.bfloat16 or name in FFMA_FLOAT:
+                    # the FFMA kernels of fp32 x are booked with their
+                    # fp32 checks, every other kernel with its bf16 ones
+                    # (the path's type)
+                    if dt == torch.bfloat16 or name in FFMA_FP32:
                         max_err[name] = max(max_err.get(name, 0.0), err)
             iters = 10 if site.name == "unembed" else 2 * site.copies
-            timed = [site]
-            if (phase == "decode" and form == "float"
-                    and site.kernel == "arrayflex_expert_gemm"):
-                # the FFMA K2 runs only on the fp32 path: time it there too
-                timed.append(dataclasses.replace(site,
-                                                 time_dtype=torch.float32))
-            for ts in timed:
-                t = time_site(ts, gen, iters)
+            timed = [(site, gen)]
+            if (phase == "decode" and site.time_dtype != torch.float32
+                    and site.kernel_key(torch.float32) in FFMA_FP32):
+                # the FFMA kernels run only on the fp32 path: time them
+                # there too
+                timed.append((dataclasses.replace(
+                    site, time_dtype=torch.float32),
+                    gen if site.kernel == "arrayflex_expert_gemm"
+                    else gen_k1_fp32))
+            for ts, ts_gen in timed:
+                t = time_site(ts, ts_gen, iters)
                 row = dict(phase=phase, cell=ts.cell, site=ts.name,
                            kernel=ts.kernel, form=ts.form,
                            launch_name=ts.kernel_key(ts.time_dtype),
@@ -780,10 +796,11 @@ def expected_launches(cfg, steps: int):
     want = {name: 0 for name in ag.LAUNCHES}
     want["arrayflex_gemm" + suffix] += (4 * L + 1 + (0 if is_moe else 2 * L)) \
         * steps
-    if be == "arrayflex" and cfg.compute_dtype == "bfloat16":
-        # every bf16 K1 launch on the tensor-core kernel (the fp32 MoE
-        # router stays on the FFMA kernel)
-        want["arrayflex_gemm_tc"] = want["arrayflex_gemm"]
+    if be != "arrayflex_w8a8" and cfg.compute_dtype == "bfloat16":
+        # every bf16 K1 launch, float or W8, on the tensor-core kernel (the
+        # fp32 MoE router stays on the FFMA kernel)
+        want["arrayflex_gemm" + suffix + "_tc"] = \
+            want["arrayflex_gemm" + suffix]
     if is_moe:
         want["arrayflex_gemm"] += L * steps                     # router
         want["arrayflex_expert_gemm" + suffix] += 3 * L * steps  # banks
@@ -798,17 +815,33 @@ def expected_launches(cfg, steps: int):
     return want
 
 
+# the tensor-core kernels' launch counters, each a subset of the form's
+# counter named without "_tc"
+TC_COUNTERS = ("arrayflex_gemm_tc", "arrayflex_gemm_int8_tc",
+               "arrayflex_expert_gemm_tc")
+
+
+def check_fp32_w8_launches(what: str, launches: dict) -> None:
+    """An fp32 ``arrayflex_int8`` run: its W8 K1 launches all on the FFMA
+    kernel (at least one), none on a tensor-core kernel."""
+    if not launches["arrayflex_gemm_int8"] or any(
+            launches[name] for name in TC_COUNTERS):
+        raise AssertionError(f"{what}: kernel launches {launches}: want W8 "
+                             f"K1 launches, every one on the FFMA kernel, "
+                             f"and none on a tensor-core kernel")
+
+
 def check_launches(what: str, launches: dict, want: dict) -> None:
     """Every count as planned; in particular, every bf16 K1 and K2 launch
     of the run on the tensor-core kernels (``arrayflex_gemm_tc``,
-    ``arrayflex_expert_gemm_tc``) and every fp32 one on FFMA."""
-    for tc, form in (("arrayflex_gemm_tc", "K1"),
-                     ("arrayflex_expert_gemm_tc", "K2")):
+    ``arrayflex_gemm_int8_tc``, ``arrayflex_expert_gemm_tc``) and every
+    fp32 one on FFMA."""
+    for tc in TC_COUNTERS:
         if launches.get(tc) != want.get(tc):
             raise AssertionError(
-                f"{what}: {launches.get(tc)} {form} launches on the "
-                f"tensor-core kernel, want {want.get(tc)} (every bf16 "
-                f"{form} launch, no fp32 one)")
+                f"{what}: {launches.get(tc)} launches counted in {tc}, want "
+                f"{want.get(tc)} (every bf16 launch of its form, no fp32 "
+                f"one)")
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches} != "
                              f"expected {want}")
@@ -1181,7 +1214,10 @@ def _dequantized(tree):
 def quant_parity_phase(cfg, params):
     """fp32 logits of one prefill_step + decode_step: arrayflex_int8 vs ref
     on the dequantized weights (W8_PARITY_TOL), and arrayflex_w8a8 vs fp32
-    arrayflex (W8A8_PARITY_TOL), relative to max |reference logit|."""
+    arrayflex (W8A8_PARITY_TOL), relative to max |reference logit|.  The
+    arrayflex_int8 run is the fp32 W8 path: its launch counters, set to 0
+    just before it and read just after, must show every W8 K1 launch on
+    the FFMA kernel (returned under ``launches``)."""
     B, C = 2, 32
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, C)),
@@ -1193,19 +1229,28 @@ def quant_parity_phase(cfg, params):
     def quantized(c):
         return lm.prequantize_params(c, lm.prepare_params(c, params))
 
+    out = {"launches": {}}
+
     def logits(backend, tree_of):
         c = dataclasses.replace(cfg, gemm_backend=backend,
                                 compute_dtype="float32")
         p = tree_of(c)
         cache = lm.init_cache(c, B, 64, dtype=torch.float32)
+        torch.cuda.synchronize()
+        ag.reset_launches()                     # counts: 0 just before
         lp, cache = lm.prefill_step(c, p, cache, toks, pos0, lens)
         ld, _ = lm.decode_step(c, p, cache, nxt, lens)
-        out = torch.cat([lp, ld]).float()
-        if not bool(torch.isfinite(out).all()):
+        torch.cuda.synchronize()
+        if backend == "arrayflex_int8":
+            launches = dict(ag.LAUNCHES)        # read just after
+            check_fp32_w8_launches(f"fp32 {cfg.name} arrayflex_int8",
+                                   launches)
+            out["launches"][cfg.name] = launches
+        res = torch.cat([lp, ld]).float()
+        if not bool(torch.isfinite(res).all()):
             raise AssertionError(f"{backend}: non-finite logits")
-        return out
+        return res
 
-    out = {}
     for name, (got, want), tol in (
             ("arrayflex_int8 vs ref(dequantized)",
              (logits("arrayflex_int8", quantized),
@@ -1334,7 +1379,9 @@ def moe_parity_phase(moe_cfg):
     (W8_PARITY_TOL), arrayflex_w8a8 vs fp32 arrayflex
     (W8A8_MOE_PARITY_TOL), each relative to max |reference logit|; and
     for each pair whether both runs picked the same top-k experts for
-    every token at every layer and step."""
+    every token at every layer and step.  The arrayflex_int8 run's launch
+    counters (0 just before, read just after) must show every W8 K1
+    launch on the FFMA kernel (returned under ``launches``)."""
     cfg = dataclasses.replace(moe_cfg, n_layers=MOE_PARITY_LAYERS,
                               param_dtype="float32", compute_dtype="float32")
     params = lm.init_params(cfg, seed=0)
@@ -1346,16 +1393,25 @@ def moe_parity_phase(moe_cfg):
     def quantized(c):
         return lm.prequantize_params(c, lm.prepare_params(c, params))
 
+    w8_launches = {}
+
     def run(backend, tree_of):
         c = dataclasses.replace(cfg, gemm_backend=backend)
         p = tree_of(c)
         cache = lm.init_cache(c, B, 16, dtype=torch.float32)
         logits = []
+        torch.cuda.synchronize()
+        ag.reset_launches()                     # counts: 0 just before
         with moe.record_routing() as routing:
             for t in range(steps):
                 pos = torch.full((B,), t, dtype=torch.int64, device="cuda")
                 lg, cache = lm.decode_step(c, p, cache, toks[t], pos)
                 logits.append(lg.float())
+        torch.cuda.synchronize()
+        if backend == "arrayflex_int8":
+            w8_launches[cfg.name] = dict(ag.LAUNCHES)   # read just after
+            check_fp32_w8_launches(f"fp32 {cfg.name} arrayflex_int8",
+                                   w8_launches[cfg.name])
         out = torch.cat(logits)
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"{backend}: non-finite logits")
@@ -1395,6 +1451,7 @@ def moe_parity_phase(moe_cfg):
                          rel_err=err / scale, rel_tol=tol,
                          same_experts=same)
     out[f"prefill S={MOE_FWD_SEQ} arrayflex vs ref"] = prefill
+    out["launches"] = w8_launches
     return out
 
 
@@ -1416,13 +1473,15 @@ def _step_totals(sel):
 
 
 # kernel form -> the TPU kernel it replaces (arrayflex_gemm /
-# arrayflex_expert_gemm: the FFMA kernels of the fp32 float forms;
-# arrayflex_gemm_tc / arrayflex_expert_gemm_tc: the tensor-core kernels of
-# the bf16 float forms)
+# arrayflex_expert_gemm / arrayflex_gemm_int8: the FFMA kernels of the fp32
+# float forms and of W8 on fp32 x; arrayflex_gemm_tc /
+# arrayflex_expert_gemm_tc / arrayflex_gemm_int8_tc: the tensor-core
+# kernels of the bf16 float forms and of W8 on bf16 x)
 REPLACES = {
     "arrayflex_gemm": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:177",
+    "arrayflex_gemm_int8_tc": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:177",
     "arrayflex_expert_gemm": "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:452",
@@ -1435,16 +1494,24 @@ def summarize(results, max_err, launches):
     """One row per kernel form: its decode-site times and bounds per
     decode step of each model it serves (qwen2-0.5b's 24 layers,
     qwen3-moe-30b-a3b's 48), summed over the models; ``launches`` maps
-    each form to its count over every serving run.  Also returns the same
-    totals per model (``cells``)."""
+    each form to its count over the counted runs.  Also returns the same
+    totals per model (``cells``), the FFMA K1's also split into the MoE
+    router and the wide sites (the weight GEMMs and the unembed)."""
     rows, cells = [], {}
     src = "src/repro_torch/kernels/csrc/arrayflex_gemm.cu"
     decode = [r for r in results if r["phase"] == "decode"]
     for name, replaces in REPLACES.items():
         sel = [r for r in decode if r["launch_name"] == name]
         for cell in sorted({r["cell"] for r in sel}):
-            cells.setdefault(cell, {})[name] = _step_totals(
-                [r for r in sel if r["cell"] == cell])
+            in_cell = [r for r in sel if r["cell"] == cell]
+            cells.setdefault(cell, {})[name] = _step_totals(in_cell)
+            if name != "arrayflex_gemm":
+                continue
+            for part, router in (("router", True), ("wide sites", False)):
+                sub = [r for r in in_cell
+                       if (r["site"] == "moe.router") == router]
+                if sub:
+                    cells[cell][f"{name} ({part})"] = _step_totals(sub)
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=max_err[name], **_step_totals(sel)))
@@ -1480,11 +1547,13 @@ def k3_rows(k3, launches: dict):
 
 def tc_report() -> None:
     """The tensor-core kernels' and the narrow FFMA tile's registers and
-    spills (ptxas, per instantiation) and the dynamic shared memory the
-    tensor-core launchers take at the main path's shapes (K1: decode M = 4
+    spills (ptxas, per instantiation) and the dynamic shared memory their
+    launchers take at the main path's shapes (K1 float and W8: decode M = 4
     at the planned k = 4, prefill at k = 1 and 2; K2: an MoE bank's T = 1,
     the prefill chunk's and the 2048-token prefill's attn.qk (N = S) and
-    attn.pv (N = 64, the 128 x 64 tile); K3 at each head dim)."""
+    attn.pv (N = 64, the 128 x 64 tile); the narrow tile: K1's router, K2's
+    fp32 bank and decode attention (T = 7, fp32 and bf16 w); K3 at each
+    head dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
@@ -1496,16 +1565,24 @@ def tc_report() -> None:
                 log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}")
     glib, flib = ag._lib(), fa._lib()
     for M, k in ((4, 4), (1024, 2), (2048, 1)):
-        log(f"  af_gemm_tc dynamic shared memory at M = {M}, k = {k}: "
-            f"{glib.af_gemm_tc_smem(M, 896, k, 0)} B (dual "
-            f"{glib.af_gemm_tc_smem(M, 896, k, 1)} B)")
+        for entry, quant in (("af_gemm_tc", 0), ("af_gemm_q_tc", 1)):
+            log(f"  {entry} dynamic shared memory at M = {M}, k = {k}: "
+                f"{glib.af_gemm_tc_smem(M, 896, k, 0, quant)} B (dual "
+                f"{glib.af_gemm_tc_smem(M, 896, k, 1, quant)} B)")
     for what, (T, N, k) in (("MoE bank", (1, 768, 4)),
                             ("prefill-chunk attn.qk", (1792, 256, 2)),
                             ("prefill-chunk attn.pv", (1792, 64, 2)),
                             ("S = 2048 attn.qk", (14336, 2048, 1)),
                             ("S = 2048 attn.pv", (14336, 64, 1))):
         log(f"  af_expert_gemm_tc dynamic shared memory at the {what} (T = "
-            f"{T}, N = {N}, k = {k}): {glib.af_gemm_tc_smem(T, N, k, 0)} B")
+            f"{T}, N = {N}, k = {k}): {glib.af_gemm_tc_smem(T, N, k, 0, 0)} B")
+    for what, (M, k, w_bf16, expert) in (
+            ("K1 router (M = 4, k = 4)", (4, 4, 0, 0)),
+            ("K2 fp32 bank (T = 1, k = 4)", (1, 4, 0, 1)),
+            ("K2 decode attn.qk, bf16 cache (T = 7, k = 1)", (7, 1, 1, 1)),
+            ("K2 decode attn.pv (T = 7, k = 2)", (7, 2, 0, 1))):
+        log(f"  narrow FFMA tile dynamic shared memory at the {what}: "
+            f"{glib.af_narrow_smem(M, k, w_bf16, expert)} B")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")
@@ -1578,26 +1655,31 @@ def main() -> int:
     log("[7/8] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
-    parity.update(quant_parity_phase(cfg, params))
+    quant_parity = quant_parity_phase(cfg, params)
+    fp32_runs = list(quant_parity.pop("launches").values())
+    parity.update(quant_parity)
     log(f"  full-sequence prefill (fp32) at S = "
         f"{', '.join(map(str, FWD_SEQS))}")
-    parity.update(forward_parity_phase(cfg, params))
+    forward_parity = forward_parity_phase(cfg, params)
+    fp32_runs += forward_parity.pop("launches").values()
+    parity.update(forward_parity)
     del params
     _free()
     log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
     moe_parity = moe_parity_phase(moe_cfg)
+    fp32_runs += moe_parity.pop("launches").values()
 
     # each GEMM form's launches over every serving run, the bf16 prefill
-    # runs and the fp32 prefill runs of phase 7 (each run counted from 0);
-    # K3's over its ops.attention run.  The FFMA kernels' are the
-    # float-form launches not on the tensor-core kernels.
+    # runs and the fp32 runs of phase 7 that are counted (the full-sequence
+    # prefills and the W8 runs, each counted from 0); K3's over its
+    # ops.attention run.  The FFMA kernels' are the launches of their form
+    # not on the tensor-core kernels.
     runs = (list(serving.values()) + list(moe_serving.values())
-            + list(prefill.values())
-            + [{"launches": v} for v in parity.pop("launches").values()])
+            + list(prefill.values()) + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
-    launches["arrayflex_gemm"] -= launches["arrayflex_gemm_tc"]
-    launches["arrayflex_expert_gemm"] -= launches["arrayflex_expert_gemm_tc"]
+    for tc in TC_COUNTERS:
+        launches[tc[:-len("_tc")]] -= launches[tc]
     kernels, cells = summarize(results, max_err, launches)
     kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start

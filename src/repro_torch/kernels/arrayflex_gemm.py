@@ -9,10 +9,15 @@ file), one C entry per operand form:
                         decode tile at M <= 16, the MoE router's shape);
   ``af_gemm_tc``        ``_kernel`` on bf16 operands (tensor cores,
                         ``mma.sync`` bf16 x bf16 -> fp32);
-  ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 (fp32/bf16 x,
-                        dequant at the store) or, with ``act_quant``, W8A8
-                        (per-tile int8 x, an int8 x int8 -> int32 chain);
-  ``af_expert_gemm``    ``_expert_kernel`` on fp32 x (fp32 or bf16 w; FFMA);
+  ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 on fp32 x
+                        (FFMA, dequant at the store) or, with
+                        ``act_quant``, W8A8 (per-tile int8 x, an int8 x int8
+                        -> int32 chain);
+  ``af_gemm_q_tc``      ``_kernel``'s W8 form on bf16 x (the tensor-core
+                        kernel of ``af_gemm_tc``, the codes widened to bf16
+                        in registers, dequant at the store);
+  ``af_expert_gemm``    ``_expert_kernel`` on fp32 x (fp32 or bf16 w; FFMA,
+                        a narrow decode tile at T <= 16);
   ``af_expert_gemm_tc`` ``_expert_kernel`` on bf16 operands (the tensor-core
                         kernel of ``af_gemm_tc``, the expert axis on the
                         grid's z);
@@ -35,12 +40,13 @@ plain PyTorch version (``*_plain``) only for CPU tensors.  The plain
 version computes the same function with the same prologue and store, cast
 once: the CPU tests hold it against the reference, and the on-card checks
 hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
-and nothing else; the float forms' operand types pick their kernels by
-the written rules of :func:`gemm_kernel` and :func:`expert_gemm_kernel`,
-and ``arrayflex_gemm_tc`` / ``arrayflex_expert_gemm_tc`` count the
-float-form launches that ran the tensor-core kernel (subsets of
-``arrayflex_gemm`` / ``arrayflex_expert_gemm``, which count every
-float-form launch).
+and nothing else; the operand types pick the kernels by the written
+rules of :func:`gemm_kernel`, :func:`gemm_q_kernel` and
+:func:`expert_gemm_kernel`, and ``arrayflex_gemm_tc`` /
+``arrayflex_gemm_int8_tc`` / ``arrayflex_expert_gemm_tc`` count the
+launches that ran the tensor-core kernel (subsets of ``arrayflex_gemm`` /
+``arrayflex_gemm_int8`` / ``arrayflex_expert_gemm``, which count every
+launch of their form).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ ACTIVATIONS = ("none", "silu", "gelu")
 # kernel form -> kernel launches in this process (plain-version calls and
 # empty operands launch nothing and do not count)
 LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_tc": 0,
-            "arrayflex_gemm_int8": 0,
+            "arrayflex_gemm_int8": 0, "arrayflex_gemm_int8_tc": 0,
             "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
             "arrayflex_expert_gemm_tc": 0,
             "arrayflex_expert_gemm_int8": 0,
@@ -93,13 +99,32 @@ def gemm_kernel(dtype) -> str:
                      f"bfloat16, got {dtype}")
 
 
+def gemm_q_kernel(x_dtype, act_quant: bool) -> str:
+    """The kernel that :func:`arrayflex_gemm`'s int8 forms (``w_scale``
+    given) launch for x of ``x_dtype``: W8 on bf16 x -> ``af_gemm_q_tc``
+    (tensor cores: the codes widen exactly to bf16, bf16 products into fp32
+    sums, as the reference widens them to x's type for its matrix unit),
+    W8 on fp32 x -> ``af_gemm_q`` (FFMA: tensor cores give no IEEE fp32);
+    W8A8 (``act_quant``) on either x type -> ``af_gemm_q`` (int8 x int8 ->
+    int32, ``__dp4a``).  The choice follows the types only, never a failed
+    build or launch."""
+    if x_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"arrayflex_gemm: int8 forms take float32 or "
+                         f"bfloat16 x, got {x_dtype}")
+    if act_quant or x_dtype == torch.float32:
+        return "af_gemm_q"
+    return "af_gemm_q_tc"
+
+
 def expert_gemm_kernel(x_dtype, w_dtype) -> str:
     """The kernel that :func:`arrayflex_expert_gemm`'s float form launches
     for x of ``x_dtype`` and w of ``w_dtype``: bf16 x bf16 ->
     ``af_expert_gemm_tc`` (tensor cores, as :func:`gemm_kernel`), fp32 x
     with fp32 w, or with a bf16 K/V cache, -> ``af_expert_gemm`` (FFMA:
-    an fp32 operand has no IEEE fp32 tensor-core product).  The choice
-    follows the operand types only, never a failed build or launch."""
+    an fp32 operand has no IEEE fp32 tensor-core product; its C entry
+    takes the narrow decode tile, K in 16 fixed slices, at T <= 16).  The
+    choice follows the operand types only, never a failed build or
+    launch."""
     if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
         return "af_expert_gemm_tc"
     if x_dtype == torch.float32 and w_dtype in (torch.float32,
@@ -261,11 +286,16 @@ def _lib():
         lib.af_gemm_tc.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i,
                                    ll, ll, ll, ll, i, i, p]
         lib.af_gemm_tc.restype = i
-        lib.af_gemm_tc_smem.argtypes = [i, i, i, i]
+        lib.af_gemm_tc_smem.argtypes = [i, i, i, i, i]
         lib.af_gemm_tc_smem.restype = ll
+        lib.af_narrow_smem.argtypes = [i, i, i, i]
+        lib.af_narrow_smem.restype = ll
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, ll, ll, ll, ll, i, i, i, i, p]
         lib.af_gemm_q.restype = i
+        lib.af_gemm_q_tc.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i,
+                                     i, ll, ll, ll, ll, i, i, p]
+        lib.af_gemm_q_tc.restype = i
         lib.af_expert_gemm.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
         lib.af_expert_gemm.restype = i
         lib.af_expert_gemm_tc.argtypes = [i, p, p, p, i, i, i, i, i, p]
@@ -366,8 +396,9 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
 
     CUDA tensors launch the kernel :func:`gemm_kernel` names for their
     type (``af_gemm_tc`` on bf16 operands, ``af_gemm`` on fp32) or, with
-    ``w_scale``, ``af_gemm_q`` (fp32 or bf16 x, int8 w) — fp32 or bf16
-    out, unit stride along each operand's last axis — or raise; CPU
+    ``w_scale``, the one :func:`gemm_q_kernel` names (``af_gemm_q_tc`` for
+    W8 on bf16 x, ``af_gemm_q`` for W8 on fp32 x and for W8A8) — fp32 or
+    bf16 out, unit stride along each operand's last axis — or raise; CPU
     tensors run :func:`arrayflex_gemm_plain`.
     """
     M, K = x.shape
@@ -435,15 +466,23 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ldr = residual.stride(0) if residual is not None else 0
     if quant:
-        qbm, qkk = quant_tiles(M, K, k_collapse) if act_quant else (0, 0)
+        entry = gemm_q_kernel(x.dtype, act_quant)
         s, s2 = _fp32_vec(w_scale), _fp32_vec(w2_scale)
-        rc = _lib().af_gemm_q(
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
-            _ptr(x), _ptr(w), _ptr(w2), _ptr(s), _ptr(s2), _ptr(bias),
-            _ptr(bias2),
-            _ptr(residual), _ptr(g), _ptr(out), M, N, K, x.stride(0),
-            w.stride(0), ldr, out.stride(0), k_collapse,
-            _ACT_CODE[activation], qbm, qkk, _stream(x.device))
+        if entry == "af_gemm_q_tc":
+            rc = _lib().af_gemm_q_tc(
+                _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(w2), _ptr(s),
+                _ptr(s2), _ptr(bias), _ptr(bias2), _ptr(residual), _ptr(g),
+                _ptr(out), M, N, K, x.stride(0), w.stride(0), ldr,
+                out.stride(0), k_collapse, _ACT_CODE[activation],
+                _stream(x.device))
+        else:
+            qbm, qkk = quant_tiles(M, K, k_collapse) if act_quant else (0, 0)
+            rc = _lib().af_gemm_q(
+                _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
+                _ptr(x), _ptr(w), _ptr(w2), _ptr(s), _ptr(s2), _ptr(bias),
+                _ptr(bias2), _ptr(residual), _ptr(g), _ptr(out), M, N, K,
+                x.stride(0), w.stride(0), ldr, out.stride(0), k_collapse,
+                _ACT_CODE[activation], qbm, qkk, _stream(x.device))
     else:
         entry = gemm_kernel(x.dtype)
         ptrs = (_ptr(x), _ptr(w), _ptr(w2), _ptr(bias), _ptr(bias2),
@@ -457,8 +496,8 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
                                 _DTYPE_CODE[out_dtype], *ptrs)
     _check_rc(rc, name)
     LAUNCHES[name] += 1
-    if not quant and entry == "af_gemm_tc":
-        LAUNCHES["arrayflex_gemm_tc"] += 1
+    if entry in ("af_gemm_tc", "af_gemm_q_tc"):
+        LAUNCHES[name + "_tc"] += 1
     return out
 
 

@@ -5,8 +5,10 @@
 // Replaces the Pallas TPU kernels in src/repro/kernels/arrayflex_gemm.py:
 //   af_gemm           <- _kernel, fp32 operands (FFMA)
 //   af_gemm_tc        <- _kernel, bf16 operands (tensor cores)
-//   af_gemm_q         <- _kernel, int8 weights: W8 (quant) and W8A8
-//                        (quant + act_quant)
+//   af_gemm_q         <- _kernel, int8 weights: W8 (quant) on fp32 x and
+//                        W8A8 (quant + act_quant)
+//   af_gemm_q_tc      <- _kernel, int8 weights with bf16 x: W8 on the
+//                        tensor cores
 //   af_expert_gemm    <- _expert_kernel, fp32 x with fp32 or bf16 w
 //   af_expert_gemm_tc <- _expert_kernel, bf16 operands (tensor cores)
 //   af_expert_gemm_q  <- _expert_kernel, int8 weights: the int8-only form
@@ -21,9 +23,10 @@
 //             the product (the reference's prologue_phase), the epilogue
 //             runs once at the store in store_phase order: dequant -> bias
 //             -> act -> gate multiply -> residual -> one cast.
-//   W8:       W/W2 hold int8 codes, converted exactly to fp32 for the FFMA
-//             chain; the per-column scales s/s2 multiply the accumulators
-//             at the store (exact: a column scale factors out of the K sum).
+//   W8:       W/W2 hold int8 codes, converted exactly to x's type (fp32 for
+//             the FFMA chain, bf16 for the tensor cores); the per-column
+//             scales s/s2 multiply the accumulators at the store (exact: a
+//             column scale factors out of the K sum).
 //   W8A8:     each x tile of the reference's tiling -- quant_bm rows by one
 //             main-loop step of quant_kk columns -- is quantized with one
 //             fp32 scale (quantize_tile: amax * fp32(1/127), round half
@@ -45,12 +48,14 @@
 // GEMM is bound by operations: 989 TFLOP/s for bf16 operands on the tensor
 // cores, 67 TFLOP/s for fp32 on the FFMA pipes.
 //
-// The float forms' kernels are chosen by operand type (the wrapper's
-// written rules, counted per kernel): bf16 operands launch
+// The kernels are chosen by operand type (the wrapper's written rules,
+// counted per kernel): bf16 operands of the float forms launch
 // af_gemm_tc_kernel (entries af_gemm_tc, and af_expert_gemm_tc with the
 // expert axis on blockIdx.z), fp32 operands the FFMA kernels (entries
-// af_gemm, af_expert_gemm).  The int8 forms keep their own FFMA / __dp4a
-// kernels.
+// af_gemm, af_expert_gemm); K1's W8 form on bf16 x launches
+// af_gemm_tc_kernel on int8 codes (entry af_gemm_q_tc), on fp32 x the FFMA
+// kernel (af_gemm_q).  W8A8 and K2's int8 forms keep their own FFMA /
+// __dp4a kernels.
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
 // cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32 -- the arithmetic of the
@@ -90,6 +95,22 @@
 //     in device memory; a base or row stride that is not 16-byte aligned
 //     stages through scalar loads inside the same kernel, into the same
 //     main loop;
+//   * W8 (af_gemm_q_tc, the QUANT instantiations): the reference widens
+//     the codes to x's type and runs bf16 x bf16 -> fp32 on its matrix unit
+//     (exact: |code| <= 127), which is this kernel's arithmetic.  The codes
+//     stay int8 through the cp.async ring (16 a chunk: half the bytes of a
+//     bf16 sub-tile, and no widened copy of W anywhere in device memory)
+//     and widen to bf16 in registers as each B fragment is built: four
+//     byte loads a fragment, each (k, col) a lane needs read directly
+//     (ldmatrix moves 16-bit elements, so it cannot transpose bytes), then
+//     two exact conversions and a pack a register.  Chosen over a widening
+//     pass through shared memory, which would add a barrier and a bf16
+//     copy of every sub-tile to the ring; the B rows are padded by one
+//     chunk so a fragment's four K rows fall on distinct banks.  The
+//     per-column scales multiply the fp32 accumulators first at the store
+//     (__fmul_rn, store_one's order), then bias, act, gate, residual, one
+//     cast.  x, g, the residual and the prologue are the bf16 form's; the
+//     bf16 instantiations compile as before (QUANT is a template flag);
 //   * the batch axis (K2: an MoE expert, or one batch x kv-head of
 //     attn.qk / attn.pv) is blockIdx.z: x, w and out are offset by their
 //     batch strides before anything else, so the alignment test is taken
@@ -102,11 +123,15 @@
 //     fp32 score tile of attn.qk leaves through the same shared-memory
 //     epilogue.
 //
-// af_gemm_narrow_kernel, fp32 af_gemm at decode (M <= 16) with one
-// contraction and N <= 4096: the MoE router (4, 2048, 128) is fp32 on every
-// backend, as in the reference, and on the 64-column tile below it ran 2
-// blocks on 132 SMs, each walking K with scalar loads between two barriers
-// (~104 us a launch).  Here a block owns 8 columns (16 blocks at N = 128; a
+// af_gemm_narrow_kernel, fp32 x at decode (M <= 16): af_gemm with one
+// contraction and N <= 4096 (8 columns a block), and af_expert_gemm at
+// T <= 16 (32 columns a block).  The MoE router (4, 2048, 128) is fp32 on
+// every backend, as in the reference, and on the 64-column tile below it
+// ran 2 blocks on 132 SMs, each walking K with scalar loads between two
+// barriers (~104 us a launch); an fp32 MoE bank (E 128, T 1, K 2048, N
+// 768) ran 1536 such blocks, each reading its 32 x 64 w panel one float at
+// a time between two barriers for 1 x 4 outputs a thread over 16 masked
+// rows (2.4x bmm).  Here a block owns 8 columns (16 blocks at N = 128; a
 // warp's lanes on neighbouring columns) and splits K into 16 fixed slices,
 // one warp each: a warp stages its slice's w panel and x rows as 16-byte
 // cp.async chunks into its own ring of main-loop steps (k_collapse 32-row
@@ -118,10 +143,20 @@
 // here: with one output a thread, each SM holds one computing warp whose
 // chain waits on a shared-memory load every K step, and few warps stage
 // the scattered 32-byte rows of w; 16 slices give an SM 16 warps for
-// both.
+// both.  K2 takes the same tile with the expert on blockIdx.z, operands
+// offset per expert before the alignment tests (an expert's bits do not
+// depend on E), bf16 w (the fp32 query against a bf16 cache) staged as
+// bf16 and widened exactly as it leaves shared memory, a ring of half the
+// SM's share (so several of a bank's thousands of blocks share an SM and
+// one's loads overlap another's sums and store), and 32 columns a block,
+// one a lane: with 8, each block read 32-byte pieces of every w row and
+// the banks streamed at about half of HBM's rate; 32 fp32 columns are a
+// 128-byte line, and the banks stream at bmm's pace.  The sum order is the
+// same at any width.  Larger T keeps the 64-row tile.
 //
-// The FFMA and __dp4a kernels (fp32 af_gemm, the int8 forms, the fp32
-// expert form), plain kernels that are right first:
+// The FFMA and __dp4a kernels (fp32 af_gemm off the narrow tile, W8 on fp32
+// x, W8A8, K2's int8 forms, the fp32 expert form at T > 16), plain kernels
+// that are right first:
 //   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
 //     outputs a thread) for large M and BM = 16 (1 x 4 outputs a thread)
 //     for decode-sized M, so a 4-row decode GEMM wastes 4x rather than 16x
@@ -155,6 +190,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "tc.cuh"
 
@@ -387,57 +423,106 @@ __device__ __forceinline__ void run_ring(uint32_t ring, uint32_t step_bytes,
 }
 
 // ---------------------------------------------------------------------------
-// FFMA narrow decode tile (fp32 af_gemm at M <= 16, N <= NW_MAX_N, one
-// contraction: the MoE router, (4, 2048, 128) at decode)
+// FFMA narrow decode tile: fp32 x at M <= 16 rows, fp32 or bf16 w.  K1 (fp32
+// af_gemm, N <= NW_MAX_N, one contraction: the MoE router, (4, 2048, 128) at
+// decode) and K2 (fp32 af_expert_gemm at T <= 16: the fp32 MoE banks and the
+// decode attention products, the expert on blockIdx.z)
 
-constexpr int NW_COLS = 8;          // output columns a block
+constexpr int NW_COLS = 8;          // output columns a block (K1)
+constexpr int NW_EXPERT_COLS = 32;  // output columns a block (K2): an fp32
+                                    // w row's 128 bytes, a whole L2 line
 constexpr int NW_SPLIT = 16;        // K slices a block: one warp each
 constexpr int NW_THREADS = 32 * NW_SPLIT;
 constexpr int NW_BK = 32;           // K rows of one staged sub-tile
 constexpr int NW_LDX = NW_BK + 4;   // x row stride (floats): the 4 rows a
                                     // warp reads start on other banks
-constexpr int NW_W_BYTES = 4 * NW_BK * NW_COLS;
 constexpr int NW_RING = 8;          // sub-tiles a warp's ring holds (at
                                     // most; 4 at M = 16)
 constexpr int NW_MAX_N = 4096;      // wider: the 64-column tile fills the card
 
-// bytes of one ring slot (one sub-tile): x (M rows), w, g
+template <bool EXPERT>
+__host__ __device__ constexpr int nw_cols() {
+  return EXPERT ? NW_EXPERT_COLS : NW_COLS;
+}
+
+// bytes of one ring slot (one sub-tile of TW weights): x (M rows), w, g
+template <typename TW, bool EXPERT>
 __host__ __device__ __forceinline__ int nw_slot(int M) {
-  return 4 * M * NW_LDX + NW_W_BYTES + 4 * NW_BK;
+  return 4 * M * NW_LDX + (int)sizeof(TW) * NW_BK * nw_cols<EXPERT>() +
+         4 * NW_BK;
+}
+
+// sub-tiles a warp's ring may hold: its share of the block's budget, the
+// whole SM for K1 (few blocks: the router has 16), half of it for K2 (a
+// bank is thousands of blocks: several a SM overlap one's loads with
+// another's sums and store; at 32 fp32 columns a warp's share is one
+// sub-tile at T = 1, and the ring runs one step at a time)
+template <typename TW, bool EXPERT>
+__host__ __device__ __forceinline__ int nw_fit(int M) {
+  const int fit =
+      (EXPERT ? MAX_SMEM / 2 : MAX_SMEM) / NW_SPLIT / nw_slot<TW, EXPERT>(M);
+  return fit < NW_RING ? fit : NW_RING;
 }
 
 // sub-tiles of one main-loop step: k_collapse, up to half the warp's ring
-// (what fits the SM bounds the ring, so k_collapse never bounds the tile)
+// and at least one (what fits the SM bounds the ring, so k_collapse never
+// bounds the tile)
+template <typename TW, bool EXPERT>
 __host__ __device__ __forceinline__ int nw_step_subs(int M, int k_collapse) {
-  const int fit = MAX_SMEM / NW_SPLIT / nw_slot(M);
-  const int half = (fit < NW_RING ? fit : NW_RING) / 2;
-  return k_collapse < half ? k_collapse : half;
+  const int half = nw_fit<TW, EXPERT>(M) / 2;
+  const int subs = k_collapse < half ? k_collapse : half;
+  return subs > 1 ? subs : 1;
 }
 
-// One (M x 8) output tile, fp32.  Warp s of the block sums K slice s (the
-// s-th of NW_SPLIT runs of whole 32-row sub-tiles, fixed by K alone)
+// one 16-byte chunk of n valid elements of T at src into shared address d
+// (generic pointer dp): a 16-byte cp.async where the source allows, else
+// scalar
+template <typename T>
+__device__ __forceinline__ void nw_chunk(uint32_t d, T* dp, const T* src,
+                                         int n, bool vec) {
+  constexpr int EPC = 16 / sizeof(T);
+  if (vec)
+    tc::cp_chunk(d, src, n, EPC);
+  else
+    for (int e = 0; e < EPC; ++e) dp[e] = e < n ? src[e] : tc::zero<T>();
+}
+
+// One (M x COLS) output tile, fp32 x, TW (fp32 or bf16) w, fp32 sums;
+// EXPERT: of batch element blockIdx.z, its operands offset before the
+// alignment tests, 32 columns (K1: 8).  Warp s of the block sums K slice s
+// (the s-th of NW_SPLIT runs of whole 32-row sub-tiles, fixed by K alone)
 // through a private cp.async ring of `stages` main-loop steps of
-// nw_step_subs sub-tiles (x rows, the 8-column w panel, g); lane (r, c)
-// keeps outputs (r, c), (r + 4, c), ... as fmaf chains over the slice in
-// increasing K order.  The slices' partials then add in slice order.  So
-// every output is the same sum whatever k_collapse, the ring depth or the
-// launch.
-template <typename TO>
+// nw_step_subs sub-tiles (x rows, the COLS-column w panel, g); lane (r, c)
+// keeps outputs (r, c), (r + RG, c), ... (RG = 32 / COLS) as fmaf chains
+// over the slice in increasing K order, bf16 w widened exactly to fp32 as
+// it leaves shared memory.  The slices' partials then add in slice order.
+// So every output is the same sum whatever k_collapse, the ring depth, the
+// launch or (K2) the number of experts.
+template <typename TW, typename TO, bool EXPERT>
 __global__ void __launch_bounds__(NW_THREADS)
 af_gemm_narrow_kernel(Args a, int stages) {
   extern __shared__ __align__(16) unsigned char nw_smem[];
-  const int M = a.M, N = a.N, K = a.K, kc = nw_step_subs(M, a.k_collapse);
+  constexpr int COLS = nw_cols<EXPERT>();
+  constexpr int RG = 32 / COLS;                 // lanes a column: row groups
+  constexpr int NACC = 16 / RG;                 // outputs a lane, at most
+  constexpr int W_EPC = 16 / sizeof(TW);        // w elements a chunk
+  constexpr int W_CPR = COLS / W_EPC;           // chunks a w row
+  constexpr int W_BYTES = sizeof(TW) * NW_BK * COLS;
+  const int M = a.M, N = a.N, K = a.K;
+  const int kc = nw_step_subs<TW, EXPERT>(M, a.k_collapse);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rl = lane / NW_COLS, col = lane % NW_COLS;
-  const int n0 = blockIdx.x * NW_COLS;
-  const float* x = static_cast<const float*>(a.x);
-  const float* w = static_cast<const float*>(a.w);
+  const int rl = lane / COLS, col = lane % COLS;
+  const int n0 = blockIdx.x * COLS;
+  const long long z = EXPERT ? blockIdx.z : 0;
+  const float* x = static_cast<const float*>(a.x) + z * a.bsx;
+  const TW* w = static_cast<const TW*>(a.w) + z * a.bsw;
   const float* g = a.g;
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 4 == 0;
-  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && a.ldw % 4 == 0;
+  const bool wvec =
+      reinterpret_cast<uintptr_t>(w) % 16 == 0 && a.ldw % W_EPC == 0;
   const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const int x_bytes = 4 * M * NW_LDX;
-  const int slot = nw_slot(M);
+  const int slot = nw_slot<TW, EXPERT>(M);
   // this warp's K slice: sub-tiles [sub0, sub0 + n_sub)
   const int n_all = (K + NW_BK - 1) / NW_BK;
   const int per = (n_all + NW_SPLIT - 1) / NW_SPLIT;
@@ -448,55 +533,51 @@ af_gemm_narrow_kernel(Args a, int stages) {
   const uint32_t ring = tc::smem_addr(nw_smem) + warp * stages * step_bytes;
   unsigned char* const base_ptr = nw_smem + warp * stages * step_bytes;
 
-  // one 4-float chunk of n valid floats at src into shared address d: a
-  // 16-byte cp.async where the source allows, else scalar
-  auto chunk = [&](uint32_t d, const float* src, int n, bool vec) {
-    if (vec) {
-      tc::cp_chunk(d, n > 0 ? src : x, n, 4);
-    } else {
-      float* dp = reinterpret_cast<float*>(base_ptr + (d - ring));
-      for (int e = 0; e < 4; ++e) dp[e] = e < n ? src[e] : 0.f;
-    }
-  };
   auto stage = [&](int sub, uint32_t b) {
     const int k0 = (sub0 + sub) * NW_BK;
+    unsigned char* bp = base_ptr + (b - ring);
     for (int i = lane; i < M * (NW_BK / 4); i += 32) {        // x rows
       const int rr = i / (NW_BK / 4), cc = 4 * (i % (NW_BK / 4));
-      chunk(b + 4 * (rr * NW_LDX + cc), x + (long long)rr * a.ldx + k0 + cc,
-            K - k0 - cc, xvec);
+      const int o = 4 * (rr * NW_LDX + cc);
+      nw_chunk(b + o, reinterpret_cast<float*>(bp + o),
+               x + (long long)rr * a.ldx + k0 + cc, K - k0 - cc, xvec);
     }
-    for (int i = lane; i < 2 * NW_BK; i += 32) {              // w: 2 a row
-      const int rr = i / 2, cc = 4 * (i % 2), gk = k0 + rr;
-      chunk(b + x_bytes + 4 * (rr * NW_COLS + cc),
-            w + (long long)gk * a.ldw + n0 + cc,
-            gk < K ? min(4, N - n0 - cc) : 0, wvec);
+    for (int i = lane; i < W_CPR * NW_BK; i += 32) {          // w panel
+      const int rr = i / W_CPR, cc = W_EPC * (i % W_CPR), gk = k0 + rr;
+      const int o = x_bytes + (int)sizeof(TW) * (rr * COLS + cc);
+      nw_chunk(b + o, reinterpret_cast<TW*>(bp + o),
+               w + (long long)gk * a.ldw + n0 + cc,
+               gk < K ? min(W_EPC, N - n0 - cc) : 0, wvec);
     }
     if (g != nullptr && lane < NW_BK / 4) {                  // g
-      const int cc = 4 * lane;
-      chunk(b + x_bytes + NW_W_BYTES + 4 * cc, g + k0 + cc, K - k0 - cc,
-            gvec);
+      const int cc = 4 * lane, o = x_bytes + W_BYTES + 4 * cc;
+      nw_chunk(b + o, reinterpret_cast<float*>(bp + o), g + k0 + cc,
+               K - k0 - cc, gvec);
     }
   };
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // rows rl, rl + 4, rl + 8, rl + 12
+  float acc[NACC];                      // rows rl, rl + RG, rl + 2 RG, ...
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
   auto compute = [&](int sub, uint32_t b) {
-    const float* S = reinterpret_cast<const float*>(base_ptr + (b - ring));
-    const float* Ws = S + x_bytes / 4 + col;
-    const float* Gs = S + (x_bytes + NW_W_BYTES) / 4;
+    const unsigned char* S = base_ptr + (b - ring);
+    const float* X = reinterpret_cast<const float*>(S);
+    const TW* Ws = reinterpret_cast<const TW*>(S + x_bytes) + col;
+    const float* Gs = reinterpret_cast<const float*>(S + x_bytes + W_BYTES);
     const int nk = min(NW_BK, K - (sub0 + sub) * NW_BK);
     if (nk == NW_BK) {
 #pragma unroll
       for (int kb = 0; kb < NW_BK; kb += 4) {
         float wv[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) wv[e] = Ws[(kb + e) * NW_COLS];
+        for (int e = 0; e < 4; ++e) wv[e] = to_f(Ws[(kb + e) * COLS]);
         float4 gv = make_float4(1.f, 1.f, 1.f, 1.f);
         if (g != nullptr) gv = *reinterpret_cast<const float4*>(Gs + kb);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (rl + 4 * j >= M) break;
+        for (int j = 0; j < NACC; ++j) {
+          if (rl + RG * j >= M) break;
           float4 xv = *reinterpret_cast<const float4*>(
-              S + (rl + 4 * j) * NW_LDX + kb);
+              X + (rl + RG * j) * NW_LDX + kb);
           if (g != nullptr)       // the prologue: x_at's fp32 product
             xv = make_float4(__fmul_rn(xv.x, gv.x), __fmul_rn(xv.y, gv.y),
                              __fmul_rn(xv.z, gv.z), __fmul_rn(xv.w, gv.w));
@@ -508,9 +589,9 @@ af_gemm_narrow_kernel(Args a, int stages) {
       }
     } else {
       for (int kb = 0; kb < nk; ++kb) {
-        const float wv = Ws[kb * NW_COLS];
-        for (int j = 0; j < 4 && rl + 4 * j < M; ++j) {
-          const float* Xs = S + (rl + 4 * j) * NW_LDX;
+        const float wv = to_f(Ws[kb * COLS]);
+        for (int j = 0; j < NACC && rl + RG * j < M; ++j) {
+          const float* Xs = X + (rl + RG * j) * NW_LDX;
           const float xv = g != nullptr ? __fmul_rn(Xs[kb], Gs[kb]) : Xs[kb];
           acc[j] = fmaf(xv, wv, acc[j]);
         }
@@ -530,20 +611,20 @@ af_gemm_narrow_kernel(Args a, int stages) {
   };
   run_ring<true>(ring, step_bytes, stages, n_steps, issue, run);
 
-  // the slices' partials, [slice][16 rows][8 columns], over the rings
+  // the slices' partials, [slice][16 rows][COLS columns], over the rings
   __syncthreads();
   float* P = reinterpret_cast<float*>(nw_smem);
-  for (int j = 0; j < 4; ++j)
-    P[(warp * 16 + rl + 4 * j) * NW_COLS + col] = acc[j];
+  for (int j = 0; j < NACC; ++j)
+    P[(warp * 16 + rl + RG * j) * COLS + col] = acc[j];
   __syncthreads();
-  if (threadIdx.x < 16 * NW_COLS) {
-    const int r = threadIdx.x / NW_COLS, c = threadIdx.x % NW_COLS;
-    float y = P[r * NW_COLS + c];
+  if (threadIdx.x < 16 * COLS) {
+    const int r = threadIdx.x / COLS, c = threadIdx.x % COLS;
+    float y = P[r * COLS + c];
     for (int sl = 1; sl < NW_SPLIT; ++sl)
-      y = __fadd_rn(y, P[(sl * 16 + r) * NW_COLS + c]);
+      y = __fadd_rn(y, P[(sl * 16 + r) * COLS + c]);
     store_one<float, TO, false>(a, y, 0.f, r, n0 + c, nullptr, nullptr,
                                 static_cast<const float*>(a.residual),
-                                static_cast<TO*>(a.out));
+                                static_cast<TO*>(a.out) + z * a.bso);
   }
 }
 
@@ -709,12 +790,16 @@ af_gemm_w8a8_kernel(Args a) {
 constexpr int TC_BK = 32;            // K columns of one staged sub-tile
 constexpr int TC_MAX_STAGES = 4;     // main-loop steps the ring holds
 
-template <int BM, int BN, bool DUAL>
+template <int BM, int BN, bool DUAL, bool QUANT = false>
 struct TcLayout {                    // one ring slot
   static constexpr int LDA = TC_BK + 8;   // padded rows (elements): the 8
-  static constexpr int LDB = BN + 8;      // row addresses of an ldmatrix
-  static constexpr int A_BYTES = 2 * BM * LDA;   // land on distinct banks
-  static constexpr int B_BYTES = 2 * TC_BK * LDB;
+  // row addresses of an ldmatrix land on distinct banks; int8 codes (QUANT)
+  // pad by one 16-byte chunk, so the four K rows a fragment's byte loads
+  // touch land on distinct banks too
+  static constexpr int LDB = QUANT ? BN + 16 : BN + 8;
+  static constexpr int W_SIZE = QUANT ? 1 : 2;   // bytes of a staged weight
+  static constexpr int A_BYTES = 2 * BM * LDA;
+  static constexpr int B_BYTES = W_SIZE * TC_BK * LDB;
   static constexpr int G_OFF = A_BYTES + B_BYTES * (DUAL ? 2 : 1);
   static constexpr int SLOT = G_OFF + 4 * TC_BK;  // + the sub-tile's g
   // the fp32 output tile(s) the epilogue reads, over the ring
@@ -726,11 +811,13 @@ struct TcLayout {                    // one ring slot
   static constexpr size_t BUDGET = BM <= 16 ? 32768 : 115712;
 };
 
-// One thread's share of staging a ROWS x COLS bf16 tile in 16-byte chunks,
-// its chunks' shared offsets and global addresses computed once.
-template <int ROWS, int COLS, int NTHR>
+// One thread's share of staging a ROWS x COLS tile of ESIZE-byte elements
+// (bf16, or int8 codes) in 16-byte chunks, its chunks' shared offsets and
+// global addresses computed once.
+template <int ROWS, int COLS, int NTHR, int ESIZE = 2>
 struct Chunks {
-  static constexpr int CPR = COLS / 8;
+  static constexpr int EPC = 16 / ESIZE;   // elements per chunk
+  static constexpr int CPR = COLS / EPC;
   static constexpr int N = (ROWS * CPR + NTHR - 1) / NTHR;
   uint32_t off[N];   // byte offset in the tile
   int r[N], c[N];    // tile row and column of the chunk (r = -1: none)
@@ -739,11 +826,24 @@ struct Chunks {
     for (int j = 0; j < N; ++j) {
       const int i = threadIdx.x + j * NTHR;
       r[j] = i < ROWS * CPR ? i / CPR : -1;
-      c[j] = (i % CPR) * 8;
-      off[j] = 2 * (r[j] * lds + c[j]);
+      c[j] = (i % CPR) * EPC;
+      off[j] = ESIZE * (r[j] * lds + c[j]);
     }
   }
 };
+
+// The B fragment (b0, b1) of one n8 tile at K offset kk from int8 codes
+// staged row-major (row stride ldb bytes) in shared memory: lane 4 g + t
+// reads codes (kk + 2t, col), (kk + 2t + 1, col), (kk + 2t + 8, col),
+// (kk + 2t + 9, col) for col = n0 + g and widens each to bf16 (exact:
+// |code| <= 127 has at most 7 significant bits).
+__device__ __forceinline__ void b_frag_int8(uint32_t& b0, uint32_t& b1,
+                                            const int8_t* B, int ldb, int kk,
+                                            int n0, int lane) {
+  const int8_t* p = B + (kk + 2 * (lane % 4)) * ldb + n0 + lane / 4;
+  b0 = tc::pack_bf16((float)p[0], (float)p[ldb]);
+  b1 = tc::pack_bf16((float)p[8 * ldb], (float)p[9 * ldb]);
+}
 
 __device__ __forceinline__ uint32_t prologue2(uint32_t v, float2 g) {
   // x_at's rounding on two packed bf16: x * g in fp32, back to bf16
@@ -752,27 +852,32 @@ __device__ __forceinline__ uint32_t prologue2(uint32_t v, float2 g) {
 
 // The epilogue of one output pair (r, c), (r, c + 1), c even: the same
 // per-element math as store_one, one paired store where both columns
-// exist and the pair is aligned.
-template <typename TO, bool DUAL>
+// exist and the pair is aligned.  QUANT: the per-column scales ws (ws2)
+// dequantize the accumulators first.
+template <typename TO, bool DUAL, bool QUANT>
 __device__ __forceinline__ void store_pair(const Args& a, const float (&y)[2],
                                            const float (&y2)[2], int r, int c,
+                                           const float* ws, const float* ws2,
                                            const tc::bf16* res, TO* out,
                                            bool pairs) {
   if (r >= a.M || c >= a.N) return;
   if (!pairs || c + 1 >= a.N) {
     for (int e = 0; e < 2; ++e)
-      store_one<tc::bf16, TO, DUAL>(a, y[e], y2[e], r, c + e, nullptr,
-                                    nullptr, res, out);
+      store_one<tc::bf16, TO, DUAL>(a, y[e], y2[e], r, c + e,
+                                    QUANT ? ws : nullptr,
+                                    QUANT ? ws2 : nullptr, res, out);
     return;
   }
   float o[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     float v = y[e];
+    if constexpr (QUANT) v = __fmul_rn(v, ws[c + e]);
     if (a.bias != nullptr) v = __fadd_rn(v, a.bias[c + e]);
     o[e] = activate(v, a.activation);
     if (DUAL) {
       float v2 = y2[e];
+      if constexpr (QUANT) v2 = __fmul_rn(v2, ws2[c + e]);
       if (a.bias2 != nullptr) v2 = __fadd_rn(v2, a.bias2[c + e]);
       o[e] = __fmul_rn(o[e], v2);
     }
@@ -790,16 +895,21 @@ __device__ __forceinline__ void store_pair(const Args& a, const float (&y)[2],
     *reinterpret_cast<uint32_t*>(d) = tc::pack_bf16(o[0], o[1]);
 }
 
-// One (BM x BN) output tile in WM x WN warps, bf16 operands, fp32
-// fragments; `stages` main-loop steps of k_collapse sub-tiles in the ring.
-// EXPERT: of batch element blockIdx.z (K2); K1's instantiations keep their
-// operand pointers in the parameter space (a batch offset costs the
-// 128 x 128 tile, at its register budget, 3-8% at the prefill sites).
-template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT>
+// One (BM x BN) output tile in WM x WN warps, bf16 x, fp32 fragments;
+// `stages` main-loop steps of k_collapse sub-tiles in the ring.  EXPERT: of
+// batch element blockIdx.z (K2); K1's instantiations keep their operand
+// pointers in the parameter space (a batch offset costs the 128 x 128
+// tile, at its register budget, 3-8% at the prefill sites).  QUANT: w (w2)
+// are int8 codes, staged as codes (16 a chunk), widened to bf16 as the B
+// fragments are built and dequantized by the per-column scales at the
+// store (K1's W8 form, af_gemm_q_tc); otherwise bf16.
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT,
+          bool QUANT = false>
 __global__ void __launch_bounds__(WM * WN * 32)
 af_gemm_tc_kernel(Args a, int stages) {
-  using L = TcLayout<BM, BN, DUAL>;
+  using L = TcLayout<BM, BN, DUAL, QUANT>;
   using tc::bf16;
+  using TW = typename std::conditional<QUANT, int8_t, bf16>::type;
   constexpr int NTHR = WM * WN * 32;
   constexpr int TMW = BM / WM, TNW = BN / WN;   // a warp's tile
   constexpr int MT = TMW / 16, NT = TNW / 8;    // its m16 / n8 tiles
@@ -820,19 +930,19 @@ af_gemm_tc_kernel(Args a, int stages) {
   // staging path
   const long long z = EXPERT ? blockIdx.z : 0;
   const bf16* x = static_cast<const bf16*>(a.x) + z * a.bsx;
-  const bf16* w = static_cast<const bf16*>(a.w) + z * a.bsw;
-  const bf16* w2 = static_cast<const bf16*>(a.w2);
+  const TW* w = static_cast<const TW*>(a.w) + z * a.bsw;
+  const TW* w2 = static_cast<const TW*>(a.w2);
   const float* g = a.g;
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 8 == 0;
   const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                    a.ldw % 8 == 0 &&
+                    a.ldw % (16 / sizeof(TW)) == 0 &&
                     (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
   const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const int n_sub = (K + TC_BK - 1) / TC_BK;
   const int n_steps = (n_sub + kc - 1) / kc;
 
   using XC = Chunks<BM, TC_BK, NTHR>;
-  using WC = Chunks<TC_BK, BN, NTHR>;
+  using WC = Chunks<TC_BK, BN, NTHR, sizeof(TW)>;
   XC xs;
   WC ws;
   xs.init(L::LDA);
@@ -848,7 +958,7 @@ af_gemm_tc_kernel(Args a, int stages) {
   }
 #pragma unroll
   for (int j = 0; j < WC::N; ++j) {
-    w_n[j] = ws.r[j] >= 0 ? min(8, N - n0 - ws.c[j]) : 0;
+    w_n[j] = ws.r[j] >= 0 ? min(WC::EPC, N - n0 - ws.c[j]) : 0;
     wo[j] = (long long)max(ws.r[j], 0) * a.ldw + n0 + ws.c[j];
   }
 
@@ -884,18 +994,20 @@ af_gemm_tc_kernel(Args a, int stages) {
       for (int j = 0; j < WC::N; ++j) {
         if (ws.r[j] < 0) continue;
         const int n = k0 + ws.r[j] < K ? w_n[j] : 0;
-        tc::cp_chunk(slot + L::A_BYTES + ws.off[j], w + kofs + wo[j], n, 8);
+        tc::cp_chunk(slot + L::A_BYTES + ws.off[j], w + kofs + wo[j], n,
+                     WC::EPC);
         if (DUAL)
           tc::cp_chunk(slot + L::A_BYTES + L::B_BYTES + ws.off[j],
-                       w2 + kofs + wo[j], n, 8);
+                       w2 + kofs + wo[j], n, WC::EPC);
       }
     } else {
-      bf16* base = reinterpret_cast<bf16*>(tc_smem + (slot - ring) + L::A_BYTES);
+      TW* base = reinterpret_cast<TW*>(tc_smem + (slot - ring) + L::A_BYTES);
       tc::stage_tile<TC_BK, BN, NTHR>(base, L::LDB, w, a.ldw, k0, K, n0, N,
                                       false);
       if (DUAL)
-        tc::stage_tile<TC_BK, BN, NTHR>(base + L::B_BYTES / 2, L::LDB, w2,
-                                        a.ldw, k0, K, n0, N, false);
+        tc::stage_tile<TC_BK, BN, NTHR>(base + L::B_BYTES / sizeof(TW),
+                                        L::LDB, w2, a.ldw, k0, K, n0, N,
+                                        false);
     }
     if (g != nullptr && threadIdx.x < TC_BK / 4) {
       const int c = k0 + 4 * threadIdx.x;
@@ -939,7 +1051,14 @@ af_gemm_tc_kernel(Args a, int stages) {
       for (int b = 0; b < (DUAL ? 2 : 1); ++b) {
         const bf16* Bm = Bs + b * (L::B_BYTES / 2);
         auto& dst = b ? bf2 : bf;
-        if constexpr (NT == 1) {
+        if constexpr (QUANT) {
+          const int8_t* Bq =
+              reinterpret_cast<const int8_t*>(S + L::A_BYTES + b * L::B_BYTES);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            b_frag_int8(dst[h][nt][0], dst[h][nt][1], Bq, L::LDB, kk,
+                        wn * TNW + nt * 8, lane);
+        } else if constexpr (NT == 1) {
           uint32_t r2[2];
           tc::ldmatrix_x2_trans(r2, Bm + (kk + brow) * L::LDB + wn * TNW);
           dst[h][0][0] = r2[0];
@@ -1026,6 +1145,8 @@ af_gemm_tc_kernel(Args a, int stages) {
   __syncthreads();
   const bf16* res = static_cast<const bf16*>(a.residual);   // K1 only
   TO* out = static_cast<TO*>(a.out) + z * a.bso;
+  const float* wsc = QUANT ? a.w_scale + z * a.bss : nullptr;
+  const float* wsc2 = QUANT && DUAL ? a.w2_scale + z * a.bss : nullptr;
   const bool pairs =
       a.ldo % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0 &&
       (res == nullptr ||
@@ -1037,7 +1158,8 @@ af_gemm_tc_kernel(Args a, int stages) {
     float2 v2 = make_float2(0.f, 0.f);
     if (DUAL) v2 = *reinterpret_cast<const float2*>(Cs2 + rr * L::LDC + cc);
     const float y[2] = {v.x, v.y}, y2[2] = {v2.x, v2.y};
-    store_pair<TO, DUAL>(a, y, y2, m0 + rr, n0 + cc, res, out, pairs);
+    store_pair<TO, DUAL, QUANT>(a, y, y2, m0 + rr, n0 + cc, wsc, wsc2, res,
+                                out, pairs);
   }
 }
 
@@ -1067,21 +1189,30 @@ int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The narrow FFMA tile: each warp's ring holds as many steps of
-// nw_step_subs sub-tiles as fit its share of the SM (at least two).
-template <typename TO>
-int launch_narrow(const Args& a, cudaStream_t stream) {
-  const int slot = nw_slot(a.M), subs = nw_step_subs(a.M, a.k_collapse);
-  const int ring = std::min(NW_RING, MAX_SMEM / NW_SPLIT / slot);
-  const int stages = ring / subs;
+// The narrow FFMA tile (batch blocks along z for K2): each warp's ring
+// holds as many steps of nw_step_subs sub-tiles as fit its share (two or
+// more for K1, one or more for K2).  smem_only: report the dynamic shared memory the launch takes, and
+// launch nothing.
+template <typename TW, typename TO, bool EXPERT>
+int launch_narrow(const Args& a, int batch, cudaStream_t stream,
+                  size_t* smem_only = nullptr) {
+  constexpr int COLS = nw_cols<EXPERT>();
+  const int slot = nw_slot<TW, EXPERT>(a.M);
+  const int subs = nw_step_subs<TW, EXPERT>(a.M, a.k_collapse);
+  const int stages = nw_fit<TW, EXPERT>(a.M) / subs;
   const size_t smem = std::max((size_t)NW_SPLIT * stages * subs * slot,
-                               sizeof(float) * NW_SPLIT * 16 * NW_COLS);
+                               sizeof(float) * NW_SPLIT * 16 * COLS);
+  if (smem_only != nullptr) {
+    *smem_only = smem;
+    return 0;
+  }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_narrow_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_SMEM);
+      af_gemm_narrow_kernel<TW, TO, EXPERT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.N + NW_COLS - 1) / NW_COLS);
-  af_gemm_narrow_kernel<TO><<<grid, NW_THREADS, smem, stream>>>(a, stages);
+  const dim3 grid((a.N + COLS - 1) / COLS, 1, batch);
+  af_gemm_narrow_kernel<TW, TO, EXPERT>
+      <<<grid, NW_THREADS, smem, stream>>>(a, stages);
   return (int)cudaGetLastError();
 }
 
@@ -1089,10 +1220,11 @@ int launch_narrow(const Args& a, cudaStream_t stream) {
 // tile's budget, at least two steps where they fit the SM, else one.
 // smem_only: report the dynamic shared memory the launch takes, and
 // launch nothing.
-template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT>
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT,
+          bool QUANT>
 int launch_tc_k(const Args& a, int batch, cudaStream_t stream,
                 size_t* smem_only) {
-  using L = TcLayout<BM, BN, DUAL>;
+  using L = TcLayout<BM, BN, DUAL, QUANT>;
   const size_t step_bytes = (size_t)L::SLOT * a.k_collapse;
   int stages = TC_MAX_STAGES;
   while (stages > 2 && stages * step_bytes > L::BUDGET) --stages;
@@ -1104,40 +1236,45 @@ int launch_tc_k(const Args& a, int batch, cudaStream_t stream,
     return 0;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT>,
+      af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT, QUANT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
-  af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT>
+  af_gemm_tc_kernel<TO, BM, BN, WM, WN, DUAL, EXPERT, QUANT>
       <<<grid, WM * WN * 32, smem, stream>>>(a, stages);
   return (int)cudaGetLastError();
 }
 
 // K1 (batch 1) or K2's expert axis (batch > 1): only the latter offsets
-// its operands per blockIdx.z
-template <typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+// its operands per blockIdx.z.  QUANT (int8 codes) is K1's W8 form only.
+template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool QUANT>
 int launch_tc(const Args& a, int batch, cudaStream_t stream,
               size_t* smem_only) {
-  if (batch > 1)
-    return launch_tc_k<TO, BM, BN, WM, WN, DUAL, true>(a, batch, stream,
-                                                        smem_only);
-  return launch_tc_k<TO, BM, BN, WM, WN, DUAL, false>(a, 1, stream,
-                                                       smem_only);
+  if constexpr (!QUANT)
+    if (batch > 1)
+      return launch_tc_k<TO, BM, BN, WM, WN, DUAL, true, false>(
+          a, batch, stream, smem_only);
+  if (batch != 1) return (int)cudaErrorInvalidValue;
+  return launch_tc_k<TO, BM, BN, WM, WN, DUAL, false, QUANT>(a, 1, stream,
+                                                              smem_only);
 }
 
 // decode-sized M (one m16 row tile, 32 columns a block in 4 warps) or the
 // prefill tiles (128 x 128; 128 x 64 for the dual pair and for N <= 64,
 // attn.pv's head dim, which would leave half of a 128-wide tile empty);
 // `batch` blocks along z
-template <typename TO, bool DUAL>
+template <typename TO, bool DUAL, bool QUANT = false>
 int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                 size_t* smem_only = nullptr) {
   if (a.M <= 16)
-    return launch_tc<TO, 16, 32, 1, 4, DUAL>(a, batch, stream, smem_only);
+    return launch_tc<TO, 16, 32, 1, 4, DUAL, QUANT>(a, batch, stream,
+                                                     smem_only);
   if constexpr (!DUAL)
     if (a.N > 64)
-      return launch_tc<TO, 128, 128, 2, 4, false>(a, batch, stream, smem_only);
-  return launch_tc<TO, 128, 64, 4, 2, DUAL>(a, batch, stream, smem_only);
+      return launch_tc<TO, 128, 128, 2, 4, false, QUANT>(a, batch, stream,
+                                                          smem_only);
+  return launch_tc<TO, 128, 64, 4, 2, DUAL, QUANT>(a, batch, stream,
+                                                   smem_only);
 }
 
 // W8A8 (act_quant) or the float chain, at BM = 16 for decode-sized M.
@@ -1194,8 +1331,9 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
          ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w2 == nullptr && M <= 16 && N <= NW_MAX_N) {
-    if (out_dtype == F32) return launch_narrow<float>(a, s);
-    if (out_dtype == BF16) return launch_narrow<__nv_bfloat16>(a, s);
+    if (out_dtype == F32) return launch_narrow<float, float, false>(a, 1, s);
+    if (out_dtype == BF16)
+      return launch_narrow<float, __nv_bfloat16, false>(a, 1, s);
     return (int)cudaErrorInvalidValue;
   }
   return w2 != nullptr
@@ -1228,25 +1366,32 @@ extern "C" int af_gemm_tc(int out_dtype, const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory (bytes) af_gemm_tc / af_expert_gemm_tc take at M
-// rows (T for the expert form), N columns, k_collapse and dual; -1 where
-// they refuse the launch.
-extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual) {
+// Dynamic shared memory (bytes) af_gemm_tc / af_expert_gemm_tc (quant = 0)
+// or af_gemm_q_tc (quant = 1) take at M rows (T for the expert form), N
+// columns, k_collapse and dual; -1 where they refuse the launch.
+extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual,
+                                     int quant) {
   if (M < 1 || N < 1 || k_collapse < 1) return -1;
   Args a{};
   a.M = M;
   a.N = N;
   a.k_collapse = k_collapse;
   size_t smem = 0;
-  const int rc = dual ? launch_tc_m<float, true>(a, 1, nullptr, &smem)
-                      : launch_tc_m<float, false>(a, 1, nullptr, &smem);
+  int rc;
+  if (quant)
+    rc = dual ? launch_tc_m<float, true, true>(a, 1, nullptr, &smem)
+              : launch_tc_m<float, false, true>(a, 1, nullptr, &smem);
+  else
+    rc = dual ? launch_tc_m<float, true>(a, 1, nullptr, &smem)
+              : launch_tc_m<float, false>(a, 1, nullptr, &smem);
   return rc == 0 ? (long long)smem : -1;
 }
 
 // X[M,K] @ W[K,N] (+ W2) on int8 weight codes w/w2 with fp32 per-column
 // scales w_scale/w2_scale (required), the same prologue/epilogue as
-// af_gemm; x and the residual have dtype `x_dtype`.  act_quant = 0: W8, the
-// float chain at k_collapse; act_quant = 1: W8A8 on the reference's x
+// af_gemm; x and the residual have dtype `x_dtype`.  act_quant = 0: W8 on
+// fp32 x, the float chain at k_collapse (bf16 x takes af_gemm_q_tc);
+// act_quant = 1: W8A8 on the reference's x
 // tiles of quant_bm rows (M itself, or a multiple of 64) by quant_kk
 // columns (k_collapse is then only part of how quant_kk was chosen).
 extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
@@ -1260,8 +1405,8 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                          void* stream) {
   const bool dual = w2 != nullptr;
   if (k_collapse < 1 || M < 1 || N < 1 || K < 1 || w_scale == nullptr ||
-      (dual && w2_scale == nullptr))
-    return (int)cudaErrorInvalidValue;
+      (dual && w2_scale == nullptr) || (!act_quant && x_dtype != F32))
+    return (int)cudaErrorInvalidValue;      // bf16 x under W8: af_gemm_q_tc
   Args a{x, w, w2, w_scale, w2_scale, bias, bias2, residual, g, out, M, N,
          K, ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, quant_bm,
          quant_kk};
@@ -1272,9 +1417,50 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                         act_quant != 0, 1, s);
 }
 
-// X[E,T,K] @ W[E,K,N] -> out[E,T,N] on the FFMA kernel, all contiguous:
+// W8 on the tensor-core kernel: x and the residual bf16, w/w2 int8 codes
+// with fp32 per-column scales w_scale/w2_scale (required), out fp32 or bf16
+// (out_dtype), the same prologue/epilogue as af_gemm_tc with the dequant
+// first at the store.  Returns cudaGetLastError() of the launch.
+extern "C" int af_gemm_q_tc(int out_dtype, const void* x, const void* w,
+                            const void* w2, const float* w_scale,
+                            const float* w2_scale, const float* bias,
+                            const float* bias2, const void* residual,
+                            const float* g, void* out, int M, int N, int K,
+                            long long ldx, long long ldw, long long ldr,
+                            long long ldo, int k_collapse, int activation,
+                            void* stream) {
+  const bool dual = w2 != nullptr;
+  if (k_collapse < 1 || M < 1 || N < 1 || K < 1 || w_scale == nullptr ||
+      (dual && w2_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a{x, w, w2, w_scale, w2_scale, bias, bias2, residual, g, out, M, N, K,
+         ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == F32)
+    return dual ? launch_tc_m<float, true, true>(a, 1, s)
+                : launch_tc_m<float, false, true>(a, 1, s);
+  if (out_dtype == BF16)
+    return dual ? launch_tc_m<__nv_bfloat16, true, true>(a, 1, s)
+                : launch_tc_m<__nv_bfloat16, false, true>(a, 1, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2's fp32 x (TW w) at T <= 16 on the narrow tile, the expert on z
+template <typename TW>
+int launch_expert_narrow(const Args& a, int out_dtype, int E,
+                         cudaStream_t stream, size_t* smem_only = nullptr) {
+  if (out_dtype == F32)
+    return launch_narrow<TW, float, true>(a, E, stream, smem_only);
+  if (out_dtype == BF16)
+    return launch_narrow<TW, __nv_bfloat16, true>(a, E, stream, smem_only);
+  return (int)cudaErrorInvalidValue;
+}
+
+// X[E,T,K] @ W[E,K,N] -> out[E,T,N] on the FFMA kernels, all contiguous:
 // x and w fp32, or (fp32, bf16), the fp32-query x bf16-cache attention
-// product (bf16 x bf16 takes af_expert_gemm_tc).
+// product (bf16 x bf16 takes af_expert_gemm_tc).  T <= 16 (decode: an MoE
+// bank's capacity rows, a KV head's query rows) takes the narrow tile, K
+// in 16 fixed slices (E <= 65535), larger T the 64-row tile.
 extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
                               const void* x, const void* w, void* out, int E,
                               int T, int K, int N, int k_collapse,
@@ -1285,11 +1471,38 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
          (long long)T * N, 0, k_collapse, ACT_NONE, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == F32 && w_dtype == F32)
-    return launch_out<float, float, false>(a, out_dtype, false, E, s);
-  if (x_dtype == F32 && w_dtype == BF16)
-    return launch_out<float, __nv_bfloat16, false>(a, out_dtype, false, E, s);
-  return (int)cudaErrorInvalidValue;
+  if (x_dtype != F32 || (w_dtype != F32 && w_dtype != BF16))
+    return (int)cudaErrorInvalidValue;
+  if (T <= 16) {
+    if (E > 65535) return (int)cudaErrorInvalidValue;
+    return w_dtype == F32
+               ? launch_expert_narrow<float>(a, out_dtype, E, s)
+               : launch_expert_narrow<__nv_bfloat16>(a, out_dtype, E, s);
+  }
+  return w_dtype == F32
+             ? launch_out<float, float, false>(a, out_dtype, false, E, s)
+             : launch_out<float, __nv_bfloat16, false>(a, out_dtype, false,
+                                                       E, s);
+}
+
+// Dynamic shared memory (bytes) the narrow FFMA tile takes at M rows (T for
+// the expert form), k_collapse, fp32 (w_bf16 = 0) or bf16 w, as K1's tile
+// (expert = 0) or K2's (expert = 1); -1 outside M <= 16.
+extern "C" long long af_narrow_smem(int M, int k_collapse, int w_bf16,
+                                    int expert) {
+  if (M < 1 || M > 16 || k_collapse < 1) return -1;
+  Args a{};
+  a.M = M;
+  a.k_collapse = k_collapse;
+  size_t smem = 0;
+  if (!expert && !w_bf16)
+    launch_narrow<float, float, false>(a, 1, nullptr, &smem);
+  else if (expert)
+    w_bf16 ? launch_expert_narrow<__nv_bfloat16>(a, F32, 1, nullptr, &smem)
+           : launch_expert_narrow<float>(a, F32, 1, nullptr, &smem);
+  else
+    return -1;
+  return (long long)smem;
 }
 
 // The same batched product on the tensor-core kernel: x and w bf16, out

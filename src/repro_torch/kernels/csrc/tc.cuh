@@ -1,7 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels of this directory
-// (sm_80+ PTX, built here for sm_90a): cp.async staging with zero-fill,
-// ldmatrix fragment loads and the mma.sync.m16n8k16 bf16 x bf16 -> fp32
-// product.
+// (sm_80+ PTX, built here for sm_90a): cp.async staging with zero-fill (of
+// bf16 operands, fp32 vectors and int8 weight codes), ldmatrix fragment
+// loads and the mma.sync.m16n8k16 bf16 x bf16 -> fp32 product.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 g + t, g = lane / 4,
 // t = lane % 4), each 32-bit register holding two bf16 at consecutive
@@ -48,8 +48,9 @@ __device__ __forceinline__ void st_zero16(uint32_t dst) {
                "r"(0));
 }
 
-// one 16-byte chunk of which the first n (<= 0: none) of 8 bf16 (or 4
-// fp32) are valid: copied, zero-filled past the edge, or zeroed
+// one 16-byte chunk of which the first n (<= 0: none) of its per_chunk
+// elements (8 bf16, 4 fp32 or 16 int8) are valid: copied, zero-filled past
+// the edge, or zeroed
 __device__ __forceinline__ void cp_chunk(uint32_t dst, const void* src,
                                          int n, int per_chunk) {
   if (n >= per_chunk)
@@ -125,33 +126,44 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) {
   return __uint_as_float(v & 0xffff0000u);
 }
 
-// Stage one rows x cols tile of a row-major bf16 matrix (row stride ld
-// elements) into shared memory (row stride lds elements, a multiple of 8):
-// tile element (r, c) is src[(r0 + r) * ld + c0 + c] where r0 + r < row_hi
-// and c0 + c < col_hi, else 0.  vec: 16-byte cp.async chunks (src 16-byte
-// aligned and ld a multiple of 8), the chunk that straddles the edge
+// the zero of a staged element type (bf16 operands, int8 weight codes,
+// fp32)
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ bf16 zero<bf16>() {
+  return __ushort_as_bfloat16(0);
+}
+template <> __device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+
+// Stage one rows x cols tile of a row-major matrix of T (bf16, or int8
+// codes; row stride ld elements) into shared memory (row stride lds
+// elements, a multiple of one 16-byte chunk, 16 / sizeof(T) elements): tile
+// element (r, c) is src[(r0 + r) * ld + c0 + c] where r0 + r < row_hi and
+// c0 + c < col_hi, else 0.  vec: 16-byte cp.async chunks (src 16-byte
+// aligned and ld a multiple of a chunk), the chunk that straddles the edge
 // zero-filled through the copy's src-size, chunks past it stored as zeros;
 // otherwise scalar loads and stores, so misaligned rows run the same tile
 // through the same main loop.
-template <int ROWS, int COLS, int NTHR>
-__device__ __forceinline__ void stage_tile(bf16* dst, int lds, const bf16* src,
+template <int ROWS, int COLS, int NTHR, typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int lds, const T* src,
                                            long long ld, int r0, int row_hi,
                                            int c0, int col_hi, bool vec) {
-  constexpr int CPR = COLS / 8;  // 8-element chunks per row
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = COLS / EPC;      // chunks per row
   for (int i = threadIdx.x; i < ROWS * CPR; i += NTHR) {
-    const int r = i / CPR, c = (i % CPR) * 8;
+    const int r = i / CPR, c = (i % CPR) * EPC;
     const int gr = r0 + r, gc = c0 + c;
-    bf16* d = dst + r * lds + c;
+    T* d = dst + r * lds + c;
     const bool row_ok = gr < row_hi;
     if (vec) {
       const int n = row_ok ? col_hi - gc : 0;
       cp_chunk(smem_addr(d), n > 0 ? src + (long long)gr * ld + gc : src, n,
-               8);
+               EPC);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
+      for (int e = 0; e < EPC; ++e)
         d[e] = (row_ok && gc + e < col_hi) ? src[(long long)gr * ld + gc + e]
-                                           : __ushort_as_bfloat16(0);
+                                           : zero<T>();
     }
   }
 }

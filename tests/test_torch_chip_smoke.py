@@ -1,0 +1,104 @@
+"""``chip_smoke.py``'s bookkeeping, on the CPU: which kernel each serving
+run's launches must land on, and which TPU kernel each counted form
+replaces.  The script's checks and times need the card; its launch plan,
+its kernel booking and its launch checks are plain Python, imported here
+from the repository root without running anything.
+"""
+import dataclasses
+import importlib.util
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import arrayflex_gemm as ag
+
+ARCHS = ["qwen2-0.5b", "qwen3-moe-30b-a3b"]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod     # its dataclasses look it up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cfg(arch, backend, dtype):
+    return dataclasses.replace(get_config(arch), gemm_backend=backend,
+                               compute_dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_w8_serving_launches_land_on_tensor_cores(smoke, arch):
+    """bf16 ``arrayflex_int8`` serving: every W8 K1 launch on
+    ``af_gemm_q_tc`` (the MoE router stays on the fp32 FFMA K1, the expert
+    banks on K2's int8-only form)."""
+    cfg = _cfg(arch, "arrayflex_int8", "bfloat16")
+    want = smoke.expected_launches(cfg, steps=3)
+    L = cfg.n_layers
+    dense = 0 if cfg.moe is not None else 2 * L
+    assert want["arrayflex_gemm_int8"] == (4 * L + 1 + dense) * 3
+    assert want["arrayflex_gemm_int8_tc"] == want["arrayflex_gemm_int8"]
+    assert want["arrayflex_gemm_tc"] == 0
+    assert want["arrayflex_gemm"] == (L * 3 if cfg.moe is not None else 0)
+    assert want["arrayflex_expert_gemm_int8"] == \
+        (3 * L * 3 if cfg.moe is not None else 0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fp32_w8_serving_launches_none_on_tensor_cores(smoke, arch):
+    cfg = _cfg(arch, "arrayflex_int8", "float32")
+    want = smoke.expected_launches(cfg, steps=2)
+    assert want["arrayflex_gemm_int8"] > 0
+    assert all(want[name] == 0 for name in smoke.TC_COUNTERS)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_w8a8"])
+def test_other_backends_keep_their_tensor_core_launches(smoke, arch,
+                                                        backend):
+    """The float backend's bf16 K1 stays on ``af_gemm_tc``; W8A8 has no
+    tensor-core K1; no backend but W8 counts ``arrayflex_gemm_int8_tc``."""
+    want = smoke.expected_launches(_cfg(arch, backend, "bfloat16"), steps=2)
+    assert want["arrayflex_gemm_int8_tc"] == 0
+    if backend == "arrayflex":
+        assert want["arrayflex_gemm_tc"] == want["arrayflex_gemm"] - (
+            2 * get_config(arch).n_layers if get_config(arch).moe else 0)
+    else:
+        assert want["arrayflex_gemm_tc"] == 0
+
+
+def test_replaces_names_every_launch_counter(smoke):
+    assert set(smoke.REPLACES) == set(ag.LAUNCHES)
+    assert set(smoke.TC_COUNTERS) <= set(ag.LAUNCHES)
+    for tc in smoke.TC_COUNTERS:        # each a subset of its form's count
+        assert tc.endswith("_tc") and tc[:-len("_tc")] in ag.LAUNCHES
+        assert smoke.REPLACES[tc] == smoke.REPLACES[tc[:-len("_tc")]]
+
+
+@pytest.mark.parametrize("dt,want", [(torch.bfloat16,
+                                      "arrayflex_gemm_int8_tc"),
+                                     (torch.float32, "arrayflex_gemm_int8")])
+def test_w8_site_books_under_the_kernel_that_ran(smoke, dt, want):
+    site = smoke.Site("attn.wq", "arrayflex_gemm", (4, 896, 896), 24,
+                      form="int8")
+    assert site.kernel_key(dt) == want
+    bank = smoke.Site("moe.wi_gate", "arrayflex_expert_gemm",
+                      (128, 1, 2048, 768), 48, form="int8")
+    assert bank.kernel_key(dt) == "arrayflex_expert_gemm_int8"
+
+
+def test_fp32_w8_launch_check(smoke):
+    ok = dict.fromkeys(ag.LAUNCHES, 0)
+    ok.update(arrayflex_gemm_int8=10, arrayflex_expert_gemm=4)
+    smoke.check_fp32_w8_launches("fp32 W8", ok)
+    for bad in (dict(ok, arrayflex_gemm_int8_tc=1),
+                dict(ok, arrayflex_expert_gemm_tc=1),
+                dict(ok, arrayflex_gemm_int8=0)):
+        with pytest.raises(AssertionError, match="FFMA"):
+            smoke.check_fp32_w8_launches("fp32 W8", bad)

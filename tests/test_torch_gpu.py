@@ -1,10 +1,10 @@
 """The port's CUDA kernels (float, W8 and W8A8 forms, K2's int8-only form
 of the MoE expert banks, and K3 flash attention) against their plain
 versions, and the full-sequence ``lm.prefill`` against the ``ref``
-backend, on the card.  bf16 K1 float, bf16 K2 float and bf16 K3 run the
-tensor-core kernels, fp32 the FFMA ones (``gemm_kernel`` /
-``expert_gemm_kernel`` / ``attention_kernel``); the per-kernel launch
-counters show which ran.
+backend, on the card.  bf16 K1 float, W8 K1 on bf16 x, bf16 K2 float and
+bf16 K3 run the tensor-core kernels, fp32 the FFMA ones (``gemm_kernel``
+/ ``gemm_q_kernel`` / ``expert_gemm_kernel`` / ``attention_kernel``); the
+per-kernel launch counters show which ran.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -385,9 +385,11 @@ def test_quant_gemm_matches_plain(cuda, act_quant, dt, k, mkn, flags):
     x, kw = _quant_operands(g, M, K, N, dt, flags)
     w = kw.pop("w")
     name = "arrayflex_gemm_w8a8" if act_quant else "arrayflex_gemm_int8"
+    counted = [name] + (["arrayflex_gemm_int8_tc"]       # W8 on bf16 x
+                        if not act_quant and dt == torch.bfloat16 else [])
     before = dict(ag.LAUNCHES)
     got = ag.arrayflex_gemm(x, w, act_quant=act_quant, k_collapse=k, **kw)
-    assert ag.LAUNCHES == dict(before, **{name: before[name] + 1})
+    assert ag.LAUNCHES == dict(before, **{n: before[n] + 1 for n in counted})
     _close_step(got, ag.arrayflex_gemm_plain(x, w, act_quant=act_quant,
                                              k_collapse=k, **kw), dt)
 
@@ -457,7 +459,8 @@ def test_moe_engine_launches_every_kernel(cuda, backend):
     """Reduced qwen3-moe-30b-a3b: per layer 4 attention K1, the router on
     the float K1, attn.qk/attn.pv on K2 and the three expert sites on the
     backend's K2 form; the unembed once per step.  Every bf16 float-form
-    launch is on a tensor-core kernel, the fp32 router on the FFMA K1."""
+    launch (and every W8 K1 launch) is on a tensor-core kernel, the fp32
+    router on the FFMA K1."""
     L, steps = _serve_reduced(backend, "qwen3-moe-30b-a3b")
     want = {name: 0 for name in ag.LAUNCHES}
     if backend == "arrayflex":
@@ -467,6 +470,7 @@ def test_moe_engine_launches_every_kernel(cuda, backend):
                     arrayflex_expert_gemm_tc=5 * L * steps)
     elif backend == "arrayflex_int8":
         want.update(arrayflex_gemm_int8=(4 * L + 1) * steps,
+                    arrayflex_gemm_int8_tc=(4 * L + 1) * steps,
                     arrayflex_gemm=L * steps,
                     arrayflex_expert_gemm_int8=3 * L * steps,
                     arrayflex_expert_gemm=2 * L * steps,
@@ -489,13 +493,15 @@ def test_quant_kernel_refuses_float_weights(cuda):
 
 @pytest.mark.parametrize("backend", ["arrayflex_int8", "arrayflex_w8a8"])
 def test_quant_engine_launches_every_kernel(cuda, backend):
-    """Every weight GEMM on the form's kernel; attn.qk on K2's W8A8 form
-    under arrayflex_w8a8, on the float K2 otherwise; attn.pv on the float
-    K2 (bf16 operands: the tensor-core kernel)."""
+    """Every weight GEMM on the form's kernel (W8 on bf16 x: the tensor-core
+    kernel); attn.qk on K2's W8A8 form under arrayflex_w8a8, on the float
+    K2 otherwise; attn.pv on the float K2 (bf16 operands: the tensor-core
+    kernel)."""
     L, steps = _serve_reduced(backend)
     want = {name: 0 for name in ag.LAUNCHES}
     if backend == "arrayflex_int8":
         want.update(arrayflex_gemm_int8=(6 * L + 1) * steps,
+                    arrayflex_gemm_int8_tc=(6 * L + 1) * steps,
                     arrayflex_expert_gemm=2 * L * steps,
                     arrayflex_expert_gemm_tc=2 * L * steps)
     else:
@@ -504,6 +510,141 @@ def test_quant_engine_launches_every_kernel(cuda, backend):
                     arrayflex_expert_gemm=L * steps,
                     arrayflex_expert_gemm_tc=L * steps)
     assert ag.LAUNCHES == want
+
+
+# W8 K1 on bf16 x (the tensor-core kernel on int8 codes) at every W8 site
+# shape of both models: qwen2-0.5b at decode (M = 4) and at the prefill
+# chunk (M = 1024), qwen3-moe-30b-a3b at decode; the unembed keeps B rows
+# (fp32 logits); then ragged M / N / K
+W8_TC_SITES = [
+    ((4, 896, 896), "qkv"), ((4, 896, 128), "qkv"), ((4, 896, 4864), "swiglu"),
+    ((4, 4864, 896), "residual"), ((4, 896, 152064), "f32_out"),
+    ((1024, 896, 896), "qkv"), ((1024, 896, 128), "qkv"),
+    ((1024, 896, 4864), "swiglu"), ((1024, 4864, 896), "residual"),
+    ((4, 2048, 4096), "qkv"), ((4, 2048, 512), "qkv"),
+    ((4, 4096, 2048), "residual"), ((4, 2048, 152064), "f32_out"),
+    ((37, 130, 200), "all"), ((5, 100, 36), "all"), ((300, 264, 136), "all"),
+    ((16, 72, 24), "swiglu")]
+
+
+def _w8_tc_operands(g, M, K, N, flags):
+    x, kw = _quant_operands(g, M, K, N, torch.bfloat16,
+                            "none" if flags == "f32_out" else flags)
+    if flags == "f32_out":
+        kw["out_dtype"] = torch.float32
+    return x, kw
+
+
+@pytest.mark.parametrize("mkn,flags", W8_TC_SITES)
+def test_w8_tc_bit_identical_across_k(cuda, mkn, flags):
+    """W8 on bf16 x runs the tensor-core kernel (one launch each, counted
+    under both ``arrayflex_gemm_int8`` and ``arrayflex_gemm_int8_tc``); its
+    accumulators take their k16 products in increasing K order whatever
+    k_collapse, so the output is the same bits at k = 1, 2, 4; and it holds
+    the plain version within one bf16 step at max |value|."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + 7 * K + N)
+    x, kw = _w8_tc_operands(g, M, K, N, flags)
+    w = kw.pop("w")
+    outs = []
+    for k in (1, 2, 4):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_gemm(x, w, k_collapse=k, **kw))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_gemm_int8=before["arrayflex_gemm_int8"] + 1,
+            arrayflex_gemm_int8_tc=before["arrayflex_gemm_int8_tc"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_gemm_plain(x, w, **kw),
+                kw.get("out_dtype", torch.bfloat16))
+
+
+@pytest.mark.parametrize("mkn", [(4, 896, 4864), (1024, 896, 4864),
+                                 (37, 130, 200), (300, 264, 136)])
+def test_w8_tc_misaligned_base(cuda, mkn):
+    """x, the residual and the int8 codes (w and w2) off their 16-byte
+    boundary stage through the scalar path of the same kernel: the same
+    bits as the aligned copies, with the dual swiglu's two scales, both
+    biases and the residual."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + 3 * N)
+    x, kw = _w8_tc_operands(g, M, K, N, "all")
+    w = kw.pop("w")
+
+    def shifted(t):                     # same values, base one element off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    want = ag.arrayflex_gemm(x, w, k_collapse=2, **kw)
+    got = ag.arrayflex_gemm(shifted(x), shifted(w), k_collapse=2,
+                            **dict(kw, w2=shifted(kw["w2"]),
+                                   residual=shifted(kw["residual"])))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close_step(got, ag.arrayflex_gemm_plain(x, w, **kw), torch.bfloat16)
+
+
+# fp32 K2 at T <= 16 (the narrow FFMA tile): the fp32 MoE banks (128
+# experts of one capacity row), qwen2-0.5b's decode attn.qk / attn.pv (B x
+# KV = 8, g = 7 query rows) and qwen3-moe-30b-a3b's (16 x 8, max_seq 64),
+# then ragged T / K / N and 16 rows
+K2_NARROW_SHAPES = [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                    (8, 7, 64, 256), (8, 7, 256, 64), (16, 8, 128, 64),
+                    (16, 8, 64, 128), (3, 5, 130, 70), (5, 1, 100, 36),
+                    (2, 16, 1000, 130)]
+
+
+def _f32_expert_operands(g, E, T, K, N, dw):
+    x = torch.randn(E, T, K, generator=g, device="cuda")
+    w = (torch.randn(E, K, N, generator=g, device="cuda") * K ** -0.5).to(dw)
+    return x, w
+
+
+@pytest.mark.parametrize("dw", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", K2_NARROW_SHAPES)
+def test_fp32_expert_narrow_bit_identical_across_k(cuda, dw, etkn):
+    """fp32 K2 at T <= 16 sums fixed K slices (one warp each, each an fmaf
+    chain in increasing K order) and adds the slices in order: the same
+    bits at k = 1, 2, 4, one launch of the FFMA K2 each (none on the
+    tensor cores), and within 1e-5 of max |plain| (fp32 sums in another
+    order); bf16 w (a bf16 K/V cache) widens exactly."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
+    x, w = _f32_expert_operands(g, E, T, K, N, dw)
+    outs = []
+    for k in (1, 2, 4):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_expert_gemm(x, w, k_collapse=k))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_expert_gemm=before["arrayflex_expert_gemm"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close(outs[0], ag.arrayflex_expert_gemm_plain(x, w), torch.float32)
+
+
+@pytest.mark.parametrize("dw", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                                  (8, 7, 64, 256), (7, 3, 130, 70)])
+def test_fp32_expert_narrow_bits_do_not_depend_on_E(cuda, dw, etkn):
+    """An expert's output in an E-expert launch is the same bits as its
+    own one-expert launch, including experts whose base is not 16-byte
+    aligned in the E-expert tensor (T * K not a multiple of 4: they stage
+    through the scalar path there), at fp32 and at bf16 output."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + N)
+    x, w = _f32_expert_operands(g, E, T, K, N, dw)
+    for out in (torch.float32, torch.bfloat16):
+        whole = ag.arrayflex_expert_gemm(x, w, k_collapse=4, out_dtype=out)
+        for e in sorted({0, 1, E // 2, E - 1}):
+            one = ag.arrayflex_expert_gemm(x[e:e + 1].clone(),
+                                           w[e:e + 1].clone(), k_collapse=4,
+                                           out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(whole[e:e + 1], one), (out, e)
 
 
 # ---------------------------------------------------------------- K3

@@ -227,6 +227,26 @@ def test_gemm_kernel_rule():
             ag.gemm_kernel(dt)
 
 
+@pytest.mark.parametrize("x_dtype,act_quant,want", [
+    (torch.bfloat16, False, "af_gemm_q_tc"),
+    (torch.float32, False, "af_gemm_q"),
+    (torch.bfloat16, True, "af_gemm_q"),
+    (torch.float32, True, "af_gemm_q")])
+def test_gemm_q_kernel_rule(x_dtype, act_quant, want):
+    """K1's int8 forms: W8 on bf16 x launches the tensor-core kernel
+    (codes widened to bf16, as the reference widens them to x's type), W8
+    on fp32 x the FFMA kernel, W8A8 the __dp4a kernel on either x type."""
+    assert ag.gemm_q_kernel(x_dtype, act_quant) == want
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float16, torch.float64,
+                                     torch.int8])
+def test_gemm_q_kernel_rule_refuses(x_dtype):
+    for act_quant in (False, True):
+        with pytest.raises(ValueError, match="float32 or bfloat16 x"):
+            ag.gemm_q_kernel(x_dtype, act_quant)
+
+
 def test_expert_gemm_kernel_rule():
     """K2's float form: bf16 x with bf16 w launches the tensor-core
     kernel; fp32 x with fp32 w, or with a bf16 K/V cache, the FFMA
@@ -244,6 +264,7 @@ def test_expert_gemm_kernel_rule():
 
 @pytest.mark.parametrize("counter,parent", [
     ("arrayflex_gemm_tc", "arrayflex_gemm"),
+    ("arrayflex_gemm_int8_tc", "arrayflex_gemm_int8"),
     ("arrayflex_expert_gemm_tc", "arrayflex_expert_gemm")])
 def test_tc_counter_resets_with_the_others(counter, parent):
     ag.LAUNCHES[counter] += 3

@@ -307,7 +307,8 @@ def test_quant_plain_versions_count_no_launches():
     assert ag.LAUNCHES == before
     assert set(ag.LAUNCHES) == {
         "arrayflex_gemm", "arrayflex_gemm_tc", "arrayflex_gemm_int8",
-        "arrayflex_gemm_w8a8", "arrayflex_expert_gemm",
+        "arrayflex_gemm_int8_tc", "arrayflex_gemm_w8a8",
+        "arrayflex_expert_gemm",
         "arrayflex_expert_gemm_tc", "arrayflex_expert_gemm_int8",
         "arrayflex_expert_gemm_w8a8"}
 
