@@ -10,7 +10,8 @@ failure of which exits non-zero:
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, and the ``-Xptxas -v``
    register / shared-memory / spill lines, then the tensor-core kernels'
    (W8's too) and the FFMA narrow decode tile's (K1 and K2) registers,
-   spills and dynamic shared memory at the main path's shapes;
+   spills and dynamic shared memory at the main path's shapes, and the
+   narrow tile's width at every fp32-x K1 decode site (float and W8);
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -494,6 +495,23 @@ def check_site(site: Site, dt, gen, k: int, tol_fn=None) -> float:
     return err
 
 
+def planned_k(site: Site) -> int:
+    """The k_collapse the substrate plans for ``site`` on the backend its
+    form runs under, with the site's epilogue."""
+    backend = FORM_BACKEND[site.form]
+    if site.kernel == "arrayflex_expert_gemm":
+        E, T, K, N = site.shape
+        return substrate.plan_gemm(N, K, T, backend).k
+    M, K, N = site.shape
+    f = site.flags
+    ep = substrate.Epilogue(
+        kind="swiglu" if f.get("dual") else f.get("activation", "none"),
+        bias=bool(f.get("bias")), bias2=bool(f.get("bias2")),
+        residual=bool(f.get("residual")),
+        norm_scale=bool(f.get("norm_scale")))
+    return substrate.plan_gemm(N, K, M, backend, ep).k
+
+
 def time_site(site: Site, gen, iters: int):
     """Kernel, plain and library times (ms per launch) in the main path's
     dtype at this site (bf16; fp32 for the MoE router), at the k the
@@ -501,19 +519,7 @@ def time_site(site: Site, gen, iters: int):
     dt = site.time_dtype
     fn, plain = _kernel_fns(site)
     x, calls = _operands(site, dt, gen, site.copies)
-    backend = FORM_BACKEND[site.form]
-    if site.kernel == "arrayflex_expert_gemm":
-        E, T, K, N = site.shape
-        k = substrate.plan_gemm(N, K, T, backend).k
-    else:
-        M, K, N = site.shape
-        f = site.flags
-        ep = substrate.Epilogue(
-            kind="swiglu" if f.get("dual") else f.get("activation", "none"),
-            bias=bool(f.get("bias")), bias2=bool(f.get("bias2")),
-            residual=bool(f.get("residual")),
-            norm_scale=bool(f.get("norm_scale")))
-        k = substrate.plan_gemm(N, K, M, backend, ep).k
+    k = planned_k(site)
 
     def bind(f_, kw):
         kw = dict(kw)
@@ -1545,15 +1551,33 @@ def k3_rows(k3, launches: dict):
     return rows
 
 
-def tc_report() -> None:
+def narrow_sites(cfg, moe_cfg):
+    """The K1 decode sites (M = BATCH rows) that fp32 x runs on the narrow
+    FFMA tile, for both models: every K1 site of the decode path in the
+    float form (the dual swiglu and the unembed among them, and the MoE
+    router) and every W8 site (``arrayflex_int8``'s weight GEMMs)."""
+    out = []
+    for c, max_seq in ((cfg, MAX_SEQ), (moe_cfg, MOE_MAX_SEQ)):
+        float_sites = main_path_sites(c, BATCH, max_seq)
+        if c.moe is not None:
+            float_sites += moe_sites(c)
+        out += [s for s in float_sites + quant_sites(c, BATCH, "int8",
+                                                     max_seq)
+                if s.kernel == "arrayflex_gemm"]
+    return out
+
+
+def tc_report(cfg, moe_cfg) -> None:
     """The tensor-core kernels' and the narrow FFMA tile's registers and
     spills (ptxas, per instantiation) and the dynamic shared memory their
     launchers take at the main path's shapes (K1 float and W8: decode M = 4
     at the planned k = 4, prefill at k = 1 and 2; K2: an MoE bank's T = 1,
     the prefill chunk's and the 2048-token prefill's attn.qk (N = S) and
-    attn.pv (N = 64, the 128 x 64 tile); the narrow tile: K1's router, K2's
-    fp32 bank and decode attention (T = 7, fp32 and bf16 w); K3 at each
-    head dim)."""
+    attn.pv (N = 64, the 128 x 64 tile); the narrow tile: its width and
+    shared memory at every fp32-x K1 decode site of both models
+    (:func:`narrow_sites`, float and W8, at the planned k), K2's fp32 bank
+    and decode attention (T = 7, fp32 and bf16 w); K3 at each head
+    dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
@@ -1576,13 +1600,21 @@ def tc_report() -> None:
                             ("S = 2048 attn.pv", (14336, 64, 1))):
         log(f"  af_expert_gemm_tc dynamic shared memory at the {what} (T = "
             f"{T}, N = {N}, k = {k}): {glib.af_gemm_tc_smem(T, N, k, 0, 0)} B")
-    for what, (M, k, w_bf16, expert) in (
-            ("K1 router (M = 4, k = 4)", (4, 4, 0, 0)),
-            ("K2 fp32 bank (T = 1, k = 4)", (1, 4, 0, 1)),
-            ("K2 decode attn.qk, bf16 cache (T = 7, k = 1)", (7, 1, 1, 1)),
-            ("K2 decode attn.pv (T = 7, k = 2)", (7, 2, 0, 1))):
-        log(f"  narrow FFMA tile dynamic shared memory at the {what}: "
-            f"{glib.af_narrow_smem(M, k, w_bf16, expert)} B")
+    for site in narrow_sites(cfg, moe_cfg):
+        M, K, N = site.shape
+        w_dtype = 2 if site.form == "int8" else 0
+        dual, k = int(bool(site.flags.get("dual"))), planned_k(site)
+        log(f"  narrow FFMA tile at {site.cell} {site.form} {site.name} "
+            f"{site.shape} k = {k}: {glib.af_narrow_cols(M, N, w_dtype, 0)} "
+            f"columns a block, "
+            f"{glib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0)} B")
+    for what, (T, N, K, k, w_dtype) in (
+            ("K2 fp32 bank", (1, 768, 2048, 4, 0)),
+            ("K2 decode attn.qk, bf16 cache", (7, MAX_SEQ, 64, 1, 1)),
+            ("K2 decode attn.pv", (7, 64, MAX_SEQ, 2, 0))):
+        log(f"  narrow FFMA tile at the {what} (T = {T}, N = {N}, K = {K}, "
+            f"k = {k}): {glib.af_narrow_cols(T, N, w_dtype, 1)} columns a "
+            f"block, {glib.af_narrow_smem(T, N, K, k, w_dtype, 0, 1)} B")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")
@@ -1608,8 +1640,6 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line \
                     or "spill" in line:
                 log(f"  {stem}: {line.strip()}")
-    tc_report()
-
     cfg = dataclasses.replace(get_config("qwen2-0.5b"),
                               gemm_backend="arrayflex",
                               compute_dtype="bfloat16")
@@ -1617,6 +1647,7 @@ def main() -> int:
                                   gemm_backend="arrayflex",
                                   compute_dtype="bfloat16",
                                   param_dtype="bfloat16")
+    tc_report(cfg, moe_cfg)
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
     log(f"[3/8] GEMM kernel checks and times (bf16, the MoE router fp32; "

@@ -5,12 +5,16 @@ kernels ``_kernel`` and ``_expert_kernel`` become hand-written CUDA kernels
 in ``csrc/arrayflex_gemm.cu`` (the design notes are at the top of that
 file), one C entry per operand form:
 
-  ``af_gemm``           ``_kernel`` on fp32 operands (FFMA; a narrow
-                        decode tile at M <= 16, the MoE router's shape);
+  ``af_gemm``           ``_kernel`` on fp32 operands (FFMA; at decode,
+                        M <= 16, a narrow tile: K in 16 fixed warp slices,
+                        16-byte ``cp.async`` staging, one or two
+                        contractions, any N, the width from M and N);
   ``af_gemm_tc``        ``_kernel`` on bf16 operands (tensor cores,
                         ``mma.sync`` bf16 x bf16 -> fp32);
   ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 on fp32 x
-                        (FFMA, dequant at the store) or, with
+                        (FFMA, dequant at the store; at M <= 16 the narrow
+                        tile of ``af_gemm``, the codes staged as int8 and
+                        widened exactly to fp32 in the chain) or, with
                         ``act_quant``, W8A8 (per-tile int8 x, an int8 x int8
                         -> int32 chain);
   ``af_gemm_q_tc``      ``_kernel``'s W8 form on bf16 x (the tensor-core
@@ -88,9 +92,10 @@ def gemm_kernel(dtype) -> str:
     operands of ``dtype``: bf16 -> ``af_gemm_tc`` (tensor cores, bf16
     products into fp32 sums, the reference matrix unit's arithmetic), fp32
     -> ``af_gemm`` (FFMA: tensor cores give no IEEE fp32; its C entry
-    takes a narrow decode tile, K in 16 fixed slices, for one contraction
-    at M <= 16, N <= 4096).  The choice follows the operand type only,
-    never a failed build or launch."""
+    takes the narrow decode tile, K in 16 fixed slices, for every launch
+    at M <= 16 -- one or two contractions, any N -- and the 64-column tile
+    for larger M).  The choice follows the operand type only, never a
+    failed build or launch."""
     if dtype == torch.bfloat16:
         return "af_gemm_tc"
     if dtype == torch.float32:
@@ -104,10 +109,12 @@ def gemm_q_kernel(x_dtype, act_quant: bool) -> str:
     given) launch for x of ``x_dtype``: W8 on bf16 x -> ``af_gemm_q_tc``
     (tensor cores: the codes widen exactly to bf16, bf16 products into fp32
     sums, as the reference widens them to x's type for its matrix unit),
-    W8 on fp32 x -> ``af_gemm_q`` (FFMA: tensor cores give no IEEE fp32);
-    W8A8 (``act_quant``) on either x type -> ``af_gemm_q`` (int8 x int8 ->
-    int32, ``__dp4a``).  The choice follows the types only, never a failed
-    build or launch."""
+    W8 on fp32 x -> ``af_gemm_q`` (FFMA: tensor cores give no IEEE fp32;
+    its C entry takes ``af_gemm``'s narrow decode tile at M <= 16, the
+    codes widened exactly to fp32 as they leave shared memory, and the
+    64-column tile for larger M); W8A8 (``act_quant``) on either x type ->
+    ``af_gemm_q`` (int8 x int8 -> int32, ``__dp4a``).  The choice follows
+    the types only, never a failed build or launch."""
     if x_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"arrayflex_gemm: int8 forms take float32 or "
                          f"bfloat16 x, got {x_dtype}")
@@ -288,8 +295,10 @@ def _lib():
         lib.af_gemm_tc.restype = i
         lib.af_gemm_tc_smem.argtypes = [i, i, i, i, i]
         lib.af_gemm_tc_smem.restype = ll
-        lib.af_narrow_smem.argtypes = [i, i, i, i]
+        lib.af_narrow_smem.argtypes = [i, i, i, i, i, i, i]
         lib.af_narrow_smem.restype = ll
+        lib.af_narrow_cols.argtypes = [i, i, i, i]
+        lib.af_narrow_cols.restype = i
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, ll, ll, ll, ll, i, i, i, i, p]
         lib.af_gemm_q.restype = i

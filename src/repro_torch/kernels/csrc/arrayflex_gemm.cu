@@ -123,44 +123,58 @@
 //     fp32 score tile of attn.qk leaves through the same shared-memory
 //     epilogue.
 //
-// af_gemm_narrow_kernel, fp32 x at decode (M <= 16): af_gemm with one
-// contraction and N <= 4096 (8 columns a block), and af_expert_gemm at
-// T <= 16 (32 columns a block).  The MoE router (4, 2048, 128) is fp32 on
-// every backend, as in the reference, and on the 64-column tile below it
-// ran 2 blocks on 132 SMs, each walking K with scalar loads between two
-// barriers (~104 us a launch); an fp32 MoE bank (E 128, T 1, K 2048, N
-// 768) ran 1536 such blocks, each reading its 32 x 64 w panel one float at
-// a time between two barriers for 1 x 4 outputs a thread over 16 masked
-// rows (2.4x bmm).  Here a block owns 8 columns (16 blocks at N = 128; a
-// warp's lanes on neighbouring columns) and splits K into 16 fixed slices,
-// one warp each: a warp stages its slice's w panel and x rows as 16-byte
-// cp.async chunks into its own ring of main-loop steps (k_collapse 32-row
-// sub-tiles, up to half the ring), keeps its outputs as fmaf chains over
-// the slice in K order, and the slices' partials add in slice order at the
-// end.  The split is fixed by K alone, so the output is the same bits at
-// every k_collapse, though not the 64-column tile's single chain (both
-// hold the plain version's fp32 tolerance).  Why not that single chain
-// here: with one output a thread, each SM holds one computing warp whose
-// chain waits on a shared-memory load every K step, and few warps stage
-// the scattered 32-byte rows of w; 16 slices give an SM 16 warps for
-// both.  K2 takes the same tile with the expert on blockIdx.z, operands
-// offset per expert before the alignment tests (an expert's bits do not
-// depend on E), bf16 w (the fp32 query against a bf16 cache) staged as
-// bf16 and widened exactly as it leaves shared memory, a ring of half the
-// SM's share (so several of a bank's thousands of blocks share an SM and
-// one's loads overlap another's sums and store), and 32 columns a block,
-// one a lane: with 8, each block read 32-byte pieces of every w row and
-// the banks streamed at about half of HBM's rate; 32 fp32 columns are a
-// 128-byte line, and the banks stream at bmm's pace.  The sum order is the
-// same at any width.  Larger T keeps the 64-row tile.
+// af_gemm_narrow_kernel, fp32 x at decode (M <= 16): every af_gemm launch
+// and every W8 af_gemm_q launch on fp32 x (fp32 or int8-code w, one or two
+// contractions, any N), and af_expert_gemm at T <= 16.  The 64-column tile
+// below ran them on ceil(N / 64) blocks -- 14 at an 896-wide site, each
+// walking K = 4864 in one chain with scalar loads between two barriers
+// (W8 mlp.wo on an H100: 308 us to read 4.4 MB of codes), 12 of its 16 rows zeros at
+// M = 4.  Here a block splits K into 16 fixed slices, one warp each: a warp
+// stages its slice's w panel (and w2's, in the same ring slot), x rows and
+// g as 16-byte cp.async chunks (int8 codes 16 a chunk) into its own ring
+// of main-loop steps (k_collapse 32-row sub-tiles, up to half the ring),
+// keeps its outputs as fmaf chains over the slice in K order (two sets for
+// the dual), and the slices' partials add in slice order at the end.  The
+// split is fixed by K alone, so the output is the same bits at every
+// k_collapse and every width, though not the 64-column tile's single chain
+// (both hold the plain version's fp32 tolerance).  Why not that single
+// chain here: with one output a thread, each SM holds one computing warp
+// whose chain waits on a shared-memory load every K step, and few warps
+// stage the scattered rows of w; 16 slices give an SM 16 warps for both.
+//   * width: a block's columns.  With 8 fp32 columns each block read
+//     32-byte pieces of every w row, half a DRAM burst, and the fp32 MoE
+//     banks streamed at about half of HBM's rate; 32 fp32 columns, a w
+//     row's 128 bytes, stream them at bmm's pace.  K1 takes the widest of
+//     its type's widths (fp32 32 / 16 / 8, int8 128 / 64 / 32 / 16) whose
+//     grid still fills the card, so a 128-wide site keeps 16 blocks and the
+//     unembed streams 128-byte rows (nw_k1_cols); K2 takes 32.  A lane owns
+//     COLS / 32 neighbouring columns of every row (COLS >= 32), or one
+//     column of every (32 / COLS)-th row, with room for 4 rows of sums at
+//     M <= 4 (the decode batch) and 16 above: 16 rows' room at M = 4 held
+//     4x the registers it used, and with it the W8 dual's 152 blocks ran
+//     one an SM, in two waves (NwShape);
+//   * int8 codes widen to fp32 as they leave shared memory with a byte
+//     permute and an add, exact (nw_widen), once for all of a lane's rows;
+//     the per-column scales multiply first at the store (store_one);
+//   * the ring's budget is the whole SM where the grid has at most a block
+//     an SM (each block streams alone), else half of it (two blocks an SM:
+//     one's loads overlap another's sums and store), and a ring holds no
+//     more steps than its slice needs, so a short K frees the SM;
+//   * the partials buffer is [contraction][slice][M rows][width] over the
+//     rings (the dual's 64 int8 columns at M = 16: 128 KB);
+//   * K2: the expert on blockIdx.z, operands offset per expert before the
+//     alignment tests (an expert's bits do not depend on E), bf16 w (the
+//     fp32 query against a bf16 cache) staged as bf16 and widened exactly,
+//     the half-SM ring (a bank is thousands of blocks).  Larger M (T) keeps
+//     the 64-row tile.
 //
-// The FFMA and __dp4a kernels (fp32 af_gemm off the narrow tile, W8 on fp32
-// x, W8A8, K2's int8 forms, the fp32 expert form at T > 16), plain kernels
-// that are right first:
+// The FFMA and __dp4a kernels off the narrow tile (fp32 af_gemm and W8 on
+// fp32 x at M > 16, W8A8, K2's int8 forms, the fp32 expert form at
+// T > 16), plain kernels that are right first:
 //   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
 //     outputs a thread) for large M and BM = 16 (1 x 4 outputs a thread)
-//     for decode-sized M, so a 4-row decode GEMM wastes 4x rather than 16x
-//     of its work on masked rows;
+//     for decode-sized M (W8A8, and K2's int8-only banks), so a 4-row
+//     decode GEMM wastes 4x rather than 16x of its work on masked rows;
 //   * float forms: K is consumed in ceil(K / (BK * k_collapse)) main-loop
 //     iterations; each stages k_collapse BK-wide sub-tiles of X (and W, W2)
 //     in shared memory, widened to fp32 on load, and runs k_collapse
@@ -183,8 +197,8 @@
 //     converts to float exactly), and a fold written __fmul_rn / __fadd_rn
 //     so nvcc cannot contract it into an FMA;
 //   * ragged M/N/K edges are masked on load (zeros) and on store; nothing
-//     is padded in device memory.  Each element is read with a scalar
-//     load.
+//     is padded in device memory.  These kernels read each element with a
+//     scalar load (the narrow and tensor-core tiles stage 16-byte chunks).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -203,7 +217,7 @@ constexpr int KQ = BKQ / 4;      // ... as 4 int8 codes per 32-bit word
 constexpr int THREADS = 256;
 constexpr int MAX_SMEM = 232448;  // 227 KB: the most a block may use
 
-enum Dtype { F32 = 0, BF16 = 1 };
+enum Dtype { F32 = 0, BF16 = 1, I8 = 2 };   // I8: int8 w, in the queries
 enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -423,55 +437,51 @@ __device__ __forceinline__ void run_ring(uint32_t ring, uint32_t step_bytes,
 }
 
 // ---------------------------------------------------------------------------
-// FFMA narrow decode tile: fp32 x at M <= 16 rows, fp32 or bf16 w.  K1 (fp32
-// af_gemm, N <= NW_MAX_N, one contraction: the MoE router, (4, 2048, 128) at
-// decode) and K2 (fp32 af_expert_gemm at T <= 16: the fp32 MoE banks and the
-// decode attention products, the expert on blockIdx.z)
+// FFMA narrow decode tile: fp32 x at M <= 16 rows.  K1: every fp32-x launch
+// of af_gemm and of af_gemm_q's W8 form (fp32 or int8-code w, one or two
+// contractions, any N); K2: fp32 af_expert_gemm at T <= 16 (fp32 or bf16 w,
+// the expert on blockIdx.z)
 
-constexpr int NW_COLS = 8;          // output columns a block (K1)
-constexpr int NW_EXPERT_COLS = 32;  // output columns a block (K2): an fp32
-                                    // w row's 128 bytes, a whole L2 line
 constexpr int NW_SPLIT = 16;        // K slices a block: one warp each
 constexpr int NW_THREADS = 32 * NW_SPLIT;
 constexpr int NW_BK = 32;           // K rows of one staged sub-tile
 constexpr int NW_LDX = NW_BK + 4;   // x row stride (floats): the 4 rows a
                                     // warp reads start on other banks
-constexpr int NW_RING = 8;          // sub-tiles a warp's ring holds (at
-                                    // most; 4 at M = 16)
-constexpr int NW_MAX_N = 4096;      // wider: the 64-column tile fills the card
+constexpr int NW_RING = 8;          // sub-tiles a warp's ring holds (at most)
+constexpr int NW_SMS = 132;         // SMs of an H100 SXM
+constexpr int NW_FILL = 128;        // blocks that fill the card: one on all
+                                    // but 4 of its SMs
+constexpr int NW_EXPERT_COLS = 32;  // K2's width: an fp32 w row's 128 bytes
 
-template <bool EXPERT>
-__host__ __device__ constexpr int nw_cols() {
-  return EXPERT ? NW_EXPERT_COLS : NW_COLS;
+// K1's width (output columns a block) at M rows, N columns: the widest of
+// its weight type's widths whose grid still fills the card, else the
+// narrowest.  fp32 w: 32 (a w row's 128 bytes), 16, 8; int8 codes: 128
+// (128 bytes) at M <= 4 only -- a lane keeps rows x columns / 32 sums, and
+// 16 rows x 4 columns, twice for the dual, would pass the 128 registers a
+// thread of a 512-thread block may hold -- then 64, 32, 16 (one 16-byte
+// chunk of codes).  It depends on M, N and the weight type alone, never on
+// k_collapse, and the sums do not depend on it.
+inline int nw_k1_cols(int M, int N, bool int8) {
+  auto fills = [N](int cols) { return (N + cols - 1) / cols >= NW_FILL; };
+  if (int8) {
+    if (M <= 4 && fills(128)) return 128;
+    return fills(64) ? 64 : fills(32) ? 32 : 16;
+  }
+  return fills(32) ? 32 : fills(16) ? 16 : 8;
 }
 
-// bytes of one ring slot (one sub-tile of TW weights): x (M rows), w, g
-template <typename TW, bool EXPERT>
+// sub-tiles a warp sums: the K slices are whole 32-row sub-tiles, fixed by
+// K alone
+__host__ __device__ __forceinline__ int nw_per(int K) {
+  const int n_all = (K + NW_BK - 1) / NW_BK;
+  return (n_all + NW_SPLIT - 1) / NW_SPLIT;
+}
+
+// bytes of one ring slot (one sub-tile): x (M rows), w (and w2), g
+template <typename TW, int COLS, bool DUAL>
 __host__ __device__ __forceinline__ int nw_slot(int M) {
-  return 4 * M * NW_LDX + (int)sizeof(TW) * NW_BK * nw_cols<EXPERT>() +
+  return 4 * M * NW_LDX + (DUAL ? 2 : 1) * (int)sizeof(TW) * NW_BK * COLS +
          4 * NW_BK;
-}
-
-// sub-tiles a warp's ring may hold: its share of the block's budget, the
-// whole SM for K1 (few blocks: the router has 16), half of it for K2 (a
-// bank is thousands of blocks: several a SM overlap one's loads with
-// another's sums and store; at 32 fp32 columns a warp's share is one
-// sub-tile at T = 1, and the ring runs one step at a time)
-template <typename TW, bool EXPERT>
-__host__ __device__ __forceinline__ int nw_fit(int M) {
-  const int fit =
-      (EXPERT ? MAX_SMEM / 2 : MAX_SMEM) / NW_SPLIT / nw_slot<TW, EXPERT>(M);
-  return fit < NW_RING ? fit : NW_RING;
-}
-
-// sub-tiles of one main-loop step: k_collapse, up to half the warp's ring
-// and at least one (what fits the SM bounds the ring, so k_collapse never
-// bounds the tile)
-template <typename TW, bool EXPERT>
-__host__ __device__ __forceinline__ int nw_step_subs(int M, int k_collapse) {
-  const int half = nw_fit<TW, EXPERT>(M) / 2;
-  const int subs = k_collapse < half ? k_collapse : half;
-  return subs > 1 ? subs : 1;
 }
 
 // one 16-byte chunk of n valid elements of T at src into shared address d
@@ -487,49 +497,127 @@ __device__ __forceinline__ void nw_chunk(uint32_t d, T* dp, const T* src,
     for (int e = 0; e < EPC; ++e) dp[e] = e < n ? src[e] : tc::zero<T>();
 }
 
-// One (M x COLS) output tile, fp32 x, TW (fp32 or bf16) w, fp32 sums;
-// EXPERT: of batch element blockIdx.z, its operands offset before the
-// alignment tests, 32 columns (K1: 8).  Warp s of the block sums K slice s
-// (the s-th of NW_SPLIT runs of whole 32-row sub-tiles, fixed by K alone)
-// through a private cp.async ring of `stages` main-loop steps of
-// nw_step_subs sub-tiles (x rows, the COLS-column w panel, g); lane (r, c)
-// keeps outputs (r, c), (r + RG, c), ... (RG = 32 / COLS) as fmaf chains
-// over the slice in increasing K order, bf16 w widened exactly to fp32 as
-// it leaves shared memory.  The slices' partials then add in slice order.
-// So every output is the same sum whatever k_collapse, the ring depth, the
-// launch or (K2) the number of experts.
-template <typename TW, typename TO, bool EXPERT>
-__global__ void __launch_bounds__(NW_THREADS)
-af_gemm_narrow_kernel(Args a, int stages) {
+// CPL neighbouring weights of one staged K row, widened exactly to fp32 as
+// they leave shared memory: bf16 by its exact conversion; int8 codes
+// without I2F (a quarter-rate instruction): a code xor 0x80 is u = code +
+// 128, which under the exponent of 2^23 is the float 2^23 + u, and
+// subtracting 2^23 + 128 leaves the code -- one permute and one add a
+// code, all exact (the reference's w.astype(x.dtype)).
+template <typename TW, int CPL>
+__device__ __forceinline__ void nw_widen(const TW* p, float (&v)[CPL]) {
+  if constexpr (std::is_same<TW, int8_t>::value) {
+    uint32_t u;
+    if constexpr (CPL == 4)
+      u = *reinterpret_cast<const uint32_t*>(p);
+    else if constexpr (CPL == 2)
+      u = *reinterpret_cast<const uint16_t*>(p);
+    else
+      u = *reinterpret_cast<const uint8_t*>(p);
+    u ^= 0x80808080u;
+#pragma unroll
+    for (int e = 0; e < CPL; ++e)
+      v[e] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + e)) -
+             8388736.0f;
+  } else {
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) v[e] = to_f(p[e]);
+  }
+}
+
+// The shape of a narrow tile of COLS columns with room for MR rows: a lane
+// owns CPL neighbouring columns of RG-strided rows (COLS >= 32: CPL =
+// COLS / 32, every row; else one column of every RG-th row, RG = 32 /
+// COLS), NR rows at most, and keeps NW x NR x CPL sums.  It takes a full
+// sub-tile KV K rows at a time (x as a KV-vector: 4 for a lane of one
+// column, 2 for several, so its widened weights stay 2 CPL registers).
+// MIN_BLOCKS is the launch bound's blocks an SM: 2 where the sums are few
+// (K1 at M <= 4, K2), so the block fits 64 registers and two share an SM;
+// else 1, so ptxas does not squeeze 16 rows' sums into 64 registers with
+// spills.
+template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
+struct NwShape {
+  static constexpr int CPL = COLS > 32 ? COLS / 32 : 1;
+  static constexpr int LPR = COLS / CPL;            // lanes across the tile
+  static constexpr int RG = 32 / LPR;
+  static constexpr int NR = MR / RG;
+  static constexpr int NW = DUAL ? 2 : 1;           // contractions
+  static constexpr int KV = CPL == 1 ? 4 : 2;
+  static constexpr int MIN_BLOCKS =
+      EXPERT || (MR <= 4 && NW * NR * CPL <= 16) ? 2 : 1;
+};
+
+// KV consecutive fp32 of shared memory (16-byte aligned for KV = 4, 8 for
+// KV = 2) in one vector load
+template <int KV>
+__device__ __forceinline__ void nw_load(const float* p, float (&v)[KV]) {
+  if constexpr (KV == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+}
+
+// One (M x COLS) output tile, fp32 x, TW (fp32, bf16 or int8 codes) w, fp32
+// sums, out fp32 or bf16 (out_bf16).  Warp s of the block sums K slice s
+// (the s-th of NW_SPLIT runs of nw_per(K) whole 32-row sub-tiles, fixed by
+// K alone) through a private cp.async ring of `stages` main-loop steps of
+// `subs` sub-tiles (x rows, the COLS-column w panel -- and w2's, DUAL --
+// and g); a lane (NwShape) keeps each output as an fmaf chain over the
+// slice in increasing K order, the weights widened exactly to fp32 as they
+// leave shared memory.  The slices' partials then add in slice order and
+// the store applies store_one once: dequant (w_scale / w2_scale) -> bias
+// -> act -> gate multiply -> residual -> one cast.  So every output is the
+// same sum whatever k_collapse, the ring depth, the width or (K2) the
+// number of experts.  EXPERT: of batch element blockIdx.z, its operands
+// offset before the alignment tests.
+template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
+__global__ void __launch_bounds__(
+    NW_THREADS, (NwShape<TW, COLS, MR, DUAL, EXPERT>::MIN_BLOCKS))
+af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
   extern __shared__ __align__(16) unsigned char nw_smem[];
-  constexpr int COLS = nw_cols<EXPERT>();
-  constexpr int RG = 32 / COLS;                 // lanes a column: row groups
-  constexpr int NACC = 16 / RG;                 // outputs a lane, at most
-  constexpr int W_EPC = 16 / sizeof(TW);        // w elements a chunk
-  constexpr int W_CPR = COLS / W_EPC;           // chunks a w row
-  constexpr int W_BYTES = sizeof(TW) * NW_BK * COLS;
+  using Sh = NwShape<TW, COLS, MR, DUAL, EXPERT>;
+  constexpr int CPL = Sh::CPL, LPR = Sh::LPR, RG = Sh::RG, NR = Sh::NR;
+  constexpr int NW = Sh::NW, KV = Sh::KV;
+  constexpr int W_EPC = 16 / sizeof(TW);           // w elements a chunk
+  constexpr int W_CPR = COLS / W_EPC;              // chunks a w row
+  constexpr int W_ELEMS = NW_BK * COLS;            // one panel's elements
+  constexpr int W_BYTES = sizeof(TW) * W_ELEMS;
+  // a full sub-tile's K loop: unrolled for a lane of one column, but kept
+  // rolled where its sums and widened weights reach 32 registers; 4 steps
+  // unrolled for a lane of several columns
+  constexpr int KB_UNROLL =
+      CPL > 1 ? 4 : NW * (NR + 4) >= 32 ? 1 : NW_BK / KV;
+  static_assert(COLS % W_EPC == 0 && LPR * RG == 32 && MR % RG == 0 &&
+                MR <= 16, "narrow tile shape");
   const int M = a.M, N = a.N, K = a.K;
-  const int kc = nw_step_subs<TW, EXPERT>(M, a.k_collapse);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rl = lane / COLS, col = lane % COLS;
+  const int rl = lane / LPR, c0 = (lane % LPR) * CPL;
   const int n0 = blockIdx.x * COLS;
   const long long z = EXPERT ? blockIdx.z : 0;
   const float* x = static_cast<const float*>(a.x) + z * a.bsx;
   const TW* w = static_cast<const TW*>(a.w) + z * a.bsw;
+  const TW* w2 = static_cast<const TW*>(a.w2);     // K1's dual only
   const float* g = a.g;
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 4 == 0;
-  const bool wvec =
-      reinterpret_cast<uintptr_t>(w) % 16 == 0 && a.ldw % W_EPC == 0;
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    a.ldw % W_EPC == 0 &&
+                    (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
   const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const int x_bytes = 4 * M * NW_LDX;
-  const int slot = nw_slot<TW, EXPERT>(M);
+  const int slot = nw_slot<TW, COLS, DUAL>(M);
   // this warp's K slice: sub-tiles [sub0, sub0 + n_sub)
   const int n_all = (K + NW_BK - 1) / NW_BK;
-  const int per = (n_all + NW_SPLIT - 1) / NW_SPLIT;
+  const int per = nw_per(K);
   const int sub0 = warp * per;
   const int n_sub = max(0, min(per, n_all - sub0));
-  const int n_steps = (n_sub + kc - 1) / kc;
-  const uint32_t step_bytes = (uint32_t)slot * kc;
+  const int n_steps = (n_sub + subs - 1) / subs;
+  const uint32_t step_bytes = (uint32_t)slot * subs;
   const uint32_t ring = tc::smem_addr(nw_smem) + warp * stages * step_bytes;
   unsigned char* const base_ptr = nw_smem + warp * stages * step_bytes;
 
@@ -542,58 +630,80 @@ af_gemm_narrow_kernel(Args a, int stages) {
       nw_chunk(b + o, reinterpret_cast<float*>(bp + o),
                x + (long long)rr * a.ldx + k0 + cc, K - k0 - cc, xvec);
     }
-    for (int i = lane; i < W_CPR * NW_BK; i += 32) {          // w panel
+    for (int i = lane; i < W_CPR * NW_BK; i += 32) {          // w panel(s)
       const int rr = i / W_CPR, cc = W_EPC * (i % W_CPR), gk = k0 + rr;
       const int o = x_bytes + (int)sizeof(TW) * (rr * COLS + cc);
-      nw_chunk(b + o, reinterpret_cast<TW*>(bp + o),
-               w + (long long)gk * a.ldw + n0 + cc,
-               gk < K ? min(W_EPC, N - n0 - cc) : 0, wvec);
+      const long long off = (long long)gk * a.ldw + n0 + cc;
+      const int n = gk < K ? min(W_EPC, N - n0 - cc) : 0;
+      nw_chunk(b + o, reinterpret_cast<TW*>(bp + o), w + off, n, wvec);
+      if (DUAL)
+        nw_chunk(b + o + W_BYTES, reinterpret_cast<TW*>(bp + o + W_BYTES),
+                 w2 + off, n, wvec);
     }
     if (g != nullptr && lane < NW_BK / 4) {                  // g
-      const int cc = 4 * lane, o = x_bytes + W_BYTES + 4 * cc;
+      const int cc = 4 * lane, o = x_bytes + NW * W_BYTES + 4 * cc;
       nw_chunk(b + o, reinterpret_cast<float*>(bp + o), g + k0 + cc,
                K - k0 - cc, gvec);
     }
   };
 
-  float acc[NACC];                      // rows rl, rl + RG, rl + 2 RG, ...
+  float acc[NW][NR][CPL];               // rows rl, rl + RG, ...; CPL columns
 #pragma unroll
-  for (int j = 0; j < NACC; ++j) acc[j] = 0.f;
+  for (int v = 0; v < NW; ++v)
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) acc[v][j][c] = 0.f;
   auto compute = [&](int sub, uint32_t b) {
     const unsigned char* S = base_ptr + (b - ring);
     const float* X = reinterpret_cast<const float*>(S);
-    const TW* Ws = reinterpret_cast<const TW*>(S + x_bytes) + col;
-    const float* Gs = reinterpret_cast<const float*>(S + x_bytes + W_BYTES);
+    const TW* Ws = reinterpret_cast<const TW*>(S + x_bytes) + c0;
+    const float* Gs = reinterpret_cast<const float*>(S + x_bytes + NW * W_BYTES);
     const int nk = min(NW_BK, K - (sub0 + sub) * NW_BK);
     if (nk == NW_BK) {
+#pragma unroll (KB_UNROLL)
+      for (int kb = 0; kb < NW_BK; kb += KV) {
+        float wv[NW][KV][CPL];
 #pragma unroll
-      for (int kb = 0; kb < NW_BK; kb += 4) {
-        float wv[4];
+        for (int v = 0; v < NW; ++v)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) wv[e] = to_f(Ws[(kb + e) * COLS]);
-        float4 gv = make_float4(1.f, 1.f, 1.f, 1.f);
-        if (g != nullptr) gv = *reinterpret_cast<const float4*>(Gs + kb);
+          for (int e = 0; e < KV; ++e)
+            nw_widen<TW, CPL>(Ws + v * W_ELEMS + (kb + e) * COLS, wv[v][e]);
+        float gv[KV] = {};
+        if (g != nullptr) nw_load<KV>(Gs + kb, gv);
 #pragma unroll
-        for (int j = 0; j < NACC; ++j) {
+        for (int j = 0; j < NR; ++j) {
           if (rl + RG * j >= M) break;
-          float4 xv = *reinterpret_cast<const float4*>(
-              X + (rl + RG * j) * NW_LDX + kb);
+          float xv[KV];
+          nw_load<KV>(X + (rl + RG * j) * NW_LDX + kb, xv);
           if (g != nullptr)       // the prologue: x_at's fp32 product
-            xv = make_float4(__fmul_rn(xv.x, gv.x), __fmul_rn(xv.y, gv.y),
-                             __fmul_rn(xv.z, gv.z), __fmul_rn(xv.w, gv.w));
-          acc[j] = fmaf(xv.x, wv[0], acc[j]);
-          acc[j] = fmaf(xv.y, wv[1], acc[j]);
-          acc[j] = fmaf(xv.z, wv[2], acc[j]);
-          acc[j] = fmaf(xv.w, wv[3], acc[j]);
+#pragma unroll
+            for (int e = 0; e < KV; ++e) xv[e] = __fmul_rn(xv[e], gv[e]);
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c)
+#pragma unroll
+              for (int e = 0; e < KV; ++e)
+                acc[v][j][c] = fmaf(xv[e], wv[v][e][c], acc[v][j][c]);
         }
       }
     } else {
       for (int kb = 0; kb < nk; ++kb) {
-        const float wv = to_f(Ws[kb * COLS]);
-        for (int j = 0; j < NACC && rl + RG * j < M; ++j) {
+        float wv[NW][CPL];
+#pragma unroll
+        for (int v = 0; v < NW; ++v)
+          nw_widen<TW, CPL>(Ws + v * W_ELEMS + kb * COLS, wv[v]);
+#pragma unroll
+        for (int j = 0; j < NR; ++j) {
+          if (rl + RG * j >= M) break;
           const float* Xs = X + (rl + RG * j) * NW_LDX;
           const float xv = g != nullptr ? __fmul_rn(Xs[kb], Gs[kb]) : Xs[kb];
-          acc[j] = fmaf(xv, wv, acc[j]);
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c)
+              acc[v][j][c] = fmaf(xv, wv[v][c], acc[v][j][c]);
         }
       }
     }
@@ -601,30 +711,46 @@ af_gemm_narrow_kernel(Args a, int stages) {
 
   auto issue = [&](int step, uint32_t b) {
     if (step < n_steps)
-      for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+      for (int s = 0, sub = step * subs; s < subs && sub < n_sub; ++s, ++sub)
         stage(sub, b + s * slot);
     tc::cp_async_commit();
   };
   auto run = [&](int step, uint32_t b) {
-    for (int s = 0, sub = step * kc; s < kc && sub < n_sub; ++s, ++sub)
+    for (int s = 0, sub = step * subs; s < subs && sub < n_sub; ++s, ++sub)
       compute(sub, b + s * slot);
   };
   run_ring<true>(ring, step_bytes, stages, n_steps, issue, run);
 
-  // the slices' partials, [slice][16 rows][COLS columns], over the rings
+  // the slices' partials, [contraction][slice][M rows][COLS], over the rings
   __syncthreads();
   float* P = reinterpret_cast<float*>(nw_smem);
-  for (int j = 0; j < NACC; ++j)
-    P[(warp * 16 + rl + RG * j) * COLS + col] = acc[j];
+  const int pz = NW_SPLIT * M * COLS;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    if (rl + RG * j >= M) break;
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        P[v * pz + (warp * M + rl + RG * j) * COLS + c0 + c] = acc[v][j][c];
+  }
   __syncthreads();
-  if (threadIdx.x < 16 * COLS) {
-    const int r = threadIdx.x / COLS, c = threadIdx.x % COLS;
-    float y = P[r * COLS + c];
-    for (int sl = 1; sl < NW_SPLIT; ++sl)
-      y = __fadd_rn(y, P[(sl * 16 + r) * COLS + c]);
-    store_one<float, TO, false>(a, y, 0.f, r, n0 + c, nullptr, nullptr,
-                                static_cast<const float*>(a.residual),
-                                static_cast<TO*>(a.out) + z * a.bso);
+  const float* res = static_cast<const float*>(a.residual);
+  for (int i = threadIdx.x; i < M * COLS; i += NW_THREADS) {
+    const int r = i / COLS, c = i % COLS;
+    float y = P[i], y2 = DUAL ? P[pz + i] : 0.f;
+    for (int sl = 1; sl < NW_SPLIT; ++sl) {
+      y = __fadd_rn(y, P[sl * M * COLS + i]);
+      if (DUAL) y2 = __fadd_rn(y2, P[pz + sl * M * COLS + i]);
+    }
+    if (out_bf16)
+      store_one<float, __nv_bfloat16, DUAL>(
+          a, y, y2, r, n0 + c, a.w_scale, a.w2_scale, res,
+          static_cast<__nv_bfloat16*>(a.out) + z * a.bso);
+    else
+      store_one<float, float, DUAL>(a, y, y2, r, n0 + c, a.w_scale,
+                                    a.w2_scale, res,
+                                    static_cast<float*>(a.out) + z * a.bso);
   }
 }
 
@@ -1189,31 +1315,94 @@ int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The narrow FFMA tile (batch blocks along z for K2): each warp's ring
-// holds as many steps of nw_step_subs sub-tiles as fit its share (two or
-// more for K1, one or more for K2).  smem_only: report the dynamic shared memory the launch takes, and
-// launch nothing.
-template <typename TW, typename TO, bool EXPERT>
-int launch_narrow(const Args& a, int batch, cudaStream_t stream,
-                  size_t* smem_only = nullptr) {
-  constexpr int COLS = nw_cols<EXPERT>();
-  const int slot = nw_slot<TW, EXPERT>(a.M);
-  const int subs = nw_step_subs<TW, EXPERT>(a.M, a.k_collapse);
-  const int stages = nw_fit<TW, EXPERT>(a.M) / subs;
-  const size_t smem = std::max((size_t)NW_SPLIT * stages * subs * slot,
-                               sizeof(float) * NW_SPLIT * 16 * COLS);
+// The narrow FFMA tile at width COLS, M <= MR rows (batch blocks along z
+// for K2), out fp32 or bf16 (out_dtype).  The warps' rings share a budget:
+// the whole SM where the grid has at most a block an SM (K1's small sites,
+// the MoE router: each block streams alone), else half of it, so two blocks
+// share an SM and one's loads overlap another's sums and store (the MoE
+// banks, the unembed).  A warp's ring holds up to NW_RING sub-tiles of its
+// share, in steps of k_collapse sub-tiles (at most half the ring and the
+// slice, at least one), and no more steps than its slice needs plus one,
+// so a short K leaves the SM to other blocks.  smem_only: report the dynamic shared
+// memory the launch takes, and launch nothing.
+template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
+int launch_narrow(const Args& a, int out_dtype, int batch,
+                  cudaStream_t stream, size_t* smem_only = nullptr) {
+  if (a.M > MR || (out_dtype != F32 && out_dtype != BF16))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (a.N + COLS - 1) / COLS;
+  const int slot = nw_slot<TW, COLS, DUAL>(a.M);
+  const int budget = EXPERT || (long long)blocks * batch > NW_SMS
+                         ? MAX_SMEM / 2 : MAX_SMEM;
+  const int fit = std::max(1, std::min(NW_RING, budget / NW_SPLIT / slot));
+  const int per = nw_per(a.K);
+  const int subs = std::max(1, std::min({a.k_collapse, fit / 2, per}));
+  const int steps = (per + subs - 1) / subs;
+  const int stages = std::max(1, std::min(fit / subs, steps + 1));
+  const size_t smem =
+      std::max((size_t)NW_SPLIT * stages * subs * slot,
+               sizeof(float) * NW_SPLIT * a.M * COLS * (DUAL ? 2 : 1));
+  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem_only != nullptr) {
     *smem_only = smem;
     return 0;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_narrow_kernel<TW, TO, EXPERT>,
+      af_gemm_narrow_kernel<TW, COLS, MR, DUAL, EXPERT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.N + COLS - 1) / COLS, 1, batch);
-  af_gemm_narrow_kernel<TW, TO, EXPERT>
-      <<<grid, NW_THREADS, smem, stream>>>(a, stages);
+  const dim3 grid(blocks, 1, batch);
+  af_gemm_narrow_kernel<TW, COLS, MR, DUAL, EXPERT>
+      <<<grid, NW_THREADS, smem, stream>>>(a, subs, stages,
+                                           out_dtype == BF16);
   return (int)cudaGetLastError();
+}
+
+// K1's narrow tile at width COLS: room for 4 rows of sums a lane where M
+// <= 4 (the decode batch), so a lane of 16 rows' room does not hold 4x the
+// registers it uses, else 16
+template <typename TW, int COLS, bool DUAL>
+int launch_narrow_rows(const Args& a, int out_dtype, cudaStream_t stream,
+                       size_t* smem_only) {
+  if (a.M <= 4)
+    return launch_narrow<TW, COLS, 4, DUAL, false>(a, out_dtype, 1, stream,
+                                                   smem_only);
+  if constexpr (COLS <= 64)
+    return launch_narrow<TW, COLS, 16, DUAL, false>(a, out_dtype, 1, stream,
+                                                    smem_only);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 at M <= 16 on the narrow tile, at the width nw_k1_cols picks: TW =
+// float (af_gemm) or int8_t (af_gemm_q's W8 form on fp32 x)
+template <typename TW, bool DUAL>
+int launch_narrow_k1(const Args& a, int out_dtype, cudaStream_t stream,
+                     size_t* smem_only = nullptr) {
+  constexpr bool Q = std::is_same<TW, int8_t>::value;
+  switch (nw_k1_cols(a.M, a.N, Q)) {
+    case 8:
+      if constexpr (!Q)
+        return launch_narrow_rows<TW, 8, DUAL>(a, out_dtype, stream,
+                                               smem_only);
+      break;
+    case 16:
+      return launch_narrow_rows<TW, 16, DUAL>(a, out_dtype, stream,
+                                              smem_only);
+    case 32:
+      return launch_narrow_rows<TW, 32, DUAL>(a, out_dtype, stream,
+                                              smem_only);
+    case 64:
+      if constexpr (Q)
+        return launch_narrow_rows<TW, 64, DUAL>(a, out_dtype, stream,
+                                                smem_only);
+      break;
+    case 128:
+      if constexpr (Q)
+        return launch_narrow_rows<TW, 128, DUAL>(a, out_dtype, stream,
+                                                 smem_only);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launch with the deepest ring (up to TC_MAX_STAGES steps) inside the
@@ -1277,14 +1466,19 @@ int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                                                    smem_only);
 }
 
-// W8A8 (act_quant) or the float chain, at BM = 16 for decode-sized M.
+// W8A8 (act_quant), at BM = 16 for decode-sized M, or the float chain.
+// The chain's BM = 16 tile serves only K2's int8-only form (the MoE banks
+// at decode): every other launch at M <= 16 that reaches the chain's
+// callers takes the narrow tile, so they keep BM = 64, which is right at
+// any M.
 template <typename TX, typename TW, typename TO, bool DUAL>
 int launch_bm(const Args& a, bool act_quant, int batch, cudaStream_t stream) {
   if (act_quant)
     return a.M <= 16 ? launch_w8a8<TX, TO, 16, DUAL>(a, batch, stream)
                      : launch_w8a8<TX, TO, 64, DUAL>(a, batch, stream);
-  return a.M <= 16 ? launch<TX, TW, TO, 16, DUAL>(a, batch, stream)
-                   : launch<TX, TW, TO, 64, DUAL>(a, batch, stream);
+  if constexpr (std::is_same<TW, int8_t>::value && !DUAL)
+    if (a.M <= 16) return launch<TX, TW, TO, 16, DUAL>(a, batch, stream);
+  return launch<TX, TW, TO, 64, DUAL>(a, batch, stream);
 }
 
 template <typename TX, typename TW, bool DUAL>
@@ -1314,10 +1508,10 @@ int launch_x(const Args& a, int x_dtype, int out_dtype, bool act_quant,
 // X[M,K] @ W[K,N] (+ W2) with the fused prologue/epilogue on the FFMA
 // kernels: x/w/w2 and the residual fp32 (in_dtype 0; bf16 operands take
 // af_gemm_tc); bias, bias2 and g are fp32.  A null pointer turns its
-// operand off.  A single contraction at M <= 16 and N <= NW_MAX_N takes
-// the narrow decode tile (K in 16 fixed slices), anything else the
-// 64-column tile (one fmaf chain an output).  Returns cudaGetLastError() of
-// the launch.
+// operand off.  M <= 16 (decode) takes the narrow tile -- K in 16 fixed
+// slices, one or two contractions, any N, the width from M and N -- and
+// larger M the 64-column tile (one fmaf chain an output).  Returns
+// cudaGetLastError() of the launch.
 extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
                        const void* w, const void* w2, const float* bias,
                        const float* bias2, const void* residual,
@@ -1330,15 +1524,12 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
   Args a{x, w, w2, nullptr, nullptr, bias, bias2, residual, g, out, M, N, K,
          ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w2 == nullptr && M <= 16 && N <= NW_MAX_N) {
-    if (out_dtype == F32) return launch_narrow<float, float, false>(a, 1, s);
-    if (out_dtype == BF16)
-      return launch_narrow<float, __nv_bfloat16, false>(a, 1, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  return w2 != nullptr
-             ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
-             : launch_out<float, float, false>(a, out_dtype, false, 1, s);
+  const bool dual = w2 != nullptr;
+  if (M <= 16)
+    return dual ? launch_narrow_k1<float, true>(a, out_dtype, s)
+                : launch_narrow_k1<float, false>(a, out_dtype, s);
+  return dual ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
+              : launch_out<float, float, false>(a, out_dtype, false, 1, s);
 }
 
 // The same function on the tensor-core kernel: x/w/w2 and the residual
@@ -1390,10 +1581,12 @@ extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual,
 // X[M,K] @ W[K,N] (+ W2) on int8 weight codes w/w2 with fp32 per-column
 // scales w_scale/w2_scale (required), the same prologue/epilogue as
 // af_gemm; x and the residual have dtype `x_dtype`.  act_quant = 0: W8 on
-// fp32 x, the float chain at k_collapse (bf16 x takes af_gemm_q_tc);
-// act_quant = 1: W8A8 on the reference's x
-// tiles of quant_bm rows (M itself, or a multiple of 64) by quant_kk
-// columns (k_collapse is then only part of how quant_kk was chosen).
+// fp32 x (bf16 x takes af_gemm_q_tc), on the narrow tile at M <= 16 (the
+// codes through its cp.async ring, widened exactly to fp32 as they leave
+// shared memory, the scales first at the store), else on the 64-column
+// tile's float chain; act_quant = 1: W8A8 on the reference's x tiles of
+// quant_bm rows (M itself, or a multiple of 64) by quant_kk columns
+// (k_collapse is then only part of how quant_kk was chosen).
 extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                          const void* x, const void* w, const void* w2,
                          const float* w_scale, const float* w2_scale,
@@ -1411,6 +1604,9 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
          K, ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, quant_bm,
          quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!act_quant && M <= 16)
+    return dual ? launch_narrow_k1<int8_t, true>(a, out_dtype, s)
+                : launch_narrow_k1<int8_t, false>(a, out_dtype, s);
   return dual ? launch_x<int8_t, true>(a, x_dtype, out_dtype, act_quant != 0,
                                        1, s)
               : launch_x<int8_t, false>(a, x_dtype, out_dtype,
@@ -1445,15 +1641,13 @@ extern "C" int af_gemm_q_tc(int out_dtype, const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// K2's fp32 x (TW w) at T <= 16 on the narrow tile, the expert on z
+// K2's fp32 x (TW w) at T <= 16 on the narrow tile, 32 columns a block,
+// the expert on z
 template <typename TW>
 int launch_expert_narrow(const Args& a, int out_dtype, int E,
                          cudaStream_t stream, size_t* smem_only = nullptr) {
-  if (out_dtype == F32)
-    return launch_narrow<TW, float, true>(a, E, stream, smem_only);
-  if (out_dtype == BF16)
-    return launch_narrow<TW, __nv_bfloat16, true>(a, E, stream, smem_only);
-  return (int)cudaErrorInvalidValue;
+  return launch_narrow<TW, NW_EXPERT_COLS, 16, false, true>(
+      a, out_dtype, E, stream, smem_only);
 }
 
 // X[E,T,K] @ W[E,K,N] -> out[E,T,N] on the FFMA kernels, all contiguous:
@@ -1485,24 +1679,40 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
                                                        E, s);
 }
 
-// Dynamic shared memory (bytes) the narrow FFMA tile takes at M rows (T for
-// the expert form), k_collapse, fp32 (w_bf16 = 0) or bf16 w, as K1's tile
-// (expert = 0) or K2's (expert = 1); -1 outside M <= 16.
-extern "C" long long af_narrow_smem(int M, int k_collapse, int w_bf16,
-                                    int expert) {
-  if (M < 1 || M > 16 || k_collapse < 1) return -1;
+// The narrow FFMA tile at M rows (T for the expert form), N columns, K,
+// k_collapse, w of w_dtype (0 fp32, 1 bf16, 2 int8 codes), one or two
+// contractions, as K1's tile (expert = 0: fp32 or int8 w) or K2's (expert
+// = 1: fp32 or bf16 w, one contraction): af_narrow_smem gives the dynamic
+// shared memory (bytes) of one launch (of one expert's grid for K2),
+// af_narrow_cols its width; -1 where the tile does not take the launch.
+extern "C" long long af_narrow_smem(int M, int N, int K, int k_collapse,
+                                    int w_dtype, int dual, int expert) {
+  if (M < 1 || M > 16 || N < 1 || K < 1 || k_collapse < 1) return -1;
   Args a{};
   a.M = M;
+  a.N = N;
+  a.K = K;
   a.k_collapse = k_collapse;
   size_t smem = 0;
-  if (!expert && !w_bf16)
-    launch_narrow<float, float, false>(a, 1, nullptr, &smem);
-  else if (expert)
-    w_bf16 ? launch_expert_narrow<__nv_bfloat16>(a, F32, 1, nullptr, &smem)
-           : launch_expert_narrow<float>(a, F32, 1, nullptr, &smem);
-  else
-    return -1;
-  return (long long)smem;
+  int rc = (int)cudaErrorInvalidValue;
+  if (expert && !dual && w_dtype == F32)
+    rc = launch_expert_narrow<float>(a, F32, 1, nullptr, &smem);
+  else if (expert && !dual && w_dtype == BF16)
+    rc = launch_expert_narrow<__nv_bfloat16>(a, F32, 1, nullptr, &smem);
+  else if (!expert && w_dtype == F32)
+    rc = dual ? launch_narrow_k1<float, true>(a, F32, nullptr, &smem)
+              : launch_narrow_k1<float, false>(a, F32, nullptr, &smem);
+  else if (!expert && w_dtype == I8)
+    rc = dual ? launch_narrow_k1<int8_t, true>(a, F32, nullptr, &smem)
+              : launch_narrow_k1<int8_t, false>(a, F32, nullptr, &smem);
+  return rc == 0 ? (long long)smem : -1;
+}
+
+extern "C" int af_narrow_cols(int M, int N, int w_dtype, int expert) {
+  if (M < 1 || M > 16 || N < 1) return -1;
+  if (expert) return w_dtype == F32 || w_dtype == BF16 ? NW_EXPERT_COLS : -1;
+  if (w_dtype != F32 && w_dtype != I8) return -1;
+  return nw_k1_cols(M, N, w_dtype == I8);
 }
 
 // The same batched product on the tensor-core kernel: x and w bf16, out

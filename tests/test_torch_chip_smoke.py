@@ -102,3 +102,47 @@ def test_fp32_w8_launch_check(smoke):
                 dict(ok, arrayflex_gemm_int8=0)):
         with pytest.raises(AssertionError, match="FFMA"):
             smoke.check_fp32_w8_launches("fp32 W8", bad)
+
+
+def test_narrow_sites_cover_every_fp32_x_k1_decode_site(smoke):
+    """The narrow-tile report lists, for both models at decode (M = 4),
+    every K1 site in the float form (the dual swiglu, the unembed and the
+    MoE router among them) and every W8 site, and nothing on K2."""
+    cfg = _cfg("qwen2-0.5b", "arrayflex", "bfloat16")
+    moe_cfg = _cfg("qwen3-moe-30b-a3b", "arrayflex", "bfloat16")
+    sites = smoke.narrow_sites(cfg, moe_cfg)
+    assert all(s.kernel == "arrayflex_gemm" and s.shape[0] == smoke.BATCH
+               for s in sites)
+    got = {(s.cell, s.form, s.name): s for s in sites}
+    assert len(got) == len(sites)
+    dense = ["attn.wq", "attn.wk", "attn.wv", "attn.wo",
+             "mlp.wi_gate+mlp.wi_up", "mlp.wo", "unembed"]
+    moe = ["attn.wq", "attn.wk", "attn.wv", "attn.wo", "unembed"]
+    want = ({("qwen2-0.5b", f, n) for f in ("float", "int8") for n in dense}
+            | {("qwen3-moe-30b-a3b", f, n) for f in ("float", "int8")
+               for n in moe}
+            | {("qwen3-moe-30b-a3b", "float", "moe.router")})
+    assert set(got) == want
+    for form in ("float", "int8"):
+        dual = got[("qwen2-0.5b", form, "mlp.wi_gate+mlp.wi_up")]
+        assert dual.flags["dual"] and dual.shape == (4, 896, 4864)
+        assert got[("qwen2-0.5b", form, "unembed")].shape == (4, 896, 152064)
+        assert got[("qwen3-moe-30b-a3b", form, "unembed")].shape == \
+            (4, 2048, 152064)
+
+
+@pytest.mark.parametrize("form", ["float", "int8", "w8a8"])
+def test_planned_k_is_the_substrate_plan(smoke, form):
+    from repro_torch.kernels import substrate
+    backend = smoke.FORM_BACKEND[form]
+    site = smoke.Site("mlp.wi_gate+mlp.wi_up", "arrayflex_gemm",
+                      (4, 896, 4864), 24,
+                      dict(dual=True, activation="silu", norm_scale=True),
+                      form=form)
+    ep = substrate.Epilogue(kind="swiglu", norm_scale=True)
+    assert smoke.planned_k(site) == substrate.plan_gemm(4864, 896, 4,
+                                                        backend, ep).k
+    bank = smoke.Site("moe.wi_gate", "arrayflex_expert_gemm",
+                      (128, 1, 2048, 768), 48, form=form)
+    assert smoke.planned_k(bank) == substrate.plan_gemm(768, 2048, 1,
+                                                        backend).k

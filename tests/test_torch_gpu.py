@@ -263,18 +263,25 @@ def test_expert_gemm_tc_misaligned_base(cuda, etkn):
 
 
 # fp32 K1 at decode M (the narrow FFMA tile): the MoE router (4, 2048,
-# 128), qwen2-0.5b's attention projections, and ragged M / N / K
+# 128), qwen2-0.5b's attention projections, ragged M / N / K, then the
+# sites past N = 4096 and qwen3-moe-30b-a3b's attn.wo (the 32- and
+# 16-column widths): the dual swiglu's (4, 896, 4864) and both models'
+# unembeds
 NARROW_SHAPES = [(4, 2048, 128), (4, 896, 896), (4, 896, 128), (1, 64, 8),
-                 (16, 1000, 130), (3, 37, 4096), (7, 2050, 60)]
+                 (16, 1000, 130), (3, 37, 4096), (7, 2050, 60),
+                 (4, 896, 4864), (4, 4096, 2048), (4, 896, 152064),
+                 (4, 2048, 152064), (16, 300, 5000)]
 
 
 @pytest.mark.parametrize("mkn", NARROW_SHAPES)
-@pytest.mark.parametrize("flags", ["none", "qkv", "residual_bf16_out"])
+@pytest.mark.parametrize("flags", ["none", "qkv", "residual_bf16_out",
+                                   "swiglu"])
 def test_fp32_narrow_tile_bit_identical_across_k(cuda, mkn, flags):
     """The FFMA K1's narrow decode tile sums fixed K slices (one warp
     each, each an fmaf chain in increasing K order) and adds the slices
     in order: the same bits at k = 1, 2, 4, 8, one launch of the FFMA K1
-    each, and within 1e-5 of max |plain| (fp32 sums in another order)."""
+    each, and within 1e-5 of max |plain| (fp32 sums in another order);
+    the dual contraction (swiglu) keeps two sets of chains."""
     M, K, N = mkn
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
 
@@ -285,7 +292,9 @@ def test_fp32_narrow_tile_bit_identical_across_k(cuda, mkn, flags):
     kw = {"none": {},
           "qkv": dict(bias=r(N), norm_scale=1.0 + 0.1 * r(K)),
           "residual_bf16_out": dict(residual=r(M, N),
-                                    out_dtype=torch.bfloat16)}[flags]
+                                    out_dtype=torch.bfloat16),
+          "swiglu": dict(w2=r(K, N) * K ** -0.5, activation="silu",
+                         norm_scale=1.0 + 0.1 * r(K))}[flags]
     outs = []
     for k in (1, 2, 4, 8):
         before = dict(ag.LAUNCHES)
@@ -309,6 +318,32 @@ def test_fp32_narrow_tile_takes_any_k(cuda):
     torch.cuda.synchronize()
     assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
     _close(outs[0], ag.arrayflex_gemm_plain(x, w), torch.float32)
+
+
+def test_narrow_width_rule(cuda):
+    """K1's narrow-tile width: the widest of its weight type's widths whose
+    grid fills the card (at least 128 blocks), else the narrowest; int8's
+    128 columns at M <= 4 only; K2 keeps 32.  The shared memory each launch
+    takes fits one SM at every k."""
+    lib = ag._lib()
+    f32, i8 = 0, 2
+    for (M, N, w_dtype), want in {
+            (4, 152064, f32): 32, (4, 4864, f32): 32, (4, 4096, f32): 32,
+            (4, 2048, f32): 16, (4, 896, f32): 8, (4, 128, f32): 8,
+            (4, 152064, i8): 128, (5, 152064, i8): 64, (16, 20000, i8): 64,
+            (4, 4864, i8): 32, (4, 4096, i8): 32, (4, 2048, i8): 16,
+            (4, 896, i8): 16, (1, 8, i8): 16}.items():
+        assert lib.af_narrow_cols(M, N, w_dtype, 0) == want, (M, N, w_dtype)
+    assert lib.af_narrow_cols(1, 768, 0, 1) == 32
+    assert lib.af_narrow_cols(17, 128, 0, 0) == -1
+    for M, K, N in [(4, 896, 4864), (4, 896, 152064), (16, 4864, 896),
+                    (16, 2048, 20000), (1, 64, 8)]:
+        for w_dtype in (f32, i8):
+            for dual in (0, 1):
+                for k in (1, 2, 4, 8, 64):
+                    smem = lib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0)
+                    assert 0 < smem <= 232448, (M, K, N, w_dtype, dual, k)
+    assert lib.af_narrow_smem(17, 128, 64, 1, f32, 0, 0) == -1
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -585,6 +620,85 @@ def test_w8_tc_misaligned_base(cuda, mkn):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     _close_step(got, ag.arrayflex_gemm_plain(x, w, **kw), torch.bfloat16)
+
+
+# W8 K1 on fp32 x at M <= 16 (the narrow FFMA tile on int8 codes): every
+# W8 decode site of qwen2-0.5b (qkv with bias and norm scale, the dual
+# swiglu with w2_scale, mlp.wo with its residual, the unembed with fp32
+# logits) and of qwen3-moe-30b-a3b, ragged M / K / N with every epilogue
+# flag, then the 64- and 128-column widths (M > 4 at a wide N; the dual at
+# 16384 columns)
+W8_F32_SITES = [
+    ((4, 896, 896), "qkv"), ((4, 896, 128), "qkv"), ((4, 896, 4864), "swiglu"),
+    ((4, 4864, 896), "residual"), ((4, 896, 152064), "f32_out"),
+    ((4, 2048, 4096), "qkv"), ((4, 2048, 512), "qkv"),
+    ((4, 4096, 2048), "residual"), ((4, 2048, 152064), "f32_out"),
+    ((3, 37, 130), "all"), ((7, 2050, 60), "all"), ((16, 1000, 130), "all"),
+    ((8, 96, 20000), "all"), ((16, 300, 9000), "residual"),
+    ((4, 256, 16384), "all")]
+
+
+def _w8_f32_operands(g, M, K, N, flags):
+    x, kw = _quant_operands(g, M, K, N, torch.float32,
+                            "none" if flags == "f32_out" else flags)
+    if flags == "f32_out":
+        kw["out_dtype"] = torch.float32
+    return x, kw
+
+
+@pytest.mark.parametrize("mkn,flags", W8_F32_SITES)
+def test_w8_fp32_narrow_bit_identical_across_k(cuda, mkn, flags):
+    """W8 on fp32 x at decode runs the narrow FFMA tile on the int8 codes
+    (one ``arrayflex_gemm_int8`` launch each, none on a tensor-core
+    kernel): fixed K slices of fmaf chains on codes widened exactly to
+    fp32, the scales first at the store, so the same bits at k = 1, 2, 4,
+    8; and within 1e-5 of max |plain| (fp32 sums in another order)."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + 5 * K + N)
+    x, kw = _w8_f32_operands(g, M, K, N, flags)
+    w = kw.pop("w")
+    outs = []
+    for k in (1, 2, 4, 8):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_gemm(x, w, k_collapse=k, **kw))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_gemm_int8=before["arrayflex_gemm_int8"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close(outs[0], ag.arrayflex_gemm_plain(x, w, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("mkn", [(4, 896, 896), (4, 896, 4864),
+                                 (3, 37, 130), (4, 256, 16384),
+                                 (8, 96, 20000)])
+def test_fp32_narrow_misaligned_base(cuda, form, mkn):
+    """fp32 x, the residual and w / w2 (fp32 or int8 codes) one element off
+    their 16-byte boundary stage through the narrow tile's scalar path
+    into the same main loop: the same bits as the aligned copies, with the
+    dual swiglu's scales, both biases and the residual."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + 7 * N)
+    x, kw = _quant_operands(g, M, K, N, torch.float32, "all")
+    if form == "float":                 # the dequantized weights
+        s, s2 = kw.pop("w_scale"), kw.pop("w2_scale")
+        kw["w"], kw["w2"] = kw["w"].float() * s, kw["w2"].float() * s2
+    w = kw.pop("w")
+
+    def shifted(t):                     # same values, base one element off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    want = ag.arrayflex_gemm(x, w, k_collapse=2, **kw)
+    got = ag.arrayflex_gemm(shifted(x), shifted(w), k_collapse=2,
+                            **dict(kw, w2=shifted(kw["w2"]),
+                                   residual=shifted(kw["residual"])))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(got, ag.arrayflex_gemm_plain(x, w, **kw), torch.float32)
 
 
 # fp32 K2 at T <= 16 (the narrow FFMA tile): the fp32 MoE banks (128

@@ -228,6 +228,33 @@ def test_quant_epilogues_plain_vs_reference(name, dtype, act_quant):
     _close_rel(got, want, GEMM_RTOL if dtype == "float32" else 2.0 ** -8)
 
 
+# decode shapes (M <= 16) where W8 on fp32 x runs the narrow FFMA tile on
+# the card: the dual swiglu with w2_scale and bias2, a residual, ragged N,
+# and N > 4096 at a small K (the unembed's width class)
+W8_DECODE = [((4, 96, 4864), "swiglu_all"), ((4, 600, 96), "gelu_residual"),
+             ((3, 37, 130), "qkv"), ((7, 200, 60), "swiglu_all"),
+             ((16, 64, 5000), "plain"), ((4, 32, 8200), "gelu_residual")]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("mkn,name", W8_DECODE)
+def test_w8_decode_plain_vs_reference(mkn, name, k):
+    """W8 on fp32 x at the decode shapes, each store form, output in x's
+    dtype: fp32 sums of exact products in another order (1e-5 of max
+    |ref|)."""
+    M, K, N = mkn
+    flags = dict(FLAGS[name])
+    act = flags.pop("activation", "none")
+    (xj, xt), kj, kt = _quant_operands(M, K, N, "float32", M + K + N + k,
+                                       **flags)
+    want = ref_ops.arrayflex_matmul(xj, kj.pop("w"), activation=act,
+                                    k_collapse=k, **kj)
+    got = ag.arrayflex_gemm(xt, kt.pop("w"), activation=act, k_collapse=k,
+                            **kt)
+    assert got.dtype == torch.float32
+    _close_rel(got, want)
+
+
 def test_w8a8_single_step_is_bit_exact():
     """One K step and no bias: no op is left for XLA to contract, so the
     plain W8A8 version equals the reference's interpret run bit for bit —
