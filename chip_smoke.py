@@ -11,7 +11,8 @@ failure of which exits non-zero:
    register / shared-memory / spill lines, then the tensor-core kernels'
    (W8's too) and the FFMA narrow decode tile's (K1 and K2) registers,
    spills and dynamic shared memory at the main path's shapes, and the
-   narrow tile's width at every fp32-x K1 decode site (float and W8);
+   narrow tile's width at every fp32-x K1 decode site (float and W8) and
+   at the int8 MoE banks (K2's int8-only form, fp32 and bf16 x);
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -27,16 +28,17 @@ failure of which exits non-zero:
    the float K2 and the W8 K1 are timed in fp32 as well (the FFMA kernels,
    which only the fp32 path runs).  First the float forms (the ``arrayflex`` backend), then the
    int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
-   on K2's int8-only form) and ``arrayflex_w8a8`` (W8A8, with attn.qk and
-   the expert banks on K2's W8A8 form), and the plain-torch K^T quantize
-   that attn.qk runs under W8A8;
+   on K2's int8-only form, each bank's narrow-tile width held to the
+   written rule) and ``arrayflex_w8a8`` (W8A8, with attn.qk and the expert
+   banks on K2's W8A8 form), and the plain-torch K^T quantize that attn.qk
+   runs under W8A8;
 4. flash attention (K3): ``ops.attention`` at every case of
    :data:`K3_CASES` (the launch counter set to 0 just before and read just
    after: one launch each), each output held against
    ``flash_attention_plain`` on the same inputs; then the kernel, the plain
    version and ``scaled_dot_product_attention`` timed, beside the bound;
    every bf16 case must have launched the tensor-core kernel (the ragged
-   one on its KV-split path), the fp32 case the FFMA kernel;
+   one on its KV-split path), the fp32 cases the FFMA kernel;
 5. serving: full-width qwen2-0.5b with random weights (seed 0) served in
    bf16 through ``ServingEngine`` on ``arrayflex``, then on
    ``arrayflex_int8`` and ``arrayflex_w8a8``; then full-width
@@ -236,6 +238,23 @@ class Site:
 # the FFMA kernels that only fp32 x runs (the float forms' and the W8
 # K1's): booked with their fp32 checks, their decode sites timed in fp32
 FFMA_FP32 = ("arrayflex_gemm", "arrayflex_expert_gemm", "arrayflex_gemm_int8")
+
+# the narrow FFMA tile's grid that fills the card (csrc/arrayflex_gemm.cu
+# NW_FILL): one block on all but 4 of an H100's 132 SMs
+NARROW_FILL = 128
+
+
+def narrow_int8_cols(M: int, N: int, batch: int = 1) -> int:
+    """The narrow tile's width on int8 codes (csrc/arrayflex_gemm.cu
+    ``nw_cols``), K1 at M rows or K2's int8-only form at T = M rows of
+    ``batch`` experts: the widest of 128 (M <= 4 only), 64 and 32 columns
+    whose grid, ceil(N / width) blocks x batch, fills the card, else 16."""
+    def fills(cols):
+        return -(-N // cols) * batch >= NARROW_FILL
+    if M <= 4 and fills(128):
+        return 128
+    return 64 if fills(64) else 32 if fills(32) else 16
+
 
 # kernel form -> the backend whose plans (k) the form runs under
 FORM_BACKEND = {"float": "arrayflex", "int8": "arrayflex_int8",
@@ -568,6 +587,9 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
         if form == "float" or s.kernel == "arrayflex_expert_gemm"]))
     for phase, sites in plan:
         for site in sites:
+            if (form == "int8" and site.kernel == "arrayflex_expert_gemm"
+                    and site.shape[1] <= 16):
+                check_bank_width(site)
             errs = {}
             for dt in (torch.bfloat16, torch.float32):
                 for k in (1, 2, 4):
@@ -622,6 +644,19 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
     return results, max_err
 
 
+def check_bank_width(site: Site) -> int:
+    """An int8-only MoE bank at T <= 16 runs the narrow tile: its width,
+    from the C entry, must be the written rule's (:func:`narrow_int8_cols`,
+    the grid counted as blocks x experts)."""
+    E, T, K, N = site.shape
+    got = ag._lib().af_narrow_cols(T, N, 2, E)
+    want = narrow_int8_cols(T, N, E)
+    if got != want:
+        raise AssertionError(f"{site.name} {site.shape}: narrow tile width "
+                             f"{got}, the rule gives {want}")
+    return got
+
+
 def kt_quantize_time(cfg):
     """Device time of the plain-torch K^T quantize (``substrate._quantize``
     per (batch, key column)) that attn.qk runs before its W8A8 launch,
@@ -643,12 +678,15 @@ def kt_quantize_time(cfg):
 # ---------------------------------------------------------------------------
 # phase 4: flash attention (K3) through ops.attention
 
-# K3 is held to its plain version within step_tol: the kernel takes each
-# planner chunk's row max in a first pass over the chunk (choice (a) in
+# K3 is held to its plain version within step_tol.  bf16: the kernel takes
+# each planner chunk's row max in a first pass over the chunk (choice (a) in
 # csrc/flash_attention.cu), so p is rounded to bf16 against the same max
 # as in the plain version and the reference; what remains is fp32 summation
 # order over up to 4097 columns and expf's last bit, then one rounding of
-# the output to bf16 (one bf16 step at the largest |value|; fp32 1e-5).
+# the output to bf16 (one bf16 step at the largest |value|).  fp32: p is
+# not rounded, so the kernel takes one pass with the running max rescaled
+# per 64-column sub-tile; it differs from the chunk-max form by fp32
+# rounding only (1e-5 of the largest |value|).
 #
 # (name, BH, S, T, D, causal, window, dtype).  BH folds batch x heads with
 # the KV heads repeated: qwen2-0.5b's 14 query heads (x4 requests at the
@@ -665,6 +703,9 @@ K3_CASES = [
     ("ragged non-causal", 14, 128, 4097, 64, False, 0, torch.bfloat16),
     ("window 512", 14, 4096, 4096, 64, True, 512, torch.bfloat16),
     ("fully masked rows", 14, 512, 256, 64, False, 64, torch.bfloat16),
+    ("ragged non-causal fp32", 14, 128, 4097, 64, False, 0, torch.float32),
+    ("window 512 fp32", 14, 4096, 4096, 64, True, 512, torch.float32),
+    ("fully masked rows fp32", 14, 512, 256, 64, False, 64, torch.float32),
 ]
 
 
@@ -1567,6 +1608,14 @@ def narrow_sites(cfg, moe_cfg):
     return out
 
 
+def narrow_bank_sites(moe_cfg):
+    """The MoE expert banks of ``moe_cfg`` at decode in K2's int8-only
+    form (``arrayflex_int8``): T = one capacity row per expert, so every
+    one runs the narrow FFMA tile."""
+    return [dataclasses.replace(s, form="int8") for s in moe_sites(moe_cfg)
+            if s.kernel == "arrayflex_expert_gemm"]
+
+
 def tc_report(cfg, moe_cfg) -> None:
     """The tensor-core kernels' and the narrow FFMA tile's registers and
     spills (ptxas, per instantiation) and the dynamic shared memory their
@@ -1575,9 +1624,10 @@ def tc_report(cfg, moe_cfg) -> None:
     the prefill chunk's and the 2048-token prefill's attn.qk (N = S) and
     attn.pv (N = 64, the 128 x 64 tile); the narrow tile: its width and
     shared memory at every fp32-x K1 decode site of both models
-    (:func:`narrow_sites`, float and W8, at the planned k), K2's fp32 bank
-    and decode attention (T = 7, fp32 and bf16 w); K3 at each head
-    dim)."""
+    (:func:`narrow_sites`, float and W8, at the planned k), at the int8
+    MoE banks (:func:`narrow_bank_sites`, fp32 and bf16 x, the grid
+    counted over 128 experts), K2's fp32 bank and decode attention (T = 7,
+    fp32 and bf16 w); K3 at each head dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
@@ -1607,14 +1657,23 @@ def tc_report(cfg, moe_cfg) -> None:
         log(f"  narrow FFMA tile at {site.cell} {site.form} {site.name} "
             f"{site.shape} k = {k}: {glib.af_narrow_cols(M, N, w_dtype, 0)} "
             f"columns a block, "
-            f"{glib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0)} B")
+            f"{glib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0, 0)} B")
+    for site in narrow_bank_sites(moe_cfg):
+        E, T, K, N = site.shape
+        k = planned_k(site)
+        for x_name, x_dtype in (("fp32", 0), ("bf16", 1)):
+            log(f"  narrow FFMA tile at {site.cell} int8 {site.name} "
+                f"{site.shape} {x_name} x k = {k}: "
+                f"{glib.af_narrow_cols(T, N, 2, E)} columns a block "
+                f"({E} experts), "
+                f"{glib.af_narrow_smem(T, N, K, k, 2, 0, E, x_dtype)} B")
     for what, (T, N, K, k, w_dtype) in (
             ("K2 fp32 bank", (1, 768, 2048, 4, 0)),
             ("K2 decode attn.qk, bf16 cache", (7, MAX_SEQ, 64, 1, 1)),
             ("K2 decode attn.pv", (7, 64, MAX_SEQ, 2, 0))):
         log(f"  narrow FFMA tile at the {what} (T = {T}, N = {N}, K = {K}, "
             f"k = {k}): {glib.af_narrow_cols(T, N, w_dtype, 1)} columns a "
-            f"block, {glib.af_narrow_smem(T, N, K, k, w_dtype, 0, 1)} B")
+            f"block, {glib.af_narrow_smem(T, N, K, k, w_dtype, 0, 1, 0)} B")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")

@@ -26,8 +26,11 @@ file), one C entry per operand form:
                         kernel of ``af_gemm_tc``, the expert axis on the
                         grid's z);
   ``af_expert_gemm_q``  ``_expert_kernel`` on int8 weight codes: the
-                        int8-only form (MoE expert banks under W8, dequant
-                        per (expert, column) at the store) or, with
+                        int8-only form (MoE expert banks under W8, fp32 or
+                        bf16 x, dequant per (expert, column) at the store;
+                        at T <= 16 the narrow tile of ``af_gemm``, x staged
+                        in its own type and the codes widened exactly to
+                        fp32, the width from T, N and E) or, with
                         ``act_quant``, W8A8.
 
 What stays the same is the schedule's meaning: K is consumed in
@@ -295,7 +298,7 @@ def _lib():
         lib.af_gemm_tc.restype = i
         lib.af_gemm_tc_smem.argtypes = [i, i, i, i, i]
         lib.af_gemm_tc_smem.restype = ll
-        lib.af_narrow_smem.argtypes = [i, i, i, i, i, i, i]
+        lib.af_narrow_smem.argtypes = [i, i, i, i, i, i, i, i]
         lib.af_narrow_smem.restype = ll
         lib.af_narrow_cols.argtypes = [i, i, i, i]
         lib.af_narrow_cols.restype = i
@@ -538,8 +541,10 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     their types (contiguous operands; ``af_expert_gemm_tc`` on bf16/bf16,
     ``af_expert_gemm`` on fp32/fp32 or fp32/bf16) or, with ``w_scale``,
     ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
-    the MoE expert banks, or W8A8 under ``act_quant``) — fp32 or bf16 out
-    — or raise; CPU tensors run :func:`arrayflex_expert_gemm_plain`."""
+    the MoE expert banks — at T <= 16 on the narrow FFMA tile, whose
+    output is the same bits at every ``k_collapse`` and every E — or W8A8
+    under ``act_quant``) — fp32 or bf16 out — or raise; CPU tensors run
+    :func:`arrayflex_expert_gemm_plain`."""
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:

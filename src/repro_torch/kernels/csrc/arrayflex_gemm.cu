@@ -37,9 +37,11 @@
 //   expert:   X[E,T,K] @ W[E,K,N] -> [E,T,N], blockIdx.z walks E, the same
 //             main loop, only the dequant at the store.  On int8 codes
 //             without act_quant (an MoE expert bank under W8) it is the
-//             W8 chain: the codes widen exactly to fp32 for the FFMA chain
-//             and each expert's per-column scale multiplies once, at the
-//             store.
+//             W8 chain on fp32 or bf16 x: the codes widen exactly to fp32
+//             for the FFMA chain (bf16 x code and fp32 x code are exact
+//             fp32 products, the reference's widening to x's type with
+//             fp32 sums) and each expert's per-column scale multiplies
+//             once, at the store.
 //
 // What bounds it on this card: at decode (M = batch rows, a handful) every
 // weight byte is read once for a few rows of work, so the GEMM is bound by
@@ -54,8 +56,8 @@
 // expert axis on blockIdx.z), fp32 operands the FFMA kernels (entries
 // af_gemm, af_expert_gemm); K1's W8 form on bf16 x launches
 // af_gemm_tc_kernel on int8 codes (entry af_gemm_q_tc), on fp32 x the FFMA
-// kernel (af_gemm_q).  W8A8 and K2's int8 forms keep their own FFMA /
-// __dp4a kernels.
+// kernel (af_gemm_q).  K2's int8-only form takes the FFMA narrow tile at
+// T <= 16 on either x type; W8A8 keeps its own __dp4a kernel.
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
 // cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32 -- the arithmetic of the
@@ -123,13 +125,15 @@
 //     fp32 score tile of attn.qk leaves through the same shared-memory
 //     epilogue.
 //
-// af_gemm_narrow_kernel, fp32 x at decode (M <= 16): every af_gemm launch
-// and every W8 af_gemm_q launch on fp32 x (fp32 or int8-code w, one or two
-// contractions, any N), and af_expert_gemm at T <= 16.  The 64-column tile
-// below ran them on ceil(N / 64) blocks -- 14 at an 896-wide site, each
-// walking K = 4864 in one chain with scalar loads between two barriers
-// (W8 mlp.wo on an H100: 308 us to read 4.4 MB of codes), 12 of its 16 rows zeros at
-// M = 4.  Here a block splits K into 16 fixed slices, one warp each: a warp
+// af_gemm_narrow_kernel, at decode (M <= 16): every af_gemm launch and
+// every W8 af_gemm_q launch on fp32 x (fp32 or int8-code w, one or two
+// contractions, any N), af_expert_gemm at T <= 16, and af_expert_gemm_q's
+// int8-only form at T <= 16 (the MoE banks, on fp32 or bf16 x).  The
+// 64-column tile below would run them on ceil(N / 64) blocks -- 14 at an
+// 896-wide site, each walking K = 4864 in one chain with scalar loads
+// between two barriers (W8 mlp.wo on an H100: 308 us to read 4.4 MB of
+// codes), 12 of its 16 rows zeros at M = 4.  Here a block splits K into 16
+// fixed slices, one warp each: a warp
 // stages its slice's w panel (and w2's, in the same ring slot), x rows and
 // g as 16-byte cp.async chunks (int8 codes 16 a chunk) into its own ring
 // of main-loop steps (k_collapse 32-row sub-tiles, up to half the ring),
@@ -144,10 +148,12 @@
 //   * width: a block's columns.  With 8 fp32 columns each block read
 //     32-byte pieces of every w row, half a DRAM burst, and the fp32 MoE
 //     banks streamed at about half of HBM's rate; 32 fp32 columns, a w
-//     row's 128 bytes, stream them at bmm's pace.  K1 takes the widest of
-//     its type's widths (fp32 32 / 16 / 8, int8 128 / 64 / 32 / 16) whose
-//     grid still fills the card, so a 128-wide site keeps 16 blocks and the
-//     unembed streams 128-byte rows (nw_k1_cols); K2 takes 32.  A lane owns
+//     row's 128 bytes, stream them at bmm's pace.  K1 and K2's int8-only
+//     form take the widest of their type's widths (fp32 32 / 16 / 8, int8
+//     128 / 64 / 32 / 16) whose grid (K2: blocks x experts) still fills the
+//     card, so a 128-wide site keeps 16 blocks and the unembed and the MoE
+//     banks stream 128-byte rows (nw_cols); K2's fp32 form takes 32.  A
+//     lane owns
 //     COLS / 32 neighbouring columns of every row (COLS >= 32), or one
 //     column of every (32 / COLS)-th row, with room for 4 rows of sums at
 //     M <= 4 (the decode batch) and 16 above: 16 rows' room at M = 4 held
@@ -162,19 +168,23 @@
 //     more steps than its slice needs, so a short K frees the SM;
 //   * the partials buffer is [contraction][slice][M rows][width] over the
 //     rings (the dual's 64 int8 columns at M = 16: 128 KB);
-//   * K2: the expert on blockIdx.z, operands offset per expert before the
-//     alignment tests (an expert's bits do not depend on E), bf16 w (the
-//     fp32 query against a bf16 cache) staged as bf16 and widened exactly,
-//     the half-SM ring (a bank is thousands of blocks).  Larger M (T) keeps
-//     the 64-row tile.
+//   * x is staged in its own type (fp32, or the served MoE banks' bf16, 8
+//     a chunk: no widened copy of x in device memory, no extra launch) and
+//     widened exactly as it leaves shared memory (a bf16's bits under the
+//     high half);
+//   * K2: the expert on blockIdx.z, operands and per-column scales offset
+//     per expert before the alignment tests (an expert's bits do not depend
+//     on E), bf16 w (the fp32 query against a bf16 cache) staged as bf16
+//     and widened exactly, the half-SM ring (a bank is thousands of
+//     blocks).  Larger M (T) keeps the 64-row tile.
 //
 // The FFMA and __dp4a kernels off the narrow tile (fp32 af_gemm and W8 on
-// fp32 x at M > 16, W8A8, K2's int8 forms, the fp32 expert form at
+// fp32 x at M > 16, W8A8, K2's int8-only form and fp32 expert form at
 // T > 16), plain kernels that are right first:
 //   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
-//     outputs a thread) for large M and BM = 16 (1 x 4 outputs a thread)
-//     for decode-sized M (W8A8, and K2's int8-only banks), so a 4-row
-//     decode GEMM wastes 4x rather than 16x of its work on masked rows;
+//     outputs a thread), and for W8A8 at decode-sized M BM = 16 (1 x 4
+//     outputs a thread), so a 4-row decode GEMM wastes 4x rather than 16x
+//     of its work on masked rows;
 //   * float forms: K is consumed in ceil(K / (BK * k_collapse)) main-loop
 //     iterations; each stages k_collapse BK-wide sub-tiles of X (and W, W2)
 //     in shared memory, widened to fp32 on load, and runs k_collapse
@@ -437,32 +447,42 @@ __device__ __forceinline__ void run_ring(uint32_t ring, uint32_t step_bytes,
 }
 
 // ---------------------------------------------------------------------------
-// FFMA narrow decode tile: fp32 x at M <= 16 rows.  K1: every fp32-x launch
-// of af_gemm and of af_gemm_q's W8 form (fp32 or int8-code w, one or two
-// contractions, any N); K2: fp32 af_expert_gemm at T <= 16 (fp32 or bf16 w,
-// the expert on blockIdx.z)
+// FFMA narrow decode tile at M <= 16 rows.  K1: every fp32-x launch of
+// af_gemm and of af_gemm_q's W8 form (fp32 or int8-code w, one or two
+// contractions, any N); K2, the expert on blockIdx.z: fp32 af_expert_gemm
+// at T <= 16 (fp32 or bf16 w), and af_expert_gemm_q's int8-only form at T
+// <= 16 (int8 codes, fp32 or bf16 x)
 
 constexpr int NW_SPLIT = 16;        // K slices a block: one warp each
 constexpr int NW_THREADS = 32 * NW_SPLIT;
 constexpr int NW_BK = 32;           // K rows of one staged sub-tile
-constexpr int NW_LDX = NW_BK + 4;   // x row stride (floats): the 4 rows a
-                                    // warp reads start on other banks
 constexpr int NW_RING = 8;          // sub-tiles a warp's ring holds (at most)
 constexpr int NW_SMS = 132;         // SMs of an H100 SXM
 constexpr int NW_FILL = 128;        // blocks that fill the card: one on all
                                     // but 4 of its SMs
-constexpr int NW_EXPERT_COLS = 32;  // K2's width: an fp32 w row's 128 bytes
+constexpr int NW_EXPERT_COLS = 32;  // K2's fp32 / bf16-w width: an fp32 w
+                                    // row's 128 bytes
 
-// K1's width (output columns a block) at M rows, N columns: the widest of
-// its weight type's widths whose grid still fills the card, else the
-// narrowest.  fp32 w: 32 (a w row's 128 bytes), 16, 8; int8 codes: 128
-// (128 bytes) at M <= 4 only -- a lane keeps rows x columns / 32 sums, and
-// 16 rows x 4 columns, twice for the dual, would pass the 128 registers a
-// thread of a 512-thread block may hold -- then 64, 32, 16 (one 16-byte
-// chunk of codes).  It depends on M, N and the weight type alone, never on
-// k_collapse, and the sums do not depend on it.
-inline int nw_k1_cols(int M, int N, bool int8) {
-  auto fills = [N](int cols) { return (N + cols - 1) / cols >= NW_FILL; };
+// x row stride (elements) of a staged sub-tile: one 16-byte chunk past the
+// 32 K columns, so the rows a warp reads start on other banks
+template <typename TX>
+__host__ __device__ constexpr int nw_ldx() {
+  return NW_BK + 16 / (int)sizeof(TX);
+}
+
+// The width (output columns a block) of K1 at M rows, N columns, and of
+// K2's int8-only form at T = M rows of `batch` experts: the widest of the
+// weight type's widths whose grid (blocks x batch) still fills the card,
+// else the narrowest.  fp32 w: 32 (a w row's 128 bytes), 16, 8; int8
+// codes: 128 (128 bytes) at M <= 4 only -- a lane keeps rows x columns / 32
+// sums, and 16 rows x 4 columns, twice for the dual, would pass the 128
+// registers a thread of a 512-thread block may hold -- then 64, 32, 16 (one
+// 16-byte chunk of codes).  It depends on M, N, the weight type and the
+// batch alone, never on k_collapse, and the sums do not depend on it.
+inline int nw_cols(int M, int N, bool int8, int batch = 1) {
+  auto fills = [N, batch](int cols) {
+    return (long long)(N + cols - 1) / cols * batch >= NW_FILL;
+  };
   if (int8) {
     if (M <= 4 && fills(128)) return 128;
     return fills(64) ? 64 : fills(32) ? 32 : 16;
@@ -478,10 +498,10 @@ __host__ __device__ __forceinline__ int nw_per(int K) {
 }
 
 // bytes of one ring slot (one sub-tile): x (M rows), w (and w2), g
-template <typename TW, int COLS, bool DUAL>
+template <typename TX, typename TW, int COLS, bool DUAL>
 __host__ __device__ __forceinline__ int nw_slot(int M) {
-  return 4 * M * NW_LDX + (DUAL ? 2 : 1) * (int)sizeof(TW) * NW_BK * COLS +
-         4 * NW_BK;
+  return (int)sizeof(TX) * M * nw_ldx<TX>() +
+         (DUAL ? 2 : 1) * (int)sizeof(TW) * NW_BK * COLS + 4 * NW_BK;
 }
 
 // one 16-byte chunk of n valid elements of T at src into shared address d
@@ -531,9 +551,9 @@ __device__ __forceinline__ void nw_widen(const TW* p, float (&v)[CPL]) {
 // sub-tile KV K rows at a time (x as a KV-vector: 4 for a lane of one
 // column, 2 for several, so its widened weights stay 2 CPL registers).
 // MIN_BLOCKS is the launch bound's blocks an SM: 2 where the sums are few
-// (K1 at M <= 4, K2), so the block fits 64 registers and two share an SM;
-// else 1, so ptxas does not squeeze 16 rows' sums into 64 registers with
-// spills.
+// (K1 at M <= 4, K2 at up to 16 sums a lane), so the block fits 64
+// registers and two share an SM; else 1, so ptxas does not squeeze 16
+// rows' sums into 64 registers with spills.
 template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
 struct NwShape {
   static constexpr int CPL = COLS > 32 ? COLS / 32 : 1;
@@ -543,11 +563,12 @@ struct NwShape {
   static constexpr int NW = DUAL ? 2 : 1;           // contractions
   static constexpr int KV = CPL == 1 ? 4 : 2;
   static constexpr int MIN_BLOCKS =
-      EXPERT || (MR <= 4 && NW * NR * CPL <= 16) ? 2 : 1;
+      (EXPERT || MR <= 4) && NW * NR * CPL <= 16 ? 2 : 1;
 };
 
-// KV consecutive fp32 of shared memory (16-byte aligned for KV = 4, 8 for
-// KV = 2) in one vector load
+// KV consecutive x elements of shared memory (16 bytes for fp32 at KV = 4)
+// in one vector load, widened exactly to fp32 (bf16: its bits under the
+// high half)
 template <int KV>
 __device__ __forceinline__ void nw_load(const float* p, float (&v)[KV]) {
   if constexpr (KV == 4) {
@@ -562,9 +583,26 @@ __device__ __forceinline__ void nw_load(const float* p, float (&v)[KV]) {
     v[1] = t.y;
   }
 }
+template <int KV>
+__device__ __forceinline__ void nw_load(const __nv_bfloat16* p,
+                                        float (&v)[KV]) {
+  if constexpr (KV == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    v[0] = tc::bf16_lo(t.x);
+    v[1] = tc::bf16_hi(t.x);
+    v[2] = tc::bf16_lo(t.y);
+    v[3] = tc::bf16_hi(t.y);
+  } else {
+    const uint32_t t = *reinterpret_cast<const uint32_t*>(p);
+    v[0] = tc::bf16_lo(t);
+    v[1] = tc::bf16_hi(t);
+  }
+}
 
-// One (M x COLS) output tile, fp32 x, TW (fp32, bf16 or int8 codes) w, fp32
-// sums, out fp32 or bf16 (out_bf16).  Warp s of the block sums K slice s
+// One (M x COLS) output tile, TX (fp32, or bf16 for K2's int8-only form) x,
+// TW (fp32, bf16 or int8 codes) w, fp32 sums, out fp32 or bf16 (out_bf16).
+// x is staged in its own type and widened exactly as it leaves shared
+// memory.  Warp s of the block sums K slice s
 // (the s-th of NW_SPLIT runs of nw_per(K) whole 32-row sub-tiles, fixed by
 // K alone) through a private cp.async ring of `stages` main-loop steps of
 // `subs` sub-tiles (x rows, the COLS-column w panel -- and w2's, DUAL --
@@ -575,8 +613,8 @@ __device__ __forceinline__ void nw_load(const float* p, float (&v)[KV]) {
 // -> act -> gate multiply -> residual -> one cast.  So every output is the
 // same sum whatever k_collapse, the ring depth, the width or (K2) the
 // number of experts.  EXPERT: of batch element blockIdx.z, its operands
-// offset before the alignment tests.
-template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
+// (and its per-column scales) offset before the alignment tests.
+template <typename TX, typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
 __global__ void __launch_bounds__(
     NW_THREADS, (NwShape<TW, COLS, MR, DUAL, EXPERT>::MIN_BLOCKS))
 af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
@@ -588,6 +626,8 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
   constexpr int W_CPR = COLS / W_EPC;              // chunks a w row
   constexpr int W_ELEMS = NW_BK * COLS;            // one panel's elements
   constexpr int W_BYTES = sizeof(TW) * W_ELEMS;
+  constexpr int X_EPC = 16 / sizeof(TX);           // x elements a chunk
+  constexpr int LDX = nw_ldx<TX>();
   // a full sub-tile's K loop: unrolled for a lane of one column, but kept
   // rolled where its sums and widened weights reach 32 registers; 4 steps
   // unrolled for a lane of several columns
@@ -600,17 +640,18 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
   const int rl = lane / LPR, c0 = (lane % LPR) * CPL;
   const int n0 = blockIdx.x * COLS;
   const long long z = EXPERT ? blockIdx.z : 0;
-  const float* x = static_cast<const float*>(a.x) + z * a.bsx;
+  const TX* x = static_cast<const TX*>(a.x) + z * a.bsx;
   const TW* w = static_cast<const TW*>(a.w) + z * a.bsw;
   const TW* w2 = static_cast<const TW*>(a.w2);     // K1's dual only
   const float* g = a.g;
-  const bool xvec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % 4 == 0;
+  const bool xvec =
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 && a.ldx % X_EPC == 0;
   const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                     a.ldw % W_EPC == 0 &&
                     (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
   const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  const int x_bytes = 4 * M * NW_LDX;
-  const int slot = nw_slot<TW, COLS, DUAL>(M);
+  const int x_bytes = (int)sizeof(TX) * M * LDX;
+  const int slot = nw_slot<TX, TW, COLS, DUAL>(M);
   // this warp's K slice: sub-tiles [sub0, sub0 + n_sub)
   const int n_all = (K + NW_BK - 1) / NW_BK;
   const int per = nw_per(K);
@@ -624,10 +665,10 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
   auto stage = [&](int sub, uint32_t b) {
     const int k0 = (sub0 + sub) * NW_BK;
     unsigned char* bp = base_ptr + (b - ring);
-    for (int i = lane; i < M * (NW_BK / 4); i += 32) {        // x rows
-      const int rr = i / (NW_BK / 4), cc = 4 * (i % (NW_BK / 4));
-      const int o = 4 * (rr * NW_LDX + cc);
-      nw_chunk(b + o, reinterpret_cast<float*>(bp + o),
+    for (int i = lane; i < M * (NW_BK / X_EPC); i += 32) {    // x rows
+      const int rr = i / (NW_BK / X_EPC), cc = X_EPC * (i % (NW_BK / X_EPC));
+      const int o = (int)sizeof(TX) * (rr * LDX + cc);
+      nw_chunk(b + o, reinterpret_cast<TX*>(bp + o),
                x + (long long)rr * a.ldx + k0 + cc, K - k0 - cc, xvec);
     }
     for (int i = lane; i < W_CPR * NW_BK; i += 32) {          // w panel(s)
@@ -656,7 +697,7 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
       for (int c = 0; c < CPL; ++c) acc[v][j][c] = 0.f;
   auto compute = [&](int sub, uint32_t b) {
     const unsigned char* S = base_ptr + (b - ring);
-    const float* X = reinterpret_cast<const float*>(S);
+    const TX* X = reinterpret_cast<const TX*>(S);
     const TW* Ws = reinterpret_cast<const TW*>(S + x_bytes) + c0;
     const float* Gs = reinterpret_cast<const float*>(S + x_bytes + NW * W_BYTES);
     const int nk = min(NW_BK, K - (sub0 + sub) * NW_BK);
@@ -675,10 +716,11 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
         for (int j = 0; j < NR; ++j) {
           if (rl + RG * j >= M) break;
           float xv[KV];
-          nw_load<KV>(X + (rl + RG * j) * NW_LDX + kb, xv);
+          nw_load<KV>(X + (rl + RG * j) * LDX + kb, xv);
           if (g != nullptr)       // the prologue: x_at's fp32 product
 #pragma unroll
-            for (int e = 0; e < KV; ++e) xv[e] = __fmul_rn(xv[e], gv[e]);
+            for (int e = 0; e < KV; ++e)
+              xv[e] = to_f(from_f<TX>(__fmul_rn(xv[e], gv[e])));
 #pragma unroll
           for (int v = 0; v < NW; ++v)
 #pragma unroll
@@ -697,8 +739,10 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
 #pragma unroll
         for (int j = 0; j < NR; ++j) {
           if (rl + RG * j >= M) break;
-          const float* Xs = X + (rl + RG * j) * NW_LDX;
-          const float xv = g != nullptr ? __fmul_rn(Xs[kb], Gs[kb]) : Xs[kb];
+          const TX* Xs = X + (rl + RG * j) * LDX;
+          const float xv = g != nullptr
+                               ? to_f(from_f<TX>(__fmul_rn(to_f(Xs[kb]), Gs[kb])))
+                               : to_f(Xs[kb]);
 #pragma unroll
           for (int v = 0; v < NW; ++v)
 #pragma unroll
@@ -735,7 +779,8 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
         P[v * pz + (warp * M + rl + RG * j) * COLS + c0 + c] = acc[v][j][c];
   }
   __syncthreads();
-  const float* res = static_cast<const float*>(a.residual);
+  const TX* res = static_cast<const TX*>(a.residual);
+  const float* ws = a.w_scale != nullptr ? a.w_scale + z * a.bss : nullptr;
   for (int i = threadIdx.x; i < M * COLS; i += NW_THREADS) {
     const int r = i / COLS, c = i % COLS;
     float y = P[i], y2 = DUAL ? P[pz + i] : 0.f;
@@ -744,13 +789,12 @@ af_gemm_narrow_kernel(Args a, int subs, int stages, int out_bf16) {
       if (DUAL) y2 = __fadd_rn(y2, P[pz + sl * M * COLS + i]);
     }
     if (out_bf16)
-      store_one<float, __nv_bfloat16, DUAL>(
-          a, y, y2, r, n0 + c, a.w_scale, a.w2_scale, res,
+      store_one<TX, __nv_bfloat16, DUAL>(
+          a, y, y2, r, n0 + c, ws, a.w2_scale, res,
           static_cast<__nv_bfloat16*>(a.out) + z * a.bso);
     else
-      store_one<float, float, DUAL>(a, y, y2, r, n0 + c, a.w_scale,
-                                    a.w2_scale, res,
-                                    static_cast<float*>(a.out) + z * a.bso);
+      store_one<TX, float, DUAL>(a, y, y2, r, n0 + c, ws, a.w2_scale, res,
+                                 static_cast<float*>(a.out) + z * a.bso);
   }
 }
 
@@ -1325,13 +1369,13 @@ int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
 // slice, at least one), and no more steps than its slice needs plus one,
 // so a short K leaves the SM to other blocks.  smem_only: report the dynamic shared
 // memory the launch takes, and launch nothing.
-template <typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
+template <typename TX, typename TW, int COLS, int MR, bool DUAL, bool EXPERT>
 int launch_narrow(const Args& a, int out_dtype, int batch,
                   cudaStream_t stream, size_t* smem_only = nullptr) {
   if (a.M > MR || (out_dtype != F32 && out_dtype != BF16))
     return (int)cudaErrorInvalidValue;
   const int blocks = (a.N + COLS - 1) / COLS;
-  const int slot = nw_slot<TW, COLS, DUAL>(a.M);
+  const int slot = nw_slot<TX, TW, COLS, DUAL>(a.M);
   const int budget = EXPERT || (long long)blocks * batch > NW_SMS
                          ? MAX_SMEM / 2 : MAX_SMEM;
   const int fit = std::max(1, std::min(NW_RING, budget / NW_SPLIT / slot));
@@ -1348,58 +1392,60 @@ int launch_narrow(const Args& a, int out_dtype, int batch,
     return 0;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_narrow_kernel<TW, COLS, MR, DUAL, EXPERT>,
+      af_gemm_narrow_kernel<TX, TW, COLS, MR, DUAL, EXPERT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(blocks, 1, batch);
-  af_gemm_narrow_kernel<TW, COLS, MR, DUAL, EXPERT>
+  af_gemm_narrow_kernel<TX, TW, COLS, MR, DUAL, EXPERT>
       <<<grid, NW_THREADS, smem, stream>>>(a, subs, stages,
                                            out_dtype == BF16);
   return (int)cudaGetLastError();
 }
 
-// K1's narrow tile at width COLS: room for 4 rows of sums a lane where M
-// <= 4 (the decode batch), so a lane of 16 rows' room does not hold 4x the
-// registers it uses, else 16
-template <typename TW, int COLS, bool DUAL>
-int launch_narrow_rows(const Args& a, int out_dtype, cudaStream_t stream,
-                       size_t* smem_only) {
+// The narrow tile at width COLS: room for 4 rows of sums a lane where M
+// <= 4 (the decode batch; an MoE bank's capacity row), so a lane of 16
+// rows' room does not hold 4x the registers it uses, else 16
+template <typename TX, typename TW, int COLS, bool DUAL, bool EXPERT>
+int launch_narrow_rows(const Args& a, int out_dtype, int batch,
+                       cudaStream_t stream, size_t* smem_only) {
   if (a.M <= 4)
-    return launch_narrow<TW, COLS, 4, DUAL, false>(a, out_dtype, 1, stream,
-                                                   smem_only);
+    return launch_narrow<TX, TW, COLS, 4, DUAL, EXPERT>(
+        a, out_dtype, batch, stream, smem_only);
   if constexpr (COLS <= 64)
-    return launch_narrow<TW, COLS, 16, DUAL, false>(a, out_dtype, 1, stream,
-                                                    smem_only);
+    return launch_narrow<TX, TW, COLS, 16, DUAL, EXPERT>(
+        a, out_dtype, batch, stream, smem_only);
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 at M <= 16 on the narrow tile, at the width nw_k1_cols picks: TW =
-// float (af_gemm) or int8_t (af_gemm_q's W8 form on fp32 x)
-template <typename TW, bool DUAL>
-int launch_narrow_k1(const Args& a, int out_dtype, cudaStream_t stream,
-                     size_t* smem_only = nullptr) {
+// The narrow tile at the width nw_cols picks: K1 at M <= 16 (TX = float;
+// TW = float for af_gemm, int8_t for af_gemm_q's W8 form on fp32 x), or
+// K2's int8-only form at T <= 16 (EXPERT, TW = int8_t, TX = float or bf16,
+// `batch` experts on z)
+template <typename TX, typename TW, bool DUAL, bool EXPERT>
+int launch_narrow_w(const Args& a, int out_dtype, int batch,
+                    cudaStream_t stream, size_t* smem_only = nullptr) {
   constexpr bool Q = std::is_same<TW, int8_t>::value;
-  switch (nw_k1_cols(a.M, a.N, Q)) {
+  switch (nw_cols(a.M, a.N, Q, batch)) {
     case 8:
       if constexpr (!Q)
-        return launch_narrow_rows<TW, 8, DUAL>(a, out_dtype, stream,
-                                               smem_only);
+        return launch_narrow_rows<TX, TW, 8, DUAL, EXPERT>(
+            a, out_dtype, batch, stream, smem_only);
       break;
     case 16:
-      return launch_narrow_rows<TW, 16, DUAL>(a, out_dtype, stream,
-                                              smem_only);
+      return launch_narrow_rows<TX, TW, 16, DUAL, EXPERT>(
+          a, out_dtype, batch, stream, smem_only);
     case 32:
-      return launch_narrow_rows<TW, 32, DUAL>(a, out_dtype, stream,
-                                              smem_only);
+      return launch_narrow_rows<TX, TW, 32, DUAL, EXPERT>(
+          a, out_dtype, batch, stream, smem_only);
     case 64:
       if constexpr (Q)
-        return launch_narrow_rows<TW, 64, DUAL>(a, out_dtype, stream,
-                                                smem_only);
+        return launch_narrow_rows<TX, TW, 64, DUAL, EXPERT>(
+            a, out_dtype, batch, stream, smem_only);
       break;
     case 128:
       if constexpr (Q)
-        return launch_narrow_rows<TW, 128, DUAL>(a, out_dtype, stream,
-                                                 smem_only);
+        return launch_narrow_rows<TX, TW, 128, DUAL, EXPERT>(
+            a, out_dtype, batch, stream, smem_only);
       break;
   }
   return (int)cudaErrorInvalidValue;
@@ -1466,18 +1512,13 @@ int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                                                    smem_only);
 }
 
-// W8A8 (act_quant), at BM = 16 for decode-sized M, or the float chain.
-// The chain's BM = 16 tile serves only K2's int8-only form (the MoE banks
-// at decode): every other launch at M <= 16 that reaches the chain's
-// callers takes the narrow tile, so they keep BM = 64, which is right at
-// any M.
+// W8A8 (act_quant), at BM = 16 for decode-sized M, or the float chain at
+// BM = 64 (every float-chain launch at M <= 16 takes the narrow tile)
 template <typename TX, typename TW, typename TO, bool DUAL>
 int launch_bm(const Args& a, bool act_quant, int batch, cudaStream_t stream) {
   if (act_quant)
     return a.M <= 16 ? launch_w8a8<TX, TO, 16, DUAL>(a, batch, stream)
                      : launch_w8a8<TX, TO, 64, DUAL>(a, batch, stream);
-  if constexpr (std::is_same<TW, int8_t>::value && !DUAL)
-    if (a.M <= 16) return launch<TX, TW, TO, 16, DUAL>(a, batch, stream);
   return launch<TX, TW, TO, 64, DUAL>(a, batch, stream);
 }
 
@@ -1526,8 +1567,9 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dual = w2 != nullptr;
   if (M <= 16)
-    return dual ? launch_narrow_k1<float, true>(a, out_dtype, s)
-                : launch_narrow_k1<float, false>(a, out_dtype, s);
+    return dual ? launch_narrow_w<float, float, true, false>(a, out_dtype, 1, s)
+                : launch_narrow_w<float, float, false, false>(a, out_dtype, 1,
+                                                              s);
   return dual ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
               : launch_out<float, float, false>(a, out_dtype, false, 1, s);
 }
@@ -1605,8 +1647,10 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
          quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!act_quant && M <= 16)
-    return dual ? launch_narrow_k1<int8_t, true>(a, out_dtype, s)
-                : launch_narrow_k1<int8_t, false>(a, out_dtype, s);
+    return dual ? launch_narrow_w<float, int8_t, true, false>(a, out_dtype, 1,
+                                                              s)
+                : launch_narrow_w<float, int8_t, false, false>(a, out_dtype,
+                                                               1, s);
   return dual ? launch_x<int8_t, true>(a, x_dtype, out_dtype, act_quant != 0,
                                        1, s)
               : launch_x<int8_t, false>(a, x_dtype, out_dtype,
@@ -1646,7 +1690,7 @@ extern "C" int af_gemm_q_tc(int out_dtype, const void* x, const void* w,
 template <typename TW>
 int launch_expert_narrow(const Args& a, int out_dtype, int E,
                          cudaStream_t stream, size_t* smem_only = nullptr) {
-  return launch_narrow<TW, NW_EXPERT_COLS, 16, false, true>(
+  return launch_narrow<float, TW, NW_EXPERT_COLS, 16, false, true>(
       a, out_dtype, E, stream, smem_only);
 }
 
@@ -1680,14 +1724,19 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
 }
 
 // The narrow FFMA tile at M rows (T for the expert form), N columns, K,
-// k_collapse, w of w_dtype (0 fp32, 1 bf16, 2 int8 codes), one or two
-// contractions, as K1's tile (expert = 0: fp32 or int8 w) or K2's (expert
-// = 1: fp32 or bf16 w, one contraction): af_narrow_smem gives the dynamic
-// shared memory (bytes) of one launch (of one expert's grid for K2),
-// af_narrow_cols its width; -1 where the tile does not take the launch.
+// k_collapse, x of x_dtype (0 fp32, 1 bf16) and w of w_dtype (0 fp32, 1
+// bf16, 2 int8 codes), one or two contractions, as K1's tile (expert = 0:
+// fp32 x, fp32 or int8 w) or K2's over `expert` experts (fp32 x with fp32
+// or bf16 w, or the int8-only form: fp32 or bf16 x, int8 w; one
+// contraction): af_narrow_smem gives the dynamic shared memory (bytes) of
+// one launch (one expert's grid for K2: the ring budget does not depend on
+// E), af_narrow_cols its width; -1 where the tile does not take the launch.
 extern "C" long long af_narrow_smem(int M, int N, int K, int k_collapse,
-                                    int w_dtype, int dual, int expert) {
-  if (M < 1 || M > 16 || N < 1 || K < 1 || k_collapse < 1) return -1;
+                                    int w_dtype, int dual, int expert,
+                                    int x_dtype) {
+  if (M < 1 || M > 16 || N < 1 || K < 1 || k_collapse < 1 || expert < 0 ||
+      expert > 65535 || (x_dtype != F32 && x_dtype != BF16))
+    return -1;
   Args a{};
   a.M = M;
   a.N = N;
@@ -1695,24 +1744,39 @@ extern "C" long long af_narrow_smem(int M, int N, int K, int k_collapse,
   a.k_collapse = k_collapse;
   size_t smem = 0;
   int rc = (int)cudaErrorInvalidValue;
-  if (expert && !dual && w_dtype == F32)
+  if (expert && !dual && w_dtype == I8)
+    rc = x_dtype == F32
+             ? launch_narrow_w<float, int8_t, false, true>(a, F32, expert,
+                                                           nullptr, &smem)
+             : launch_narrow_w<__nv_bfloat16, int8_t, false, true>(
+                   a, F32, expert, nullptr, &smem);
+  else if (x_dtype != F32)
+    rc = (int)cudaErrorInvalidValue;
+  else if (expert && !dual && w_dtype == F32)
     rc = launch_expert_narrow<float>(a, F32, 1, nullptr, &smem);
   else if (expert && !dual && w_dtype == BF16)
     rc = launch_expert_narrow<__nv_bfloat16>(a, F32, 1, nullptr, &smem);
-  else if (!expert && w_dtype == F32)
-    rc = dual ? launch_narrow_k1<float, true>(a, F32, nullptr, &smem)
-              : launch_narrow_k1<float, false>(a, F32, nullptr, &smem);
-  else if (!expert && w_dtype == I8)
-    rc = dual ? launch_narrow_k1<int8_t, true>(a, F32, nullptr, &smem)
-              : launch_narrow_k1<int8_t, false>(a, F32, nullptr, &smem);
+  else if (!expert && (w_dtype == F32 || w_dtype == I8)) {
+    if (w_dtype == F32)
+      rc = dual ? launch_narrow_w<float, float, true, false>(a, F32, 1,
+                                                             nullptr, &smem)
+                : launch_narrow_w<float, float, false, false>(a, F32, 1,
+                                                              nullptr, &smem);
+    else
+      rc = dual ? launch_narrow_w<float, int8_t, true, false>(a, F32, 1,
+                                                              nullptr, &smem)
+                : launch_narrow_w<float, int8_t, false, false>(
+                      a, F32, 1, nullptr, &smem);
+  }
   return rc == 0 ? (long long)smem : -1;
 }
 
 extern "C" int af_narrow_cols(int M, int N, int w_dtype, int expert) {
-  if (M < 1 || M > 16 || N < 1) return -1;
+  if (M < 1 || M > 16 || N < 1 || expert < 0 || expert > 65535) return -1;
+  if (expert && w_dtype == I8) return nw_cols(M, N, true, expert);
   if (expert) return w_dtype == F32 || w_dtype == BF16 ? NW_EXPERT_COLS : -1;
   if (w_dtype != F32 && w_dtype != I8) return -1;
-  return nw_k1_cols(M, N, w_dtype == I8);
+  return nw_cols(M, N, w_dtype == I8);
 }
 
 // The same batched product on the tensor-core kernel: x and w bf16, out
@@ -1735,9 +1799,11 @@ extern "C" int af_expert_gemm_tc(int out_dtype, const void* x, const void* w,
 // X[E,T,K] @ W[E,K,N] -> out[E,T,N] on int8 codes, all contiguous: x fp32
 // or bf16, w int8 codes, w_scale (E, N) fp32 dequantized per (expert,
 // column) at the store.  act_quant = 0: the int8-only form (MoE expert
-// banks under W8), the float chain at k_collapse; act_quant = 1: W8A8,
-// each expert's x quantized on the reference's tiles of quant_bm rows by
-// quant_kk columns.
+// banks under W8): at T <= 16 the narrow tile (x staged in its own type,
+// the codes through the warp rings, widened exactly to fp32; the width from
+// T, N and E; E <= 65535), larger T the 64-row float chain at k_collapse;
+// act_quant = 1: W8A8, each expert's x quantized on the reference's tiles
+// of quant_bm rows by quant_kk columns.
 extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                 const void* x, const void* w,
                                 const float* w_scale, void* out, int E, int T,
@@ -1750,5 +1816,14 @@ extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
          (long long)T * N, N, k_collapse, ACT_NONE, quant_bm, quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!act_quant && T <= 16) {
+    if (E > 65535) return (int)cudaErrorInvalidValue;
+    if (x_dtype == F32)
+      return launch_narrow_w<float, int8_t, false, true>(a, out_dtype, E, s);
+    if (x_dtype == BF16)
+      return launch_narrow_w<__nv_bfloat16, int8_t, false, true>(
+          a, out_dtype, E, s);
+    return (int)cudaErrorInvalidValue;
+  }
   return launch_x<int8_t, false>(a, x_dtype, out_dtype, act_quant != 0, E, s);
 }

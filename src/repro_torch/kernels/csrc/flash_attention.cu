@@ -21,18 +21,28 @@
 // the mask value is the finite -1e30 of the reference, never -inf, so
 // -1e30 - -1e30 = 0 and exp of it is 1, then masked to 0.
 //
-// Numerics, choice (a): the reference takes one softmax over a whole chunk
-// (the planner picks kv_chunk = T up to 4096) before it rounds p to bf16,
-// so p is rounded relative to the chunk's row max.  A block cannot hold a
-// 64 x 4096 fp32 score tile in 227 KB of shared memory, so kv_chunk is a
-// launch parameter separate from the kernel's own 64-column sub-tile, and
-// each chunk takes two passes over its sub-tiles: the first computes the
-// scores only for the chunk's row max, the second recomputes them and
-// exponentiates against that max -- the reference's numbers (p, its bf16
-// rounding, l and o), up to fp32 summation order and the last bit of expf.
-// It costs one more Q K^T product per chunk: 1.5x the operations of a
-// single pass.  Against the plain version on the card the bf16 output is
-// held to one bf16 step at the largest |value|, fp32 to 1e-5 of it.
+// Numerics, choice (a) (bf16): the reference takes one softmax over a
+// whole chunk (the planner picks kv_chunk = T up to 4096) before it rounds
+// p to bf16, so p is rounded relative to the chunk's row max.  A block
+// cannot hold a 64 x 4096 fp32 score tile in 227 KB of shared memory, so
+// kv_chunk is a launch parameter separate from the kernel's own 64-column
+// sub-tile, and each chunk takes two passes over its sub-tiles: the first
+// computes the scores only for the chunk's row max, the second recomputes
+// them and exponentiates against that max -- the reference's numbers (p,
+// its bf16 rounding, l and o), up to fp32 summation order and the last bit
+// of expf.  It costs one more Q K^T product per chunk: 1.5x the operations
+// of a single pass.
+//
+// fp32 needs no second pass.  p is rounded to v's dtype, which for fp32 v
+// is no rounding at all, so nothing depends on the max p is taken against:
+// exp(s - m_chunk) = exp(s - m_sub) * exp(m_sub - m_chunk) up to fp32
+// rounding, and l and o rescale by the same factor.  One pass, with the
+// running max rescaled per sub-tile (FlashAttention-2's recurrence),
+// computes the same function up to fp32 rounding, with 2/3 of the
+// operations; and the chunk edges, which only place the bf16 roundings,
+// do not cut its sub-tiles.  Against the plain version on the card the
+// bf16 output is held to one bf16 step at the largest |value|, fp32 to
+// 1e-5 of it.
 //
 // What bounds it on this card: operations at long S (at BH 14, S = T =
 // 4096, D 64, causal: 3.0e10 multiply-add operations, 30 us at the bf16
@@ -80,14 +90,43 @@
 //     order with corr = exp(m - m_new) and divides.  Only the order of the
 //     fp32 sums changes.
 //
-// flash_fwd_kernel, fp32 (a plain kernel that is right first): one block
-// per (bh, 64-row query tile), 256 threads; the q tile stays in shared
-// memory for the whole KV loop; K and V are staged 64 columns at a time,
-// and both products run as FFMA: each thread owns query rows ty + 16 i and
-// key columns tx + 16 j (4 x 4 scores), and output columns tx + 16 jj; the
-// running m, l and the output accumulator live in registers, a row's max
-// and sum reduce across its 16 lanes with warp shuffles; the same two
-// passes a chunk, the same skips and launch order.
+// flash_fwd_kernel, fp32, on the FFMA pipes (the tensor cores cannot give
+// IEEE fp32).  At BH 14, S = T = 4096, D 64, causal it is bound by
+// operations (3.0e10 at 67 TFLOP/s: 449 us), so the design keeps the FMA
+// pipes fed:
+//   * one block per (bh, 64-row query tile), 4 warps; the q tile is staged
+//     once; 32-row K and V sub-tiles stream through a two-slot ring by
+//     16-byte cp.async, each thread's chunk offsets computed once
+//     (KvChunks, as the bf16 kernel; a chunk past the last visible column
+//     or past D zero-filled by the copy's source size, without a branch;
+//     scalar staging only where D is not a multiple of 4): one barrier a
+//     sub-tile, the next sub-tile's loads in flight while this one's sums
+//     run;
+//   * a warp owns 16 query rows outright, a lane 4 of them (lr + 4 i) by 4
+//     keys (lc + 8 j) of the scores and by DM / 8 output columns.  Q K^T
+//     reads 4 d-steps of a q row or a k row in one float4 (rows padded by
+//     4 floats, so the 8 rows a load touches fall on distinct banks): 8
+//     loads for 64 FMAs.  K stays row-major, as cp.async copies it; the
+//     d-major layout is p's: a warp writes its p tile transposed into its
+//     own [key][row] slice of shared memory (a lane's 4 rows as one
+//     float4), and P V reads one float4 of p and two of V rows per key: 3
+//     loads for 32 FMAs at D 64;
+//   * one pass a sub-tile (above): the running max rescaled per sub-tile; a
+//     row's max and sum reduce over its 8 lanes with shuffles, and p needs
+//     only __syncwarp, never a block barrier; the mask is a warp-uniform
+//     branch, taken only by warps whose rows do not see every key of the
+//     sub-tile; exp through the ex2 unit (__expf: within 2 ulp where p is
+//     near 1, far inside the fp32 tolerance);
+//   * 61 KB of shared memory and at most 168 registers at D <= 64, so three
+//     blocks (12 warps) share an SM;
+//   * blocks launch in index order, so the index runs over the heads
+//     fastest and over the query tiles heaviest first: every head's
+//     longest causal tiles start in the first wave (with the tiles of one
+//     head first, the last head's longest tiles started last and the tail
+//     ran a quarter of the time on a few SMs);
+//   * as in the bf16 kernel: the -1e30 mask with p = ok ? exp(s - m) : 0 (a
+//     fully masked row ends with l = 0, o = 0 and comes out 0), the columns
+//     no row of the block can see skipped, out = o / max(l, 1e-30).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -96,9 +135,10 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 64;       // key/value columns per staged sub-tile
-constexpr int THREADS = 256;  // 16 x 16: ty owns rows, tx owns columns
+constexpr int BQ = 64;        // query rows per block, 16 per warp
+constexpr int BKV = 32;       // fp32: key/value rows per staged sub-tile
+constexpr int THREADS = 128;
+constexpr int PLD = 16 + 4;   // a warp's p slice: [BKV keys][16 rows + pad]
 constexpr float NEG_INF = -1e30f;
 enum { F32 = 0 };
 
@@ -111,179 +151,260 @@ struct Args {
   float scale;
 };
 
-template <int DM>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (DM + 1) + (size_t)BKV * (DM + 1) +
-                          (size_t)BKV * DM + (size_t)BQ * (BKV + 1));
-}
-
-// rows [t0, t0 + BKV) of a (T, D) matrix into dst (fp32, row stride ld);
-// rows at or past hi and columns at or past D read as zero
-template <int DM>
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      int t0, int hi, int D) {
-  for (int idx = threadIdx.x; idx < BKV * DM; idx += THREADS) {
-    const int c = idx / DM, d = idx % DM, col = t0 + c;
-    dst[c * ld + d] =
-        (col < hi && d < D) ? src[(size_t)col * D + d] : 0.f;
+// One thread's 16-byte chunks of a ROWS-row K or V sub-tile of T elements
+// (DM / (16 / sizeof(T)) chunks a row, rows padded by one chunk), their
+// rows, columns and shared offsets computed once; staging a sub-tile at key
+// row t0 then costs an address and a bound per chunk.
+template <typename T, int DM, int NTHR, int ROWS = 64>
+struct KvChunks {
+  static constexpr int EPC = 16 / sizeof(T);      // elements a chunk
+  static constexpr int LD = DM + EPC;
+  static constexpr int N = ROWS * (DM / EPC) / NTHR;
+  int r[N], c[N];
+  uint32_t off[N];
+  __device__ KvChunks() {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * NTHR;
+      r[j] = i / (DM / EPC);
+      c[j] = (i % (DM / EPC)) * EPC;
+      off[j] = sizeof(T) * (r[j] * LD + c[j]);
+    }
   }
-}
-
-// the thread's 4 x 4 unscaled scores: rows ty + 16 i, columns tx + 16 j
-template <int DM>
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
-                                       int ty, int tx, float s[4][4]) {
+  // stage() where every chunk is whole or wholly past D (D a multiple of
+  // EPC): each chunk one cp.async, zero-filled through its source size
+  __device__ __forceinline__ void stage_whole(uint32_t dst, const T* src,
+                                              int t0, int hi, int D) const {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DM; ++d) {
-    float qa[4], kb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * (DM + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * (DM + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    for (int j = 0; j < N; ++j) {
+      const int row = t0 + r[j];
+      const bool ok = row < hi && c[j] < D;
+      tc::cp_async16_part(dst + off[j],
+                          ok ? src + (size_t)row * D + c[j] : src,
+                          ok ? 16 : 0);
+    }
   }
+  // rows t0.. of the (T, D) matrix src into the slot at shared address
+  // dst; rows at or past hi and columns at or past D as zeros
+  __device__ __forceinline__ void stage(uint32_t dst, const T* src, int t0,
+                                        int hi, int D) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int row = t0 + r[j];
+      const int n = row < hi ? D - c[j] : 0;
+      tc::cp_chunk(dst + off[j],
+                   n > 0 ? src + (size_t)row * D + c[j] : src, n, EPC);
+    }
+  }
+};
+
+template <int DM>
+constexpr size_t smem_bytes() {   // q tile, two K and two V slots, p slices
+  return sizeof(float) * ((size_t)(BQ + 4 * BKV) * (DM + 4) +
+                          (size_t)(THREADS / 32) * BKV * PLD);
 }
 
-__device__ __forceinline__ bool visible(const Args& a, int row, int col,
-                                        int hi) {
-  return col < hi && (!a.causal || col <= row) &&
+__device__ __forceinline__ bool visible(const Args& a, int row, int col) {
+  return col < a.T && (!a.causal || col <= row) &&
          (!a.window || col > row - a.window);
 }
 
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
 template <int DM>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Args a) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [BQ][DM + 1]
-  float* Ks = Qs + BQ * (DM + 1);     // [BKV][DM + 1]
-  float* Vs = Ks + BKV * (DM + 1);    // [BKV][DM]
-  float* Ps = Vs + BKV * DM;          // [BQ][BKV + 1], p (fp32: v is fp32)
-  constexpr int DJ = DM / 16;         // output columns per thread
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // the causally heaviest (last) query tiles launch first
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const size_t bh = blockIdx.y;
+__global__ void __launch_bounds__(THREADS, DM <= 64 ? 3 : 2) flash_fwd_kernel(Args a) {
+  constexpr int LD = DM + 4;            // padded rows (float4 banks)
+  constexpr int NG = DM / 32;           // float4 groups of output columns
+  extern __shared__ __align__(16) float fa32_smem[];
+  float* Qs = fa32_smem;                // [BQ][LD]
+  float* Ks = Qs + BQ * LD;             // [2][BKV][LD]
+  float* Vs = Ks + 2 * BKV * LD;        // [2][BKV][LD]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int lr = lane / 8, lc = lane % 8;
+  // this warp's p slice: [BKV keys][PLD], a lane's 4 rows at lr * 4
+  float* Ps = Vs + 2 * BKV * LD + warp * BKV * PLD;
+  // blocks launch in index order: the causally heaviest (last) query tiles
+  // of every head first, then the next tile of every head, so the longest
+  // blocks start in the first wave and short ones fill the tail
+  const int n_tiles = (a.S + BQ - 1) / BQ;
+  const int row0 = (n_tiles - 1 - (int)(blockIdx.x / a.BH)) * BQ;
+  const size_t bh = blockIdx.x % a.BH;
+  const int wrow0 = row0 + warp * 16;   // the warp's first query row
   const float* q = static_cast<const float*>(a.q) + bh * a.S * a.D;
   const float* k = static_cast<const float*>(a.k) + bh * a.T * a.D;
   const float* v = static_cast<const float*>(a.v) + bh * a.T * a.D;
-  float* o = static_cast<float*>(a.o) + bh * a.S * a.D;
-
-  for (int idx = threadIdx.x; idx < BQ * DM; idx += THREADS) {
-    const int r = idx / DM, d = idx % DM, row = row0 + r;
-    Qs[r * (DM + 1) + d] =
-        (row < a.S && d < a.D) ? q[(size_t)row * a.D + d] : 0.f;
-  }
-
-  int rows[4];
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rows[i] = row0 + ty + 16 * i;
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
+  float* out = static_cast<float*>(a.o) + bh * a.S * a.D;
+  const bool vec = a.D % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
 
   // the columns any row of this block may see
   const int row_last = min(row0 + BQ, a.S) - 1;
   const int col_hi = a.causal ? min(a.T, row_last + 1) : a.T;
   const int col_lo = a.window ? max(0, row0 - a.window + 1) : 0;
+  const int n_sub = col_lo < col_hi ? (col_hi - col_lo + BKV - 1) / BKV : 0;
 
-  for (int c0 = 0; c0 < a.T; c0 += a.kv_chunk) {
-    const int lo = max(c0, col_lo);
-    const int hi = min(c0 + a.kv_chunk, col_hi);
-    if (lo >= hi) continue;   // every pair masked: o, m, l stay as they are
+  const KvChunks<float, DM, THREADS, BKV> kv;
+  const uint32_t ks_addr = tc::smem_addr(Ks), vs_addr = tc::smem_addr(Vs);
+  // K and V rows t0.. into ring slot `slot`
+  auto stage_kv = [&](int slot, int t0) {
+    if (vec) {
+      kv.stage_whole(ks_addr + slot * 4 * BKV * LD, k, t0, col_hi, a.D);
+      kv.stage_whole(vs_addr + slot * 4 * BKV * LD, v, t0, col_hi, a.D);
+    } else {
+      tc::stage_tile<BKV, DM, THREADS>(Ks + slot * BKV * LD, LD, k, a.D, t0,
+                                       col_hi, 0, a.D, false);
+      tc::stage_tile<BKV, DM, THREADS>(Vs + slot * BKV * LD, LD, v, a.D, t0,
+                                       col_hi, 0, a.D, false);
+    }
+  };
 
-    // pass 1: the chunk's row max
-    float cmax[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
-    for (int t0 = lo; t0 < hi; t0 += BKV) {
-      __syncthreads();
-      stage<DM>(Ks, DM + 1, k, t0, hi, a.D);
-      __syncthreads();
-      float s[4][4];
-      scores<DM>(Qs, Ks, ty, tx, s);
+  // a lane's query rows wrow0 + lr + 4 i, key columns t0 + lc + 8 j and
+  // output columns 32 g + 4 lc + e
+  float m[4], l[4], o[4][NG][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][g][e] = 0.f;
+  }
+
+  if (n_sub > 0) {
+    tc::stage_tile<BQ, DM, THREADS>(Qs, LD, q, a.D, row0, a.S, 0, a.D, vec);
+    stage_kv(0, col_lo);
+    tc::cp_async_commit();
+  }
+  for (int j = 0; j < n_sub; ++j) {
+    tc::cp_async_wait(0);
+    __syncthreads();      // sub-tile j is in; slot (j + 1) % 2 is free
+    if (j + 1 < n_sub) {
+      stage_kv((j + 1) % 2, col_lo + (j + 1) * BKV);
+      tc::cp_async_commit();
+    }
+    const float* K = Ks + (j % 2) * BKV * LD;
+    const float* V = Vs + (j % 2) * BKV * LD;
+    const int t0 = col_lo + j * BKV;
+
+    // s = q . k over d in increasing order, 4 d-steps a load
+    float s[4][BKV / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < BKV / 8; ++jj) s[i][jj] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DM; d += 4) {
+      float qv[4][4], kk[BKV / 8][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        ld4(Qs + (warp * 16 + lr + 4 * i) * LD + d, qv[i]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float sc = visible(a, rows[i], t0 + tx + 16 * j, hi)
-                               ? s[i][j] * a.scale
-                               : NEG_INF;
-          cmax[i] = fmaxf(cmax[i], sc);
-        }
-    }
-    float m_new[4], corr[4], lsum[4];
+      for (int jj = 0; jj < BKV / 8; ++jj) ld4(K + (lc + 8 * jj) * LD + d, kk[jj]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        cmax[i] = fmaxf(cmax[i], __shfl_xor_sync(0xffffffffu, cmax[i], off));
-      m_new[i] = fmaxf(m[i], cmax[i]);
-      corr[i] = expf(m[i] - m_new[i]);
-      lsum[i] = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= corr[i];
-    }
-
-    // pass 2: p against the chunk's max, o += p v
-    for (int t0 = lo; t0 < hi; t0 += BKV) {
-      __syncthreads();
-      stage<DM>(Ks, DM + 1, k, t0, hi, a.D);
-      stage<DM>(Vs, DM, v, t0, hi, a.D);
-      __syncthreads();
-      float s[4][4];
-      scores<DM>(Qs, Ks, ty, tx, s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = visible(a, rows[i], t0 + tx + 16 * j, hi)
-                              ? expf(s[i][j] * a.scale - m_new[i])
-                              : 0.f;
-          lsum[i] += p;
-          Ps[(ty + 16 * i) * (BKV + 1) + tx + 16 * j] = p;
-        }
-      __syncthreads();
-      const int n = min(BKV, hi - t0);
-      for (int c = 0; c < n; ++c) {
-        float pv[4], vv[DJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BKV + 1) + c];
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) vv[jj] = Vs[c * DM + tx + 16 * jj];
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int jj = 0; jj < DJ; ++jj)
-            acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-      }
+          for (int jj = 0; jj < BKV / 8; ++jj)
+            s[i][jj] = fmaf(qv[i][e], kk[jj][e], s[i][jj]);
     }
+
+    // scale and mask; a warp whose 16 rows see every column of the
+    // sub-tile skips the per-element mask (the same numbers)
+    const bool all = t0 + BKV <= a.T &&
+                     (!a.causal || t0 + BKV - 1 <= wrow0) &&
+                     (!a.window || t0 > wrow0 + 15 - a.window);
+    float m_new[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      const int row = wrow0 + lr + 4 * i;
+      float smax = NEG_INF;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], off);
-      l[i] = l[i] * corr[i] + lsum[i];
+      for (int jj = 0; jj < BKV / 8; ++jj) {
+        const float sc = __fmul_rn(s[i][jj], a.scale);
+        s[i][jj] = all || visible(a, row, t0 + lc + 8 * jj) ? sc : NEG_INF;
+        smax = fmaxf(smax, s[i][jj]);
+      }
+      // the running max over the row's 8 lanes, and the rescale
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, off));
+      m_new[i] = fmaxf(m[i], smax);
+      const float corr = __expf(m[i] - m_new[i]);
       m[i] = m_new[i];
+      l[i] = __fmul_rn(l[i], corr);
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][g][e] *= corr;
+    }
+    if (all) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj) {
+          s[i][jj] = __expf(s[i][jj] - m_new[i]);
+          l[i] += s[i][jj];               // the lane's part of the row sum
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj) {
+          s[i][jj] = visible(a, wrow0 + lr + 4 * i, t0 + lc + 8 * jj)
+                         ? __expf(s[i][jj] - m_new[i])
+                         : 0.f;
+          l[i] += s[i][jj];
+        }
+    }
+    // p into the warp's [key][row] slice, a lane's 4 rows as one float4
+#pragma unroll
+    for (int jj = 0; jj < BKV / 8; ++jj)
+      *reinterpret_cast<float4*>(Ps + (lc + 8 * jj) * PLD + lr * 4) =
+          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+    __syncwarp();
+    // o += p v in increasing key order (keys the block cannot see hold p =
+    // 0 and zero-filled v rows)
+#pragma unroll 8
+    for (int c = 0; c < BKV; ++c) {
+      float pv[4], vv[NG][4];
+      ld4(Ps + c * PLD + lr * 4, pv);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) ld4(V + c * LD + 32 * g + 4 * lc, vv[g]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[i][g][e] = fmaf(pv[i], vv[g][e], o[i][g][e]);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (rows[i] >= a.S) continue;
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = wrow0 + lr + 4 * i;
+    if (row >= a.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < a.D) o[(size_t)rows[i] * a.D + d] = acc[i][jj] / den;
-    }
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 32 * g + 4 * lc + e;
+        if (d < a.D) out[(size_t)row * a.D + d] = o[i][g][e] / den;
+      }
   }
 }
 
@@ -294,8 +415,8 @@ int launch(const Args& a, cudaStream_t stream) {
       flash_fwd_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.S + BQ - 1) / BQ, a.BH);
-  flash_fwd_kernel<DM><<<grid, THREADS, smem, stream>>>(a);
+  const int blocks = (a.S + BQ - 1) / BQ * a.BH;
+  flash_fwd_kernel<DM><<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -330,38 +451,6 @@ template <int DM>
 constexpr size_t tc_smem_bytes() {   // q tile + two K and two V slots
   return sizeof(__nv_bfloat16) * (size_t)(TQ + 4 * TKV) * (DM + 8);
 }
-
-// One thread's 16-byte chunks of a 64-row K or V sub-tile (DM / 16 of
-// them), their rows, columns and shared offsets computed once; staging a
-// sub-tile at key row t0 then costs an address and a bound per chunk.
-template <int DM>
-struct KvChunks {
-  static constexpr int LD = DM + 8;
-  static constexpr int N = TKV * (DM / 8) / TC_THREADS;
-  int r[N], c[N];
-  uint32_t off[N];
-  __device__ KvChunks() {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = threadIdx.x + j * TC_THREADS;
-      r[j] = i / (DM / 8);
-      c[j] = (i % (DM / 8)) * 8;
-      off[j] = 2 * (r[j] * LD + c[j]);
-    }
-  }
-  // rows t0.. of the (T, D) matrix src into the slot at shared address
-  // dst; rows at or past hi and columns at or past D as zeros
-  __device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
-                                        int t0, int hi, int D) const {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int row = t0 + r[j];
-      const int n = row < hi ? D - c[j] : 0;
-      tc::cp_chunk(dst + off[j],
-                   n > 0 ? src + (size_t)row * D + c[j] : src, n, 8);
-    }
-  }
-};
 
 __device__ __forceinline__ bool tc_visible(const TcArgs& a, int row, int col,
                                            int hi) {
@@ -425,7 +514,7 @@ __global__ void __launch_bounds__(TC_THREADS, DM <= 64 ? 4 : 2)
                    reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
 
-  const KvChunks<DM> kv;
+  const KvChunks<bf16, DM, TC_THREADS> kv;
   const uint32_t ks_addr = tc::smem_addr(Ks), vs_addr = tc::smem_addr(Vs);
   // K (and V) rows t0.. into ring slot `slot`
   auto stage_k = [&](int slot, int t0, int hi) {
@@ -735,7 +824,8 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    int T, int D, int kv_chunk, int causal,
                                    int window, float scale, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || T < 1 || D < 1 || D > 128 ||
-      kv_chunk < 1 || window < 0 || dtype != F32)
+      kv_chunk < 1 || window < 0 || dtype != F32 ||
+      (long long)((S + BQ - 1) / BQ) * BH > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, o, BH, S, T, D, kv_chunk, causal, window, scale};
   return launch_d(a, static_cast<cudaStream_t>(stream));

@@ -146,3 +146,44 @@ def test_planned_k_is_the_substrate_plan(smoke, form):
                       (128, 1, 2048, 768), 48, form=form)
     assert smoke.planned_k(bank) == substrate.plan_gemm(768, 2048, 1,
                                                         backend).k
+
+
+def test_narrow_bank_sites_are_the_int8_moe_banks(smoke):
+    """The narrow-tile report lists the three MoE expert banks in K2's
+    int8-only form at decode (one capacity row of each of 128 experts),
+    and the width rule gives each 128-byte code rows."""
+    moe_cfg = _cfg("qwen3-moe-30b-a3b", "arrayflex", "bfloat16")
+    sites = smoke.narrow_bank_sites(moe_cfg)
+    assert {(s.name, s.shape) for s in sites} == {
+        ("moe.wi_gate", (128, 1, 2048, 768)),
+        ("moe.wi_up", (128, 1, 2048, 768)),
+        ("moe.wo", (128, 1, 768, 2048))}
+    for s in sites:
+        assert s.kernel == "arrayflex_expert_gemm" and s.form == "int8"
+        assert s.launch_name == "arrayflex_expert_gemm_int8"
+        E, T, K, N = s.shape
+        assert smoke.narrow_int8_cols(T, N, E) == 128
+
+
+@pytest.mark.parametrize("mnb,want", [
+    ((1, 768, 128), 128), ((4, 2048, 128), 128), ((5, 768, 128), 64),
+    ((1, 768, 22), 128), ((1, 768, 21), 64), ((4, 70, 50), 32),
+    ((16, 70, 3), 16), ((4, 152064, 1), 128), ((5, 152064, 1), 64),
+    ((4, 4864, 1), 32), ((4, 896, 1), 16)])
+def test_narrow_int8_width_rule(smoke, mnb, want):
+    """The written width rule phase 3 holds the card's int8 tile to: the
+    widest of 128 (M <= 4), 64 and 32 columns whose grid (blocks x
+    experts) reaches 128 blocks, else 16; K1's int8 sites are its
+    one-batch case."""
+    assert smoke.narrow_int8_cols(*mnb) == want
+
+
+@pytest.mark.parametrize("name", ["ragged non-causal", "window 512",
+                                  "fully masked rows"])
+def test_k3_cases_hold_fp32_forms(smoke, name):
+    """K3's phase runs the ragged, window and fully masked cases in fp32
+    too (the FFMA kernel), at the bf16 cases' shapes and masks."""
+    cases = {c[0]: c for c in smoke.K3_CASES}
+    bf16, fp32 = cases[name], cases[f"{name} fp32"]
+    assert bf16[1:7] == fp32[1:7]
+    assert bf16[7] == torch.bfloat16 and fp32[7] == torch.float32

@@ -341,9 +341,10 @@ def test_narrow_width_rule(cuda):
         for w_dtype in (f32, i8):
             for dual in (0, 1):
                 for k in (1, 2, 4, 8, 64):
-                    smem = lib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0)
+                    smem = lib.af_narrow_smem(M, N, K, k, w_dtype, dual, 0,
+                                              0)
                     assert 0 < smem <= 232448, (M, K, N, w_dtype, dual, k)
-    assert lib.af_narrow_smem(17, 128, 64, 1, f32, 0, 0) == -1
+    assert lib.af_narrow_smem(17, 128, 64, 1, f32, 0, 0, 0) == -1
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -761,6 +762,115 @@ def test_fp32_expert_narrow_bits_do_not_depend_on_E(cuda, dw, etkn):
             assert torch.equal(whole[e:e + 1], one), (out, e)
 
 
+# K2's int8-only form at T <= 16 (the narrow FFMA tile on int8 codes, x
+# staged in its own type): the MoE banks at decode (128 experts of one
+# capacity row) and at T = 4, 5 and 16, then ragged K and N on a few
+# experts (the 16- to 64-column widths)
+K2_INT8_NARROW_SHAPES = [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                         (128, 4, 2048, 768), (128, 5, 768, 2048),
+                         (128, 16, 2048, 768), (5, 1, 100, 36),
+                         (3, 4, 130, 70), (4, 5, 37, 200), (6, 16, 1000, 130)]
+
+
+def _int8_expert_operands(g, E, T, K, N, dx):
+    x = torch.randn(E, T, K, generator=g, device="cuda").to(dx)
+    q, s = substrate._quantize(torch.randn(E, K, N, generator=g,
+                                           device="cuda") * K ** -0.5)
+    return x, q, s
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", K2_INT8_NARROW_SHAPES)
+def test_int8_expert_narrow_bit_identical_across_k(cuda, out, dx, etkn):
+    """K2's int8-only form at T <= 16 sums fixed K slices (one warp each,
+    an fmaf chain in increasing K order on codes widened exactly to fp32,
+    fp32 or bf16 x widened exactly) and adds the slices in order, each
+    expert's scales first at the store: the same bits at k = 1, 2, 4, one
+    ``arrayflex_expert_gemm_int8`` launch each, and within the plain
+    version's tolerance (fp32 1e-5 of max |value|, bf16 one step)."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + 3 * T + K + N)
+    x, q, s = _int8_expert_operands(g, E, T, K, N, dx)
+    outs = []
+    for k in (1, 2, 4):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=k,
+                                             out_dtype=out))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_expert_gemm_int8=before[
+                "arrayflex_expert_gemm_int8"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_expert_gemm_plain(
+        x, q, w_scale=s, out_dtype=out), out)
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                                  (7, 3, 131, 70), (9, 5, 77, 200)])
+def test_int8_expert_narrow_bits_do_not_depend_on_E(cuda, dx, etkn):
+    """An expert's output in an E-expert launch is the same bits as its
+    own one-expert launch (where the width rule may pick another width),
+    including experts whose x and codes are off their 16-byte boundary in
+    the E-expert tensors (T * K odd: they stage through the scalar path),
+    at fp32 and at bf16 output."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + 5 * N)
+    x, q, s = _int8_expert_operands(g, E, T, K, N, dx)
+    for out in (torch.float32, torch.bfloat16):
+        whole = ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=4,
+                                         out_dtype=out)
+        for e in sorted({0, 1, E // 2, E - 1}):
+            one = ag.arrayflex_expert_gemm(
+                x[e:e + 1].clone(), q[e:e + 1].clone(),
+                w_scale=s[e:e + 1].clone(), k_collapse=4, out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(whole[e:e + 1], one), (out, e)
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(128, 17, 2048, 768), (4, 17, 300, 70)])
+def test_int8_expert_past_16_rows_matches_plain(cuda, dx, etkn):
+    """T = 17 keeps the 64-row float chain: one launch, within 1e-5 of max
+    |plain| at every k."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
+    x, q, s = _int8_expert_operands(g, E, T, K, N, dx)
+    for k in (1, 2, 4):
+        before = ag.LAUNCHES["arrayflex_expert_gemm_int8"]
+        got = ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=k,
+                                       out_dtype=torch.float32)
+        assert ag.LAUNCHES["arrayflex_expert_gemm_int8"] == before + 1
+        _close(got, ag.arrayflex_expert_gemm_plain(
+            x, q, w_scale=s, out_dtype=torch.float32), torch.float32)
+
+
+def test_int8_expert_narrow_width_rule(cuda):
+    """K2's int8-only width is K1's int8 rule with the grid counted as
+    blocks x experts: 128 columns at T <= 4 where that grid fills the card
+    (every MoE bank at decode), else 64, 32, 16.  Its shared memory fits
+    one SM at every k and either x type; K1's tile takes fp32 x only."""
+    lib = ag._lib()
+    i8, f32, bf16 = 2, 0, 1
+    for (T, N, E), want in {
+            (1, 768, 128): 128, (1, 2048, 128): 128, (4, 768, 128): 128,
+            (5, 768, 128): 64, (16, 2048, 128): 64, (1, 768, 22): 128,
+            (1, 768, 21): 64, (1, 768, 1): 16, (16, 70, 3): 16,
+            (4, 70, 64): 64, (4, 70, 50): 32}.items():
+        assert lib.af_narrow_cols(T, N, i8, E) == want, (T, N, E)
+    assert lib.af_narrow_cols(17, 768, i8, 128) == -1
+    for T, K, N in [(1, 2048, 768), (1, 768, 2048), (4, 2048, 768),
+                    (16, 2048, 768), (5, 37, 200)]:
+        for E in (1, 128):
+            for k in (1, 2, 4, 8, 64):
+                for dx in (f32, bf16):
+                    smem = lib.af_narrow_smem(T, N, K, k, i8, 0, E, dx)
+                    assert 0 < smem <= 232448, (T, K, N, E, k, dx)
+    assert lib.af_narrow_smem(4, 896, 896, 1, i8, 0, 0, bf16) == -1
+
+
 # ---------------------------------------------------------------- K3
 
 # (BH, S, T, D, causal, window): chip_smoke.py's shapes cut in BH, the
@@ -830,6 +940,36 @@ def test_flash_attention_split_matches_unsplit(cuda, case):
         _close_step(got, want, torch.bfloat16)
         assert torch.equal(got[dead], torch.zeros_like(got[dead]))
         assert bool(torch.isfinite(got).all())
+
+
+def test_flash_attention_fp32_rescales_per_subtile(cuda):
+    """fp32 K3 takes one pass with the running max rescaled per 64-column
+    sub-tile.  Scores spanning about +-80 (s = 8 a_row b_col, a in [-1, 1],
+    b rising or falling across the keys) move a row's max in sub-tile
+    after sub-tile and across two planner chunks, so earlier sums rescale
+    by factors down to exp(-160); held to 1e-5 of max |value| against the
+    chunk-max plain version, finite, causal rows past the first key
+    included."""
+    BH, S, D = 4, 1024, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.rand(BH, S, 1, generator=g, device=cuda) * 2 - 1
+    b = torch.linspace(-10, 10, S, device=cuda).view(1, S, 1).repeat(
+        BH, 1, 1)
+    b[1::2] = b[1::2].flip(1)               # falling keys on odd heads
+    noise = 0.05 * torch.randn(BH, S, D, generator=g, device=cuda)
+    q = (a + 0.01 * torch.randn(BH, S, D, generator=g, device=cuda)
+         ).contiguous()
+    k = (b + noise).contiguous()
+    v = torch.randn(BH, S, D, generator=g, device=cuda)
+    s = torch.einsum("bsd,btd->bst", q, k) / math.sqrt(D)
+    assert s.max().item() > 70 and s.min().item() < -70
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention(q, k, v, causal=True, kv_chunk=512)
+    assert fa.LAUNCHES == dict(
+        before, flash_attention=before["flash_attention"] + 1)
+    want = fa.flash_attention_plain(q, k, v, causal=True, kv_chunk=512)
+    _close(got, want, torch.float32)
+    assert bool(torch.isfinite(got).all())
 
 
 def test_flash_attention_refuses_what_it_does_not_take(cuda):

@@ -204,11 +204,14 @@ def test_moe_init_layout():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [1, 2, 4])
 @pytest.mark.parametrize("etkn", [(3, 5, 300, 70), (2, 1, 640, 96),
-                                  (4, 9, 130, 200)])
+                                  (4, 9, 130, 200), (5, 1, 100, 36),
+                                  (3, 4, 70, 130)])
 def test_expert_int8_plain_vs_reference_multistep(etkn, k, dtype):
     """K2's int8-only form (the MoE banks under W8): ragged K over several
     main-loop steps (K = 300, 640 at bk = 128), T = 1 as at decode, and
-    ragged N, against the reference's interpret run."""
+    ragged N, against the reference's interpret run; then the decode
+    shapes the card's narrow tile takes (T = 1 and 4, K not a multiple of
+    its 32-row sub-tiles, narrow N)."""
     E, T, K, N = etkn
     rng = np.random.RandomState(E * T + K + k)
     xj = jnp.asarray(rng.randn(E, T, K), getattr(jnp, dtype))
