@@ -12,7 +12,8 @@ failure of which exits non-zero:
    (W8's too) and the FFMA narrow decode tile's (K1 and K2) registers,
    spills and dynamic shared memory at the main path's shapes, and the
    narrow tile's width at every fp32-x K1 decode site (float and W8) and
-   at the int8 MoE banks (K2's int8-only form, fp32 and bf16 x);
+   at the int8 MoE banks (K2's int8-only form, fp32 and bf16 x), and the
+   W8A8 narrow tile's width and shared memory at every W8A8 decode site;
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -30,8 +31,9 @@ failure of which exits non-zero:
    int8 forms at the sites of ``arrayflex_int8`` (W8, with the expert banks
    on K2's int8-only form, each bank's narrow-tile width held to the
    written rule) and ``arrayflex_w8a8`` (W8A8, with attn.qk and the expert
-   banks on K2's W8A8 form), and the plain-torch K^T quantize that attn.qk
-   runs under W8A8;
+   banks on K2's W8A8 form, each decode site's W8A8 narrow-tile width held
+   to the same rule), and the plain-torch K^T quantize that attn.qk runs
+   under W8A8;
 4. flash attention (K3): ``ops.attention`` at every case of
    :data:`K3_CASES` (the launch counter set to 0 just before and read just
    after: one launch each), each output held against
@@ -70,8 +72,9 @@ failure of which exits non-zero:
    ``ref``, each reporting whether both runs routed every token to the
    same experts at every layer (the W8 run counted as above); the fp32
    runs launch the FFMA K1 only;
-8. summary: one JSON line of kernel numbers, the card's name and power
-   limit, and the ``{"ok": true, ...}`` line last.
+8. summary: each form's totals per decode step of each model and per
+   prefill-chunk step of qwen2-0.5b, one JSON line of kernel numbers, the
+   card's name and power limit, and the ``{"ok": true, ...}`` line last.
 
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -590,6 +593,8 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
             if (form == "int8" and site.kernel == "arrayflex_expert_gemm"
                     and site.shape[1] <= 16):
                 check_bank_width(site)
+            if form == "w8a8" and phase == "decode":
+                check_w8a8_width(site)
             errs = {}
             for dt in (torch.bfloat16, torch.float32):
                 for k in (1, 2, 4):
@@ -654,6 +659,29 @@ def check_bank_width(site: Site) -> int:
     if got != want:
         raise AssertionError(f"{site.name} {site.shape}: narrow tile width "
                              f"{got}, the rule gives {want}")
+    return got
+
+
+def site_rows(site: Site):
+    """(rows, N, batch) of a site: K1's M, or K2's T of E experts."""
+    if site.kernel == "arrayflex_expert_gemm":
+        E, T, K, N = site.shape
+        return T, N, E
+    M, K, N = site.shape
+    return M, N, 1
+
+
+def check_w8a8_width(site: Site) -> int:
+    """A W8A8 decode site (K1 at M <= 16, K2 at T <= 16) runs the W8A8
+    narrow tile: its width, from the C entry, must be the written int8
+    rule's (:func:`narrow_int8_cols`, the grid counted as blocks x
+    experts)."""
+    rows, N, batch = site_rows(site)
+    got = ag._lib().af_w8a8_cols(rows, N, batch)
+    want = narrow_int8_cols(rows, N, batch)
+    if got != want:
+        raise AssertionError(f"{site.name} {site.shape}: W8A8 narrow tile "
+                             f"width {got}, the rule gives {want}")
     return got
 
 
@@ -1543,10 +1571,18 @@ def summarize(results, max_err, launches):
     qwen3-moe-30b-a3b's 48), summed over the models; ``launches`` maps
     each form to its count over the counted runs.  Also returns the same
     totals per model (``cells``), the FFMA K1's also split into the MoE
-    router and the wide sites (the weight GEMMs and the unembed)."""
+    router and the wide sites (the weight GEMMs and the unembed), and per
+    prefill-chunk step of qwen2-0.5b (``chunk``: each form's sites at the
+    chunk's B x chunk rows; the unembed of B rows is left out)."""
     rows, cells = [], {}
     src = "src/repro_torch/kernels/csrc/arrayflex_gemm.cu"
     decode = [r for r in results if r["phase"] == "decode"]
+    prefill = [r for r in results
+               if r["phase"] == "prefill" and r["shape"][-3] > 16]
+    chunk = {name: _step_totals([r for r in prefill
+                                 if r["launch_name"] == name])
+             for name in REPLACES
+             if any(r["launch_name"] == name for r in prefill)}
     for name, replaces in REPLACES.items():
         sel = [r for r in decode if r["launch_name"] == name]
         for cell in sorted({r["cell"] for r in sel}):
@@ -1562,7 +1598,7 @@ def summarize(results, max_err, launches):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=max_err[name], **_step_totals(sel)))
-    return rows, cells
+    return rows, cells, chunk
 
 
 def k3_rows(k3, launches: dict):
@@ -1616,6 +1652,20 @@ def narrow_bank_sites(moe_cfg):
             if s.kernel == "arrayflex_expert_gemm"]
 
 
+def w8a8_sites(cfg, moe_cfg):
+    """Every W8A8 decode site of both models (``arrayflex_w8a8``, B rows):
+    the K1 weight GEMMs (the dual swiglu and the unembed among them),
+    attn.qk on K2's W8A8 form, and the MoE expert banks on it (one
+    capacity row of each expert); every one runs the W8A8 narrow tile."""
+    out = []
+    for c, max_seq in ((cfg, MAX_SEQ), (moe_cfg, MOE_MAX_SEQ)):
+        out += quant_sites(c, BATCH, "w8a8", max_seq)
+        if c.moe is not None:
+            out += [dataclasses.replace(s, form="w8a8") for s in moe_sites(c)
+                    if s.kernel == "arrayflex_expert_gemm"]
+    return out
+
+
 def tc_report(cfg, moe_cfg) -> None:
     """The tensor-core kernels' and the narrow FFMA tile's registers and
     spills (ptxas, per instantiation) and the dynamic shared memory their
@@ -1627,7 +1677,10 @@ def tc_report(cfg, moe_cfg) -> None:
     (:func:`narrow_sites`, float and W8, at the planned k), at the int8
     MoE banks (:func:`narrow_bank_sites`, fp32 and bf16 x, the grid
     counted over 128 experts), K2's fp32 bank and decode attention (T = 7,
-    fp32 and bf16 w); K3 at each head dim)."""
+    fp32 and bf16 w); the W8A8 narrow tile
+    (``af_gemm_w8a8_narrow_kernel``): its width and shared memory at every
+    W8A8 decode site of both models (:func:`w8a8_sites`, at the planned
+    k's quantization step); K3 at each head dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
@@ -1674,6 +1727,15 @@ def tc_report(cfg, moe_cfg) -> None:
         log(f"  narrow FFMA tile at the {what} (T = {T}, N = {N}, K = {K}, "
             f"k = {k}): {glib.af_narrow_cols(T, N, w_dtype, 1)} columns a "
             f"block, {glib.af_narrow_smem(T, N, K, k, w_dtype, 0, 1, 0)} B")
+    for site in w8a8_sites(cfg, moe_cfg):
+        rows, N, batch = site_rows(site)
+        K, k = site.shape[-2], planned_k(site)
+        qkk = ag.quant_tiles(rows, K, k)[1]
+        dual = int(bool(site.flags.get("dual")))
+        log(f"  W8A8 narrow tile at {site.cell} {site.name} {site.shape} "
+            f"k = {k} (quant_kk {qkk}): {glib.af_w8a8_cols(rows, N, batch)} "
+            f"columns a block, "
+            f"{glib.af_w8a8_smem(rows, N, K, qkk, dual, batch)} B")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")
@@ -1770,11 +1832,12 @@ def main() -> int:
                 for name in REPLACES}
     for tc in TC_COUNTERS:
         launches[tc[:-len("_tc")]] -= launches[tc]
-    kernels, cells = summarize(results, max_err, launches)
+    kernels, cells, chunk = summarize(results, max_err, launches)
     kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
-                  kernels=kernels, cells=cells, sites=results,
+                  kernels=kernels, cells=cells, prefill_chunk=chunk,
+                  sites=results,
                   kt_quantize=kt_quant, flash_attention=k3, serving=serving,
                   moe_serving=moe_serving, prefill=prefill,
                   prefill_sites=prefill_sites_rows,
@@ -1791,6 +1854,13 @@ def main() -> int:
                 f"{t['plain_ms']:.3f} / library "
                 f"{'none' if lib is None else f'{lib:.3f}'} / bound "
                 f"{t['bound_ms']:.4f} ms per decode step ({t['bound_by']})")
+    for name, t in chunk.items():
+        lib = t["library_ms"]
+        log(f"  {cfg.name} prefill chunk {name}: kernel {t['ms']:.3f} / "
+            f"plain {t['plain_ms']:.3f} / library "
+            f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+            f"{t['bound_ms']:.4f} ms per prefill-chunk step "
+            f"({t['bound_by']})")
     for t in kernels[-2:]:
         log(f"  {t['name']} over its cases with a library time: kernel "
             f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "

@@ -16,7 +16,10 @@ file), one C entry per operand form:
                         tile of ``af_gemm``, the codes staged as int8 and
                         widened exactly to fp32 in the chain) or, with
                         ``act_quant``, W8A8 (per-tile int8 x, an int8 x int8
-                        -> int32 chain);
+                        -> int32 ``__dp4a`` chain; at M <= 16 the W8A8
+                        narrow tile: x quantized once a block in the
+                        launch's prologue, the codes streamed through warp
+                        rings, the width from M and N);
   ``af_gemm_q_tc``      ``_kernel``'s W8 form on bf16 x (the tensor-core
                         kernel of ``af_gemm_tc``, the codes widened to bf16
                         in registers, dequant at the store);
@@ -31,7 +34,8 @@ file), one C entry per operand form:
                         at T <= 16 the narrow tile of ``af_gemm``, x staged
                         in its own type and the codes widened exactly to
                         fp32, the width from T, N and E) or, with
-                        ``act_quant``, W8A8.
+                        ``act_quant``, W8A8 (at T <= 16 the W8A8 narrow
+                        tile of ``af_gemm_q``, the width from T, N and E).
 
 What stays the same is the schedule's meaning: K is consumed in
 ``ceil(K / (bk * k_collapse))`` serial main-loop steps of ``k_collapse``
@@ -116,8 +120,10 @@ def gemm_q_kernel(x_dtype, act_quant: bool) -> str:
     its C entry takes ``af_gemm``'s narrow decode tile at M <= 16, the
     codes widened exactly to fp32 as they leave shared memory, and the
     64-column tile for larger M); W8A8 (``act_quant``) on either x type ->
-    ``af_gemm_q`` (int8 x int8 -> int32, ``__dp4a``).  The choice follows
-    the types only, never a failed build or launch."""
+    ``af_gemm_q`` (int8 x int8 -> int32, ``__dp4a``; its C entry takes the
+    W8A8 narrow tile at M <= 16, whose output is the 64-row tile's bits,
+    and the 64-row tile for larger M).  The choice follows the types only,
+    never a failed build or launch."""
     if x_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"arrayflex_gemm: int8 forms take float32 or "
                          f"bfloat16 x, got {x_dtype}")
@@ -302,6 +308,10 @@ def _lib():
         lib.af_narrow_smem.restype = ll
         lib.af_narrow_cols.argtypes = [i, i, i, i]
         lib.af_narrow_cols.restype = i
+        lib.af_w8a8_cols.argtypes = [i, i, i]
+        lib.af_w8a8_cols.restype = i
+        lib.af_w8a8_smem.argtypes = [i, i, i, i, i, i]
+        lib.af_w8a8_smem.restype = ll
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
                                   i, i, i, ll, ll, ll, ll, i, i, i, i, p]
         lib.af_gemm_q.restype = i
@@ -543,8 +553,9 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
     the MoE expert banks — at T <= 16 on the narrow FFMA tile, whose
     output is the same bits at every ``k_collapse`` and every E — or W8A8
-    under ``act_quant``) — fp32 or bf16 out — or raise; CPU tensors run
-    :func:`arrayflex_expert_gemm_plain`."""
+    under ``act_quant``, at T <= 16 on the W8A8 narrow tile, whose output
+    is the same bits at every E) — fp32 or bf16 out — or raise; CPU
+    tensors run :func:`arrayflex_expert_gemm_plain`."""
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:

@@ -6,14 +6,16 @@
 //   af_gemm           <- _kernel, fp32 operands (FFMA)
 //   af_gemm_tc        <- _kernel, bf16 operands (tensor cores)
 //   af_gemm_q         <- _kernel, int8 weights: W8 (quant) on fp32 x and
-//                        W8A8 (quant + act_quant)
+//                        W8A8 (quant + act_quant; at M <= 16 the W8A8
+//                        narrow tile)
 //   af_gemm_q_tc      <- _kernel, int8 weights with bf16 x: W8 on the
 //                        tensor cores
 //   af_expert_gemm    <- _expert_kernel, fp32 x with fp32 or bf16 w
 //   af_expert_gemm_tc <- _expert_kernel, bf16 operands (tensor cores)
 //   af_expert_gemm_q  <- _expert_kernel, int8 weights: the int8-only form
 //                        of the MoE expert banks (quant) and W8A8
-//                        (quant + act_quant)
+//                        (quant + act_quant; at T <= 16 the W8A8 narrow
+//                        tile)
 // (launched by arrayflex_gemm / arrayflex_expert_gemm).
 //
 // What it computes:
@@ -57,7 +59,8 @@
 // af_gemm, af_expert_gemm); K1's W8 form on bf16 x launches
 // af_gemm_tc_kernel on int8 codes (entry af_gemm_q_tc), on fp32 x the FFMA
 // kernel (af_gemm_q).  K2's int8-only form takes the FFMA narrow tile at
-// T <= 16 on either x type; W8A8 keeps its own __dp4a kernel.
+// T <= 16 on either x type.  W8A8 (K1 and K2, either x type) runs __dp4a
+// kernels: the W8A8 narrow tile at M (T) <= 16, the 64-row tile above.
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
 // cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32 -- the arithmetic of the
@@ -178,13 +181,58 @@
 //     and widened exactly, the half-SM ring (a bank is thousands of
 //     blocks).  Larger M (T) keeps the 64-row tile.
 //
-// The FFMA and __dp4a kernels off the narrow tile (fp32 af_gemm and W8 on
-// fp32 x at M > 16, W8A8, K2's int8-only form and fp32 expert form at
-// T > 16), plain kernels that are right first:
-//   * one (BM x 64) output tile per block, 256 threads; BM = 64 (4 x 4
-//     outputs a thread), and for W8A8 at decode-sized M BM = 16 (1 x 4
-//     outputs a thread), so a 4-row decode GEMM wastes 4x rather than 16x
-//     of its work on masked rows;
+// af_gemm_w8a8_narrow_kernel, W8A8 at decode (M <= 16; K2 at T <= 16: the
+// MoE banks' one capacity row, attn.qk's g query rows).  On the 64-column
+// __dp4a tile below, every column block (x E experts) would re-read the
+// whole x tile from global memory for each reference step's amax,
+// re-quantize every x element of its rows with an IEEE division, load the
+// codes a byte at a time between two barriers, and keep 12 of 16 rows
+// zero at M = 4 (15 at the banks): far from streaming the codes, which is
+// what bounds W8A8 at decode.  Here, per block:
+//   * x is quantized once, in the launch's own prologue (a separate
+//     quantize launch would add one to every W8A8 GEMM of a host-bound
+//     step): each reference step's amax over all M rows, then the int8
+//     codes of all rows into shared memory, each step padded with zero
+//     codes to whole 32-row sub-tiles (M x K bytes: 19 KB at M = 4, K =
+//     4864), so no sub-tile and no 4-byte dp4a group straddles a step and
+//     padding sits inside its own step only.  All 16 warps share the two
+//     passes (amax, then codes), each a contiguous run of 128-column
+//     pieces with QW_BATCH pieces' loads in flight at once (a warp a step, its
+//     loads issued one after another, left the prologue many L2 latencies
+//     deep);
+//   * the codes stream as the narrow tile's do: 16 warps, each summing a
+//     contiguous run of the sub-tiles through its own ring of 16-byte
+//     cp.async chunks, the width from nw_cols with the grid counted over
+//     experts (128 columns, 128-byte rows, at the banks and the unembed);
+//     the ring's first sub-tiles are issued before the prologue, so they
+//     fly while the block quantizes x;
+//   * the product is __dp4a on four K rows of each column, transposed 4 x 4
+//     bytes in registers with __byte_perm, against the broadcast word of
+//     four x codes.  mma.sync.m16n8k32 s8 would need the same byte
+//     transposes for its B fragments (ldmatrix cannot transpose bytes) and
+//     waste 12 of 16 rows at M = 4; at M <= 16 the code stream, not the
+//     arithmetic, bounds the kernel, so the simpler dp4a chain is kept;
+//   * integer sums are exact in any order, so each warp adds its int32
+//     sums into the step's partials in shared memory with atomicAdd where
+//     its run passes a step boundary, and after a barrier every output
+//     folds acc + float(iacc) * scale in increasing step order: the codes,
+//     scales, int32 partials and fold are the 64-row tile's, so the output
+//     is its bits, whatever the width, ring depth or E;
+//   * shared memory holds codes [M][round x padded step], partials
+//     [contraction][round][M][width] int32 and the rings.  A round is as
+//     many whole steps as fit (every step at every decode site of the
+//     served models: 10 at qwen2's mlp.wo, 2.5 KB of partials); longer K
+//     at M = 16 takes several rounds, each quantizing, streaming and
+//     folding its own steps;
+//   * a base or row stride off the 16-byte grid stages through scalar
+//     loads into the same ring (nw_chunk); x is read with scalar loads in
+//     the prologue at any alignment; the epilogue is store_one's.
+//
+// The FFMA and __dp4a kernels off the narrow tiles (fp32 af_gemm and W8 on
+// fp32 x at M > 16, W8A8 at M > 16, K2's int8-only form and fp32 expert
+// form at T > 16), plain kernels that are right first:
+//   * one (64 x 64) output tile per block, 256 threads, 4 x 4 outputs a
+//     thread;
 //   * float forms: K is consumed in ceil(K / (BK * k_collapse)) main-loop
 //     iterations; each stages k_collapse BK-wide sub-tiles of X (and W, W2)
 //     in shared memory, widened to fp32 on load, and runs k_collapse
@@ -955,6 +1003,380 @@ af_gemm_w8a8_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// W8A8 narrow decode tile at M <= 16 rows (K1's af_gemm_q and K2's
+// af_expert_gemm_q with act_quant; the expert on blockIdx.z)
+
+constexpr int QW_BATCH = 2;         // prologue pieces a lane loads at once
+
+// The shape of a W8A8 narrow tile of COLS columns with room for MR rows: a
+// lane owns CPL neighbouring columns (COLS / 32, at least 1) of every row;
+// at COLS = 16 the two half-warps take alternate 4-row groups of each
+// sub-tile (KS = 2), so no lane idles at M = 1.  MIN_BLOCKS as NwShape's.
+template <int COLS, int MR, bool DUAL>
+struct QwShape {
+  static constexpr int CPL = COLS >= 32 ? COLS / 32 : 1;
+  static constexpr int LPC = COLS / CPL;          // lanes across the columns
+  static constexpr int KS = 32 / LPC;             // lane groups across K
+  static constexpr int NW = DUAL ? 2 : 1;
+  static constexpr int MIN_BLOCKS = NW * MR * CPL <= 16 ? 2 : 1;
+};
+
+// What the host fixes for one launch: S reference steps of quant_kk
+// columns, each a whole number of NW_BK-row sub-tiles (sps, the last one
+// zero-padded), taken `round` steps at a time; `stages` ring slots a warp;
+// the byte offsets of the partials, the steps' amax and the rings.
+struct QwPlan {
+  int steps, sps, round, stages;
+  int p_off, amax_off, ring_off;
+};
+
+// Four K-consecutive codes of each of a lane's CPL columns, one dp4a
+// operand a column: rows p, p + ld, p + 2 ld, p + 3 ld of CPL bytes each,
+// a 4 x CPL byte block transposed in registers (ldmatrix moves 16-bit
+// elements and cannot transpose bytes).
+template <int CPL>
+__device__ __forceinline__ void qw_col4(const int8_t* p, int ld,
+                                        uint32_t (&v)[CPL]) {
+  if constexpr (CPL == 4) {
+    const uint32_t r0 = *reinterpret_cast<const uint32_t*>(p);
+    const uint32_t r1 = *reinterpret_cast<const uint32_t*>(p + ld);
+    const uint32_t r2 = *reinterpret_cast<const uint32_t*>(p + 2 * ld);
+    const uint32_t r3 = *reinterpret_cast<const uint32_t*>(p + 3 * ld);
+    const uint32_t t0 = __byte_perm(r0, r1, 0x5140);   // c0 c0 c1 c1
+    const uint32_t t1 = __byte_perm(r0, r1, 0x7362);   // c2 c2 c3 c3
+    const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+    const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+    v[0] = __byte_perm(t0, t2, 0x5410);
+    v[1] = __byte_perm(t0, t2, 0x7632);
+    v[2] = __byte_perm(t1, t3, 0x5410);
+    v[3] = __byte_perm(t1, t3, 0x7632);
+  } else if constexpr (CPL == 2) {
+    const uint32_t r0 = *reinterpret_cast<const uint16_t*>(p);
+    const uint32_t r1 = *reinterpret_cast<const uint16_t*>(p + ld);
+    const uint32_t r2 = *reinterpret_cast<const uint16_t*>(p + 2 * ld);
+    const uint32_t r3 = *reinterpret_cast<const uint16_t*>(p + 3 * ld);
+    const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+    const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+    v[0] = __byte_perm(t0, t2, 0x5410);
+    v[1] = __byte_perm(t0, t2, 0x7632);
+  } else {
+    const uint32_t r0 = *reinterpret_cast<const uint8_t*>(p);
+    const uint32_t r1 = *reinterpret_cast<const uint8_t*>(p + ld);
+    const uint32_t r2 = *reinterpret_cast<const uint8_t*>(p + 2 * ld);
+    const uint32_t r3 = *reinterpret_cast<const uint8_t*>(p + 3 * ld);
+    v[0] = __byte_perm(__byte_perm(r0, r1, 0x0040),
+                       __byte_perm(r2, r3, 0x0040), 0x5410);
+  }
+}
+
+// One (M x COLS) output tile of batch element blockIdx.z (K2's expert; 0
+// for K1, whose batch strides are 0), W8A8 on int8 codes w (and w2), x of
+// TX, out fp32 or bf16 (out_bf16).  Per round of whole reference steps:
+//   * every warp primes its ring with its first sub-tiles of w codes;
+//   * prologue: the round's x, as pieces of one step's row by 128 columns
+//     (4 neighbours a lane), in contiguous runs a warp, read with x_at (the
+//     rmsnorm prologue) QW_BATCH pieces at a time, all loads issued before
+//     any is used; the amax of each step over all M rows
+//     (warp maxima combined by atomicMax on the float bits, exact for
+//     |x|), then, after a barrier, every element quantized with
+//     quant_code into shared memory, each step padded with zero codes to
+//     whole sub-tiles;
+//   * main loop: warp s sums the s-th run of the round's sub-tiles through
+//     its own cp.async ring: four K rows of each of its columns transposed
+//     in registers (qw_col4), one __dp4a a row and column against the
+//     broadcast word of four x codes, into int32 sums; where its run
+//     passes a step boundary, and at its end, it adds them into the step's
+//     partials with shared-memory atomicAdd (integer: exact in any order);
+//   * fold: each output takes acc + float(iacc) * scale step by step in
+//     increasing order (__fmul_rn / __fadd_rn, the 64-row tile's fold).
+// After the last round, store_one once per output.  The codes, the scales,
+// every step's int32 partial and the fold are af_gemm_w8a8_kernel's, so
+// the output is its bits, at every width, ring depth, round size and E.
+template <typename TX, int COLS, int MR, bool DUAL>
+__global__ void __launch_bounds__(NW_THREADS,
+                                  (QwShape<COLS, MR, DUAL>::MIN_BLOCKS))
+af_gemm_w8a8_narrow_kernel(Args a, QwPlan p, int out_bf16) {
+  extern __shared__ __align__(16) unsigned char qw_smem[];
+  using Sh = QwShape<COLS, MR, DUAL>;
+  constexpr int CPL = Sh::CPL, LPC = Sh::LPC, KS = Sh::KS, NW = Sh::NW;
+  constexpr int W_CPR = COLS / 16;                 // 16-byte chunks a w row
+  constexpr int W_BYTES = NW_BK * COLS;            // one panel's codes
+  constexpr int SLOT = NW * W_BYTES;
+  constexpr int OPT = (MR * COLS + NW_THREADS - 1) / NW_THREADS;
+  static_assert(COLS % 16 == 0 && LPC * KS == 32 && (NW_BK / 4) % KS == 0 &&
+                MR <= 16, "W8A8 narrow tile shape");
+  const int M = a.M, N = a.N, K = a.K, kk = a.quant_kk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = (lane % LPC) * CPL, kh = lane / LPC;
+  const int n0 = blockIdx.x * COLS;
+  const long long z = blockIdx.z;
+  const TX* x = static_cast<const TX*>(a.x) + z * a.bsx;
+  const int8_t* w = static_cast<const int8_t*>(a.w) + z * a.bsw;
+  const int8_t* w2 = static_cast<const int8_t*>(a.w2);   // K1's dual only
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    a.ldw % 16 == 0 &&
+                    (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
+  const int kkp = p.sps * NW_BK;                   // a step's code columns
+  const int ldc = p.round * kkp;                   // codes row stride
+  int8_t* const codes = reinterpret_cast<int8_t*>(qw_smem);
+  int* const P = reinterpret_cast<int*>(qw_smem + p.p_off);
+  unsigned* const amax = reinterpret_cast<unsigned*>(qw_smem + p.amax_off);
+  const uint32_t ring = tc::smem_addr(qw_smem) + p.ring_off +
+                        warp * p.stages * SLOT;
+  unsigned char* const ring_ptr =
+      qw_smem + p.ring_off + warp * p.stages * SLOT;
+  const uint32_t ring_end = ring + p.stages * SLOT;
+  auto scale_of = [&](int sl) {     // times fp32(1/127), as the reference's
+    return __fmul_rn(fmaxf(__uint_as_float(amax[sl]), 1e-12f),  // compiled
+                     1.0f / 127.0f);                             // quantizer
+  };
+
+  float facc[NW][OPT];
+#pragma unroll
+  for (int v = 0; v < NW; ++v)
+#pragma unroll
+    for (int j = 0; j < OPT; ++j) facc[v][j] = 0.f;
+
+  for (int s0 = 0; s0 < p.steps; s0 += p.round) {
+    const int R = min(p.round, p.steps - s0);
+    const int last_w = min(kk, K - (s0 + R - 1) * kk);
+    const int n_all = (R - 1) * p.sps + (last_w + NW_BK - 1) / NW_BK;
+    const int per = (n_all + NW_SPLIT - 1) / NW_SPLIT;
+    const int sub0 = warp * per;
+    const int n_sub = max(0, min(per, n_all - sub0));
+
+    auto issue = [&](int j, uint32_t b) {
+      if (j < n_sub) {
+        const int sub = sub0 + j, sl = sub / p.sps;
+        const int o = (sub - sl * p.sps) * NW_BK;
+        const int k0 = (s0 + sl) * kk + o;
+        const int nk = min(kk, K - (s0 + sl) * kk) - o;   // rows of the step
+        unsigned char* bp = ring_ptr + (b - ring);
+        for (int i = lane; i < W_CPR * NW_BK; i += 32) {
+          const int rr = i / W_CPR, cc = 16 * (i % W_CPR), d = rr * COLS + cc;
+          const long long off = (long long)(k0 + rr) * a.ldw + n0 + cc;
+          const int n = rr < nk ? min(16, N - n0 - cc) : 0;
+          nw_chunk(b + d, reinterpret_cast<int8_t*>(bp + d), w + off, n,
+                   wvec);
+          if (DUAL)
+            nw_chunk(b + d + W_BYTES,
+                     reinterpret_cast<int8_t*>(bp + d + W_BYTES), w2 + off, n,
+                     wvec);
+        }
+      }
+      tc::cp_async_commit();
+    };
+
+    // the ring: the first sub-tiles fly while the block quantizes x
+    uint32_t fill = ring, use = ring;
+    for (int j = 0; j < max(1, p.stages - 1); ++j, fill += SLOT)
+      issue(j, fill);
+    if (fill == ring_end) fill = ring;
+    for (int i = threadIdx.x; i < NW * R * M * COLS; i += NW_THREADS)
+      P[(i / (R * M * COLS)) * p.round * M * COLS + i % (R * M * COLS)] = 0;
+    for (int i = threadIdx.x; i < R; i += NW_THREADS) amax[i] = 0u;
+    __syncthreads();
+
+    // prologue: warp s takes the s-th run of the (step, row, group) pieces
+    const int gps = (kkp + 127) / 128;             // groups a step's row
+    const int n_pcs = R * M * gps;
+    const int ppw = (n_pcs + NW_SPLIT - 1) / NW_SPLIT;
+    const int p0 = warp * ppw, p1 = min(n_pcs, p0 + ppw);
+    // a warp's walk over its run's pieces: piece b is step sl, row r, group
+    // g (warp-uniform; the lane's 4 step columns start at 128 g + 4 lane)
+    auto seek = [&](int b, int& sl, int& r, int& g) {
+      sl = b / (M * gps);
+      r = (b - sl * M * gps) / gps;
+      g = b - (sl * M + r) * gps;
+    };
+    auto step_on = [&](int& sl, int& r, int& g) {
+      if (++g == gps) {
+        g = 0;
+        if (++r == M) {
+          r = 0;
+          ++sl;
+        }
+      }
+    };
+    // x_at of the 4 columns of each piece of a batch from piece b (0 past
+    // the step or the run), every load issued before any is used
+    auto load = [&](int b, float (&v)[QW_BATCH][4]) {
+      int sl, r, g;
+      seek(b, sl, r, g);
+#pragma unroll
+      for (int i = 0; i < QW_BATCH; ++i) {
+        const int cs = (s0 + sl) * kk, ws_ = min(kk, K - cs);
+        const int cl = 128 * g + 4 * lane;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[i][e] = b + i < p1 && cl + e < ws_ ? x_at(a, x, r, cs + cl + e)
+                                               : 0.f;
+        step_on(sl, r, g);
+      }
+    };
+    int held = -1;                                  // step of m
+    float m = 0.f;
+    auto flush_max = [&]() {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) atomicMax(&amax[held], __float_as_uint(m));
+      m = 0.f;
+    };
+    for (int b = p0; b < p1; b += QW_BATCH) {
+      float v[QW_BATCH][4];
+      load(b, v);
+      int sl, r, g;
+      seek(b, sl, r, g);
+#pragma unroll
+      for (int i = 0; i < QW_BATCH; ++i) {
+        if (b + i >= p1) break;
+        if (sl != held) {
+          if (held >= 0) flush_max();
+          held = sl;
+        }
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v[i][0]), fabsf(v[i][1])),
+                           fmaxf(fabsf(v[i][2]), fabsf(v[i][3]))));
+        step_on(sl, r, g);
+      }
+    }
+    if (held >= 0) flush_max();
+    __syncthreads();
+    for (int b = p0; b < p1; b += QW_BATCH) {      // x again, from L1 or L2
+      float v[QW_BATCH][4];
+      load(b, v);
+      int sl, r, g;
+      seek(b, sl, r, g);
+#pragma unroll
+      for (int i = 0; i < QW_BATCH; ++i) {
+        if (b + i >= p1) break;
+        const int cl = 128 * g + 4 * lane;
+        if (cl < kkp) {
+          const float scale = scale_of(sl);
+          const int ws_ = min(kk, K - (s0 + sl) * kk);
+          int q[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            q[e] = cl + e < ws_ ? quant_code(v[i][e], scale) : 0;
+          *reinterpret_cast<int*>(codes + r * ldc + sl * kkp + cl) = pack4(q);
+        }
+        step_on(sl, r, g);
+      }
+    }
+    __syncthreads();                    // codes and amax
+
+    // main loop
+    int iacc[NW][MR][CPL];
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+#pragma unroll
+      for (int r = 0; r < MR; ++r)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) iacc[v][r][c] = 0;
+    int cur = sub0 / p.sps;                        // step of the sums held
+    auto flush = [&]() {
+#pragma unroll
+      for (int v = 0; v < NW; ++v)
+#pragma unroll
+        for (int r = 0; r < MR; ++r) {
+          if (r >= M) break;
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            int val = iacc[v][r][c];
+            if (KS == 2) val += __shfl_xor_sync(0xffffffffu, val, 16);
+            if (kh == 0)
+              atomicAdd(&P[((v * p.round + cur) * M + r) * COLS + c0 + c],
+                        val);
+            iacc[v][r][c] = 0;
+          }
+        }
+    };
+    auto run = [&](int j, uint32_t b) {
+      const int sub = sub0 + j, sl = sub / p.sps;
+      if (sl != cur) {
+        flush();
+        cur = sl;
+      }
+      const int8_t* Ws =
+          reinterpret_cast<const int8_t*>(ring_ptr + (b - ring)) + c0;
+      const int8_t* X = codes + sl * kkp + (sub - sl * p.sps) * NW_BK;
+#pragma unroll
+      for (int qi = 0; qi < NW_BK / 4 / KS; ++qi) {
+        const int q = qi * KS + kh;
+        uint32_t wq[NW][CPL];
+#pragma unroll
+        for (int v = 0; v < NW; ++v)
+          qw_col4<CPL>(Ws + v * W_BYTES + 4 * q * COLS, COLS, wq[v]);
+#pragma unroll
+        for (int r = 0; r < MR; ++r) {
+          if (r >= M) break;
+          const int xw = *reinterpret_cast<const int*>(X + r * ldc + 4 * q);
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+#pragma unroll
+            for (int c = 0; c < CPL; ++c)
+              iacc[v][r][c] = __dp4a(xw, (int)wq[v][c], iacc[v][r][c]);
+        }
+      }
+    };
+    for (int j = 0; j < n_sub; ++j) {
+      if (p.stages >= 2) {
+        // sub-tile j has landed; every lane is done with slot j - 1,
+        // which takes sub-tile j + stages - 1
+        tc::cp_async_wait(p.stages - 2);
+        __syncwarp();
+        issue(j + p.stages - 1, fill);
+        fill = fill + SLOT == ring_end ? ring : fill + SLOT;
+      } else {
+        tc::cp_async_wait(0);
+        __syncwarp();
+      }
+      run(j, use);
+      use = use + SLOT == ring_end ? ring : use + SLOT;
+      if (p.stages == 1) {
+        __syncwarp();
+        issue(j + 1, ring);
+      }
+    }
+    tc::cp_async_wait(0);
+    if (n_sub > 0) flush();
+    __syncthreads();
+
+    // fold the round's steps in increasing order
+#pragma unroll
+    for (int j = 0; j < OPT; ++j) {
+      const int i = threadIdx.x + j * NW_THREADS;
+      if (i < M * COLS)
+        for (int sl = 0; sl < R; ++sl)
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+            facc[v][j] = __fadd_rn(
+                facc[v][j],
+                __fmul_rn((float)P[(v * p.round + sl) * M * COLS + i],
+                          scale_of(sl)));
+    }
+    if (s0 + R < p.steps) __syncthreads();    // P and amax are reused
+  }
+
+  const TX* res = static_cast<const TX*>(a.residual);
+  const float* ws = a.w_scale + z * a.bss;
+#pragma unroll
+  for (int j = 0; j < OPT; ++j) {
+    const int i = threadIdx.x + j * NW_THREADS;
+    if (i >= M * COLS) continue;
+    const int r = i / COLS, c = n0 + i % COLS;
+    const float y2 = DUAL ? facc[DUAL ? 1 : 0][j] : 0.f;
+    if (out_bf16)
+      store_one<TX, __nv_bfloat16, DUAL>(
+          a, facc[0][j], y2, r, c, ws, a.w2_scale, res,
+          static_cast<__nv_bfloat16*>(a.out) + z * a.bso);
+    else
+      store_one<TX, float, DUAL>(a, facc[0][j], y2, r, c, ws, a.w2_scale,
+                                 res, static_cast<float*>(a.out) + z * a.bso);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // tensor-core kernel (bf16 operands)
 
 constexpr int TC_BK = 32;            // K columns of one staged sub-tile
@@ -1451,6 +1873,113 @@ int launch_narrow_w(const Args& a, int out_dtype, int batch,
   return (int)cudaErrorInvalidValue;
 }
 
+// The W8A8 narrow tile's plan at width COLS: the ring's budget is the
+// narrow tile's (the whole SM where the grid has at most a block an SM,
+// else half of it); a round holds as many whole reference steps as fit
+// beside a ring of at least one slot a warp (all of them at every decode
+// site of the served models), the warp rings take up to NW_RING slots of
+// what is left, and no more than the round's longest warp run plus one.
+// Where not even one step fits the budget, the whole SM is tried.  Returns
+// the dynamic shared memory, 0 where nothing fits.
+template <int COLS, bool DUAL>
+size_t qw_plan(const Args& a, int batch, QwPlan& p) {
+  constexpr long long SLOT = (DUAL ? 2 : 1) * NW_BK * COLS;
+  auto up16 = [](long long v) { return (v + 15) / 16 * 16; };
+  p.steps = (a.K + a.quant_kk - 1) / a.quant_kk;
+  p.sps = (a.quant_kk + NW_BK - 1) / NW_BK;
+  const long long blocks = (long long)((a.N + COLS - 1) / COLS) * batch;
+  const long long budgets[2] = {blocks > NW_SMS ? MAX_SMEM / 2 : MAX_SMEM,
+                                MAX_SMEM};
+  for (long long budget : budgets)
+    for (int R = p.steps; R >= 1; --R) {
+      const long long p_off = up16((long long)a.M * R * p.sps * NW_BK);
+      const long long amax_off =
+          p_off + 4LL * (DUAL ? 2 : 1) * R * a.M * COLS;
+      const long long ring_off = amax_off + up16(4LL * R);
+      const long long per = ((long long)R * p.sps + NW_SPLIT - 1) / NW_SPLIT;
+      const long long fit = (budget - ring_off) / (NW_SPLIT * SLOT);
+      const long long stages = std::min<long long>({NW_RING, fit, per + 1});
+      if (stages < 1) continue;
+      p.round = R;
+      p.stages = (int)stages;
+      p.p_off = (int)p_off;
+      p.amax_off = (int)amax_off;
+      p.ring_off = (int)ring_off;
+      return (size_t)(ring_off + NW_SPLIT * stages * SLOT);
+    }
+  return 0;
+}
+
+// The W8A8 narrow tile at width COLS, M <= MR rows (batch experts on z for
+// K2), out fp32 or bf16 (out_dtype).  The quantization tile must hold all
+// M rows (quant_bm >= M: the reference's tile at M <= 128).  smem_only:
+// report the dynamic shared memory the launch takes, and launch nothing.
+template <typename TX, int COLS, int MR, bool DUAL>
+int launch_qw(const Args& a, int out_dtype, int batch, cudaStream_t stream,
+              size_t* smem_only) {
+  if (a.M > MR || a.quant_bm < a.M || a.quant_kk < 1 ||
+      (out_dtype != F32 && out_dtype != BF16))
+    return (int)cudaErrorInvalidValue;
+  QwPlan p;
+  const size_t smem = qw_plan<COLS, DUAL>(a, batch, p);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  if (smem_only != nullptr) {
+    *smem_only = smem;
+    return 0;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      af_gemm_w8a8_narrow_kernel<TX, COLS, MR, DUAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + COLS - 1) / COLS, 1, batch);
+  af_gemm_w8a8_narrow_kernel<TX, COLS, MR, DUAL>
+      <<<grid, NW_THREADS, smem, stream>>>(a, p, out_dtype == BF16);
+  return (int)cudaGetLastError();
+}
+
+// The W8A8 narrow tile at the int8 width nw_cols picks (the grid counted
+// as blocks x batch), with room for 4 rows of sums a lane at M <= 4 and 16
+// above (nw_cols gives 128 columns at M <= 4 only); x fp32 or bf16
+template <typename TX, bool DUAL>
+int launch_qw_w(const Args& a, int out_dtype, int batch, cudaStream_t stream,
+                size_t* smem_only) {
+  const bool few = a.M <= 4;
+  switch (nw_cols(a.M, a.N, true, batch)) {
+    case 16:
+      return few ? launch_qw<TX, 16, 4, DUAL>(a, out_dtype, batch, stream,
+                                               smem_only)
+                 : launch_qw<TX, 16, 16, DUAL>(a, out_dtype, batch, stream,
+                                                smem_only);
+    case 32:
+      return few ? launch_qw<TX, 32, 4, DUAL>(a, out_dtype, batch, stream,
+                                               smem_only)
+                 : launch_qw<TX, 32, 16, DUAL>(a, out_dtype, batch, stream,
+                                                smem_only);
+    case 64:
+      return few ? launch_qw<TX, 64, 4, DUAL>(a, out_dtype, batch, stream,
+                                               smem_only)
+                 : launch_qw<TX, 64, 16, DUAL>(a, out_dtype, batch, stream,
+                                                smem_only);
+    case 128:
+      if (few)
+        return launch_qw<TX, 128, 4, DUAL>(a, out_dtype, batch, stream,
+                                           smem_only);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool DUAL>
+int launch_qw_x(const Args& a, int x_dtype, int out_dtype, int batch,
+                cudaStream_t stream, size_t* smem_only = nullptr) {
+  if (x_dtype == F32)
+    return launch_qw_w<float, DUAL>(a, out_dtype, batch, stream, smem_only);
+  if (x_dtype == BF16)
+    return launch_qw_w<__nv_bfloat16, DUAL>(a, out_dtype, batch, stream,
+                                            smem_only);
+  return (int)cudaErrorInvalidValue;
+}
+
 // Launch with the deepest ring (up to TC_MAX_STAGES steps) inside the
 // tile's budget, at least two steps where they fit the SM, else one.
 // smem_only: report the dynamic shared memory the launch takes, and
@@ -1512,13 +2041,11 @@ int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                                                    smem_only);
 }
 
-// W8A8 (act_quant), at BM = 16 for decode-sized M, or the float chain at
-// BM = 64 (every float-chain launch at M <= 16 takes the narrow tile)
+// W8A8 (act_quant) or the float chain, both at BM = 64 (every launch of
+// either at M <= 16 takes a narrow tile)
 template <typename TX, typename TW, typename TO, bool DUAL>
 int launch_bm(const Args& a, bool act_quant, int batch, cudaStream_t stream) {
-  if (act_quant)
-    return a.M <= 16 ? launch_w8a8<TX, TO, 16, DUAL>(a, batch, stream)
-                     : launch_w8a8<TX, TO, 64, DUAL>(a, batch, stream);
+  if (act_quant) return launch_w8a8<TX, TO, 64, DUAL>(a, batch, stream);
   return launch<TX, TW, TO, 64, DUAL>(a, batch, stream);
 }
 
@@ -1628,7 +2155,9 @@ extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual,
 // shared memory, the scales first at the store), else on the 64-column
 // tile's float chain; act_quant = 1: W8A8 on the reference's x tiles of
 // quant_bm rows (M itself, or a multiple of 64) by quant_kk columns
-// (k_collapse is then only part of how quant_kk was chosen).
+// (k_collapse is then only part of how quant_kk was chosen), on the W8A8
+// narrow tile at M <= 16 (x quantized once a block, the codes through the
+// warp rings, the width from M and N), else the 64-row __dp4a tile.
 extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                          const void* x, const void* w, const void* w2,
                          const float* w_scale, const float* w2_scale,
@@ -1646,6 +2175,9 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
          K, ldx, ldw, ldr, ldo, 0, 0, 0, 0, k_collapse, activation, quant_bm,
          quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act_quant && M <= 16)
+    return dual ? launch_qw_x<true>(a, x_dtype, out_dtype, 1, s)
+                : launch_qw_x<false>(a, x_dtype, out_dtype, 1, s);
   if (!act_quant && M <= 16)
     return dual ? launch_narrow_w<float, int8_t, true, false>(a, out_dtype, 1,
                                                               s)
@@ -1779,6 +2311,33 @@ extern "C" int af_narrow_cols(int M, int N, int w_dtype, int expert) {
   return nw_cols(M, N, w_dtype == I8);
 }
 
+// The W8A8 narrow tile (af_gemm_q / af_expert_gemm_q with act_quant at M,
+// or T, <= 16) over `batch` experts (1 for K1): af_w8a8_cols gives its
+// width, af_w8a8_smem the dynamic shared memory (bytes) of one launch at
+// quantization steps of quant_kk columns, one or two contractions; -1 where
+// the tile does not take the launch.
+extern "C" int af_w8a8_cols(int M, int N, int batch) {
+  if (M < 1 || M > 16 || N < 1 || batch < 1 || batch > 65535) return -1;
+  return nw_cols(M, N, true, batch);
+}
+
+extern "C" long long af_w8a8_smem(int M, int N, int K, int quant_kk,
+                                  int dual, int batch) {
+  if (M < 1 || M > 16 || N < 1 || K < 1 || quant_kk < 1 || batch < 1 ||
+      batch > 65535 || (dual && batch != 1))
+    return -1;
+  Args a{};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.quant_bm = M;
+  a.quant_kk = quant_kk;
+  size_t smem = 0;
+  const int rc = dual ? launch_qw_x<true>(a, F32, F32, 1, nullptr, &smem)
+                      : launch_qw_x<false>(a, F32, F32, batch, nullptr, &smem);
+  return rc == 0 ? (long long)smem : -1;
+}
+
 // The same batched product on the tensor-core kernel: x and w bf16, out
 // fp32 or bf16 (out_dtype), all contiguous; each expert a z-slice of the
 // af_gemm_tc grid (E <= 65535).  Returns cudaGetLastError() of the launch.
@@ -1803,7 +2362,9 @@ extern "C" int af_expert_gemm_tc(int out_dtype, const void* x, const void* w,
 // the codes through the warp rings, widened exactly to fp32; the width from
 // T, N and E; E <= 65535), larger T the 64-row float chain at k_collapse;
 // act_quant = 1: W8A8, each expert's x quantized on the reference's tiles
-// of quant_bm rows by quant_kk columns.
+// of quant_bm rows by quant_kk columns: at T <= 16 the W8A8 narrow tile
+// (the width from T, N and E, as the int8-only form's; E <= 65535),
+// larger T the 64-row __dp4a tile.
 extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                 const void* x, const void* w,
                                 const float* w_scale, void* out, int E, int T,
@@ -1816,8 +2377,10 @@ extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
          (long long)T * N, N, k_collapse, ACT_NONE, quant_bm, quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T <= 16 && E > 65535) return (int)cudaErrorInvalidValue;
+  if (act_quant && T <= 16)
+    return launch_qw_x<false>(a, x_dtype, out_dtype, E, s);
   if (!act_quant && T <= 16) {
-    if (E > 65535) return (int)cudaErrorInvalidValue;
     if (x_dtype == F32)
       return launch_narrow_w<float, int8_t, false, true>(a, out_dtype, E, s);
     if (x_dtype == BF16)

@@ -187,3 +187,62 @@ def test_k3_cases_hold_fp32_forms(smoke, name):
     bf16, fp32 = cases[name], cases[f"{name} fp32"]
     assert bf16[1:7] == fp32[1:7]
     assert bf16[7] == torch.bfloat16 and fp32[7] == torch.float32
+
+
+def test_w8a8_sites_cover_every_w8a8_decode_site(smoke):
+    """The W8A8 narrow-tile report and width checks list, for both models
+    at decode, every K1 weight GEMM in the W8A8 form (the dual swiglu and
+    the unembed among them), attn.qk on K2's W8A8 form and the three MoE
+    expert banks on it; each at M (T) <= 16 rows, so on the new tile."""
+    cfg = _cfg("qwen2-0.5b", "arrayflex", "bfloat16")
+    moe_cfg = _cfg("qwen3-moe-30b-a3b", "arrayflex", "bfloat16")
+    sites = smoke.w8a8_sites(cfg, moe_cfg)
+    assert all(s.form == "w8a8" and smoke.site_rows(s)[0] <= 16
+               for s in sites)
+    got = {(s.cell, s.name): s for s in sites}
+    assert len(got) == len(sites)
+    dense = ["attn.wq", "attn.wk", "attn.wv", "attn.wo",
+             "mlp.wi_gate+mlp.wi_up", "mlp.wo", "unembed", "attn.qk"]
+    moe = ["attn.wq", "attn.wk", "attn.wv", "attn.wo", "unembed", "attn.qk",
+           "moe.wi_gate", "moe.wi_up", "moe.wo"]
+    assert set(got) == ({("qwen2-0.5b", n) for n in dense}
+                        | {("qwen3-moe-30b-a3b", n) for n in moe})
+    for (cell, name), s in got.items():
+        assert s.launch_name == (
+            "arrayflex_expert_gemm_w8a8" if name.startswith(("attn.qk",
+                                                             "moe."))
+            else "arrayflex_gemm_w8a8")
+    assert got[("qwen2-0.5b", "mlp.wi_gate+mlp.wi_up")].flags["dual"]
+    assert got[("qwen2-0.5b", "attn.qk")].shape == (8, 7, 64, smoke.MAX_SEQ)
+    assert got[("qwen3-moe-30b-a3b", "moe.wo")].shape == (128, 1, 768, 2048)
+
+
+# (cell, site) -> the W8A8 narrow tile's width at decode by the written
+# rule: 16 columns at qwen2's 896- and 128-wide sites (a 16-byte code
+# chunk a row), 32 at its dual and at the MoE attn.wq, 128 (a w row's 128
+# bytes) at both unembeds and the MoE banks, 16 at both attn.qk grids
+W8A8_WIDTHS = {
+    ("qwen2-0.5b", "attn.wq"): 16, ("qwen2-0.5b", "attn.wk"): 16,
+    ("qwen2-0.5b", "attn.wv"): 16, ("qwen2-0.5b", "attn.wo"): 16,
+    ("qwen2-0.5b", "mlp.wi_gate+mlp.wi_up"): 32, ("qwen2-0.5b", "mlp.wo"): 16,
+    ("qwen2-0.5b", "unembed"): 128, ("qwen2-0.5b", "attn.qk"): 16,
+    ("qwen3-moe-30b-a3b", "attn.wq"): 32, ("qwen3-moe-30b-a3b", "attn.wk"): 16,
+    ("qwen3-moe-30b-a3b", "attn.wv"): 16, ("qwen3-moe-30b-a3b", "attn.wo"): 16,
+    ("qwen3-moe-30b-a3b", "unembed"): 128,
+    ("qwen3-moe-30b-a3b", "attn.qk"): 16,
+    ("qwen3-moe-30b-a3b", "moe.wi_gate"): 128,
+    ("qwen3-moe-30b-a3b", "moe.wi_up"): 128,
+    ("qwen3-moe-30b-a3b", "moe.wo"): 128}
+
+
+def test_w8a8_width_rule_is_the_written_one(smoke):
+    """Phase 3 holds each W8A8 decode site's width (the C entry
+    ``af_w8a8_cols``) to :func:`narrow_int8_cols` at the site's rows, N
+    and grid batch (experts for K2): the int8 rule of the narrow tile."""
+    cfg = _cfg("qwen2-0.5b", "arrayflex", "bfloat16")
+    moe_cfg = _cfg("qwen3-moe-30b-a3b", "arrayflex", "bfloat16")
+    sites = smoke.w8a8_sites(cfg, moe_cfg)
+    assert {(s.cell, s.name) for s in sites} == set(W8A8_WIDTHS)
+    for s in sites:
+        assert smoke.narrow_int8_cols(*smoke.site_rows(s)) == \
+            W8A8_WIDTHS[(s.cell, s.name)], (s.cell, s.name, s.shape)

@@ -871,6 +871,170 @@ def test_int8_expert_narrow_width_rule(cuda):
     assert lib.af_narrow_smem(4, 896, 896, 1, i8, 0, 0, bf16) == -1
 
 
+# W8A8 at decode (K1 at M <= 16, K2 at T <= 16) runs the W8A8 narrow tile:
+# x quantized once a block, the codes through warp rings, per-step int32
+# partials folded in step order.  Its codes, scales, partials and fold are
+# the plain version's operations, so where the store is the dequant alone
+# (fp32 out, no bias, activation, gate or residual) the output is the plain
+# version's bits.  K1's (K, N) at every W8A8 decode site of qwen2-0.5b and
+# qwen3-moe-30b-a3b (the dual swiglu as one contraction here; its store is
+# not dequant alone) and K2's banks and attn.qk grids.
+W8A8_K1_SITES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
+                 (896, 152064), (2048, 4096), (2048, 512), (4096, 2048),
+                 (2048, 152064)]
+W8A8_K2_SITES = [(128, 1, 2048, 768), (128, 1, 768, 2048), (128, 4, 2048, 768),
+                 (128, 4, 768, 2048), (128, 16, 2048, 768),
+                 (128, 16, 768, 2048), (8, 7, 64, 256), (16, 8, 128, 64)]
+
+
+def _w8a8_call(fn, *args, launch, **kw):
+    """One call of a W8A8 wrapper: exactly one launch, counted under
+    ``launch`` and nothing else."""
+    before = dict(ag.LAUNCHES)
+    out = fn(*args, act_quant=True, **kw)
+    assert ag.LAUNCHES == dict(before, **{launch: before[launch] + 1})
+    return out
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 5, 16])
+@pytest.mark.parametrize("kn", W8A8_K1_SITES)
+def test_w8a8_narrow_k1_bits_equal_plain(cuda, kn, M, dx):
+    K, N = kn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, kw = _quant_operands(g, M, K, N, dx, "none")
+    w = kw.pop("w")
+    got = _w8a8_call(ag.arrayflex_gemm, x, w, launch="arrayflex_gemm_w8a8",
+                     k_collapse=4, out_dtype=torch.float32, **kw)
+    want = ag.arrayflex_gemm_plain(x, w, act_quant=True, k_collapse=4,
+                                   out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 4, 5, 16])
+@pytest.mark.parametrize("kn,flags", [
+    ((896, 896), "qkv"), ((896, 4864), "swiglu"), ((4864, 896), "residual"),
+    ((896, 152064), "none"), ((2048, 4096), "qkv"),
+    ((4096, 2048), "residual"), ((300, 200), "all")])
+def test_w8a8_narrow_k1_epilogue_matches_plain(cuda, kn, flags, M, dx):
+    """The full store (bias and norm scale, the dual swiglu with both
+    scales, the residual) in x's type at the decode sites' (K, N): within
+    one step of the plain version (activations and the output cast may
+    round apart)."""
+    K, N = kn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, kw = _quant_operands(g, M, K, N, dx, flags)
+    w = kw.pop("w")
+    got = _w8a8_call(ag.arrayflex_gemm, x, w, launch="arrayflex_gemm_w8a8",
+                     k_collapse=4, **kw)
+    _close_step(got, ag.arrayflex_gemm_plain(x, w, act_quant=True,
+                                             k_collapse=4, **kw), dx)
+
+
+def _w8a8_bank_operands(g, E, T, K, N, dx):
+    x = torch.randn(E, T, K, generator=g, device="cuda").to(dx)
+    q, s = substrate._quantize(torch.randn(E, K, N, generator=g,
+                                           device="cuda") * K ** -0.5)
+    return x, q, s
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", W8A8_K2_SITES)
+def test_w8a8_narrow_k2_bits_equal_plain(cuda, etkn, dx, out):
+    """K2's store is the dequant alone, so the bits equal the plain
+    version's at either output type."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
+    x, q, s = _w8a8_bank_operands(g, E, T, K, N, dx)
+    got = _w8a8_call(ag.arrayflex_expert_gemm, x, q, w_scale=s,
+                     launch="arrayflex_expert_gemm_w8a8", k_collapse=4,
+                     out_dtype=out)
+    want = ag.arrayflex_expert_gemm_plain(x, q, w_scale=s, act_quant=True,
+                                          k_collapse=4, out_dtype=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                                  (7, 3, 131, 70), (9, 5, 77, 200)])
+def test_w8a8_narrow_k2_bits_do_not_depend_on_E(cuda, dx, etkn):
+    """An expert's output in an E-expert launch is the same bits as its
+    own one-expert launch (where the width rule may pick another width),
+    including experts whose codes are off their 16-byte boundary in the
+    E-expert tensor (K * N odd: they stage through the scalar path) and
+    whose x rows are (T * K odd)."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + 3 * N)
+    x, q, s = _w8a8_bank_operands(g, E, T, K, N, dx)
+    whole = ag.arrayflex_expert_gemm(x, q, w_scale=s, act_quant=True,
+                                     k_collapse=4, out_dtype=torch.float32)
+    for e in sorted({0, 1, E // 2, E - 1}):
+        one = ag.arrayflex_expert_gemm(
+            x[e:e + 1].clone(), q[e:e + 1].clone(), w_scale=s[e:e + 1].clone(),
+            act_quant=True, k_collapse=4, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(whole[e:e + 1], one), e
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("mkn", [(4, 300, 200), (5, 130, 70), (1, 37, 36),
+                                 (16, 4864, 20000)])
+def test_w8a8_narrow_ragged_steps_and_misaligned_bases(cuda, mkn, k):
+    """Quantization steps that are not whole 32-row sub-tiles (K = 300 at
+    k = 1: 100 columns; K = 130: 65; K = 37: one step of 37 or 40), and
+    16 rows at K = 4864 with 64-column blocks, whose steps take several
+    rounds of the tile's shared memory at k = 1: the plain version's bits.
+    x with a row stride off the 16-byte grid and w a column slice off it
+    (scalar staging) give the contiguous operands' bits."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N + k)
+    x, kw = _quant_operands(g, M, K, N, torch.bfloat16, "none")
+    w = kw.pop("w")
+    got = _w8a8_call(ag.arrayflex_gemm, x, w, launch="arrayflex_gemm_w8a8",
+                     k_collapse=k, out_dtype=torch.float32, **kw)
+    want = ag.arrayflex_gemm_plain(x, w, act_quant=True, k_collapse=k,
+                                   out_dtype=torch.float32, **kw)
+    xs = torch.zeros(M, K + 3, device=cuda, dtype=x.dtype)[:, 3:]
+    xs.copy_(x)
+    ws = torch.zeros(K, N + 1, device=cuda, dtype=w.dtype)[:, 1:]
+    ws.copy_(w)
+    off = _w8a8_call(ag.arrayflex_gemm, xs, ws, launch="arrayflex_gemm_w8a8",
+                     k_collapse=k, out_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(off, got)
+
+
+def test_w8a8_narrow_width_rule(cuda):
+    """The W8A8 narrow tile takes the int8 width rule (``nw_cols``, the
+    grid counted as blocks x experts): 128 columns at M <= 4 where that
+    grid fills the card, else 64, 32, 16; its shared memory fits one SM
+    for every shape, however many rounds of steps K needs; it takes no
+    more than 16 rows."""
+    lib = ag._lib()
+    for (M, N, E), want in {
+            (4, 896, 1): 16, (4, 4864, 1): 32, (4, 152064, 1): 128,
+            (5, 152064, 1): 64, (16, 4096, 1): 32, (1, 768, 128): 128,
+            (16, 2048, 128): 64, (7, 256, 8): 16, (8, 64, 16): 16}.items():
+        assert lib.af_w8a8_cols(M, N, E) == want, (M, N, E)
+        assert lib.af_w8a8_cols(M, N, E) == lib.af_narrow_cols(M, N, 2, E)
+    assert lib.af_w8a8_cols(17, 896, 1) == -1
+    for M, K, N, E in [(4, 896, 4864, 1), (4, 4864, 896, 1),
+                       (4, 896, 152064, 1), (16, 4864, 20000, 1),
+                       (16, 14336, 8192, 1), (1, 2048, 768, 128),
+                       (16, 768, 2048, 128), (7, 64, 256, 8)]:
+        for k in (1, 2, 4, 8):
+            qkk = ag.quant_tiles(M, K, k)[1]
+            for dual in ((0, 1) if E == 1 else (0,)):
+                smem = lib.af_w8a8_smem(M, N, K, qkk, dual, E)
+                assert 0 < smem <= 232448, (M, K, N, E, k, dual)
+    assert lib.af_w8a8_smem(17, 896, 896, 448, 0, 1) == -1
+
+
 # ---------------------------------------------------------------- K3
 
 # (BH, S, T, D, causal, window): chip_smoke.py's shapes cut in BH, the

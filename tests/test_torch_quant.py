@@ -255,6 +255,83 @@ def test_w8_decode_plain_vs_reference(mkn, name, k):
     _close_rel(got, want)
 
 
+# decode shapes (M <= 16) where W8A8 runs the W8A8 narrow tile on the card:
+# W8_DECODE's store forms (the dual swiglu with w2_scale and bias2, a
+# residual with the norm scale, ragged N, N > 4096 at a small K) and K =
+# 300, whose quantization step (100 columns at k = 1, 300 at k = 4) is not
+# a multiple of 32, so a step boundary falls inside a 32-row sub-tile
+W8A8_DECODE = W8_DECODE + [((5, 300, 70), "qkv"), ((1, 300, 200), "plain")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("mkn,name", W8A8_DECODE)
+def test_w8a8_decode_plain_vs_reference(mkn, name, k, dtype):
+    """W8A8 at the decode shapes, each store form, output in x's dtype:
+    the same codes, scales and int32 partials as the reference, the fold
+    rounded per op where the interpret run contracts it (1e-5 of max
+    |ref|; bf16: one bf16 step, 2^-8, as two fp32 results may round
+    apart)."""
+    M, K, N = mkn
+    flags = dict(FLAGS[name])
+    act = flags.pop("activation", "none")
+    (xj, xt), kj, kt = _quant_operands(M, K, N, dtype, M + K + N + k,
+                                       **flags)
+    want = ref_ops.arrayflex_matmul(xj, kj.pop("w"), act_quant=True,
+                                    activation=act, k_collapse=k, **kj)
+    got = ag.arrayflex_gemm(xt, kt.pop("w"), act_quant=True, activation=act,
+                            k_collapse=k, **kt)
+    assert got.dtype == TORCH[dtype]
+    _close_rel(got, want, GEMM_RTOL if dtype == "float32" else 2.0 ** -8)
+
+
+def _bank_operands(E, T, K, N, seed):
+    """An MoE expert bank: bf16 x rows, int8 codes with (expert, column)
+    scales quantized from fp32 weights."""
+    rng = np.random.RandomState(seed)
+    xj, xt = _pair(rng.randn(E, T, K), "bfloat16")
+    qj, sj = ref_sub._quantize(jnp.asarray(rng.randn(E, K, N) / np.sqrt(K),
+                                           jnp.float32))
+    return (xj, xt), (qj, sj), (_t(qj), _t(sj))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("etkn", [(16, 1, 256, 96), (8, 1, 96, 256),
+                                  (6, 4, 300, 70)])
+def test_expert_w8a8_bank_plain_vs_reference(etkn, k):
+    """K2's W8A8 form at the MoE banks' decode shape (E experts of one
+    capacity row, bf16 x, per-(expert, column) scales) and at T = 4 with a
+    quantization step that is not a multiple of 32 (K = 300); fp32 out."""
+    E, T, K, N = etkn
+    (xj, xt), (qj, sj), (qt, st) = _bank_operands(E, T, K, N, E + T + K + k)
+    want = ref_ops.arrayflex_expert_matmul(xj, qj, w_scale=sj,
+                                           act_quant=True, k_collapse=k,
+                                           out_dtype=jnp.float32)
+    got = ops.arrayflex_expert_matmul(xt, qt, w_scale=st, act_quant=True,
+                                      k_collapse=k, out_dtype=torch.float32)
+    assert tuple(got.shape) == (E, T, N)
+    _close_rel(got, want)
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(16, 1, 256, 96), (5, 7, 300, 70)])
+def test_expert_w8a8_plain_bits_do_not_depend_on_E(etkn, out):
+    """Each expert's rows are their own quantization tile, so an expert's
+    output in an E-expert call is the same bits as its own one-expert
+    call: the property the card's W8A8 narrow tile is held to."""
+    E, T, K, N = etkn
+    _, _, (q, s) = _bank_operands(E, T, K, N, E * T + K)
+    x = torch.from_numpy(np.random.RandomState(K).randn(E, T, K)).to(
+        torch.bfloat16)
+    whole = ag.arrayflex_expert_gemm(x, q, w_scale=s, act_quant=True,
+                                     k_collapse=4, out_dtype=out)
+    for e in range(E):
+        one = ag.arrayflex_expert_gemm(x[e:e + 1], q[e:e + 1],
+                                       w_scale=s[e:e + 1], act_quant=True,
+                                       k_collapse=4, out_dtype=out)
+        assert torch.equal(whole[e:e + 1], one), e
+
+
 def test_w8a8_single_step_is_bit_exact():
     """One K step and no bias: no op is left for XLA to contract, so the
     plain W8A8 version equals the reference's interpret run bit for bit —
