@@ -12,8 +12,11 @@ failure of which exits non-zero:
    (W8's too) and the FFMA narrow decode tile's (K1 and K2) registers,
    spills and dynamic shared memory at the main path's shapes, and the
    narrow tile's width at every fp32-x K1 decode site (float and W8) and
-   at the int8 MoE banks (K2's int8-only form, fp32 and bf16 x), and the
-   W8A8 narrow tile's width and shared memory at every W8A8 decode site;
+   at the int8 MoE banks (K2's int8-only form, fp32 and bf16 x), the
+   W8A8 narrow tile's width and shared memory at every W8A8 decode site,
+   and the W8A8 int8 tensor-core tile's (and its quantize pass's)
+   registers and spills, and its width, shared memory and scratch at
+   every W8A8 prefill-chunk site (more than 16 rows);
 3. GEMM kernel checks: each K1/K2 form against its plain PyTorch version
    at every site shape of full-width qwen2-0.5b's main path, at decode
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
@@ -32,8 +35,10 @@ failure of which exits non-zero:
    on K2's int8-only form, each bank's narrow-tile width held to the
    written rule) and ``arrayflex_w8a8`` (W8A8, with attn.qk and the expert
    banks on K2's W8A8 form, each decode site's W8A8 narrow-tile width held
-   to the same rule), and the plain-torch K^T quantize that attn.qk runs
-   under W8A8;
+   to the same rule; at each prefill-chunk site, more than 16 rows, the
+   device time of the quantize pass alone beside the whole launch's, with
+   the int8 tensor-core tile's width and shared memory), and the
+   plain-torch K^T quantize that attn.qk runs under W8A8;
 4. flash attention (K3): ``ops.attention`` at every case of
    :data:`K3_CASES` (the launch counter set to 0 just before and read just
    after: one launch each), each output held against
@@ -549,6 +554,8 @@ def time_site(site: Site, gen, iters: int):
         return lambda: f_(x, w, k_collapse=k, **kw)
 
     ms, eager_ms = _time_ms([bind(fn, kw) for kw in calls], iters)
+    tile = (w8a8_tile_time(site, x, calls, k, iters)
+            if site.form == "w8a8" and site_rows(site)[0] > 16 else {})
     plain_ms, plain_eager_ms = _time_ms([bind(plain, kw) for kw in calls],
                                         iters)
     libs = [_library_call(site, x, kw) for kw in calls]
@@ -560,11 +567,41 @@ def time_site(site: Site, gen, iters: int):
                 plain_ms=plain_ms, library_ms=lib_ms,
                 eager_ms=eager_ms, plain_eager_ms=plain_eager_ms,
                 library_eager_ms=lib_eager_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=byts, ops=ops_)
+                bound_ms=bound_ms, bound_by=bound_by, bytes=byts, ops=ops_,
+                **tile)
 
 
 def _us(ms):
     return "    none" if ms is None else f"{ms * 1e3:8.1f}"
+
+
+def w8a8_tile(site: Site, k: int) -> dict:
+    """The int8 tensor-core tile that runs a W8A8 site above 16 rows, from
+    the C entries: its width (columns a block), dynamic shared memory and
+    the scratch its quantize pass fills, at the reference's quantization
+    tile for k."""
+    rows, N, batch = site_rows(site)
+    K = site.shape[-2]
+    bm, qkk = ag.quant_tiles(rows, K, k)
+    dual = int(bool(site.flags.get("dual")))
+    lib = ag._lib()
+    return dict(quant_tile=(bm, qkk),
+                tile_cols=lib.af_w8a8_tc_cols(rows, N, dual, batch),
+                tile_smem=lib.af_w8a8_tc_smem(rows, N, K, bm, qkk, dual,
+                                              batch),
+                scratch_bytes=lib.af_w8a8_scratch_bytes(rows, K, bm, qkk,
+                                                        batch))
+
+
+def w8a8_tile_time(site: Site, x, calls, k: int, iters: int) -> dict:
+    """The quantize pass alone (``ag.w8a8_quantize``: the launch's first
+    kernel, same x, g and k) at a W8A8 site above 16 rows: its device time
+    (``quantize_ms``; the whole launch's is ``ms``), with the tile's shape
+    (:func:`w8a8_tile`)."""
+    fns = [lambda g=kw.get("norm_scale"): ag.w8a8_quantize(
+        x, norm_scale=g, k_collapse=k) for kw in calls]
+    q_ms, _ = _time_ms(fns, iters)
+    return dict(quantize_ms=q_ms, **w8a8_tile(site, k))
 
 
 def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
@@ -639,6 +676,11 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
                     f"{_us(t['plain_eager_ms'])}/"
                     f"{_us(t['library_eager_ms'])} us  "
                     f"bf16 err {bf16_err:.3g}")
+                if "quantize_ms" in t:
+                    log(f"          quantize pass {_us(t['quantize_ms'])} us "
+                        f"of the kernel's {_us(t['ms'])} us; int8 "
+                        f"tensor-core tile {t['tile_cols']} columns a "
+                        f"block, {t['tile_smem']} B shared memory")
     for name, flags in EXTRA_FLAGS:
         site = Site(name, "arrayflex_gemm", (BATCH, cfg.d_model, cfg.d_ff),
                     0, flags, form=form)
@@ -1544,6 +1586,9 @@ def _step_totals(sel):
         torch.int8 if r["form"] == "w8a8" else getattr(torch, r["dtype"])]
         for r in sel)
     tot["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if sel and all("quantize_ms" in r for r in sel):
+        tot["quantize_ms"] = sum(r["quantize_ms"] * r["per_step"]
+                                 for r in sel)
     return tot
 
 
@@ -1666,7 +1711,7 @@ def w8a8_sites(cfg, moe_cfg):
     return out
 
 
-def tc_report(cfg, moe_cfg) -> None:
+def tc_report(cfg, moe_cfg, chunk: int) -> None:
     """The tensor-core kernels' and the narrow FFMA tile's registers and
     spills (ptxas, per instantiation) and the dynamic shared memory their
     launchers take at the main path's shapes (K1 float and W8: decode M = 4
@@ -1680,14 +1725,19 @@ def tc_report(cfg, moe_cfg) -> None:
     fp32 and bf16 w); the W8A8 narrow tile
     (``af_gemm_w8a8_narrow_kernel``): its width and shared memory at every
     W8A8 decode site of both models (:func:`w8a8_sites`, at the planned
-    k's quantization step); K3 at each head dim)."""
+    k's quantization step); the W8A8 int8 tensor-core tile
+    (``af_gemm_w8a8_tc_kernel``, after ``af_w8a8_quant_kernel``): its
+    width, shared memory and scratch at every W8A8 site of qwen2-0.5b's
+    prefill chunk of BATCH x ``chunk`` rows (:func:`w8a8_tile`); K3 at
+    each head dim)."""
     for stem, text in build.PTXAS_INFO.items():
         entry = None
         for line in text.splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
             elif entry and any(key in entry for key in (
-                    "tc_kernel", "combine", "narrow_kernel")) and (
+                    "tc_kernel", "combine", "narrow_kernel",
+                    "quant_kernel")) and (
                     "Used" in line or "spill" in line):
                 log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}")
     glib, flib = ag._lib(), fa._lib()
@@ -1736,6 +1786,15 @@ def tc_report(cfg, moe_cfg) -> None:
             f"k = {k} (quant_kk {qkk}): {glib.af_w8a8_cols(rows, N, batch)} "
             f"columns a block, "
             f"{glib.af_w8a8_smem(rows, N, K, qkk, dual, batch)} B")
+    for site in quant_sites(cfg, BATCH * chunk, "w8a8"):
+        if site_rows(site)[0] <= 16:
+            continue
+        k = planned_k(site)
+        t = w8a8_tile(site, k)
+        log(f"  W8A8 int8 tensor-core tile at {site.cell} {site.name} "
+            f"{site.shape} k = {k} (quantization tile {t['quant_tile']}): "
+            f"{t['tile_cols']} columns a block, {t['tile_smem']} B shared "
+            f"memory, {t['scratch_bytes']} B scratch")
     log("  flash_attention_tc dynamic shared memory at D = 32 / 64 / 128: "
         + " / ".join(str(flib.flash_attention_tc_smem(D))
                      for D in (32, 64, 128)) + " B")
@@ -1768,9 +1827,9 @@ def main() -> int:
                                   gemm_backend="arrayflex",
                                   compute_dtype="bfloat16",
                                   param_dtype="bfloat16")
-    tc_report(cfg, moe_cfg)
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
+    tc_report(cfg, moe_cfg, chunk)
     log(f"[3/8] GEMM kernel checks and times (bf16, the MoE router fp32; "
         f"per call: device time from a CUDA-graph replay, eager time with "
         f"host launches; card: {card})")
@@ -1856,8 +1915,10 @@ def main() -> int:
                 f"{t['bound_ms']:.4f} ms per decode step ({t['bound_by']})")
     for name, t in chunk.items():
         lib = t["library_ms"]
-        log(f"  {cfg.name} prefill chunk {name}: kernel {t['ms']:.3f} / "
-            f"plain {t['plain_ms']:.3f} / library "
+        quant = (f" (its quantize passes {t['quantize_ms']:.3f})"
+                 if "quantize_ms" in t else "")
+        log(f"  {cfg.name} prefill chunk {name}: kernel {t['ms']:.3f}"
+            f"{quant} / plain {t['plain_ms']:.3f} / library "
             f"{'none' if lib is None else f'{lib:.3f}'} / bound "
             f"{t['bound_ms']:.4f} ms per prefill-chunk step "
             f"({t['bound_by']})")

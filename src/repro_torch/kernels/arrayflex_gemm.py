@@ -15,11 +15,13 @@ file), one C entry per operand form:
                         (FFMA, dequant at the store; at M <= 16 the narrow
                         tile of ``af_gemm``, the codes staged as int8 and
                         widened exactly to fp32 in the chain) or, with
-                        ``act_quant``, W8A8 (per-tile int8 x, an int8 x int8
-                        -> int32 ``__dp4a`` chain; at M <= 16 the W8A8
-                        narrow tile: x quantized once a block in the
+                        ``act_quant``, W8A8 (per-tile int8 x, int8 x int8
+                        -> int32 products: at M <= 16 the W8A8 narrow tile,
+                        ``__dp4a``, x quantized once a block in the
                         launch's prologue, the codes streamed through warp
-                        rings, the width from M and N);
+                        rings, the width from M and N; above, x quantized
+                        once a call into scratch, then the int8 tensor-core
+                        tile, ``mma.sync`` s8 x s8 -> s32);
   ``af_gemm_q_tc``      ``_kernel``'s W8 form on bf16 x (the tensor-core
                         kernel of ``af_gemm_tc``, the codes widened to bf16
                         in registers, dequant at the store);
@@ -35,7 +37,9 @@ file), one C entry per operand form:
                         in its own type and the codes widened exactly to
                         fp32, the width from T, N and E) or, with
                         ``act_quant``, W8A8 (at T <= 16 the W8A8 narrow
-                        tile of ``af_gemm_q``, the width from T, N and E).
+                        tile of ``af_gemm_q``, the width from T, N and E;
+                        above, its quantize pass and int8 tensor-core
+                        tile, the expert on the grid's z).
 
 What stays the same is the schedule's meaning: K is consumed in
 ``ceil(K / (bk * k_collapse))`` serial main-loop steps of ``k_collapse``
@@ -44,7 +48,10 @@ prologue (:func:`prologue_phase`), and the boundary math runs once at the
 carry-propagate store (:func:`store_phase`): dequant -> bias -> activation
 -> gate multiply -> residual -> one cast.  Under W8A8 the step prologue
 also quantizes the x tile (:func:`quantize_tile`) and each step's int32
-partial folds into the fp32 accumulator times that tile's scale.
+partial folds into the fp32 accumulator times that tile's scale.  Above 16
+rows the kernel quantizes x once a call, into scratch the wrapper
+allocates (:func:`w8a8_scratch`, laid out as :func:`w8a8_quantize_plain`
+says), before its products.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version (``*_plain``) only for CPU tensors.  The plain
@@ -120,10 +127,12 @@ def gemm_q_kernel(x_dtype, act_quant: bool) -> str:
     its C entry takes ``af_gemm``'s narrow decode tile at M <= 16, the
     codes widened exactly to fp32 as they leave shared memory, and the
     64-column tile for larger M); W8A8 (``act_quant``) on either x type ->
-    ``af_gemm_q`` (int8 x int8 -> int32, ``__dp4a``; its C entry takes the
-    W8A8 narrow tile at M <= 16, whose output is the 64-row tile's bits,
-    and the 64-row tile for larger M).  The choice follows the types only,
-    never a failed build or launch."""
+    ``af_gemm_q`` (int8 x int8 -> int32; its C entry takes the W8A8 narrow
+    tile, ``__dp4a``, at M <= 16, and for larger M quantizes x once into
+    scratch and runs the int8 tensor-core tile, ``mma.sync`` s8 x s8 ->
+    s32; both give the plain version's bits where the store is the
+    dequant alone).  The choice follows the types only, never a failed
+    build or launch."""
     if x_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"arrayflex_gemm: int8 forms take float32 or "
                          f"bfloat16 x, got {x_dtype}")
@@ -283,6 +292,118 @@ def _w8a8_accumulate(xs, ws, k_collapse: int):
 
 
 # ---------------------------------------------------------------------------
+# W8A8 above 16 rows: the scratch the kernel quantizes x into
+
+# code columns of one int8 tensor-core sub-tile (mma.m16n8k32's depth)
+W8A8_SUB = 32
+# the rows at or below which W8A8 takes the narrow tile (no scratch)
+W8A8_NARROW_ROWS = 16
+
+
+def w8a8_code_cols():
+    """Position p of a 32-column code group -> the x column (from the
+    group's start) whose code sits there: positions 4t..4t+3 of each
+    16-column half hold columns 2t, 2t+1, 2t+8, 2t+9 (``qt_col`` in
+    ``csrc/arrayflex_gemm.cu``), the K order in which the int8 tensor-core
+    tile's byte permutes hand its B fragments the w rows."""
+    return [16 * (p // 16) + 2 * ((p % 16) // 4) + (p & 1)
+            + 8 * ((p >> 1) & 1) for p in range(W8A8_SUB)]
+
+
+def w8a8_scratch(rows: int, K: int, k_collapse: int, batch: int = 1):
+    """The scratch one W8A8 launch above 16 rows quantizes x into (the C
+    entry's ``qt_layout``; ``af_w8a8_scratch_bytes`` gives its size): for
+    x of ``batch`` x (rows, K) on the reference's tiles
+    (:func:`quant_tiles`: ``bm`` rows by ``kk`` columns), ``steps`` K
+    steps and ``rtiles`` row tiles; codes [batch][rows][steps * kk32]
+    int8, each step padded with zero codes to ``kk32``, ``kk`` rounded up
+    to whole 32-column sub-tiles (``ldc`` bytes a row), then from the next
+    16-byte boundary (``scales_off``) one fp32 scale a (batch, row tile,
+    step); ``nbytes`` in all."""
+    bm, kk = quant_tiles(rows, K, k_collapse)
+    steps, rtiles = -(-K // kk), -(-rows // bm)
+    kk32 = -(-kk // W8A8_SUB) * W8A8_SUB
+    ldc = steps * kk32
+    codes = batch * rows * ldc
+    scales_off = -(-codes // 16) * 16
+    return dict(bm=bm, kk=kk, kk32=kk32, steps=steps, rtiles=rtiles,
+                ldc=ldc, codes_bytes=codes, scales_off=scales_off,
+                nbytes=scales_off + 4 * batch * rtiles * steps)
+
+
+def w8a8_quantize_plain(xs, k_collapse: int):
+    """Plain PyTorch version of the W8A8 quantize pass: ``xs`` (..., M,
+    K), x after the prologue, quantized on the reference's tiles exactly
+    as :func:`_w8a8_accumulate` does (:func:`quantize_tile` of the
+    zero-padded (bm, kk) tiles), laid out as the kernel's scratch
+    (:func:`w8a8_scratch`): codes (..., M, steps * kk32) int8 -- each step
+    padded with zero codes to kk32, each 32-column group in
+    :func:`w8a8_code_cols`'s order -- and scales (..., rtiles, steps)
+    fp32."""
+    *lead, M, K = xs.shape
+    lay = w8a8_scratch(M, K, k_collapse)
+    bm, kk, kk32 = lay["bm"], lay["kk"], lay["kk32"]
+    R, S = lay["rtiles"], lay["steps"]
+    xp = torch.zeros((*lead, R * bm, S * kk), dtype=torch.float32,
+                     device=xs.device)
+    xp[..., :M, :K] = xs
+    tiles = xp.reshape(*lead, R, bm, S, kk).transpose(-3, -2)
+    codes, scale = quantize_tile(tiles)           # (.., R, S, bm, kk), (.., R, S)
+    padded = torch.zeros((*lead, R, S, bm, kk32), dtype=torch.int8,
+                         device=xs.device)
+    padded[..., :kk] = codes
+    cols = w8a8_code_cols()
+    order = [p - p % W8A8_SUB + cols[p % W8A8_SUB] for p in range(kk32)]
+    padded = padded[..., torch.tensor(order, device=xs.device)]
+    out = padded.transpose(-3, -2).reshape(*lead, R * bm, S * kk32)
+    return out[..., :M, :].contiguous(), scale
+
+
+def w8a8_quantize(x, *, norm_scale=None, k_collapse: int = 1):
+    """The W8A8 quantize pass above 16 rows alone: ``x`` (M, K), or (E,
+    T, K) contiguous, with the prologue's ``norm_scale``, into
+    ``(codes, scales)`` as :func:`w8a8_quantize_plain` lays them out.  CUDA
+    tensors launch the pass (``af_w8a8_quantize``; M, or T, above 16) into
+    one scratch buffer and return views of it; CPU tensors run the plain
+    version.  The main path never calls it (the W8A8 GEMM launches the same
+    pass itself), so it counts no launch: it times and checks the pass on
+    its own."""
+    lead, (M, K) = x.shape[:-2], x.shape[-2:]
+    if x.device.type == "cpu":
+        return w8a8_quantize_plain(prologue_phase(x, norm_scale), k_collapse)
+    if x.dim() not in (2, 3) or M <= W8A8_NARROW_ROWS or x.dtype not in \
+            _DTYPE_CODE or (x.dim() == 3 and not x.is_contiguous()):
+        raise ValueError(f"w8a8_quantize: x (M, K) or contiguous (E, T, K) "
+                         f"of float32 or bfloat16 with more than "
+                         f"{W8A8_NARROW_ROWS} rows, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    _check_rows("w8a8_quantize", x=x)
+    E = x.shape[0] if x.dim() == 3 else 1
+    lay = w8a8_scratch(M, K, k_collapse, E)
+    scratch = torch.empty(lay["nbytes"], dtype=torch.uint8, device=x.device)
+    g = _fp32_vec(norm_scale)
+    rc = _lib().af_w8a8_quantize(
+        _DTYPE_CODE[x.dtype], _ptr(x), _ptr(g), _ptr(scratch), lay["nbytes"],
+        M, K, x.stride(-2), M * K if x.dim() == 3 else 0, E, lay["bm"],
+        lay["kk"], _stream(x.device))
+    _check_rc(rc, "w8a8_quantize")
+    codes = scratch[:lay["codes_bytes"]].view(torch.int8).view(
+        *lead, M, lay["ldc"])
+    scales = scratch[lay["scales_off"]:].view(torch.float32).view(
+        *lead, lay["rtiles"], lay["steps"])
+    return codes, scales
+
+
+def _w8a8_scratch_for(x, rows: int, K: int, k_collapse: int, batch: int):
+    """(scratch, nbytes) of one W8A8 launch: a buffer above 16 rows,
+    none at or below (the narrow tile quantizes in its own prologue)."""
+    if rows <= W8A8_NARROW_ROWS:
+        return None, 0
+    nbytes = w8a8_scratch(rows, K, k_collapse, batch)["nbytes"]
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device), nbytes
+
+
+# ---------------------------------------------------------------------------
 # kernel library binding
 
 _BOUND = None
@@ -312,8 +433,18 @@ def _lib():
         lib.af_w8a8_cols.restype = i
         lib.af_w8a8_smem.argtypes = [i, i, i, i, i, i]
         lib.af_w8a8_smem.restype = ll
+        lib.af_w8a8_scratch_bytes.argtypes = [i, i, i, i, i]
+        lib.af_w8a8_scratch_bytes.restype = ll
+        lib.af_w8a8_tc_cols.argtypes = [i, i, i, i]
+        lib.af_w8a8_tc_cols.restype = i
+        lib.af_w8a8_tc_smem.argtypes = [i, i, i, i, i, i, i]
+        lib.af_w8a8_tc_smem.restype = ll
+        lib.af_w8a8_quantize.argtypes = [i, p, p, p, ll, i, i, ll, ll, i,
+                                         i, i, p]
+        lib.af_w8a8_quantize.restype = i
         lib.af_gemm_q.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, p,
-                                  i, i, i, ll, ll, ll, ll, i, i, i, i, p]
+                                  i, i, i, ll, ll, ll, ll, i, i, i, i, p,
+                                  ll, p]
         lib.af_gemm_q.restype = i
         lib.af_gemm_q_tc.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i,
                                      i, ll, ll, ll, ll, i, i, p]
@@ -323,7 +454,7 @@ def _lib():
         lib.af_expert_gemm_tc.argtypes = [i, p, p, p, i, i, i, i, i, p]
         lib.af_expert_gemm_tc.restype = i
         lib.af_expert_gemm_q.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
-                                         i, i, i, p]
+                                         i, i, i, p, ll, p]
         lib.af_expert_gemm_q.restype = i
         _BOUND = lib
     return _BOUND
@@ -499,12 +630,15 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
                 _stream(x.device))
         else:
             qbm, qkk = quant_tiles(M, K, k_collapse) if act_quant else (0, 0)
+            scratch, nbytes = (_w8a8_scratch_for(x, M, K, k_collapse, 1)
+                               if act_quant else (None, 0))
             rc = _lib().af_gemm_q(
                 _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
                 _ptr(x), _ptr(w), _ptr(w2), _ptr(s), _ptr(s2), _ptr(bias),
                 _ptr(bias2), _ptr(residual), _ptr(g), _ptr(out), M, N, K,
                 x.stride(0), w.stride(0), ldr, out.stride(0), k_collapse,
-                _ACT_CODE[activation], qbm, qkk, _stream(x.device))
+                _ACT_CODE[activation], qbm, qkk, _ptr(scratch), nbytes,
+                _stream(x.device))
     else:
         entry = gemm_kernel(x.dtype)
         ptrs = (_ptr(x), _ptr(w), _ptr(w2), _ptr(bias), _ptr(bias2),
@@ -553,9 +687,10 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
     the MoE expert banks — at T <= 16 on the narrow FFMA tile, whose
     output is the same bits at every ``k_collapse`` and every E — or W8A8
-    under ``act_quant``, at T <= 16 on the W8A8 narrow tile, whose output
-    is the same bits at every E) — fp32 or bf16 out — or raise; CPU
-    tensors run :func:`arrayflex_expert_gemm_plain`."""
+    under ``act_quant``, at T <= 16 on the W8A8 narrow tile and above on
+    the int8 tensor-core tile, both of whose outputs are the same bits at
+    every E) — fp32 or bf16 out — or raise; CPU tensors run
+    :func:`arrayflex_expert_gemm_plain`."""
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:
@@ -591,11 +726,13 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
                              f"out {out_dtype}")
         _check_dtypes(name, torch.int8, w=w)
         qbm, qkk = quant_tiles(T, K, k_collapse) if act_quant else (0, 0)
+        scratch, nbytes = (_w8a8_scratch_for(x, T, K, k_collapse, E)
+                           if act_quant else (None, 0))
         s = _fp32_vec(w_scale)
         rc = _lib().af_expert_gemm_q(
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
             _ptr(x), _ptr(w), _ptr(s), _ptr(out), E, T, K, N, k_collapse,
-            qbm, qkk, _stream(x.device))
+            qbm, qkk, _ptr(scratch), nbytes, _stream(x.device))
     else:
         entry = expert_gemm_kernel(x.dtype, w.dtype)
         if out_dtype not in _DTYPE_CODE:

@@ -7,7 +7,7 @@
 //   af_gemm_tc        <- _kernel, bf16 operands (tensor cores)
 //   af_gemm_q         <- _kernel, int8 weights: W8 (quant) on fp32 x and
 //                        W8A8 (quant + act_quant; at M <= 16 the W8A8
-//                        narrow tile)
+//                        narrow tile, above it the int8 tensor-core tile)
 //   af_gemm_q_tc      <- _kernel, int8 weights with bf16 x: W8 on the
 //                        tensor cores
 //   af_expert_gemm    <- _expert_kernel, fp32 x with fp32 or bf16 w
@@ -15,7 +15,7 @@
 //   af_expert_gemm_q  <- _expert_kernel, int8 weights: the int8-only form
 //                        of the MoE expert banks (quant) and W8A8
 //                        (quant + act_quant; at T <= 16 the W8A8 narrow
-//                        tile)
+//                        tile, above it the int8 tensor-core tile)
 // (launched by arrayflex_gemm / arrayflex_expert_gemm).
 //
 // What it computes:
@@ -32,8 +32,9 @@
 //   W8A8:     each x tile of the reference's tiling -- quant_bm rows by one
 //             main-loop step of quant_kk columns -- is quantized with one
 //             fp32 scale (quantize_tile: amax * fp32(1/127), round half
-//             to even, clip +-127) after the prologue, the chain runs int8 x int8 ->
-//             int32 (__dp4a), and each step's int32 partial folds into the
+//             to even, clip +-127) after the prologue, the products run
+//             int8 x int8 -> int32 (__dp4a at M <= 16, the int8 tensor
+//             cores above), and each step's int32 partial folds into the
 //             fp32 accumulator as acc + float(iacc) * scale, in increasing
 //             step order.
 //   expert:   X[E,T,K] @ W[E,K,N] -> [E,T,N], blockIdx.z walks E, the same
@@ -59,8 +60,10 @@
 // af_gemm, af_expert_gemm); K1's W8 form on bf16 x launches
 // af_gemm_tc_kernel on int8 codes (entry af_gemm_q_tc), on fp32 x the FFMA
 // kernel (af_gemm_q).  K2's int8-only form takes the FFMA narrow tile at
-// T <= 16 on either x type.  W8A8 (K1 and K2, either x type) runs __dp4a
-// kernels: the W8A8 narrow tile at M (T) <= 16, the 64-row tile above.
+// T <= 16 on either x type.  W8A8 (K1 and K2, either x type) runs the
+// W8A8 narrow tile (__dp4a) at M (T) <= 16 and, above, a quantize pass
+// into scratch followed by the int8 tensor-core tile
+// (af_w8a8_quant_kernel, af_gemm_w8a8_tc_kernel).
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
 // cores as mma.sync.m16n8k16 bf16 x bf16 -> fp32 -- the arithmetic of the
@@ -182,11 +185,12 @@
 //     blocks).  Larger M (T) keeps the 64-row tile.
 //
 // af_gemm_w8a8_narrow_kernel, W8A8 at decode (M <= 16; K2 at T <= 16: the
-// MoE banks' one capacity row, attn.qk's g query rows).  On the 64-column
-// __dp4a tile below, every column block (x E experts) would re-read the
+// MoE banks' one capacity row, attn.qk's g query rows).  On a 64-column
+// __dp4a tile (this file's W8A8 kernel at every M before this tile and
+// the int8 tensor-core tile), every column block (x E experts) re-read the
 // whole x tile from global memory for each reference step's amax,
-// re-quantize every x element of its rows with an IEEE division, load the
-// codes a byte at a time between two barriers, and keep 12 of 16 rows
+// re-quantized every x element of its rows with an IEEE division, loaded
+// the codes a byte at a time between two barriers, and kept 12 of 16 rows
 // zero at M = 4 (15 at the banks): far from streaming the codes, which is
 // what bounds W8A8 at decode.  Here, per block:
 //   * x is quantized once, in the launch's own prologue (a separate
@@ -216,8 +220,9 @@
 //     sums into the step's partials in shared memory with atomicAdd where
 //     its run passes a step boundary, and after a barrier every output
 //     folds acc + float(iacc) * scale in increasing step order: the codes,
-//     scales, int32 partials and fold are the 64-row tile's, so the output
-//     is its bits, whatever the width, ring depth or E;
+//     scales, int32 partials and fold are the plain version's
+//     (_w8a8_accumulate) and the int8 tensor-core tile's, so the output is
+//     their bits, whatever the width, ring depth or E;
 //   * shared memory holds codes [M][round x padded step], partials
 //     [contraction][round][M][width] int32 and the rings.  A round is as
 //     many whole steps as fit (every step at every decode site of the
@@ -228,35 +233,75 @@
 //     loads into the same ring (nw_chunk); x is read with scalar loads in
 //     the prologue at any alignment; the epilogue is store_one's.
 //
-// The FFMA and __dp4a kernels off the narrow tiles (fp32 af_gemm and W8 on
-// fp32 x at M > 16, W8A8 at M > 16, K2's int8-only form and fp32 expert
-// form at T > 16), plain kernels that are right first:
+// W8A8 above 16 rows (K1 af_gemm_q with act_quant at M > 16: the prefill
+// chunk; K2 af_expert_gemm_q with act_quant at T > 16: attn.qk at g x
+// chunk query rows) is bound by operations at the prefill chunk (1,979
+// TOP/s int8 on the tensor cores) once x is read once.  One C entry makes
+// two launches on the caller's stream:
+//   * af_w8a8_quant_kernel quantizes x once a call into scratch that the
+//     wrapper allocates: one cluster of 1-8 blocks a reference tile
+//     (quant_bm rows by one quant_kk step, of one expert; more blocks
+//     where the tiles are few), each block a run of its rows, each item
+//     one row by 16 columns read with 16-byte loads where x's base, row
+//     stride and step start allow (else scalar), g applied as x_at does;
+//     the tile's amax by block reductions met through distributed shared
+//     memory, its scale amax * fp32(1/127) stored once ([expert][row
+//     tile][step] fp32), then quant_code (the IEEE division, rintf, clip)
+//     of every element from the registers the first pass loaded (a block
+//     of more than QT_ITEMS items a thread reads x again, from L2).  The
+//     codes go to [expert][M rows][steps x kk32], kk32 = quant_kk rounded
+//     up to 32: each step padded with zero codes to whole 32-column
+//     sub-tiles, so no sub-tile straddles two steps, and each 32-column
+//     group permuted (qt_col) so that an ldmatrix of the codes and an
+//     ldmatrix.trans of the w codes meet at the same K;
+//   * af_gemm_w8a8_tc_kernel: 128-row blocks (a block's rows lie in one
+//     reference tile: quant_bm is M or a multiple of 128, else the launch
+//     is refused), 128 x 128 in 8 warps of 64 x 32 where that grid fills
+//     the card, else 128 x 64 in 8 warps of 32 x 32, the dual 128 x 64
+//     with two accumulator sets; x codes and w (w2) codes staged by
+//     16-byte cp.async into a double buffer of steps of 8 32-column
+//     sub-tiles (rows past M, K rows past K and columns past N
+//     zero-filled; w off the 16-byte grid through scalar loads in the same
+//     kernel), one barrier a step; the products mma.sync.m16n8k32 s8 x s8
+//     -> s32: A fragments by ldmatrix from the K-major codes, B fragments
+//     by one ldmatrix.x4.trans of a 32-row by 16-byte block of the
+//     N-major w codes (16-bit units: two columns at two neighbouring K
+//     rows a register) and four byte permutes, which give the even and
+//     the odd column of each pair their K rows in the order 2t, 2t+1,
+//     2t+8, 2t+9 -- the order the quantize pass wrote the x codes in.  So
+//     w needs no transpose through shared memory, no byte loads and no
+//     second barrier, and a lane's accumulators cover four neighbouring
+//     columns;
+//   * each reference step's int32 partials are exact (integer sums in any
+//     order; the zero codes of a step's padding against the next step's w
+//     rows add nothing), and the fold acc + float(iacc) * scale runs per
+//     step in increasing order (__fmul_rn / __fadd_rn, so nvcc cannot
+//     contract it into an FMA), the scale read once a step; the epilogue
+//     goes through a shared-memory fp32 tile in store_one's order, a
+//     thread on one column pair (its scales and biases read once).  So the
+//     output is the plain version's bits (_w8a8_accumulate) where the
+//     store is the dequant alone, as the W8A8 narrow tile's is;
+//   * K2: the expert on blockIdx.z, its operands, codes, scales and
+//     per-column scales offset before the alignment tests, so an expert's
+//     bits do not depend on E.
+//
+// The FFMA kernels off the narrow tiles (fp32 af_gemm and W8 on fp32 x at
+// M > 16, K2's int8-only form and fp32 expert form at T > 16), plain
+// kernels that are right first:
 //   * one (64 x 64) output tile per block, 256 threads, 4 x 4 outputs a
 //     thread;
-//   * float forms: K is consumed in ceil(K / (BK * k_collapse)) main-loop
-//     iterations; each stages k_collapse BK-wide sub-tiles of X (and W, W2)
-//     in shared memory, widened to fp32 on load, and runs k_collapse
-//     sub-dots into the fp32 register accumulator(s).  k_collapse is the
-//     planner's collapse depth and stays a launch parameter; BK = 32 is the
-//     kernel's own (a TPU-sized (128, 512) fp32 panel does not fit in 227 KB
-//     of shared memory).  Every thread adds the K terms of its outputs in
+//   * K is consumed in ceil(K / (BK * k_collapse)) main-loop iterations;
+//     each stages k_collapse BK-wide sub-tiles of X (and W, W2) in shared
+//     memory, widened to fp32 on load, and runs k_collapse sub-dots into
+//     the fp32 register accumulator(s).  k_collapse is the planner's
+//     collapse depth and stays a launch parameter; BK = 32 is the kernel's
+//     own (a TPU-sized (128, 512) fp32 panel does not fit in 227 KB of
+//     shared memory).  Every thread adds the K terms of its outputs in
 //     increasing K order, so the result does not depend on k_collapse;
-//   * W8A8: the quantization tile is the reference's, not the block's (a
-//     64-row block of a 1024-row prefill sees half of a 128-row tile, and
-//     the reference step is up to 16 of this kernel's sub-steps), so each
-//     block first reduces the amax of the whole reference tile from global
-//     memory, then stages its own rows as packed int8 codes BKQ columns at
-//     a time.  Every block of a tile computes the same scale, so no second
-//     launch or cross-block exchange is needed.  Rounding follows the
-//     reference's compiled kernel op for op: the scale as amax times the
-//     constant fp32(1/127) (XLA folds the division by 127 into that
-//     multiply), an IEEE division of x by it (__fdiv_rn), rintf (half to
-//     even), an exact int32 partial (<= 512 * 127^2 < 2^24, so it also
-//     converts to float exactly), and a fold written __fmul_rn / __fadd_rn
-//     so nvcc cannot contract it into an FMA;
 //   * ragged M/N/K edges are masked on load (zeros) and on store; nothing
 //     is padded in device memory.  These kernels read each element with a
 //     scalar load (the narrow and tensor-core tiles stage 16-byte chunks).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -270,8 +315,6 @@ namespace {
 
 constexpr int BN = 64;
 constexpr int BK = 32;
-constexpr int BKQ = 64;          // W8A8: K columns staged per sub-step ...
-constexpr int KQ = BKQ / 4;      // ... as 4 int8 codes per 32-bit word
 constexpr int THREADS = 256;
 constexpr int MAX_SMEM = 232448;  // 227 KB: the most a block may use
 
@@ -858,150 +901,6 @@ __device__ __forceinline__ int pack4(const int (&b)[4]) {
                ((unsigned)(b[3] & 0xff) << 24));
 }
 
-// The largest value over the block (every thread must call it).
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float m = red[0];
-#pragma unroll
-  for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
-  __syncthreads();                      // red is written again next step
-  return m;
-}
-
-// One (BM x BN) output tile of batch element blockIdx.z, W8A8 chain: x
-// quantized per reference tile, int8 codes w (and w2).
-template <typename TX, typename TO, int BM, bool DUAL>
-__global__ void __launch_bounds__(THREADS)
-af_gemm_w8a8_kernel(Args a) {
-  constexpr int TM = BM / 16;
-  constexpr int LDA = KQ + 1;           // padded: rows land on other banks
-  __shared__ int As[BM * LDA];          // packed x codes [BM][KQ]
-  __shared__ __align__(16) int Bs[KQ * BN];            // packed w codes
-  __shared__ __align__(16) int Bs2[DUAL ? KQ * BN : 4];
-  __shared__ float red[THREADS / 32];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int M = a.M, N = a.N, K = a.K;
-  const TX* x = static_cast<const TX*>(a.x) + blockIdx.z * a.bsx;
-  const int8_t* w = static_cast<const int8_t*>(a.w) + blockIdx.z * a.bsw;
-  const int8_t* w2 = DUAL ? static_cast<const int8_t*>(a.w2) : nullptr;
-  // rows of the reference quantization tile that holds this block's rows
-  // (quant_bm is M itself or a multiple of BM, so it holds all of them)
-  const int t0 = (m0 / a.quant_bm) * a.quant_bm;
-  const int t1 = min(t0 + a.quant_bm, M);
-
-  float acc[TM][4];
-  float acc2[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.f;
-      acc2[i][j] = 0.f;
-    }
-
-  for (int c0 = 0; c0 < K; c0 += a.quant_kk) {   // one reference step
-    const int c1 = min(c0 + a.quant_kk, K);
-    const int width = c1 - c0;
-    // the tile's scale, from the amax over all of its rows
-    float m = 0.f;
-    const long long n_el = (long long)(t1 - t0) * width;
-    for (long long idx = tid; idx < n_el; idx += THREADS) {
-      const int r = t0 + (int)(idx / width);
-      const int c = c0 + (int)(idx % width);
-      m = fmaxf(m, fabsf(x_at(a, x, r, c)));
-    }
-    // times fp32(1/127), as the reference's compiled quantizer computes it
-    const float scale = __fmul_rn(fmaxf(block_max(m, red), 1e-12f),
-                                  1.0f / 127.0f);
-
-    int iacc[TM][4];
-    int iacc2[TM][4];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        iacc[i][j] = 0;
-        iacc2[i][j] = 0;
-      }
-    for (int cb = c0; cb < c1; cb += BKQ) {
-      // stage this block's x rows as codes, 4 K-consecutive per word
-      for (int idx = tid; idx < BM * KQ; idx += THREADS) {
-        const int r = idx / KQ, q = idx - r * KQ;
-        const int gr = m0 + r;
-        int b[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int gc = cb + 4 * q + t;
-          b[t] = (gr < M && gc < c1) ? quant_code(x_at(a, x, gr, gc), scale)
-                                     : 0;
-        }
-        As[r * LDA + q] = pack4(b);
-      }
-      // stage the w (and w2) codes, 4 K-consecutive per word
-      for (int idx = tid; idx < KQ * BN; idx += THREADS) {
-        const int q = idx / BN, n = idx - q * BN;
-        const int gn = n0 + n;
-        int b[4], b2[4];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int gk = cb + 4 * q + t;
-          const bool ok = gk < c1 && gn < N;
-          const long long off = (long long)gk * a.ldw + gn;
-          b[t] = ok ? (int)w[off] : 0;
-          b2[t] = (DUAL && ok) ? (int)w2[off] : 0;
-        }
-        Bs[idx] = pack4(b);
-        if (DUAL) Bs2[idx] = pack4(b2);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int q = 0; q < KQ; ++q) {
-        int xa[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xa[i] = As[(ty * TM + i) * LDA + q];
-        const int4 bw = *reinterpret_cast<const int4*>(&Bs[q * BN + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          iacc[i][0] = __dp4a(xa[i], bw.x, iacc[i][0]);
-          iacc[i][1] = __dp4a(xa[i], bw.y, iacc[i][1]);
-          iacc[i][2] = __dp4a(xa[i], bw.z, iacc[i][2]);
-          iacc[i][3] = __dp4a(xa[i], bw.w, iacc[i][3]);
-        }
-        if (DUAL) {
-          const int4 bw2 =
-              *reinterpret_cast<const int4*>(&Bs2[q * BN + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            iacc2[i][0] = __dp4a(xa[i], bw2.x, iacc2[i][0]);
-            iacc2[i][1] = __dp4a(xa[i], bw2.y, iacc2[i][1]);
-            iacc2[i][2] = __dp4a(xa[i], bw2.z, iacc2[i][2]);
-            iacc2[i][3] = __dp4a(xa[i], bw2.w, iacc2[i][3]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // fold this step's exact int32 partial, times its tile scale
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn((float)iacc[i][j], scale));
-        if (DUAL)
-          acc2[i][j] =
-              __fadd_rn(acc2[i][j], __fmul_rn((float)iacc2[i][j], scale));
-      }
-  }
-  store_tile<TX, TO, TM, DUAL>(a, acc, acc2, m0 + ty * TM, n0 + tx * 4);
-}
-
 // ---------------------------------------------------------------------------
 // W8A8 narrow decode tile at M <= 16 rows (K1's af_gemm_q and K2's
 // af_expert_gemm_q with act_quant; the expert on blockIdx.z)
@@ -1088,10 +987,10 @@ __device__ __forceinline__ void qw_col4(const int8_t* p, int ld,
 //     passes a step boundary, and at its end, it adds them into the step's
 //     partials with shared-memory atomicAdd (integer: exact in any order);
 //   * fold: each output takes acc + float(iacc) * scale step by step in
-//     increasing order (__fmul_rn / __fadd_rn, the 64-row tile's fold).
+//     increasing order (__fmul_rn / __fadd_rn, the plain version's fold).
 // After the last round, store_one once per output.  The codes, the scales,
-// every step's int32 partial and the fold are af_gemm_w8a8_kernel's, so
-// the output is its bits, at every width, ring depth, round size and E.
+// every step's int32 partial and the fold are the plain version's, so the
+// output is its bits, at every width, ring depth, round size and E.
 template <typename TX, int COLS, int MR, bool DUAL>
 __global__ void __launch_bounds__(NW_THREADS,
                                   (QwShape<COLS, MR, DUAL>::MIN_BLOCKS))
@@ -1755,6 +1654,640 @@ af_gemm_tc_kernel(Args a, int stages) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// W8A8 above 16 rows: the quantize pass into scratch and the int8
+// tensor-core tile (K1's af_gemm_q and K2's af_expert_gemm_q with
+// act_quant at M, or T, > 16; the expert on blockIdx.z)
+
+constexpr int QT_SUB = 32;          // code columns of one k32 sub-tile
+constexpr int QT_CLUSTER = 8;       // the quantize pass: most blocks (a
+                                    // cluster) a reference tile, ...
+constexpr int QT_THREADS = 128;     // ... threads a block, ...
+constexpr int QT_ITEMS = 4;         // ... and items (a row by 16
+                                    // columns) a thread holds in registers
+constexpr int QT_BM = 128;          // the tile's rows
+constexpr int QT_SUBS = 8;          // sub-tiles a step of the tile's double
+                                    // buffer
+
+// The scratch of one launch, fixed by M (T), K, the reference's tile
+// (quant_bm, quant_kk) and the batch: codes [batch][M][steps * kk32]
+// int8, kk32 = quant_kk rounded up to 32, then from the next 16-byte
+// boundary scales [batch][rtiles][steps] fp32.  The wrapper's
+// w8a8_scratch computes the same layout.
+struct QtLayout {
+  int steps, rtiles, kk32;
+  long long ldc;                    // bytes a code row
+  long long codes_bytes, scales_off, bytes;
+};
+
+inline QtLayout qt_layout(int M, int K, int quant_bm, int quant_kk,
+                          int batch) {
+  QtLayout l;
+  l.steps = (K + quant_kk - 1) / quant_kk;
+  l.rtiles = (M + quant_bm - 1) / quant_bm;
+  l.kk32 = (quant_kk + QT_SUB - 1) / QT_SUB * QT_SUB;
+  l.ldc = (long long)l.steps * l.kk32;
+  l.codes_bytes = (long long)batch * M * l.ldc;
+  l.scales_off = (l.codes_bytes + 15) / 16 * 16;
+  l.bytes = l.scales_off + 4LL * batch * l.rtiles * l.steps;
+  return l;
+}
+
+// The x column (from the start of its 32-column group) whose code sits at
+// position p of the group: positions 4t..4t+3 of each 16-column half hold
+// its columns 2t, 2t+1, 2t+8, 2t+9 -- the K order in which the tile's
+// byte permutes hand a B fragment its w rows.
+__host__ __device__ constexpr int qt_col(int p) {
+  return 16 * (p / 16) + 2 * ((p % 16) / 4) + (p & 1) + 8 * ((p >> 1) & 1);
+}
+
+// 16 neighbouring elements of T from p, the first n valid (zeros past
+// them), widened exactly to fp32: 16-byte loads where vec and all 16 are
+// valid (p then on the 16-byte grid), else scalar loads.
+template <typename T>
+__device__ __forceinline__ void qt_load16(const T* p, int n, bool vec,
+                                          float (&v)[16]) {
+  if (vec && n >= 16) {
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 q = reinterpret_cast<const float4*>(p)[i];
+        v[4 * i] = q.x;
+        v[4 * i + 1] = q.y;
+        v[4 * i + 2] = q.z;
+        v[4 * i + 3] = q.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+        const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[8 * i + 2 * j] = tc::bf16_lo(u[j]);
+          v[8 * i + 2 * j + 1] = tc::bf16_hi(u[j]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) v[e] = e < n ? to_f(p[e]) : 0.f;
+  }
+}
+
+// The quantize pass: one cluster of `cl` blocks a reference tile --
+// quant_bm rows (row tile blockIdx.y / cl) by one quant_kk step
+// (blockIdx.x) of expert blockIdx.z -- each block a run of the tile's rows.
+// An item is one row by 16 code columns of the step (padded to kk32); each
+// thread loads QT_ITEMS items a batch, all loads in flight before any is
+// used, with x_at's prologue (g in fp32, rounded back to x's type).  The
+// blocks' amax meet through distributed shared memory (each reads every
+// block's, between two cluster barriers), so every block holds the tile's
+// scale, amax * fp32(1/127) as the reference's compiled quantizer computes
+// it (block 0 stores it); then every item's 16 codes (quant_code) go out
+// as one 16-byte store, in qt_col's order, zeros past the step.  A block of
+// one batch quantizes from the registers its amax pass loaded; more items
+// read x again (L2).  Several blocks a tile where the tiles are few
+// (qt_cluster): a tile's 128 rows on one SM left the pass at 8-10 us a
+// launch on the prefill chunk's 896-wide sites (4 steps x 8 row tiles: 32
+// SMs busy).
+template <typename TX>
+__global__ void __launch_bounds__(QT_THREADS)
+af_w8a8_quant_kernel(const TX* x, const float* g, int8_t* codes,
+                     float* scales, int M, int K, long long ldx,
+                     long long bsx, int quant_bm, int quant_kk, int cl,
+                     QtLayout l) {
+  namespace cg = cooperative_groups;
+  constexpr int BATCH = QT_ITEMS * QT_THREADS;
+  __shared__ float red[QT_THREADS / 32];
+  __shared__ float part;                    // this block's amax
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x, t = blockIdx.y / cl;
+  const long long z = blockIdx.z;
+  const int rpb = (quant_bm + cl - 1) / cl;                   // rows a block
+  const int r0 = t * quant_bm + rank * rpb;
+  const int nr = max(0, min(rpb, min(quant_bm, M - t * quant_bm) -
+                                     rank * rpb));
+  const int c0 = s * quant_kk, nc = min(quant_kk, K - c0);
+  const TX* xt = x + z * bsx + (long long)r0 * ldx + c0;
+  const float* gt = g != nullptr ? g + c0 : nullptr;
+  const bool xvec = reinterpret_cast<uintptr_t>(xt) % 16 == 0 &&
+                    (ldx * (long long)sizeof(TX)) % 16 == 0;
+  const bool gvec = reinterpret_cast<uintptr_t>(gt) % 16 == 0;
+  const int halves = l.kk32 / 16;          // items a row
+  const int n_items = nr * halves;
+
+  float v[QT_ITEMS][16];
+  auto load = [&](int b0) {
+#pragma unroll
+    for (int u = 0; u < QT_ITEMS; ++u) {
+      const int i = b0 + u * QT_THREADS + threadIdx.x;
+      const int r = i / halves, c = 16 * (i - r * halves);
+      const int n = i < n_items ? nc - c : 0;
+      qt_load16(xt + (long long)r * ldx + c, n, xvec, v[u]);
+      if (gt != nullptr && n > 0) {
+        float gv[16];
+        qt_load16(gt + c, n, gvec, gv);
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          v[u][e] = to_f(from_f<TX>(__fmul_rn(v[u][e], gv[e])));
+      }
+    }
+  };
+
+  float m = 0.f;
+  for (int b0 = 0; b0 < n_items; b0 += BATCH) {
+    load(b0);
+#pragma unroll
+    for (int u = 0; u < QT_ITEMS; ++u)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) m = fmaxf(m, fabsf(v[u][e]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b = red[0];
+#pragma unroll
+    for (int i = 1; i < QT_THREADS / 32; ++i) b = fmaxf(b, red[i]);
+    part = b;
+  }
+  cluster.sync();                          // every block's part is written
+  float amax = 0.f;
+  for (int r = 0; r < cl; ++r)
+    amax = fmaxf(amax, *cluster.map_shared_rank(&part, r));
+  cluster.sync();                          // and read, before any exits
+  // times fp32(1/127), as the reference's compiled quantizer computes it
+  const float scale = __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
+  if (rank == 0 && threadIdx.x == 0)
+    scales[(z * l.rtiles + t) * l.steps + s] = scale;
+
+  int8_t* ct = codes + (z * M + r0) * l.ldc + (long long)s * l.kk32;
+  for (int b0 = 0; b0 < n_items; b0 += BATCH) {
+    if (n_items > BATCH) load(b0);
+#pragma unroll
+    for (int u = 0; u < QT_ITEMS; ++u) {
+      const int i = b0 + u * QT_THREADS + threadIdx.x;
+      if (i >= n_items) continue;
+      const int r = i / halves, h = i - r * halves;
+      uint32_t wd[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          word |= (uint32_t)(quant_code(v[u][qt_col(4 * j + b)], scale) &
+                             0xff) << (8 * b);
+        wd[j] = word;
+      }
+      *reinterpret_cast<uint4*>(ct + r * l.ldc + 16 * h) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  }
+}
+
+// What the host fixes for one launch of the tile: the scratch's codes and
+// scales, and their layout.
+struct QtPlan {
+  const int8_t* codes;
+  const float* scales;
+  QtLayout l;
+};
+
+// One slot of the double buffer (a 32-column sub-tile): x codes [BM][32]
+// and w (w2) codes [32][BN], each row padded by one 16-byte chunk, so the 8
+// rows an ldmatrix reads land on distinct banks; the epilogue's fp32
+// tile(s) [BM][BN + 16] over the buffer (a float4 store of 8 lanes on two
+// rows lands on distinct banks).
+template <int BM, int BN, bool DUAL>
+struct QtTile {
+  static constexpr int LDA = QT_SUB + 16;           // bytes
+  static constexpr int LDB = BN + 16;               // bytes
+  static constexpr int A_BYTES = BM * LDA;
+  static constexpr int B_BYTES = QT_SUB * LDB;
+  static constexpr int SLOT = A_BYTES + B_BYTES * (DUAL ? 2 : 1);
+  static constexpr int LDC = BN + 16;               // floats
+  static constexpr int CTILE = BM * LDC * (DUAL ? 2 : 1);
+  static constexpr size_t SMEM =                    // bytes
+      std::max((size_t)2 * QT_SUBS * SLOT, sizeof(float) * CTILE);
+};
+
+// One (BM x BN) output tile of batch element blockIdx.z in WM x WN warps:
+// the int8 products of the quantized x (p.codes) and w (w2) on the tensor
+// cores, each reference step's exact int32 partial folded into the fp32
+// accumulators times that step's scale, in step order; then store_one's
+// epilogue (TR: the residual's type, x's).  The operands run through a
+// double buffer of QT_SUBS sub-tiles a step: one barrier a step, the next
+// step's copies in flight while this one computes (deeper rings of fewer
+// sub-tiles a step ran slower).
+template <typename TR, typename TO, int BM, int BN, int WM, int WN, bool DUAL>
+__global__ void __launch_bounds__(WM * WN * 32)
+af_gemm_w8a8_tc_kernel(Args a, QtPlan p) {
+  using L = QtTile<BM, BN, DUAL>;
+  constexpr int NTHR = WM * WN * 32;
+  constexpr int TMW = BM / WM, TNW = BN / WN;   // a warp's tile
+  constexpr int MT = TMW / 16, NG = TNW / 16;   // its m16 tiles, 16-column
+                                                // groups (two n8 tiles each)
+  constexpr int NW = DUAL ? 2 : 1;              // contractions
+  static_assert(TMW % 16 == 0 && TNW % 16 == 0, "warp tile");
+  extern __shared__ __align__(16) unsigned char qt_smem[];
+  const uint32_t ring = tc::smem_addr(qt_smem);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int M = a.M, N = a.N, K = a.K, kk = a.quant_kk;
+  const int sps = p.l.kk32 / QT_SUB;            // sub-tiles a step
+  const int n_sub = p.l.steps * sps;
+  const long long ldc = p.l.ldc;
+  // batch element blockIdx.z (an expert, or a batch x kv-head; 0 for K1),
+  // offset before the alignment test
+  const long long z = blockIdx.z;
+  const int8_t* codes = p.codes + z * M * ldc;
+  const float* scales =
+      p.scales + (z * p.l.rtiles + m0 / a.quant_bm) * p.l.steps;
+  const int8_t* w = static_cast<const int8_t*>(a.w) + z * a.bsw;
+  const int8_t* w2 = static_cast<const int8_t*>(a.w2);   // K1's dual only
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    a.ldw % 16 == 0 &&
+                    (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
+
+  using XC = Chunks<BM, QT_SUB, NTHR, 1>;
+  using WC = Chunks<QT_SUB, BN, NTHR, 1>;
+  XC xs;
+  WC ws;
+  xs.init(L::LDA);
+  ws.init(L::LDB);
+  const int8_t* xp[XC::N];
+  int x_n[XC::N];                      // 16: the chunk's row exists
+  long long wo[WC::N];                 // the chunk's column offset in W
+  int w_n[WC::N];                      // its valid columns
+#pragma unroll
+  for (int j = 0; j < XC::N; ++j) {
+    const bool ok = xs.r[j] >= 0 && m0 + xs.r[j] < M;
+    x_n[j] = ok ? 16 : 0;
+    xp[j] = codes + (ok ? (long long)(m0 + xs.r[j]) * ldc + xs.c[j] : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < WC::N; ++j) {
+    w_n[j] = ws.r[j] >= 0 ? min(16, N - n0 - ws.c[j]) : 0;
+    wo[j] = (long long)max(ws.r[j], 0) * a.ldw + n0 + ws.c[j];
+  }
+
+  // stage sub-tile `sub` (code columns 32 sub.., w rows from k0) into a
+  // slot: K rows past K zero (the step padding's codes are zero, so the
+  // next step's w rows in a padded sub-tile add nothing)
+  auto stage = [&](int sub, uint32_t slot) {
+    const int st = sub / sps;
+    const int k0 = st * kk + (sub - st * sps) * QT_SUB;
+#pragma unroll
+    for (int j = 0; j < XC::N; ++j)
+      if (xs.r[j] >= 0)
+        tc::cp_chunk(slot + xs.off[j], xp[j] + (long long)sub * QT_SUB,
+                     x_n[j], 16);
+    if (wvec) {
+      const long long kofs = (long long)k0 * a.ldw;
+#pragma unroll
+      for (int j = 0; j < WC::N; ++j) {
+        if (ws.r[j] < 0) continue;
+        const int n = k0 + ws.r[j] < K ? w_n[j] : 0;
+        tc::cp_chunk(slot + L::A_BYTES + ws.off[j], w + kofs + wo[j], n, 16);
+        if (DUAL)
+          tc::cp_chunk(slot + L::A_BYTES + L::B_BYTES + ws.off[j],
+                       w2 + kofs + wo[j], n, 16);
+      }
+    } else {
+      int8_t* base =
+          reinterpret_cast<int8_t*>(qt_smem + (slot - ring) + L::A_BYTES);
+      tc::stage_tile<QT_SUB, BN, NTHR>(base, L::LDB, w, a.ldw, k0, K, n0, N,
+                                       false);
+      if (DUAL)
+        tc::stage_tile<QT_SUB, BN, NTHR>(base + L::B_BYTES, L::LDB, w2,
+                                         a.ldw, k0, K, n0, N, false);
+    }
+  };
+
+  // [contraction][m16 tile][n8 tile: 2q the even, 2q + 1 the odd columns
+  // of 16-column group q][fragment]
+  int iacc[NW][MT][2 * NG][4];
+  float acc[NW][MT][2 * NG][4];
+#pragma unroll
+  for (int v = 0; v < NW; ++v)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NG; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[v][i][j][e] = 0.f;
+
+  // the products of one staged sub-tile; a step's first zeroes the int32
+  // sums and loads the step's scale, its last folds the sums in with it
+  float sc = 0.f;
+  auto compute = [&](int sub, uint32_t slot) {
+    const unsigned char* S = qt_smem + (slot - ring);
+    const int st = sub / sps, o = sub - st * sps;
+    if (o == 0) {
+      sc = __ldg(scales + st);
+#pragma unroll
+      for (int v = 0; v < NW; ++v)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * NG; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) iacc[v][i][j][e] = 0;
+    }
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      tc::ldmatrix_x4(af[mt], S + (wm * TMW + mt * 16 + lane % 16) * L::LDA +
+                                  (lane / 16) * 16);
+#pragma unroll
+    for (int v = 0; v < NW; ++v) {
+      // lane l gives row l of the 32 K rows: matrix i is K rows 8i..8i+7
+      const unsigned char* Bs =
+          S + L::A_BYTES + v * L::B_BYTES + lane * L::LDB + wn * TNW;
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        // r[i]: columns 2g, 2g + 1 at K rows 8i + 2t, 8i + 2t + 1
+        uint32_t r[4];
+        tc::ldmatrix_x4_trans(r, Bs + 16 * q);
+        const uint32_t e0 = __byte_perm(r[0], r[1], 0x6420);  // column 2g
+        const uint32_t e1 = __byte_perm(r[2], r[3], 0x6420);
+        const uint32_t d0 = __byte_perm(r[0], r[1], 0x7531);  // 2g + 1
+        const uint32_t d1 = __byte_perm(r[2], r[3], 0x7531);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          tc::mma_s8(iacc[v][mt][2 * q], af[mt], e0, e1);
+          tc::mma_s8(iacc[v][mt][2 * q + 1], af[mt], d0, d1);
+        }
+      }
+    }
+    if (o == sps - 1) {
+#pragma unroll
+      for (int v = 0; v < NW; ++v)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * NG; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[v][i][j][e] = __fadd_rn(
+                  acc[v][i][j][e], __fmul_rn((float)iacc[v][i][j][e], sc));
+    }
+  };
+
+  const uint32_t step_bytes = (uint32_t)L::SLOT * QT_SUBS;
+  const int n_steps = (n_sub + QT_SUBS - 1) / QT_SUBS;
+  auto issue = [&](int step, uint32_t base) {
+    if (step < n_steps)
+      for (int s = 0, sub = step * QT_SUBS; s < QT_SUBS && sub < n_sub;
+           ++s, ++sub)
+        stage(sub, base + s * L::SLOT);
+    tc::cp_async_commit();
+  };
+  auto run = [&](int step, uint32_t base) {
+    for (int s = 0, sub = step * QT_SUBS; s < QT_SUBS && sub < n_sub;
+         ++s, ++sub)
+      compute(sub, base + s * L::SLOT);
+  };
+  run_ring(ring, step_bytes, 2, n_steps, issue, run);
+
+  // the fp32 tile(s) through shared memory (the ring is free now): a
+  // lane's row g (g + 8) of group q holds columns 16q + 4t .. 16q + 4t + 3
+  // as (even c0, odd c0, even c1, odd c1) (c2, c3)
+  __syncthreads();
+  float* Cs = reinterpret_cast<float*>(qt_smem);
+#pragma unroll
+  for (int v = 0; v < NW; ++v)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int q = 0; q < NG; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = wm * TMW + mt * 16 + lane / 4 + 8 * h;
+          const int cc = wn * TNW + 16 * q + 4 * (lane % 4);
+          *reinterpret_cast<float4*>(Cs + (v * BM + rr) * L::LDC + cc) =
+              make_float4(acc[v][mt][2 * q][2 * h],
+                          acc[v][mt][2 * q + 1][2 * h],
+                          acc[v][mt][2 * q][2 * h + 1],
+                          acc[v][mt][2 * q + 1][2 * h + 1]);
+        }
+  __syncthreads();
+  // then store_one's math, each thread on one column pair (its scales and
+  // biases loaded once) of every RSTEP-th row, consecutive threads on
+  // consecutive pairs of a row, UNROLL rows' loads in flight: with the
+  // per-column loads in every row's iteration, one row at a time, the
+  // epilogue's latency was most of a launch at the dual and the 896-wide
+  // sites
+  constexpr int PR = BN / 2, RSTEP = NTHR / PR;
+  const TR* res = static_cast<const TR*>(a.residual);     // K1 only
+  TO* out = static_cast<TO*>(a.out) + z * a.bso;
+  const int cpi = threadIdx.x % PR, c = n0 + 2 * cpi;
+  const int nc = min(2, N - c);                 // the pair's columns
+  float sv[NW][2] = {}, bv[NW][2] = {};
+  const float* wsv[2] = {a.w_scale + z * a.bss, a.w2_scale};
+  const float* bsv[2] = {a.bias, a.bias2};
+#pragma unroll
+  for (int v = 0; v < NW; ++v)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (e < nc) {
+        sv[v][e] = wsv[v][c + e];
+        if (bsv[v] != nullptr) bv[v][e] = bsv[v][c + e];
+      }
+  const bool pair = nc == 2 && a.ldo % 2 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % (2 * sizeof(TO)) == 0;
+#pragma unroll 4
+  for (int rr = threadIdx.x / PR; rr < BM; rr += RSTEP) {
+    const int r = m0 + rr;
+    if (r >= M || nc <= 0) continue;
+    const float2 yv = *reinterpret_cast<const float2*>(Cs + rr * L::LDC +
+                                                       2 * cpi);
+    float2 y2v = make_float2(0.f, 0.f);
+    if (DUAL)
+      y2v = *reinterpret_cast<const float2*>(Cs + (BM + rr) * L::LDC +
+                                             2 * cpi);
+    const float y[2] = {yv.x, yv.y}, y2[2] = {y2v.x, y2v.y};
+    float o[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {        // store_one's order and roundings
+      float t = __fmul_rn(y[e], sv[0][e]);
+      if (a.bias != nullptr) t = __fadd_rn(t, bv[0][e]);
+      o[e] = activate(t, a.activation);
+      if (DUAL) {
+        float t2 = __fmul_rn(y2[e], sv[NW - 1][e]);
+        if (a.bias2 != nullptr) t2 = __fadd_rn(t2, bv[NW - 1][e]);
+        o[e] = __fmul_rn(o[e], t2);
+      }
+      if (res != nullptr && e < nc)
+        o[e] = __fadd_rn(to_f(res[(long long)r * a.ldr + c + e]), o[e]);
+    }
+    TO* d = out + (long long)r * a.ldo + c;
+    if (pair) {
+      if constexpr (sizeof(TO) == 4)
+        *reinterpret_cast<float2*>(d) = make_float2(o[0], o[1]);
+      else
+        *reinterpret_cast<uint32_t*>(d) = tc::pack_bf16(o[0], o[1]);
+    } else {
+      for (int e = 0; e < nc; ++e) d[e] = from_f<TO>(o[e]);
+    }
+  }
+}
+
+// The tile's width at M rows, N columns and `batch` experts: 128 columns
+// (8 warps of 64 x 32) where the 128 x 128 grid fills the card, else 64
+// (8 warps of 32 x 32: twice the blocks, where the 1024-row prefill
+// chunk's 896-wide sites would fill 56 SMs); the dual takes 64, with two
+// accumulator sets.
+inline int qt_cols(int M, int N, bool dual, int batch) {
+  if (dual) return 64;
+  const long long blocks =
+      (long long)((M + QT_BM - 1) / QT_BM) * ((N + 127) / 128) * batch;
+  return blocks >= NW_SMS ? 128 : 64;
+}
+
+// The tile at width BN.  smem_only: report the dynamic shared memory the
+// launch takes, and launch nothing.
+template <typename TR, typename TO, int BN, int WM, int WN, bool DUAL>
+int launch_qt_tile(const Args& a, const QtPlan& p, int batch,
+                   cudaStream_t stream, size_t* smem_only) {
+  constexpr size_t smem = QtTile<QT_BM, BN, DUAL>::SMEM;
+  static_assert(smem <= (size_t)MAX_SMEM, "W8A8 tile shared memory");
+  if (smem_only != nullptr) {
+    *smem_only = smem;
+    return 0;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      af_gemm_w8a8_tc_kernel<TR, TO, QT_BM, BN, WM, WN, DUAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + QT_BM - 1) / QT_BM, batch);
+  af_gemm_w8a8_tc_kernel<TR, TO, QT_BM, BN, WM, WN, DUAL>
+      <<<grid, WM * WN * 32, smem, stream>>>(a, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TR, typename TO, bool DUAL>
+int launch_qt_w(const Args& a, const QtPlan& p, int batch,
+                cudaStream_t stream, size_t* smem_only) {
+  if constexpr (DUAL) {
+    return launch_qt_tile<TR, TO, 64, 4, 2, true>(a, p, batch, stream,
+                                                  smem_only);
+  } else {
+    if (qt_cols(a.M, a.N, false, batch) == 128)
+      return launch_qt_tile<TR, TO, 128, 2, 4, false>(a, p, batch, stream,
+                                                      smem_only);
+    return launch_qt_tile<TR, TO, 64, 4, 2, false>(a, p, batch, stream,
+                                                   smem_only);
+  }
+}
+
+// The quantize pass's blocks a reference tile (a cluster): the fewest of
+// 1, 2, 4 and 8 whose grid reaches two blocks an SM, and no more than the
+// tile's rows.
+inline int qt_cluster(const QtLayout& l, int quant_bm, int batch) {
+  const long long tiles = (long long)l.steps * l.rtiles * batch;
+  int cl = 1;
+  while (cl < QT_CLUSTER && cl < quant_bm && tiles * cl < 2 * NW_SMS)
+    cl *= 2;
+  return cl;
+}
+
+// The quantize pass alone: x of TX (rows ldx apart, experts bsx apart) into
+// the scratch of layout l, a cluster of qt_cluster blocks a reference tile
+// (launched with the cluster's shape as a launch attribute).
+template <typename TX>
+int launch_qt_quant(const Args& a, const QtLayout& l, void* scratch,
+                    int batch, cudaStream_t stream) {
+  const int cl = qt_cluster(l, a.quant_bm, batch);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(l.steps, l.rtiles * cl, batch);
+  cfg.blockDim = dim3(QT_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cl;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, af_w8a8_quant_kernel<TX>, static_cast<const TX*>(a.x), a.g,
+      static_cast<int8_t*>(scratch),
+      reinterpret_cast<float*>(static_cast<char*>(scratch) + l.scales_off),
+      a.M, a.K, a.ldx, a.bsx, a.quant_bm, a.quant_kk, cl, l);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+}
+
+// Checks shared by the W8A8 entries above 16 rows: the quantization tile
+// (quant_bm rows must be M or a multiple of the tile's 128, so a block's
+// rows lie in one reference tile), the types, the batch and the grid, and
+// (unless layout_only) the scratch: 16-byte aligned, at least l.bytes.
+inline int qt_check(const Args& a, int x_dtype, int out_dtype, int batch,
+                    const void* scratch, long long scratch_bytes,
+                    QtLayout& l, bool layout_only) {
+  if (a.M < 1 || a.N < 1 || a.K < 1 || a.quant_bm < 1 || a.quant_kk < 1 ||
+      (a.quant_bm < a.M && a.quant_bm % QT_BM != 0) || batch < 1 ||
+      batch > 65535 || (x_dtype != F32 && x_dtype != BF16) ||
+      (out_dtype != F32 && out_dtype != BF16))
+    return (int)cudaErrorInvalidValue;
+  l = qt_layout(a.M, a.K, a.quant_bm, a.quant_kk, batch);
+  if ((long long)l.rtiles * QT_CLUSTER > 65535 ||
+      (a.M + QT_BM - 1) / QT_BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!layout_only &&
+      (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+       scratch_bytes < l.bytes))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// W8A8 above 16 rows: the quantize pass into `scratch`, then the int8
+// tensor-core tile, both on `stream`; `batch` experts on z.  A refused
+// launch launches nothing.  smem_only: report the tile's dynamic shared
+// memory, and launch nothing.
+template <bool DUAL>
+int launch_qt(const Args& a, int x_dtype, int out_dtype, int batch,
+              void* scratch, long long scratch_bytes, cudaStream_t stream,
+              size_t* smem_only = nullptr) {
+  QtLayout l;
+  int rc = qt_check(a, x_dtype, out_dtype, batch, scratch, scratch_bytes, l,
+                    smem_only != nullptr);
+  if (rc != 0) return rc;
+  const QtPlan p{static_cast<const int8_t*>(scratch),
+                 reinterpret_cast<const float*>(
+                     static_cast<const char*>(scratch) + l.scales_off),
+                 l};
+  auto tile = [&](size_t* so) {
+    if (x_dtype == F32)
+      return out_dtype == F32
+                 ? launch_qt_w<float, float, DUAL>(a, p, batch, stream, so)
+                 : launch_qt_w<float, __nv_bfloat16, DUAL>(a, p, batch,
+                                                           stream, so);
+    return out_dtype == F32
+               ? launch_qt_w<__nv_bfloat16, float, DUAL>(a, p, batch, stream,
+                                                         so)
+               : launch_qt_w<__nv_bfloat16, __nv_bfloat16, DUAL>(
+                     a, p, batch, stream, so);
+  };
+  size_t smem = 0;
+  rc = tile(&smem);
+  if (rc != 0 || smem_only != nullptr) {
+    if (smem_only != nullptr) *smem_only = smem;
+    return rc;
+  }
+  rc = x_dtype == F32
+           ? launch_qt_quant<float>(a, l, scratch, batch, stream)
+           : launch_qt_quant<__nv_bfloat16>(a, l, scratch, batch, stream);
+  if (rc != 0) return rc;
+  return tile(nullptr);
+}
+
 template <typename TX, typename TW, typename TO, int BM, bool DUAL>
 int launch(const Args& a, int batch, cudaStream_t stream) {
   const int kk = BK * a.k_collapse;
@@ -1767,17 +2300,6 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
   af_gemm_kernel<TX, TW, TO, BM, DUAL><<<grid, THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename TX, typename TO, int BM, bool DUAL>
-int launch_w8a8(const Args& a, int batch, cudaStream_t stream) {
-  // a block's rows must lie in one quantization tile
-  if (a.quant_bm < 1 || a.quant_kk < 1 ||
-      (a.quant_bm < a.M && a.quant_bm % BM != 0))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
-  af_gemm_w8a8_kernel<TX, TO, BM, DUAL><<<grid, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2041,33 +2563,13 @@ int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                                                    smem_only);
 }
 
-// W8A8 (act_quant) or the float chain, both at BM = 64 (every launch of
-// either at M <= 16 takes a narrow tile)
-template <typename TX, typename TW, typename TO, bool DUAL>
-int launch_bm(const Args& a, bool act_quant, int batch, cudaStream_t stream) {
-  if (act_quant) return launch_w8a8<TX, TO, 64, DUAL>(a, batch, stream);
-  return launch<TX, TW, TO, 64, DUAL>(a, batch, stream);
-}
-
+// The 64-column float chain (every launch at M <= 16 takes a narrow tile)
 template <typename TX, typename TW, bool DUAL>
-int launch_out(const Args& a, int out_dtype, bool act_quant, int batch,
-               cudaStream_t stream) {
+int launch_out(const Args& a, int out_dtype, int batch, cudaStream_t stream) {
   if (out_dtype == F32)
-    return launch_bm<TX, TW, float, DUAL>(a, act_quant, batch, stream);
+    return launch<TX, TW, float, 64, DUAL>(a, batch, stream);
   if (out_dtype == BF16)
-    return launch_bm<TX, TW, __nv_bfloat16, DUAL>(a, act_quant, batch, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-// TW = int8_t for the int8 forms; x is fp32 or bf16.
-template <typename TW, bool DUAL>
-int launch_x(const Args& a, int x_dtype, int out_dtype, bool act_quant,
-             int batch, cudaStream_t stream) {
-  if (x_dtype == F32)
-    return launch_out<float, TW, DUAL>(a, out_dtype, act_quant, batch, stream);
-  if (x_dtype == BF16)
-    return launch_out<__nv_bfloat16, TW, DUAL>(a, out_dtype, act_quant, batch,
-                                                stream);
+    return launch<TX, TW, __nv_bfloat16, 64, DUAL>(a, batch, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2097,8 +2599,8 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
     return dual ? launch_narrow_w<float, float, true, false>(a, out_dtype, 1, s)
                 : launch_narrow_w<float, float, false, false>(a, out_dtype, 1,
                                                               s);
-  return dual ? launch_out<float, float, true>(a, out_dtype, false, 1, s)
-              : launch_out<float, float, false>(a, out_dtype, false, 1, s);
+  return dual ? launch_out<float, float, true>(a, out_dtype, 1, s)
+              : launch_out<float, float, false>(a, out_dtype, 1, s);
 }
 
 // The same function on the tensor-core kernel: x/w/w2 and the residual
@@ -2154,10 +2656,12 @@ extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual,
 // codes through its cp.async ring, widened exactly to fp32 as they leave
 // shared memory, the scales first at the store), else on the 64-column
 // tile's float chain; act_quant = 1: W8A8 on the reference's x tiles of
-// quant_bm rows (M itself, or a multiple of 64) by quant_kk columns
-// (k_collapse is then only part of how quant_kk was chosen), on the W8A8
-// narrow tile at M <= 16 (x quantized once a block, the codes through the
-// warp rings, the width from M and N), else the 64-row __dp4a tile.
+// quant_bm rows (M itself, or at M > 16 a multiple of 128) by quant_kk
+// columns (k_collapse is then only part of how quant_kk was chosen), on
+// the W8A8 narrow tile at M <= 16 (x quantized once a block, the codes
+// through the warp rings, the width from M and N), else the quantize pass
+// into `scratch` (scratch_bytes, 16-byte aligned: af_w8a8_scratch_bytes)
+// and the int8 tensor-core tile, two launches on `stream`.
 extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                          const void* x, const void* w, const void* w2,
                          const float* w_scale, const float* w2_scale,
@@ -2166,6 +2670,7 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                          int M, int N, int K, long long ldx, long long ldw,
                          long long ldr, long long ldo, int k_collapse,
                          int activation, int quant_bm, int quant_kk,
+                         void* scratch, long long scratch_bytes,
                          void* stream) {
   const bool dual = w2 != nullptr;
   if (k_collapse < 1 || M < 1 || N < 1 || K < 1 || w_scale == nullptr ||
@@ -2178,15 +2683,18 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
   if (act_quant && M <= 16)
     return dual ? launch_qw_x<true>(a, x_dtype, out_dtype, 1, s)
                 : launch_qw_x<false>(a, x_dtype, out_dtype, 1, s);
-  if (!act_quant && M <= 16)
+  if (act_quant)
+    return dual ? launch_qt<true>(a, x_dtype, out_dtype, 1, scratch,
+                                  scratch_bytes, s)
+                : launch_qt<false>(a, x_dtype, out_dtype, 1, scratch,
+                                   scratch_bytes, s);
+  if (M <= 16)
     return dual ? launch_narrow_w<float, int8_t, true, false>(a, out_dtype, 1,
                                                               s)
                 : launch_narrow_w<float, int8_t, false, false>(a, out_dtype,
                                                                1, s);
-  return dual ? launch_x<int8_t, true>(a, x_dtype, out_dtype, act_quant != 0,
-                                       1, s)
-              : launch_x<int8_t, false>(a, x_dtype, out_dtype,
-                                        act_quant != 0, 1, s);
+  return dual ? launch_out<float, int8_t, true>(a, out_dtype, 1, s)
+              : launch_out<float, int8_t, false>(a, out_dtype, 1, s);
 }
 
 // W8 on the tensor-core kernel: x and the residual bf16, w/w2 int8 codes
@@ -2250,9 +2758,8 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
                : launch_expert_narrow<__nv_bfloat16>(a, out_dtype, E, s);
   }
   return w_dtype == F32
-             ? launch_out<float, float, false>(a, out_dtype, false, E, s)
-             : launch_out<float, __nv_bfloat16, false>(a, out_dtype, false,
-                                                       E, s);
+             ? launch_out<float, float, false>(a, out_dtype, E, s)
+             : launch_out<float, __nv_bfloat16, false>(a, out_dtype, E, s);
 }
 
 // The narrow FFMA tile at M rows (T for the expert form), N columns, K,
@@ -2363,13 +2870,16 @@ extern "C" int af_expert_gemm_tc(int out_dtype, const void* x, const void* w,
 // T, N and E; E <= 65535), larger T the 64-row float chain at k_collapse;
 // act_quant = 1: W8A8, each expert's x quantized on the reference's tiles
 // of quant_bm rows by quant_kk columns: at T <= 16 the W8A8 narrow tile
-// (the width from T, N and E, as the int8-only form's; E <= 65535),
-// larger T the 64-row __dp4a tile.
+// (the width from T, N and E, as the int8-only form's), larger T the
+// quantize pass into `scratch` (scratch_bytes, 16-byte aligned:
+// af_w8a8_scratch_bytes at batch E) and the int8 tensor-core tile, the
+// expert on z of both (E <= 65535).
 extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                 const void* x, const void* w,
                                 const float* w_scale, void* out, int E, int T,
                                 int K, int N, int k_collapse, int quant_bm,
-                                int quant_kk, void* stream) {
+                                int quant_kk, void* scratch,
+                                long long scratch_bytes, void* stream) {
   if (k_collapse < 1 || E < 1 || T < 1 || N < 1 || K < 1 ||
       w_scale == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -2380,7 +2890,10 @@ extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
   if (T <= 16 && E > 65535) return (int)cudaErrorInvalidValue;
   if (act_quant && T <= 16)
     return launch_qw_x<false>(a, x_dtype, out_dtype, E, s);
-  if (!act_quant && T <= 16) {
+  if (act_quant)
+    return launch_qt<false>(a, x_dtype, out_dtype, E, scratch, scratch_bytes,
+                            s);
+  if (T <= 16) {
     if (x_dtype == F32)
       return launch_narrow_w<float, int8_t, false, true>(a, out_dtype, E, s);
     if (x_dtype == BF16)
@@ -2388,5 +2901,82 @@ extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
           a, out_dtype, E, s);
     return (int)cudaErrorInvalidValue;
   }
-  return launch_x<int8_t, false>(a, x_dtype, out_dtype, act_quant != 0, E, s);
+  if (x_dtype == F32)
+    return launch_out<float, int8_t, false>(a, out_dtype, E, s);
+  if (x_dtype == BF16)
+    return launch_out<__nv_bfloat16, int8_t, false>(a, out_dtype, E, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// W8A8 above 16 rows (af_gemm_q / af_expert_gemm_q with act_quant at M, or
+// T, > 16) over `batch` experts (1 for K1), quantization tiles of quant_bm
+// rows by quant_kk columns: af_w8a8_scratch_bytes gives the scratch one
+// launch needs (codes, then scales), af_w8a8_tc_cols the tile's width and
+// af_w8a8_tc_smem its dynamic shared memory; -1 where the tile does not
+// take the launch (M <= 16, or a quant_bm that splits a block).
+extern "C" long long af_w8a8_scratch_bytes(int M, int K, int quant_bm,
+                                           int quant_kk, int batch) {
+  Args a{};
+  a.M = M;
+  a.N = 1;
+  a.K = K;
+  a.quant_bm = quant_bm;
+  a.quant_kk = quant_kk;
+  QtLayout l;
+  if (M <= 16 || qt_check(a, F32, F32, batch, nullptr, 0, l, true) != 0)
+    return -1;
+  return l.bytes;
+}
+
+extern "C" int af_w8a8_tc_cols(int M, int N, int dual, int batch) {
+  if (M <= 16 || N < 1 || batch < 1 || batch > 65535 || (dual && batch != 1))
+    return -1;
+  return qt_cols(M, N, dual != 0, batch);
+}
+
+extern "C" long long af_w8a8_tc_smem(int M, int N, int K, int quant_bm,
+                                     int quant_kk, int dual, int batch) {
+  if (M <= 16 || (dual && batch != 1)) return -1;
+  Args a{};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.quant_bm = quant_bm;
+  a.quant_kk = quant_kk;
+  size_t smem = 0;
+  const int rc =
+      dual ? launch_qt<true>(a, F32, F32, 1, nullptr, 0, nullptr, &smem)
+           : launch_qt<false>(a, F32, F32, batch, nullptr, 0, nullptr, &smem);
+  return rc == 0 ? (long long)smem : -1;
+}
+
+// The quantize pass of W8A8 above 16 rows alone (its time and its output
+// are measured and checked on their own): x [batch][M][K] of x_dtype (rows
+// ldx, experts bsx elements apart) with the rmsnorm scale g (null: none)
+// into `scratch` in af_w8a8_scratch_bytes's layout.  Returns
+// cudaGetLastError() of the launch.
+extern "C" int af_w8a8_quantize(int x_dtype, const void* x, const float* g,
+                                void* scratch, long long scratch_bytes,
+                                int M, int K, long long ldx, long long bsx,
+                                int batch, int quant_bm, int quant_kk,
+                                void* stream) {
+  Args a{};
+  a.x = x;
+  a.g = g;
+  a.M = M;
+  a.N = 1;
+  a.K = K;
+  a.ldx = ldx;
+  a.bsx = bsx;
+  a.quant_bm = quant_bm;
+  a.quant_kk = quant_kk;
+  QtLayout l;
+  if (M <= 16) return (int)cudaErrorInvalidValue;
+  const int rc =
+      qt_check(a, x_dtype, F32, batch, scratch, scratch_bytes, l, false);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_dtype == F32
+             ? launch_qt_quant<float>(a, l, scratch, batch, s)
+             : launch_qt_quant<__nv_bfloat16>(a, l, scratch, batch, s);
 }

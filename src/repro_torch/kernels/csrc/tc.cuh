@@ -1,7 +1,8 @@
-// Tensor-core building blocks shared by the bf16 kernels of this directory
-// (sm_80+ PTX, built here for sm_90a): cp.async staging with zero-fill (of
-// bf16 operands, fp32 vectors and int8 weight codes), ldmatrix fragment
-// loads and the mma.sync.m16n8k16 bf16 x bf16 -> fp32 product.
+// Tensor-core building blocks shared by the tensor-core kernels of this
+// directory (sm_80+ PTX, built here for sm_90a): cp.async staging with
+// zero-fill (of bf16 operands, fp32 vectors and int8 codes), ldmatrix
+// fragment loads, the mma.sync.m16n8k16 bf16 x bf16 -> fp32 product and
+// the mma.sync.m16n8k32 s8 x s8 -> s32 product.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 g + t, g = lane / 4,
 // t = lane % 4), each 32-bit register holding two bf16 at consecutive
@@ -15,6 +16,15 @@
 // them, and the accumulator, in fp32.  A sequence of mma instructions
 // applied to one accumulator in a fixed order gives the same bits however
 // the staging around it is cut.
+//
+// mma.m16n8k32 on int8 (s8) holds four int8 a register, at consecutive k
+// (the lowest k in the low byte):
+//   A (16 x 32, row-major):  a0 (row g, k 4t..4t+3)   a1 (row g + 8, same k)
+//                            a2 (row g, k 4t+16..+19) a3 (row g + 8, same k)
+//   B (32 x 8, "col"):       b0 (k 4t..4t+3, col g)   b1 (k 4t+16..+19, col g)
+//   C/D (16 x 8, s32):       as the fp32 C/D above
+// Its sums are exact integers, so they do not depend on the order of the
+// products (no overflow below 2^31: |code| <= 127).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,6 +120,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b on one m16n8k32 tile of int8 codes, exact int32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -1035,6 +1035,231 @@ def test_w8a8_narrow_width_rule(cuda):
     assert lib.af_w8a8_smem(17, 896, 896, 448, 0, 1) == -1
 
 
+# ---------------------------------------------------------------- W8A8 > 16
+
+# W8A8 above 16 rows (K1 at the prefill chunk, K2's attn.qk at g x chunk
+# query rows) runs the quantize pass into scratch and then the int8
+# tensor-core tile: the plain version's codes, scales, exact int32
+# partials and fold, so where the store is the dequant alone the output is
+# its bits, in either output type.  K1's (K, N) at every prefill-chunk site
+# of qwen2-0.5b (the dual as one contraction here; its store is not the
+# dequant alone).
+W8A8_TC_K1_SITES = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+def _norm_scale(g, K):
+    return 1.0 + 0.1 * torch.randn(K, generator=g, device="cuda")
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kn", W8A8_TC_K1_SITES)
+def test_w8a8_tc_k1_bits_equal_plain(cuda, kn, dx, out):
+    """The prefill chunk's 1024 rows at each site's (K, N), with the
+    rmsnorm scale in the prologue, at k = 1, 2, 4: the plain version's
+    bits, one launch a call."""
+    K, N = kn
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    x, kw = _quant_operands(g, 1024, K, N, dx, "none")
+    w = kw.pop("w")
+    kw["norm_scale"] = _norm_scale(g, K)
+    for k in (1, 2, 4):
+        got = _w8a8_call(ag.arrayflex_gemm, x, w,
+                         launch="arrayflex_gemm_w8a8", k_collapse=k,
+                         out_dtype=out, **kw)
+        want = ag.arrayflex_gemm_plain(x, w, act_quant=True, k_collapse=k,
+                                       out_dtype=out, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k, (got.float() - want.float())
+                                        .abs().max().item())
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mkn,flags", [
+    ((1024, 896, 896), "qkv"), ((1024, 896, 128), "qkv"),
+    ((1024, 896, 4864), "swiglu"), ((1024, 4864, 896), "residual"),
+    ((130, 300, 70), "all"), ((1000, 300, 70), "all")])
+def test_w8a8_tc_k1_epilogue_matches_plain(cuda, mkn, flags, dx):
+    """The full store (bias and norm scale, the dual swiglu with both
+    scales, the residual, all at once) in x's type: within one step of
+    the plain version (activations and the output cast may round
+    apart)."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, kw = _quant_operands(g, M, K, N, dx, flags)
+    w = kw.pop("w")
+    for k in (1, 2, 4):
+        got = _w8a8_call(ag.arrayflex_gemm, x, w,
+                         launch="arrayflex_gemm_w8a8", k_collapse=k, **kw)
+        _close_step(got, ag.arrayflex_gemm_plain(x, w, act_quant=True,
+                                                 k_collapse=k, **kw), dx)
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("M", [17, 130, 1000])
+def test_w8a8_tc_ragged_and_misaligned(cuda, M, k, dx):
+    """Ragged M (one short row tile, a last row tile of 2 or 104 rows), N
+    = 70 and K = 300 (quantization steps of 100, 152, 300 or 304 columns:
+    none a whole number of 32-column sub-tiles): the plain version's
+    bits, fp32 and bf16 out.  x with a row stride off the 16-byte grid
+    (the quantize pass's scalar loads) and w a column slice off it (the
+    tile's scalar staging) give the contiguous operands' bits."""
+    K, N = 300, 70
+    g = torch.Generator(device=cuda).manual_seed(M + k)
+    x, kw = _quant_operands(g, M, K, N, dx, "none")
+    w = kw.pop("w")
+    kw["norm_scale"] = _norm_scale(g, K)
+    xs = torch.zeros(M, K + 3, device=cuda, dtype=x.dtype)[:, 3:]
+    xs.copy_(x)
+    ws = torch.zeros(K, N + 1, device=cuda, dtype=w.dtype)[:, 1:]
+    ws.copy_(w)
+    for out in (torch.float32, torch.bfloat16):
+        got = _w8a8_call(ag.arrayflex_gemm, x, w,
+                         launch="arrayflex_gemm_w8a8", k_collapse=k,
+                         out_dtype=out, **kw)
+        want = ag.arrayflex_gemm_plain(x, w, act_quant=True, k_collapse=k,
+                                       out_dtype=out, **kw)
+        off = _w8a8_call(ag.arrayflex_gemm, xs, ws,
+                         launch="arrayflex_gemm_w8a8", k_collapse=k,
+                         out_dtype=out, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (out, (got.float() - want.float())
+                                        .abs().max().item())
+        assert torch.equal(off, got), out
+
+
+# K2's W8A8 above 16 query rows: attn.qk at the prefill chunk (E = B x KV
+# = 8, T = g x chunk = 1792, K = head_dim 64, N = max_seq 256), a ragged T
+# above 128 with a K that is not a whole sub-tile, and T = 17
+W8A8_TC_K2_SITES = [(8, 1792, 64, 256), (3, 300, 130, 70), (2, 17, 64, 40)]
+
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", W8A8_TC_K2_SITES)
+def test_w8a8_tc_k2_bits_equal_plain(cuda, etkn, dx, out):
+    """K2's store is the dequant alone, so the bits equal the plain
+    version's at either output type and k = 1, 2, 4."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
+    x, q, s = _w8a8_bank_operands(g, E, T, K, N, dx)
+    for k in (1, 2, 4):
+        got = _w8a8_call(ag.arrayflex_expert_gemm, x, q, w_scale=s,
+                         launch="arrayflex_expert_gemm_w8a8", k_collapse=k,
+                         out_dtype=out)
+        want = ag.arrayflex_expert_gemm_plain(x, q, w_scale=s,
+                                              act_quant=True, k_collapse=k,
+                                              out_dtype=out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (k, (got.float() - want.float())
+                                        .abs().max().item())
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(8, 1792, 64, 256), (7, 37, 131, 70),
+                                  (5, 300, 77, 201)])
+def test_w8a8_tc_k2_bits_do_not_depend_on_E(cuda, dx, etkn):
+    """An expert's output in an E-expert launch is the same bits as its
+    own one-expert launch, including experts whose codes are off their
+    16-byte boundary in the E-expert tensor (K * N odd: the tile's scalar
+    staging) and whose x rows are (T * K odd: the quantize pass's scalar
+    loads)."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + 3 * N)
+    x, q, s = _w8a8_bank_operands(g, E, T, K, N, dx)
+    whole = ag.arrayflex_expert_gemm(x, q, w_scale=s, act_quant=True,
+                                     k_collapse=2, out_dtype=torch.float32)
+    for e in sorted({0, 1, E // 2, E - 1}):
+        one = ag.arrayflex_expert_gemm(
+            x[e:e + 1].clone(), q[e:e + 1].clone(), w_scale=s[e:e + 1].clone(),
+            act_quant=True, k_collapse=2, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(whole[e:e + 1], one), e
+
+
+@pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [
+    ((1024, 896), 2), ((1024, 4864), 2), ((1024, 896), 4), ((130, 300), 1),
+    ((17, 300), 8), ((8, 1792, 64), 2), ((3, 37, 131), 4)])
+def test_w8a8_quantize_pass_equals_plain(cuda, shape, k, dx):
+    """The quantize pass alone: its codes (each step padded to whole
+    32-column sub-tiles, each group in ``w8a8_code_cols``'s order) and its
+    scales (one a row tile and step) are the plain model's bits, with the
+    rmsnorm scale in the prologue for K1; it counts no launch."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + k)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dx)
+    gs = _norm_scale(g, shape[-1]) if len(shape) == 2 else None
+    before = dict(ag.LAUNCHES)
+    codes, scales = ag.w8a8_quantize(x, norm_scale=gs, k_collapse=k)
+    assert ag.LAUNCHES == before
+    want_c, want_s = ag.w8a8_quantize_plain(ag.prologue_phase(x, gs), k)
+    torch.cuda.synchronize()
+    assert torch.equal(scales, want_s)
+    assert torch.equal(codes, want_c)
+
+
+def _af_gemm_q_w8a8(x, w, s, out, quant_bm, quant_kk, scratch, nbytes):
+    """One direct call of the C entry af_gemm_q under W8A8 (no bias,
+    residual or g); returns its code."""
+    M, K = x.shape
+    N = w.shape[1]
+    return ag._lib().af_gemm_q(
+        ag._DTYPE_CODE[x.dtype], ag._DTYPE_CODE[out.dtype], 1, x.data_ptr(),
+        w.data_ptr(), None, s.data_ptr(), None, None, None, None, None,
+        out.data_ptr(), M, N, K, K, N, 0, N, 1, 0, quant_bm, quant_kk,
+        None if scratch is None else scratch.data_ptr(), nbytes,
+        torch.cuda.current_stream().cuda_stream)
+
+
+def test_w8a8_tc_scratch_width_and_refusals(cuda):
+    """The C entry's scratch size is the wrapper's (``w8a8_scratch``); the
+    width rule: 64 columns at the 1024-row chunk's 896- and 128-wide sites
+    and the dual, 128 where the 128 x 128 grid fills the card (attn.qk at
+    the chunk: 8 experts); shared memory fits one SM; a quant_bm that
+    splits a 128-row block, too small a scratch and 16 rows or fewer are
+    refused, and a refused call writes nothing."""
+    lib = ag._lib()
+    for M, K, k, E in [(1024, 896, 2, 1), (1024, 4864, 2, 1),
+                       (1024, 896, 4, 1), (1792, 64, 2, 8), (130, 300, 1, 1),
+                       (17, 300, 8, 3), (1000, 300, 4, 1)]:
+        lay = ag.w8a8_scratch(M, K, k, E)
+        assert lib.af_w8a8_scratch_bytes(M, K, lay["bm"], lay["kk"],
+                                         E) == lay["nbytes"], (M, K, k, E)
+    for (M, N, dual, E), want in {
+            (1024, 896, 0, 1): 64, (1024, 128, 0, 1): 64,
+            (1024, 4864, 1, 1): 64, (1024, 4864, 0, 1): 128,
+            (1792, 256, 0, 8): 128, (17, 70, 0, 1): 64}.items():
+        assert lib.af_w8a8_tc_cols(M, N, dual, E) == want, (M, N, dual, E)
+    assert lib.af_w8a8_tc_cols(16, 896, 0, 1) == -1
+    for M, N, K, dual, E in [(1024, 896, 896, 0, 1), (1024, 4864, 896, 1, 1),
+                             (1024, 4864, 896, 0, 1), (1792, 256, 64, 0, 8)]:
+        bm, kk = ag.quant_tiles(M, K, 2)
+        assert 0 < lib.af_w8a8_tc_smem(M, N, K, bm, kk, dual, E) <= 232448
+    assert lib.af_w8a8_tc_smem(1024, 896, 896, 64, 224, 0, 1) == -1
+    assert lib.af_w8a8_tc_smem(1024, 896, 896, 256, 224, 0, 1) > 0
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, kw = _quant_operands(g, 1024, 896, 128, torch.bfloat16, "none")
+    out = torch.full((1024, 128), 3.0, device=cuda)
+    lay = ag.w8a8_scratch(1024, 896, 2)
+    scratch = torch.empty(lay["nbytes"], dtype=torch.uint8, device=cuda)
+    assert _af_gemm_q_w8a8(x, kw["w"], kw["w_scale"], out, 64, lay["kk"],
+                           scratch, lay["nbytes"]) != 0
+    assert _af_gemm_q_w8a8(x, kw["w"], kw["w_scale"], out, 128, lay["kk"],
+                           scratch, lay["nbytes"] - 1) != 0
+    assert _af_gemm_q_w8a8(x, kw["w"], kw["w_scale"], out, 128, lay["kk"],
+                           None, 0) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 3.0).all())
+    assert _af_gemm_q_w8a8(x, kw["w"], kw["w_scale"], out, 128, lay["kk"],
+                           scratch, lay["nbytes"]) == 0
+    want = ag.arrayflex_gemm_plain(x, kw["w"], w_scale=kw["w_scale"],
+                                   act_quant=True, k_collapse=2,
+                                   out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
 # ---------------------------------------------------------------- K3
 
 # (BH, S, T, D, causal, window): chip_smoke.py's shapes cut in BH, the

@@ -380,6 +380,175 @@ def test_expert_int8_plain_vs_reference():
     _close_rel(got, want)
 
 
+# --------------------------------------------- W8A8 above 16 rows: layout
+
+def _tile_model(xs, ws, k):
+    """The int8 tensor-core tile's arithmetic in plain torch, over the
+    scratch the quantize pass writes (``w8a8_quantize_plain``): per step,
+    its kk32 padded code columns against the w rows each column meets
+    (position p of the step's 32-column group j: row s kk + 32 j +
+    ``w8a8_code_cols()[p]``, zero past K; the padding's codes are zero, so
+    the next step's rows they meet add nothing), an exact integer partial
+    (in float64), folded into fp32 as acc + float(iacc) * scale of the
+    row's tile, in step order."""
+    *lead, M, K = xs.shape
+    lay = ag.w8a8_scratch(M, K, k)
+    codes, scales = ag.w8a8_quantize_plain(xs, k)
+    S, kk, kk32 = lay["steps"], lay["kk"], lay["kk32"]
+    cols = ag.w8a8_code_cols()
+    rows = torch.tensor([s * kk + p - p % 32 + cols[p % 32]
+                         for s in range(S) for p in range(kk32)])
+    row_scale = scales[..., torch.arange(M) // lay["bm"], :]   # (.., M, S)
+    accs = []
+    for w in ws:
+        wx = torch.zeros((*w.shape[:-2], (S - 1) * kk + kk32, w.shape[-1]),
+                         dtype=torch.float64)
+        wx[..., :K, :] = w
+        wl = wx[..., rows, :]
+        acc = torch.zeros((*lead, M, w.shape[-1]), dtype=torch.float32)
+        for s in range(S):
+            sl = slice(s * kk32, (s + 1) * kk32)
+            iacc = codes[..., sl].double() @ wl[..., sl, :]
+            acc = acc + iacc.float() * row_scale[..., s, None]
+        accs.append(acc)
+    return accs
+
+
+def _codes(rng, *shape):
+    return torch.from_numpy(rng.randint(-127, 128, size=shape).astype(
+        np.int8))
+
+
+@pytest.mark.parametrize("x_form", ["float32", "bfloat16", "float32+g",
+                                    "bfloat16+g"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("K", [64, 300, 896, 4864])
+@pytest.mark.parametrize("M", [17, 64, 100, 128, 130, 1024])
+def test_w8a8_tile_layout_gives_plain_bits(M, K, k, x_form):
+    """Above 16 rows the card quantizes x once into scratch (codes per
+    step padded to whole 32-column sub-tiles and permuted inside each
+    group, scales per row tile and step) and runs int8 sub-tiles: the
+    model of that layout gives ``_w8a8_accumulate``'s bits, for both
+    contractions of the dual.  M: one short tile, one whole, ragged last
+    tiles, the prefill chunk; K = 300: steps of 100, 152 or 300 columns,
+    none a whole sub-tile."""
+    dtype, g = x_form.split("+")[0], x_form.endswith("+g")
+    rng = np.random.RandomState(M + K + k)
+    x = torch.from_numpy(rng.randn(M, K)).to(TORCH[dtype])
+    gs = (torch.from_numpy(1.0 + 0.1 * rng.randn(K)).float() if g
+          else None)
+    xs = ag.prologue_phase(x, gs)
+    ws = [_codes(rng, K, 40), _codes(rng, K, 40)]
+    want = ag._w8a8_accumulate(xs, ws, k)
+    got = _tile_model(xs, ws, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("K", [300, 896])
+@pytest.mark.parametrize("M", [17, 130, 1024])
+def test_w8a8_tile_layout_vs_reference(M, K, k, dtype):
+    """The layout model through the store (the dual swiglu with both
+    scales and biases, the residual, the norm scale; fp32 out) against
+    the reference's W8A8 ``arrayflex_matmul`` in interpret mode: 1e-5 of
+    max |ref| (the interpret run contracts the fold into FMAs)."""
+    (xj, xt), kj, kt = _quant_operands(M, K, 48, dtype, M + K + k,
+                                       **FLAGS["swiglu_all"])
+    want = ref_ops.arrayflex_matmul(xj, kj.pop("w"), act_quant=True,
+                                    activation="silu", k_collapse=k,
+                                    out_dtype=jnp.float32, **kj)
+    y, y2 = _tile_model(ag.prologue_phase(xt, kt["norm_scale"]),
+                        [kt["w"], kt["w2"]], k)
+    got = ag.store_phase(y, y2, kt["w_scale"], kt["w2_scale"], kt["bias"],
+                         kt["bias2"], "silu", kt["residual"])
+    _close_rel(got, want)
+
+
+@pytest.mark.parametrize("T", [17, 37, 300])
+@pytest.mark.parametrize("E", [1, 3, 8])
+def test_w8a8_expert_tile_layout_gives_plain_bits(E, T):
+    """K2 (attn.qk above 16 query rows): each expert's rows their own
+    quantization tiles, the layout model over the expert axis gives
+    ``_w8a8_accumulate``'s bits at k = 1, 2, 4 and a K that is not a whole
+    sub-tile, and through the dequant agrees with the reference."""
+    rng = np.random.RandomState(E * T)
+    xj, xt = _pair(rng.randn(E, T, 130), "bfloat16")
+    qj, sj = ref_sub._quantize(jnp.asarray(rng.randn(E, 130, 70),
+                                           jnp.bfloat16))
+    q, s = _t(qj), _t(sj)
+    for k in (1, 2, 4):
+        (want,) = ag._w8a8_accumulate(xt, [q], k)
+        (got,) = _tile_model(xt, [q], k)
+        assert torch.equal(got, want), k
+    ref = ref_ops.arrayflex_expert_matmul(xj, qj, w_scale=sj, act_quant=True,
+                                          k_collapse=2, out_dtype=jnp.float32)
+    (y,) = _tile_model(xt, [q], 2)
+    _close_rel(ag.store_phase(y, w_scale=s.unsqueeze(-2)), ref)
+
+
+@pytest.mark.parametrize("M,K,k,E", [
+    (17, 64, 1, 1), (1024, 896, 2, 1), (1024, 896, 4, 1), (1024, 4864, 2, 1),
+    (1024, 4864, 4, 1), (130, 300, 1, 1), (1000, 300, 8, 1), (1792, 64, 2, 8),
+    (37, 131, 4, 7), (300, 77, 1, 5)])
+def test_w8a8_scratch_follows_quant_tiles(M, K, k, E):
+    """The wrapper's scratch layout of one launch above 16 rows:
+    ``quant_tiles``' tile, whole steps covering K, each step rounded up to
+    whole 32-column sub-tiles, codes [E][M][steps * kk32], then fp32
+    scales [E][row tiles][steps] from a 16-byte boundary; and the plain
+    quantize pass fills exactly that layout."""
+    lay = ag.w8a8_scratch(M, K, k, E)
+    assert (lay["bm"], lay["kk"]) == ag.quant_tiles(M, K, k)
+    assert (lay["steps"] - 1) * lay["kk"] < K <= lay["steps"] * lay["kk"]
+    assert lay["rtiles"] == -(-M // lay["bm"])
+    assert lay["kk32"] % 32 == 0 and lay["kk"] <= lay["kk32"] < \
+        lay["kk"] + 32
+    assert lay["ldc"] == lay["steps"] * lay["kk32"]
+    assert lay["codes_bytes"] == E * M * lay["ldc"]
+    assert lay["scales_off"] % 16 == 0 and \
+        0 <= lay["scales_off"] - lay["codes_bytes"] < 16
+    assert lay["nbytes"] == lay["scales_off"] + \
+        4 * E * lay["rtiles"] * lay["steps"]
+    x = torch.from_numpy(np.random.RandomState(K).randn(E, M, K)).float()
+    codes, scales = ag.w8a8_quantize(x, k_collapse=k)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    assert tuple(codes.shape) == (E, M, lay["ldc"])
+    assert tuple(scales.shape) == (E, lay["rtiles"], lay["steps"])
+
+
+def test_w8a8_quantize_plain_layout():
+    """The scratch's codes are ``quantize_tile``'s codes of each (row tile,
+    step) tile, each step padded with zeros to kk32 and each 32-column
+    group in ``w8a8_code_cols``' order (columns 2t, 2t+1, 2t+8, 2t+9 at
+    positions 4t..4t+3 of each half); the scales are the tiles'."""
+    cols = ag.w8a8_code_cols()
+    assert sorted(cols) == list(range(32))
+    assert cols[:8] == [0, 1, 8, 9, 2, 3, 10, 11]
+    assert cols[16:20] == [16, 17, 24, 25]
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(200, 300)).float()
+    gs = torch.from_numpy(1.0 + 0.1 * rng.randn(300)).float()
+    codes, scales = ag.w8a8_quantize(x, norm_scale=gs, k_collapse=1)
+    xs = ag.prologue_phase(x, gs)
+    lay = ag.w8a8_scratch(200, 300, 1)                # kk 100, kk32 128
+    assert (lay["kk"], lay["kk32"], lay["steps"]) == (100, 128, 3)
+    for t in range(lay["rtiles"]):
+        for s in range(lay["steps"]):
+            r0, c0 = t * 128, s * 100
+            tile = torch.zeros(128, 100)
+            part = xs[r0:r0 + 128, c0:c0 + 100]
+            tile[:part.shape[0], :part.shape[1]] = part
+            want, scale = ag.quantize_tile(tile)
+            assert torch.equal(scales[t, s], scale)
+            got = codes[r0:r0 + 128, s * 128:(s + 1) * 128]
+            back = torch.zeros_like(got)
+            for p in range(128):
+                back[:, p - p % 32 + cols[p % 32]] = got[:, p]
+            assert torch.equal(back[:, :100], want[:part.shape[0]])
+            assert not back[:, 100:].any()
+
+
 def test_quant_wrapper_validation():
     x, q, s = torch.zeros(4, 8), torch.zeros(8, 4, dtype=torch.int8), \
         torch.ones(4)
