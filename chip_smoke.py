@@ -56,6 +56,19 @@ failure of which exits non-zero:
    logits, and each run's kernel launch counters (set to 0 just before
    it) must equal its forms' launches per step times the steps, every
    bf16 K1 and K2 launch (the W8 K1's too) on the tensor-core kernels;
+   then paged serving of full-width qwen2-0.5b (page
+   ``planner.page_plan(256)`` = 128, every run's counters checked the same
+   way, its prefill K1/K2 launches too): (a) the same requests on each
+   backend from a pool that reserves each in full, greedy streams equal
+   to the dense runs' bit for bit on ``arrayflex`` and ``arrayflex_int8``
+   (``arrayflex_w8a8``: printed, and two paged runs identical), with
+   ``kv_cache_bytes`` and the paged decode step's host-clock and
+   device-busy time beside the dense one's, and one step of each timed
+   alone in turns; (b) eight short requests at ``max_batch`` 4, all
+   resident at once (``concurrency_peak`` 8), every page returned; (c)
+   eight requests sharing a 128-token system prompt, the followers
+   arriving once the first has decoded, cold, warm (the radix prefix
+   cache), warm, cold: equal streams, fewer prefill tokens and launches;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
@@ -1022,6 +1035,7 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, dispatch_counts=dispatches,
         prefill_chunk=engine.prefill_chunk,
+        kv_cache_bytes=engine.kv_cache_bytes(),
         streams=[r.out_tokens for r in reqs])
     log(f"  {cfg.name} x{L} on {cfg.gemm_backend}: "
         f"{out['tokens_per_s']:.1f} tok/s over {wall:.3f} s, {ticks} "
@@ -1129,6 +1143,262 @@ def profile_decode_step(cfg, engine, step_ms: float, max_seq: int):
     return profile_device(
         lambda: lm.decode_step(cfg, engine.params, engine.cache, toks, pos),
         step_ms, "decode step")
+
+
+# ---------------------------------------------------------------------------
+# phase 5, paged: the paged K/V pool and the radix prefix cache
+
+# (b): more sequences than dispatch rows, each reserving one page
+PAGED_SHORT_LENS = (8, 10, 12, 14, 16, 18, 20, 22)
+PAGED_SHORT_NEW = 8
+# (c): followers sharing a system prompt with the first request
+PREFIX_SYSTEM, PREFIX_TAIL, PREFIX_REQUESTS, PREFIX_NEW = 128, 8, 8, 8
+# decode steps timed alone, dense and paged in turns, per side
+STEP_PAIRS = 20
+
+
+def paged_pool_pages(prompt_lens, max_new: int, max_seq: int,
+                     page: int) -> int:
+    """Pages of a pool that reserves every request in full at once (each
+    its prompt + max_new, clipped to max_seq), with the scratch page and
+    at least the engine's minimum (max_seq / page + 1)."""
+    need = sum(-(-min(n + max_new, max_seq) // page) for n in prompt_lens)
+    return max(need, max_seq // page) + 1
+
+
+def shared_prefix_prompts(vocab: int, n: int, system: int, tail: int,
+                          seed: int = 0):
+    """``n`` prompts: one random ``system``-token prompt, each with its own
+    random ``tail``-token ending."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, system).tolist()
+    return [head + rng.integers(0, vocab, tail).tolist() for _ in range(n)]
+
+
+def prefill_step_launches(cfg, n_steps: int) -> int:
+    """K1 and K2 launches of ``n_steps`` prefill-chunk steps (the
+    tensor-core counters are subsets, not added)."""
+    return sum(v for k, v in expected_launches(cfg, n_steps).items()
+               if k not in TC_COUNTERS)
+
+
+def profile_block_tables(batch: int, pages_per_seq: int, write_idx: int):
+    """Block tables of a full-batch paged decode step that writes entry
+    ``write_idx`` of every row's view: row r owns page 2 + r there, every
+    other entry reads page 1 (aliased, never written), so no two rows
+    write one page."""
+    bt = np.ones((batch, pages_per_seq), np.int64)
+    bt[:, write_idx] = 2 + np.arange(batch)
+    return bt
+
+
+def alternate_step_ms(dense, paged, pairs: int):
+    """Host-clock ms of one ``dense()`` and one ``paged()`` decode step
+    (each ended by a synchronize), ``pairs`` of each in turns dense,
+    paged, paged, dense: each side's quartiles (the median between)."""
+    times = {"dense": [], "paged": []}
+    for i in range(pairs):
+        order = ("dense", "paged") if i % 2 == 0 else ("paged", "dense")
+        for side in order:
+            fn = dense if side == "dense" else paged
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[side].append(1e3 * (time.perf_counter() - t0))
+    return {side: [float(q) for q in np.percentile(t, [25, 50, 75])]
+            for side, t in times.items()}
+
+
+def paged_run(cfg, params, prompts, max_new: int, sc, stagger=False):
+    """Serve ``prompts`` on a paged engine, the launch counters set to 0
+    just before and read just after; with ``stagger`` the first request
+    decodes its first token (its prompt pages published) before the
+    others arrive.  Holds every request to its tokens and the launches to
+    the per-step counts times the steps."""
+    engine = ServingEngine(cfg, params, sc)
+    reqs = [Request(prompt=p, max_new_tokens=max_new, rid=i)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    substrate.DISPATCH_COUNTS.clear()
+    ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    engine.submit(reqs[0])
+    if stagger:
+        while not reqs[0].out_tokens:
+            engine.step()
+    for r in reqs[1:]:
+        engine.submit(r)
+    ticks = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ag.LAUNCHES)            # read just after the run
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("paged serving launched flash attention (K3)")
+    st = engine.stats
+    steps = st["prefill_dispatches"] + st["decode_dispatches"]
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != max_new:
+            raise AssertionError(f"paged request {r.rid}: done={r.done}, "
+                                 f"{len(r.out_tokens)} of {max_new} tokens")
+    what = (f"paged serving {cfg.name} on {cfg.gemm_backend} ({steps} steps "
+            f"of {cfg.n_layers} layers)")
+    check_launches(what, launches, expected_launches(cfg, steps))
+    want = prefill_step_launches(cfg, st["prefill_dispatches"])
+    if st["prefill_gemm_dispatches"] != want:
+        raise AssertionError(f"{what}: {st['prefill_gemm_dispatches']} "
+                             f"prefill K1/K2 launches, want {want}")
+    ttft = [r.ttft_s for r in reqs]
+    out = dict(
+        requests=len(reqs), max_new=max_new, ticks=ticks, wall_s=wall,
+        kv_pages=sc.kv_pages, page_size=engine.page_size,
+        prefix_cache=sc.prefix_cache,
+        kv_cache_bytes=engine.kv_cache_bytes(),
+        pages_used_peak=st["pages_used_peak"],
+        concurrency_peak=st["concurrency_peak"],
+        prefix_hit_tokens=st["prefix_hit_tokens"],
+        pool_used_after=engine.pool.n_used,
+        prefill_tokens=st["prefill_tokens"],
+        prefill_time_s=st["prefill_time_s"],
+        prefill_dispatches=st["prefill_dispatches"],
+        prefill_launches=st["prefill_gemm_dispatches"],
+        decode_dispatches=st["decode_dispatches"],
+        decode_step_ms=1e3 * st["decode_time_s"] / st["decode_dispatches"],
+        mean_ttft_ms=1e3 * sum(ttft) / len(ttft),
+        launches=launches, streams=[r.out_tokens for r in reqs])
+    return out, engine
+
+
+def paged_phase(cfg, params, serving):
+    """Paged serving of full-width ``cfg`` against phase 5's dense runs
+    (``serving``: backend -> its result): (a) phase 5's requests on each
+    backend, streams bit-identical to the dense ones on ``arrayflex`` and
+    ``arrayflex_int8`` and run to run on ``arrayflex_w8a8``, with the
+    decode step profiled and timed alone against the dense one in turns;
+    (b) eight short requests at ``max_batch`` 4, all resident at once;
+    (c) requests sharing a system prompt, cold, warm (the prefix cache),
+    warm and cold, the followers arriving once the first request has
+    decoded."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    page = planner.page_plan(MAX_SEQ)
+    pages = paged_pool_pages(PROMPT_LENS, MAX_NEW, MAX_SEQ, page)
+    sc = ServeConfig(max_batch=BATCH, max_seq=MAX_SEQ, seed=0,
+                     kv_pages=pages, page_size=page)
+    out = {}
+    for backend, dense in serving.items():
+        bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+        warm = ServingEngine(bcfg, params, sc)
+        warm.submit(Request(prompt=prompts[0][:8], max_new_tokens=2))
+        warm.run_to_completion()
+        del warm
+        run, engine = paged_run(bcfg, params, prompts, MAX_NEW, sc)
+        same = run["streams"] == dense["streams"]
+        if backend == "arrayflex_w8a8":
+            again, _ = paged_run(bcfg, params, prompts, MAX_NEW, sc)
+            if again["streams"] != run["streams"]:
+                raise AssertionError("paged arrayflex_w8a8: two runs gave "
+                                     "different streams")
+            run["repeat_launches"] = again["launches"]
+        elif not same:
+            raise AssertionError(f"paged {backend}: greedy streams differ "
+                                 f"from the dense engine's")
+        run["equals_dense"] = same
+        run["dense_kv_cache_bytes"] = dense["kv_cache_bytes"]
+        bt = torch.as_tensor(profile_block_tables(
+            BATCH, engine.pages_per_seq, (MAX_SEQ // 2) // page),
+            device="cuda")
+        if int(bt.max()) >= engine.pool.n_pages:
+            raise AssertionError(f"profile block tables need pages up to "
+                                 f"{int(bt.max())}, the pool has "
+                                 f"{engine.pool.n_pages}")
+        toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+        pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                         device="cuda")
+        run["profile"] = profile_device(
+            lambda: lm.decode_step_paged(bcfg, engine.params, engine.cache,
+                                         toks, pos, bt),
+            run["decode_step_ms"], "paged decode step")
+        cache = lm.init_cache(bcfg, BATCH, MAX_SEQ, device="cuda")
+        run["alternated_step_ms"] = alternate_step_ms(
+            lambda: lm.decode_step(bcfg, engine.params, cache, toks, pos),
+            lambda: lm.decode_step_paged(bcfg, engine.params, engine.cache,
+                                         toks, pos, bt), STEP_PAIRS)
+        del cache
+        dp = dense["profile"]
+        alt = run["alternated_step_ms"]
+        log(f"  {backend}: paged streams "
+            f"{'==' if same else '!='} dense streams; kv_cache_bytes paged "
+            f"{run['kv_cache_bytes']} ({pages} pages x {page}) / dense "
+            f"{dense['kv_cache_bytes']}; pages_used_peak "
+            f"{run['pages_used_peak']}; decode step {run['decode_step_ms']:.2f}"
+            f" ms paged / {dense['decode_step_ms']:.2f} dense (host clock), "
+            f"device busy {run['profile']['device_busy_ms']:.2f} / "
+            f"{dp['device_busy_ms']:.2f} ms; one step alone, in turns "
+            f"(quartiles) paged {alt['paged'][0]:.2f} / {alt['paged'][1]:.2f}"
+            f" / {alt['paged'][2]:.2f}, dense {alt['dense'][0]:.2f} / "
+            f"{alt['dense'][1]:.2f} / {alt['dense'][2]:.2f} ms; prefill "
+            f"{1e3 * run['prefill_time_s']:.2f} / "
+            f"{1e3 * dense['prefill_time_s']:.2f} ms, mean TTFT "
+            f"{run['mean_ttft_ms']:.1f} / {dense['mean_ttft_ms']:.1f} ms")
+        out[backend] = run
+        del engine
+        _free()
+
+    short = [rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in PAGED_SHORT_LENS]
+    sc = ServeConfig(max_batch=BATCH, max_seq=MAX_SEQ, seed=0,
+                     kv_pages=paged_pool_pages(PAGED_SHORT_LENS,
+                                               PAGED_SHORT_NEW, MAX_SEQ,
+                                               page), page_size=page)
+    run, _ = paged_run(cfg, params, short, PAGED_SHORT_NEW, sc)
+    if run["concurrency_peak"] != len(short) or run["pool_used_after"]:
+        raise AssertionError(
+            f"paged: {len(short)} short requests at max_batch {BATCH}: "
+            f"concurrency_peak {run['concurrency_peak']}, "
+            f"{run['pool_used_after']} pages still in use")
+    log(f"  {len(short)} short requests at max_batch {BATCH}: "
+        f"concurrency_peak {run['concurrency_peak']}, pages_used_peak "
+        f"{run['pages_used_peak']} of {sc.kv_pages - 1}, every request "
+        f"finished, every page returned")
+    out["concurrency"] = run
+
+    shared = shared_prefix_prompts(cfg.vocab_size, PREFIX_REQUESTS,
+                                   PREFIX_SYSTEM, PREFIX_TAIL)
+    pages = paged_pool_pages([len(p) for p in shared], PREFIX_NEW, MAX_SEQ,
+                             page)
+    runs = []
+    for prefix in (False, True, True, False):
+        # the chunk is the page, as in the reference's schedule
+        # (tests/test_serving_prefill.py): a cold follower prefills its
+        # prompt in two chunks, a warm one its tail in one
+        sc = ServeConfig(max_batch=BATCH, max_seq=MAX_SEQ, seed=0,
+                         prefill_chunk=page, kv_pages=pages, page_size=page,
+                         prefix_cache=prefix)
+        run, _ = paged_run(cfg, params, shared, PREFIX_NEW, sc,
+                           stagger=True)
+        runs.append(run)
+        log(f"  prefix {'warm' if prefix else 'cold'}: "
+            f"{run['prefill_tokens']} prefill tokens in "
+            f"{run['prefill_dispatches']} dispatches, "
+            f"{1e3 * run['prefill_time_s']:.2f} ms, "
+            f"{run['prefill_launches']} prefill K1/K2 launches; mean TTFT "
+            f"{run['mean_ttft_ms']:.1f} ms; prefix hits "
+            f"{run['prefix_hit_tokens']} tokens")
+    for c, w in ((runs[0], runs[1]), (runs[3], runs[2])):
+        if (w["streams"] != c["streams"] or not w["prefix_hit_tokens"]
+                or w["prefill_tokens"] >= c["prefill_tokens"]
+                or w["prefill_launches"] >= c["prefill_launches"]):
+            raise AssertionError(
+                f"prefix cache: streams equal {w['streams'] == c['streams']}"
+                f", hits {w['prefix_hit_tokens']}, prefill tokens "
+                f"{w['prefill_tokens']} vs {c['prefill_tokens']}, prefill "
+                f"launches {w['prefill_launches']} vs "
+                f"{c['prefill_launches']}")
+    out["prefix_cold"], out["prefix_warm"] = runs[0], runs[1]
+    out["prefix_warm_2"], out["prefix_cold_2"] = runs[2], runs[3]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1852,6 +2122,9 @@ def main() -> int:
         log(f"  serving full-width {cfg.name} on {backend}/bf16")
         serving[backend] = serving_phase(
             dataclasses.replace(cfg, gemm_backend=backend), params)
+    log(f"  paged serving of full-width {cfg.name} (bf16): page "
+        f"{planner.page_plan(MAX_SEQ)}, against the dense runs above")
+    paged = paged_phase(cfg, params, serving)
     log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
@@ -1885,8 +2158,11 @@ def main() -> int:
     # prefills and the W8 runs, each counted from 0); K3's over its
     # ops.attention run.  The FFMA kernels' are the launches of their form
     # not on the tensor-core kernels.
+    paged_runs = list(paged.values()) + [
+        {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
-            + list(prefill.values()) + [{"launches": v} for v in fp32_runs])
+            + paged_runs + list(prefill.values())
+            + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     for tc in TC_COUNTERS:
@@ -1898,7 +2174,7 @@ def main() -> int:
                   kernels=kernels, cells=cells, prefill_chunk=chunk,
                   sites=results,
                   kt_quantize=kt_quant, flash_attention=k3, serving=serving,
-                  moe_serving=moe_serving, prefill=prefill,
+                  moe_serving=moe_serving, paged=paged, prefill=prefill,
                   prefill_sites=prefill_sites_rows,
                   prefill_kernel_totals=prefill_totals, parity=parity,
                   moe_parity=moe_parity, seconds=elapsed)

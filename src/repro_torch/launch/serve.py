@@ -17,6 +17,14 @@ published width, with bf16 parameters (full-width qwen3-moe-30b-a3b is
 61 GB in bf16, 122 GB in fp32).  ``--n-layers`` cuts the depth: a
 quantizing backend holds the bf16 tree and its int8 copy at once, which
 for qwen3-moe-30b-a3b fits one 80 GB card with ``--n-layers 24``.
+``--kv-pages N`` serves from a paged K/V pool of N pages (the scratch page
+included) instead of the dense ``(max_batch, max_seq)`` cache, with
+``--page-size`` tokens a page (0: the planner's ``page_plan``) and, with
+``--prefix-cache``, the radix prefix cache, e.g. on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --gemm-backend arrayflex --kv-pages 40 --page-size 16 --prefix-cache
+
 Prints per-request outputs plus per-phase timing: prefill and decode
 throughput (tokens/s), dispatch counts, and mean time-to-first-token.
 """
@@ -46,6 +54,11 @@ def phase_report(engine: ServingEngine, reqs) -> str:
            f"{st['decode_time_s']:.3f}s ({de_tps:.1f} tok/s, "
            f"{st['decode_dispatches']} dispatches)\n"
            f"mean TTFT: {ttft_ms:.1f} ms")
+    if engine.paged:
+        out += (f"\npages: peak {st['pages_used_peak']} of "
+                f"{engine.pool.n_pages - 1} in use, concurrency peak "
+                f"{st['concurrency_peak']}, prefix hits "
+                f"{st['prefix_hit_tokens']} tok")
     be = engine.cfg.gemm_backend
     if substrate.backend_quantizes(be):
         out += (f"\nquantized: {be} serves int8 weights from the "
@@ -73,6 +86,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prefill chunk size (0 -> planner-chosen)")
     ap.add_argument("--prefill-mode", default="auto",
                     choices=("auto", "batched", "token"))
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="paged K/V: physical pages in the global pool "
+                         "(incl. the scratch page); 0 keeps the dense "
+                         "(max_batch, max_seq) slot cache.  Admission then "
+                         "reserves pages, so concurrency is memory-bounded "
+                         "rather than capped at --max-batch")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="tokens per K/V page (must divide max_seq); "
+                         "0 -> planner.page_plan picks it")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix shared-prefix reuse: requests sharing a "
+                         "prompt prefix map their leading block-table "
+                         "entries to the same physical pages (paged mode "
+                         "only)")
     ap.add_argument("--gemm-backend", default="xla",
                     help="GEMM substrate backend (kernels.substrate): "
                          + " | ".join(substrate.backends()))
@@ -83,7 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.prefix_cache and not args.kv_pages:
+        ap.error("--prefix-cache requires --kv-pages (paged mode)")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -97,8 +127,15 @@ def main(argv=None):
     engine = ServingEngine(cfg, params,
                            ServeConfig(max_batch=args.max_batch, max_seq=128,
                                        prefill_mode=args.prefill_mode,
-                                       prefill_chunk=args.prefill_chunk),
+                                       prefill_chunk=args.prefill_chunk,
+                                       kv_pages=args.kv_pages,
+                                       page_size=args.page_size,
+                                       prefix_cache=args.prefix_cache),
                            device=args.device)
+    if args.kv_pages:
+        print(f"paged KV: {args.kv_pages} pages x {engine.page_size} tok "
+              f"({engine.kv_cache_bytes()/1024:.0f} KiB resident K/V), "
+              f"prefix_cache={'on' if args.prefix_cache else 'off'}")
     prompts = [[2 + (i * 7 + j) % 97 for j in range(5 + i % 3)]
                for i in range(args.requests)]
     reqs = [Request(prompt=p, max_new_tokens=args.max_new,

@@ -23,9 +23,14 @@ dense up to ``attn_dense_below`` query rows and the chunked scan above
 (``nn.attention.attention``), an MoE sub-layer routes one dispatch group
 per sequence at the config's capacity factor and adds its aux loss.
 
+The paged steps (``decode_step_paged`` / ``prefill_step_paged``, dense
+family only: ``supports_paged_kv``) run against the engine's page pools
+(``init_paged_cache``): each layer gathers its block tables' logical view
+of the dense cache's length, so they dispatch the same GEMMs as the
+dense steps; the pools are updated in place.
+
 Families other than ``dense`` and ``moe`` (hybrid, SSM, VLM, audio),
-sliding windows, paged K/V and the pipeline-sharded steps are not ported
-yet.
+sliding windows and the pipeline-sharded steps are not ported yet.
 """
 from __future__ import annotations
 
@@ -142,21 +147,29 @@ def _proj_qkv(p, x, cfg, cd, norm_scale=None):
     return q, k, v
 
 
+def _qkv_at(p, x, cfg: ModelConfig, positions, norm_scale):
+    """q, k, v of x (B, S, d), q and k rope'd at ``positions`` (B, S)."""
+    q, k, v = _proj_qkv(p, x, cfg, _cdtype(cfg), norm_scale)
+    return (layers.apply_rope(q, positions, cfg.rope_theta),
+            layers.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _attn_wo(p, cfg: ModelConfig, out):
+    """The output projection of an attention result (B, S, H, hd)."""
+    B, S = out.shape[0], out.shape[1]
+    return layers.linear(p["wo"], out.reshape(B, S, -1), _cdtype(cfg),
+                         site="attn.wo", backend=cfg.gemm_backend)
+
+
 def attn_full(p, x, cfg: ModelConfig, positions, *, norm_scale=None):
     """Full-sequence causal self-attention.  Returns (out, (k, v)) with
     rope'd keys."""
-    cd = _cdtype(cfg)
-    q, k, v = _proj_qkv(p, x, cfg, cd, norm_scale)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv_at(p, x, cfg, positions, norm_scale)
     out = attn_lib.attention(
         q, k, v, causal=True, window=cfg.sliding_window,
         kv_chunk=cfg.attn_kv_chunk, dense_below=cfg.attn_dense_below,
         backend=cfg.gemm_backend)
-    B, S = x.shape[0], x.shape[1]
-    out = layers.linear(p["wo"], out.reshape(B, S, -1), cd, site="attn.wo",
-                        backend=cfg.gemm_backend)
-    return out, (k, v)
+    return _attn_wo(p, cfg, out), (k, v)
 
 
 def attn_decode(p, x, cfg: ModelConfig, cache, pos, norm_scale=None):
@@ -164,24 +177,99 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos, norm_scale=None):
 
     pos may be a scalar or a (B,) vector (ragged continuous batching).
     Each row's new K/V is written in place at min(pos, T-1)."""
-    cd = _cdtype(cfg)
-    q, k_new, v_new = _proj_qkv(p, x, cfg, cd, norm_scale)
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(B)
-    positions = pos[:, None]
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k_new = layers.apply_rope(k_new, positions, cfg.rope_theta)
+    q, k_new, v_new = _qkv_at(p, x, cfg, pos[:, None], norm_scale)
     k_cache, v_cache = cache["k"], cache["v"]
-    cl = k_cache.shape[1]
     rows = torch.arange(B, device=x.device)
-    slot = torch.clamp(pos, max=cl - 1)
+    slot = torch.clamp(pos, max=k_cache.shape[1] - 1)
     k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
     out = attn_lib.decode_attention(q, k_cache, v_cache, pos,
                                     backend=cfg.gemm_backend)
-    out = layers.linear(p["wo"], out.reshape(B, 1, -1), cd, site="attn.wo",
-                        backend=cfg.gemm_backend)
-    return out, {"k": k_cache, "v": v_cache}
+    return _attn_wo(p, cfg, out), {"k": k_cache, "v": v_cache}
+
+
+def _paged_write_rows(pos, block_tables, page_size: int):
+    """Where each row of a paged decode step writes its new K/V: the flat
+    pool row (physical page * page_size + offset) backing min(pos, L-1),
+    and whether that page is page 0 (the engine's scratch page: an idle
+    row).  The same for every layer of the step."""
+    L = block_tables.shape[1] * page_size
+    slot = torch.clamp(pos, max=L - 1)
+    phys = torch.take_along_dim(block_tables, (slot // page_size)[:, None],
+                                dim=1)[:, 0]
+    return phys * page_size + slot % page_size, (phys == 0)[:, None, None]
+
+
+def attn_decode_paged(p, x, cfg: ModelConfig, cache, pos, block_tables,
+                      write_rows, norm_scale=None):
+    """Single-token attention against the paged K/V pool.
+
+    cache: {'kp','vp'} physical pools (n_pages, page, KV, hd);
+    block_tables: (B, n_pg) int64 physical page ids per sequence;
+    ``write_rows``: :func:`_paged_write_rows` of this step (the same for
+    every layer, so the step computes it once).
+
+    Each row's new K/V is written in place into the page backing
+    min(pos, L-1), then the pool is gathered into the (B, L = n_pg*page,
+    KV, hd) logical view — L equals the dense cache length by the engine's
+    page | max_seq contract — and the mask, softmax and QK/PV dispatches
+    are the dense ``attn_decode``'s, which keeps paged and dense greedy
+    streams bit-identical.  The reference writes into the gathered view
+    and scatters the written page back: the view, and every page a live
+    row owns, get the same bytes.  A row whose write lands on the scratch
+    page (an idle row) writes back the bytes already there, so the rows
+    that alias it all carry identical bytes and the scratch page never
+    changes (the reference leaves an idle row's K/V there, which no live
+    row attends)."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(B)
+    q, k_new, v_new = _qkv_at(p, x, cfg, pos[:, None], norm_scale)
+    kp, vp = cache["kp"], cache["vp"]
+    flat, idle = write_rows
+    for pool, new in ((kp, k_new), (vp, v_new)):
+        rows = pool.view((-1,) + pool.shape[2:])
+        rows.index_copy_(0, flat, torch.where(
+            idle, rows.index_select(0, flat), new[:, 0].to(pool.dtype)))
+    out = attn_lib.decode_attention(
+        q, attn_lib.gather_pages(kp, block_tables),
+        attn_lib.gather_pages(vp, block_tables), pos,
+        backend=cfg.gemm_backend)
+    return _attn_wo(p, cfg, out), {"kp": kp, "vp": vp}
+
+
+def _prefill_attend(cfg: ModelConfig, q, k_new, v_new, k_buf, v_buf, pos,
+                    lengths, positions):
+    """The chunk's K/V written into the (B, L, KV, hd) buffers in place —
+    buffer slot j takes chunk element j - pos[b] when that index is a
+    valid token of this chunk; the other slots are not written — then
+    every query attends over the whole buffer with a ``key_pos <= q_pos``
+    mask.  Returns (B, C, H, hd) in q's dtype."""
+    B, C = q.shape[0], q.shape[1]
+    j = torch.arange(k_buf.shape[1], device=q.device)[None, :]        # (1,L)
+    src = j - pos[:, None]                                             # (B,L)
+    ok = (src >= 0) & (src < lengths[:, None])
+    idx = torch.clamp(src, 0, C - 1)[:, :, None, None]
+    k_buf[ok] = torch.take_along_dim(k_new.to(k_buf.dtype), idx, dim=1)[ok]
+    v_buf[ok] = torch.take_along_dim(v_new.to(v_buf.dtype), idx, dim=1)[ok]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    qg = q.reshape(B, C, KV, H // KV, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s = attn_lib.qk_scores(qg, k_buf, backend=cfg.gemm_backend) * scale
+    valid = j[:, None, :] <= positions[:, :, None]                     # (B,C,L)
+    s = torch.where(valid[:, None, None], s, attn_lib.NEG_INF)
+    w = torch.softmax(s.float(), dim=-1).to(v_buf.dtype)
+    out = attn_lib.pv_mix(w, v_buf, backend=cfg.gemm_backend)
+    return out.reshape(B, C, H, hd).to(q.dtype)
+
+
+def _chunk_positions(x, pos, lengths):
+    dev = x.device
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    lengths = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
+    positions = pos[:, None] + torch.arange(x.shape[1], device=dev)[None, :]
+    return pos, lengths, positions
 
 
 def attn_prefill(p, x, cfg: ModelConfig, cache, pos, lengths,
@@ -197,40 +285,35 @@ def attn_prefill(p, x, cfg: ModelConfig, cache, pos, lengths,
     for step (same cache-dtype readback, fp32 softmax, same batched
     products), so a chunked prefill reproduces token-by-token decode.
     """
-    cd = _cdtype(cfg)
-    q, k_new, v_new = _proj_qkv(p, x, cfg, cd, norm_scale)
-    B, C = x.shape[0], x.shape[1]
-    dev = x.device
-    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-    lengths = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
-    positions = pos[:, None] + torch.arange(C, device=dev)[None, :]   # (B,C)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k_new = layers.apply_rope(k_new, positions, cfg.rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
-    cl = k_cache.shape[1]
-    # cache slot j takes chunk element j - pos[b] when that index is a
-    # valid token of this chunk; the other slots are not written
-    j = torch.arange(cl, device=dev)[None, :]                          # (1,cl)
-    src = j - pos[:, None]                                             # (B,cl)
-    ok = (src >= 0) & (src < lengths[:, None])
-    idx = torch.clamp(src, 0, C - 1)[:, :, None, None]
-    k_cache[ok] = torch.take_along_dim(
-        k_new.to(k_cache.dtype), idx, dim=1)[ok]
-    v_cache[ok] = torch.take_along_dim(
-        v_new.to(v_cache.dtype), idx, dim=1)[ok]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = H // KV
-    qg = q.reshape(B, C, KV, g, hd)
-    scale = 1.0 / math.sqrt(hd)
-    s = attn_lib.qk_scores(qg, k_cache, backend=cfg.gemm_backend) * scale
-    valid = j[:, None, :] <= positions[:, :, None]                     # (B,C,cl)
-    s = torch.where(valid[:, None, None], s, attn_lib.NEG_INF)
-    w = torch.softmax(s.float(), dim=-1).to(v_cache.dtype)
-    out = attn_lib.pv_mix(w, v_cache, backend=cfg.gemm_backend)
-    out = out.reshape(B, C, H, hd).to(q.dtype)
-    out = layers.linear(p["wo"], out.reshape(B, C, -1), cd, site="attn.wo",
-                        backend=cfg.gemm_backend)
-    return out, {"k": k_cache, "v": v_cache}
+    pos, lengths, positions = _chunk_positions(x, pos, lengths)
+    q, k_new, v_new = _qkv_at(p, x, cfg, positions, norm_scale)
+    out = _prefill_attend(cfg, q, k_new, v_new, cache["k"], cache["v"], pos,
+                          lengths, positions)
+    return _attn_wo(p, cfg, out), cache
+
+
+def attn_prefill_paged(p, x, cfg: ModelConfig, cache, pos, lengths,
+                       block_tables, norm_scale=None):
+    """Chunked-prefill attention against the paged K/V pool.
+
+    The logical view is gathered as in :func:`attn_decode_paged`; the
+    chunk's write, the causal mask and the QK/PV dispatches are then the
+    dense ``attn_prefill``'s.  The whole view scatters back (a chunk may
+    span pages): rows alias only pages whose gathered bytes they did not
+    modify — shared prefix pages (writes start at the page-aligned
+    divergence point) and the scratch page — so every duplicate write
+    carries identical bytes."""
+    pos, lengths, positions = _chunk_positions(x, pos, lengths)
+    q, k_new, v_new = _qkv_at(p, x, cfg, positions, norm_scale)
+    bt = block_tables
+    kp, vp = cache["kp"], cache["vp"]
+    k_view = attn_lib.gather_pages(kp, bt)
+    v_view = attn_lib.gather_pages(vp, bt)
+    out = _prefill_attend(cfg, q, k_new, v_new, k_view, v_view, pos,
+                          lengths, positions)
+    attn_lib.scatter_pages(kp, bt, k_view)
+    attn_lib.scatter_pages(vp, bt, v_view)
+    return _attn_wo(p, cfg, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +409,30 @@ def sublayer_prefill(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
                            norm_scale=p["ln1"]["scale"])
     x = x + out
     return _mlp(p, cfg, x), kv
+
+
+def _check_paged_kind(cfg, pos_idx):
+    kind = sublayer_kind(cfg, pos_idx)
+    assert kind["mixer"] == "attn" and not kind["cross"] \
+        and kind["mlp"] == "dense", "use supports_paged_kv() to gate"
+
+
+def _sublayer_decode_paged(p, cfg, pos_idx, x, cache, pos, bt, write_rows):
+    """``sublayer_decode`` of a dense sub-layer against the paged pool."""
+    _check_paged_kind(cfg, pos_idx)
+    h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+    out, kv = attn_decode_paged(p["attn"], h, cfg, cache, pos, bt,
+                                write_rows, norm_scale=p["ln1"]["scale"])
+    return _mlp(p, cfg, x + out), kv
+
+
+def _sublayer_prefill_paged(p, cfg, pos_idx, x, cache, pos, lengths, bt):
+    """``sublayer_prefill`` against the paged pool."""
+    _check_paged_kind(cfg, pos_idx)
+    h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+    out, kv = attn_prefill_paged(p["attn"], h, cfg, cache, pos, lengths, bt,
+                                 norm_scale=p["ln1"]["scale"])
+    return _mlp(p, cfg, x + out), kv
 
 
 # ---------------------------------------------------------------------------
@@ -539,18 +646,77 @@ def prefill_step(cfg: ModelConfig, params, cache, tokens, pos, lengths):
     substrate.check_backend(cfg.gemm_backend)
     check_supported(cfg)
     P = period(cfg)
-    cd = _cdtype(cfg)
-    C = tokens.shape[1]
-    x = layers.embed(params["embed"], tokens, cd)
+    x = layers.embed(params["embed"], tokens, _cdtype(cfg))
     for l in range(n_super(cfg)):
         for i in range(P):
             x, _ = sublayer_prefill(_layer(params["blocks"][i], l), cfg, i,
                                     x, _layer(cache[i], l), pos, lengths)
+    return _last_logits(cfg, params, x, lengths), cache
+
+
+def _last_logits(cfg, params, x, lengths):
+    """Logits (B,V) at each row's last valid chunk token of x (B,C,d)."""
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     lengths = torch.as_tensor(lengths, dtype=torch.int64, device=x.device)
-    last = torch.clamp(lengths - 1, 0, C - 1)
+    last = torch.clamp(lengths - 1, 0, x.shape[1] - 1)
     x = torch.take_along_dim(x, last[:, None, None], dim=1)           # (B,1,d)
-    return _logits(cfg, params, x, cd)[:, 0], cache
+    return _logits(cfg, params, x, _cdtype(cfg))[:, 0]
+
+
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """True when the paged serving path reproduces dense decoding bit for
+    bit: the gate of :func:`supports_batched_prefill` (pure causal
+    attention + dense MLP, linear cache) — MoE routing, mamba state,
+    cross-attention and sliding-window rings have no page-gather
+    equivalence."""
+    return supports_batched_prefill(cfg)
+
+
+def decode_step_paged(cfg: ModelConfig, params, cache, token, pos,
+                      block_tables):
+    """Paged twin of :func:`decode_step`: token (B,), pos (B,),
+    block_tables (B, n_pg) physical page ids.  cache is
+    :func:`init_paged_cache`'s.  Returns (logits (B,V), cache) — the pools
+    are updated in place and returned."""
+    return _paged_step(cfg, params, cache, token[:, None], pos, None,
+                       block_tables)
+
+
+def prefill_step_paged(cfg: ModelConfig, params, cache, tokens, pos,
+                       lengths, block_tables):
+    """Paged twin of :func:`prefill_step`: tokens (B,C) right-padded,
+    pos/lengths (B,), block_tables (B, n_pg).  Returns (logits at each
+    row's last valid chunk token, cache), the pools updated in place."""
+    return _paged_step(cfg, params, cache, tokens, pos, lengths,
+                       block_tables)
+
+
+def _paged_step(cfg, params, cache, tokens, pos, lengths, bt):
+    substrate.check_backend(cfg.gemm_backend)
+    check_supported(cfg)
+    if not supports_paged_kv(cfg):
+        raise ValueError(f"{cfg.name}: family does not support the paged "
+                         f"KV path (see supports_paged_kv)")
+    x = layers.embed(params["embed"], tokens, _cdtype(cfg))
+    dev = x.device
+    bt = torch.as_tensor(bt, dtype=torch.int64, device=dev)
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+    if lengths is None:
+        pos = pos.expand(x.shape[0])
+        write = _paged_write_rows(pos, bt, cache[0]["kp"].shape[2])
+    for l in range(n_super(cfg)):
+        for i in range(period(cfg)):
+            p, c = _layer(params["blocks"][i], l), _layer(cache[i], l)
+            if lengths is None:
+                x, _ = _sublayer_decode_paged(p, cfg, i, x, c, pos, bt,
+                                              write)
+            else:
+                x, _ = _sublayer_prefill_paged(p, cfg, i, x, c, pos,
+                                               lengths, bt)
+    if lengths is None:
+        x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        return _logits(cfg, params, x, _cdtype(cfg))[:, 0], cache
+    return _last_logits(cfg, params, x, lengths), cache
 
 
 # ---------------------------------------------------------------------------
@@ -568,4 +734,24 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     shape = (n_super(cfg), batch_size, cl, KV, hd)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=dev),
                   "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                 for _ in range(period(cfg)))
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device=None):
+    """Zero-initialized paged K/V pools for ``decode_step_paged`` /
+    ``prefill_step_paged``: per sub-layer of the period ``{'kp','vp'}`` of
+    shape (n_super, n_pages, page_size, KV, hd).  Unlike :func:`init_cache`
+    there is no batch dimension — residency is the engine's block tables,
+    so K/V memory scales with the page budget, not ``max_batch * max_seq``
+    (page 0 is the engine's scratch page).  On the card unless
+    ``device="cpu"``."""
+    if not supports_paged_kv(cfg):
+        raise ValueError(f"{cfg.name}: family does not support the paged "
+                         f"KV path (see supports_paged_kv)")
+    dev = resolve_device(device)
+    shape = (n_super(cfg), n_pages, page_size, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return tuple({"kp": torch.zeros(shape, dtype=dtype, device=dev),
+                  "vp": torch.zeros(shape, dtype=dtype, device=dev)}
                  for _ in range(period(cfg)))

@@ -14,8 +14,9 @@ Where the reference asks for fp32 products of bf16 operands
 (``preferred_element_type``), the chunked path upcasts the operands: each
 product is exact in fp32 and the sums are fp32.
 
-The paged gather/scatter and the sliding-window ring buffer of decode are
-not ported yet.
+The paged K/V view (``gather_pages`` / ``scatter_pages``) is plain torch
+indexing, as in the reference (no kernel computes it there).  The
+sliding-window ring buffer of decode is not ported yet.
 """
 from __future__ import annotations
 
@@ -144,6 +145,32 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
                                q_offset=q_offset, backend=backend)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_chunk=kv_chunk)
+
+
+def gather_pages(pool, block_tables):
+    """Assemble per-sequence logical K/V views from a physical page pool.
+
+    pool: (n_pages, page, KV, D); block_tables: (B, n_pg) int64 physical
+    page ids.  Returns a (B, n_pg*page, KV, D) copy — the contiguous cache
+    view the ``attn.qk``/``attn.pv`` dispatches consume, so a paged cache
+    feeds the *same* GEMM plans as the dense one (the view length equals
+    the dense cache length by the engine's page | max_seq contract)."""
+    B, n_pg = block_tables.shape
+    page = pool.shape[1]
+    return pool.index_select(0, block_tables.reshape(-1)).reshape(
+        (B, n_pg * page) + pool.shape[2:])
+
+
+def scatter_pages(pool, block_tables, view):
+    """Inverse of :func:`gather_pages`: write logical views back into the
+    pool in place (and return it).  Rows may alias pages (shared prefixes,
+    the scratch page); callers keep every aliased page's gathered bytes
+    unchanged in each row's view, so whichever duplicate ``index_copy_``
+    keeps (on the card the choice is unspecified), the pool gets the same
+    bytes."""
+    B, n_pg = block_tables.shape
+    return pool.index_copy_(0, block_tables.reshape(-1),
+                            view.reshape((B * n_pg,) + pool.shape[1:]))
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, backend="xla"):

@@ -246,3 +246,65 @@ def test_w8a8_width_rule_is_the_written_one(smoke):
     for s in sites:
         assert smoke.narrow_int8_cols(*smoke.site_rows(s)) == \
             W8A8_WIDTHS[(s.cell, s.name)], (s.cell, s.name, s.shape)
+
+
+def test_paged_pool_reserves_every_request_in_full(smoke):
+    """Phase 5's requests at page 128 of max_seq 256: 48, 80, 112 and 144
+    tokens reserved, 1 + 1 + 1 + 2 pages, and the scratch page; a pool
+    never below the engine's minimum of max_seq / page + 1."""
+    page = smoke.planner.page_plan(smoke.MAX_SEQ)
+    assert page == 128
+    assert smoke.paged_pool_pages(smoke.PROMPT_LENS, smoke.MAX_NEW,
+                                  smoke.MAX_SEQ, page) == 6
+    assert smoke.paged_pool_pages([4], 4, 256, 128) == 3
+    assert smoke.paged_pool_pages([250], 16, 256, 128) == 3   # clipped
+    assert smoke.paged_pool_pages(smoke.PAGED_SHORT_LENS,
+                                  smoke.PAGED_SHORT_NEW, smoke.MAX_SEQ,
+                                  page) == len(smoke.PAGED_SHORT_LENS) + 1
+
+
+def test_shared_prefix_prompts(smoke):
+    prompts = smoke.shared_prefix_prompts(1000, smoke.PREFIX_REQUESTS,
+                                          smoke.PREFIX_SYSTEM,
+                                          smoke.PREFIX_TAIL)
+    S, T = smoke.PREFIX_SYSTEM, smoke.PREFIX_TAIL
+    assert len(prompts) == smoke.PREFIX_REQUESTS == 8
+    assert all(len(p) == S + T == 136 for p in prompts)
+    assert all(p[:S] == prompts[0][:S] for p in prompts)
+    assert len({tuple(p[S:]) for p in prompts}) == len(prompts)
+    assert all(0 <= t < 1000 for p in prompts for t in p)
+    assert prompts == smoke.shared_prefix_prompts(1000, 8, S, T)
+
+
+def test_prefix_run_matches_one_full_page(smoke):
+    """The prefix cache shares whole pages of prompt[:-1]: 135 tokens at
+    page 128 share one page, so a warm follower prefills 7 tokens in one
+    chunk where a cold one prefills 135 in two."""
+    page = smoke.planner.page_plan(smoke.MAX_SEQ)
+    n = smoke.PREFIX_SYSTEM + smoke.PREFIX_TAIL - 1
+    assert n // page == 1 and n - page == 7
+    assert -(-n // page) == 2
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8",
+                                     "arrayflex_w8a8"])
+def test_prefill_step_launches(smoke, backend):
+    """Per prefill-chunk step of qwen2-0.5b: 6 K1 GEMMs a layer and the
+    unembed, attn.qk and attn.pv on K2 (8 L + 1), on every backend."""
+    cfg = _cfg("qwen2-0.5b", backend, "bfloat16")
+    L = cfg.n_layers
+    assert smoke.prefill_step_launches(cfg, 1) == 8 * L + 1
+    assert smoke.prefill_step_launches(cfg, 3) == 3 * (8 * L + 1)
+
+
+@pytest.mark.parametrize("write_idx", [0, 1])
+def test_profile_block_tables_write_distinct_pages(smoke, write_idx):
+    bt = smoke.profile_block_tables(smoke.BATCH, 2, write_idx)
+    assert bt.shape == (smoke.BATCH, 2)
+    writes = bt[:, write_idx]
+    assert len(set(writes.tolist())) == smoke.BATCH and 0 not in writes
+    assert (bt[:, 1 - write_idx] == 1).all()
+    assert 1 not in writes
+    # phase 5's pool (6 pages) holds every page the tables name
+    assert bt.max() < smoke.paged_pool_pages(
+        smoke.PROMPT_LENS, smoke.MAX_NEW, smoke.MAX_SEQ, 128)

@@ -383,6 +383,48 @@ def test_engine_launches_every_kernel(cuda):
         arrayflex_expert_gemm_tc=2 * L * steps)
 
 
+PAGED_PROMPTS = [[5, 6, 7], [11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21],
+                 [21], [31, 32, 33, 34, 35], [41, 42, 43, 44, 45, 46, 47, 48]]
+
+
+def _serve_streams(cfg, params, **sc):
+    eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_seq=32,
+                                                 **sc))
+    reqs = [Request(prompt=p, max_new_tokens=4, rid=i)
+            for i, p in enumerate(PAGED_PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+    ag.reset_launches()
+    eng.run_to_completion()
+    assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    steps = eng.stats["prefill_dispatches"] + eng.stats["decode_dispatches"]
+    return [r.out_tokens for r in reqs], steps, dict(ag.LAUNCHES)
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8"])
+@pytest.mark.parametrize("page,prefix", [(8, False), (8, True), (0, False)])
+def test_paged_streams_equal_dense_on_the_kernels(cuda, backend, page,
+                                                  prefix):
+    """Reduced qwen2-0.5b in bf16 on the kernels: the paged engine's greedy
+    streams equal the dense engine's, and it launches the dense engine's
+    K1 and K2 forms per step, every one on the tensor-core kernels."""
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
+                              gemm_backend=backend)
+    params = lm.init_params(cfg, seed=0)
+    dense, d_steps, d_launches = _serve_streams(cfg, params)
+    paged, steps, launches = _serve_streams(
+        cfg, params, kv_pages=24, page_size=page, prefix_cache=prefix)
+    assert paged == dense
+    L, k1 = cfg.n_layers, ("arrayflex_gemm" if backend == "arrayflex"
+                           else "arrayflex_gemm_int8")
+    assert launches == dict({name: 0 for name in ag.LAUNCHES},
+                            **{k1: (6 * L + 1) * steps,
+                               k1 + "_tc": (6 * L + 1) * steps,
+                               "arrayflex_expert_gemm": 2 * L * steps,
+                               "arrayflex_expert_gemm_tc": 2 * L * steps})
+    assert d_launches[k1] == (6 * L + 1) * d_steps
+
+
 # ---------------------------------------------------------------- int8 forms
 
 def _quant_operands(g, M, K, N, dt, flags):
