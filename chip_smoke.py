@@ -69,6 +69,24 @@ failure of which exits non-zero:
    eight requests sharing a 128-token system prompt, the followers
    arriving once the first has decoded, cold, warm (the radix prefix
    cache), warm, cold: equal streams, fewer prefill tokens and launches;
+   every chaos-free run's requests must end ``ok`` with no retry and no
+   watchdog (a kernel that emits NaN fails the run); then the resilient
+   engine on full-width qwen2-0.5b (``resilience_phase``): (a) chaos
+   seeded but quiet with snapshots every 2 ticks, (b) a transient GEMM
+   fault at layer 0's attn.pv of the first prefill trace and then of the
+   first decode trace, (c) a transient NaN, (d) a crash mid-decode
+   restored from a snapshot taken every tick (the crashed engine released
+   first: one engine's memory at the peak), dense on ``arrayflex`` and
+   ``arrayflex_int8`` and paged with the prefix cache, with the snapshot
+   and restore times, (e) preemption (``preempt_policy="youngest"``) on
+   a pool below the batch's worst case, with the prefill tokens
+   recomputed, (f) persistent GEMM faults, then persistent NaNs: every
+   request ``failed``, no hang; every stream equals its clean run's, the
+   outcome counters sum to the requests, and every run's launches equal
+   the per-step counts times the dispatches that ran in full plus what
+   each faulted attempt launched before its faulted site
+   (``retried_launches``); then one decode step alone against one retried
+   after a fault, in turns;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
@@ -121,7 +139,10 @@ from repro_torch.kernels import build, ops, substrate  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
-from repro_torch.serving import Request, ServeConfig, ServingEngine  # noqa: E402
+from repro_torch.runtime.chaos import ChaosConfig, ChaosEngine  # noqa: E402
+from repro_torch.runtime import chaos  # noqa: E402
+from repro_torch.serving import (EngineCrash, KernelFault, Request,  # noqa: E402
+                                 ServeConfig, ServingEngine)
 from repro_torch.serving.engine import PREFILL_CHUNK_CHOICES  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -913,35 +934,75 @@ def k3_phase():
 # ---------------------------------------------------------------------------
 # phase 5: serving
 
-def expected_launches(cfg, steps: int):
-    """Kernel launches of ``steps`` engine steps of ``cfg`` on its backend,
-    per form: per layer the attention projections (and a dense MLP's two
-    GEMMs) on the backend's K1 form, an MoE router on the float K1, the
-    three expert banks on the backend's K2 form, attn.qk on K2 (its W8A8
-    form under W8A8) and attn.pv on the float K2; the unembed once."""
-    L, be = cfg.n_layers, cfg.gemm_backend
+ATTN_SITES = ("attn.wq", "attn.wk", "attn.wv", "attn.qk", "attn.pv",
+              "attn.wo")
+MLP_SITES = ("mlp.wi_gate+mlp.wi_up", "mlp.wo")
+MOE_SITES = ("moe.router", "moe.wi_gate", "moe.wi_up", "moe.wo")
+
+
+def step_sites(cfg):
+    """One engine step's substrate dispatches, in order: per layer the
+    attention's projections and products, then the dense MLP's two GEMMs
+    (or the MoE router and three expert banks); the unembed last."""
+    layer = ATTN_SITES + (MOE_SITES if cfg.moe is not None else MLP_SITES)
+    return list(layer) * cfg.n_layers + ["unembed"]
+
+
+def site_launches(cfg, site: str) -> dict:
+    """The kernel launches one dispatch of ``site`` makes on ``cfg``'s
+    backend, by counter: the attention projections, a dense MLP's GEMMs
+    and the unembed on the backend's K1 form, an MoE router on the float
+    K1, the expert banks on the backend's K2 form, attn.qk on K2 (its
+    W8A8 form under W8A8) and attn.pv on the float K2.  Every bf16 K1
+    launch, float or W8, and every float K2 launch in bf16 also counts on
+    its tensor-core kernel (the fp32 router stays on the FFMA kernel)."""
+    be = cfg.gemm_backend
     suffix = {"arrayflex": "", "arrayflex_int8": "_int8",
               "arrayflex_w8a8": "_w8a8"}[be]
-    is_moe = cfg.moe is not None
+    bf16 = cfg.compute_dtype == "bfloat16"
+    if site == "moe.router":
+        return {"arrayflex_gemm": 1}
+    if site in ("attn.qk", "attn.pv") or site in MOE_SITES:
+        name = ("arrayflex_expert_gemm_w8a8"
+                if site == "attn.qk" and be == "arrayflex_w8a8"
+                else "arrayflex_expert_gemm" + suffix
+                if site in MOE_SITES else "arrayflex_expert_gemm")
+        tc = bf16 and name == "arrayflex_expert_gemm"
+    else:
+        name = "arrayflex_gemm" + suffix
+        tc = bf16 and be != "arrayflex_w8a8"
+    return {name: 1, **({name + "_tc": 1} if tc else {})}
+
+
+def expected_launches(cfg, steps: int):
+    """Kernel launches of ``steps`` engine steps of ``cfg`` on its backend,
+    per counter: each step dispatches :func:`step_sites`, each dispatch
+    launching :func:`site_launches`."""
     want = {name: 0 for name in ag.LAUNCHES}
-    want["arrayflex_gemm" + suffix] += (4 * L + 1 + (0 if is_moe else 2 * L)) \
-        * steps
-    if be != "arrayflex_w8a8" and cfg.compute_dtype == "bfloat16":
-        # every bf16 K1 launch, float or W8, on the tensor-core kernel (the
-        # fp32 MoE router stays on the FFMA kernel)
-        want["arrayflex_gemm" + suffix + "_tc"] = \
-            want["arrayflex_gemm" + suffix]
-    if is_moe:
-        want["arrayflex_gemm"] += L * steps                     # router
-        want["arrayflex_expert_gemm" + suffix] += 3 * L * steps  # banks
-    qk = ("arrayflex_expert_gemm_w8a8" if be == "arrayflex_w8a8"
-          else "arrayflex_expert_gemm")
-    want[qk] += L * steps
-    want["arrayflex_expert_gemm"] += L * steps                  # attn.pv
-    if cfg.compute_dtype == "bfloat16":
-        # every float K2 launch (bf16 cache, bf16 banks) on the tensor-core
-        # kernel, on every backend
-        want["arrayflex_expert_gemm_tc"] = want["arrayflex_expert_gemm"]
+    for site in step_sites(cfg):
+        for name, n in site_launches(cfg, site).items():
+            want[name] += n * steps
+    return want
+
+
+def retried_launches(cfg, stats: dict, chaos_log) -> dict:
+    """Kernel launches of a serving run with retries: the per-step counts
+    times every dispatch that ran in full — the prefill and decode steps,
+    and each decode step a non-finite retry ran again — plus, for each
+    injected GEMM fault of ``chaos_log``, the launches its attempt made
+    before the faulted site: the sites that precede the site label's
+    first dispatch of the step (an attempt draws each label once, at its
+    first dispatch), the faulted one launching nothing."""
+    steps = (stats["prefill_dispatches"] + stats["decode_dispatches"]
+             + stats["sample_retries"])
+    want = expected_launches(cfg, steps)
+    seq = step_sites(cfg)
+    for point, _, site in chaos_log:
+        if point != "substrate.dispatch":
+            continue
+        for before in seq[:seq.index(site)]:
+            for name, n in site_launches(cfg, before).items():
+                want[name] += n
     return want
 
 
@@ -977,6 +1038,20 @@ def check_launches(what: str, launches: dict, want: dict) -> None:
                              f"expected {want}")
 
 
+RETRY_COUNTERS = ("sample_retries", "kernel_fault_retries", "watchdog_fired")
+
+
+def check_clean(what: str, engine, reqs) -> None:
+    """A chaos-free run: every request ended ``ok`` and nothing was
+    retried or broken by the watchdog — a kernel that emits NaN fails the
+    run here (the engine turns a non-finite logit row into a typed
+    failure, not a raise)."""
+    bad = {r.rid: (r.outcome, r.error) for r in reqs if r.outcome != "ok"}
+    counts = {k: engine.stats[k] for k in RETRY_COUNTERS}
+    if bad or any(counts.values()):
+        raise AssertionError(f"{what}: requests not ok {bad}, {counts}")
+
+
 def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
                   max_seq=MAX_SEQ):
     rng = np.random.default_rng(0)
@@ -986,8 +1061,11 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
     # warm-up engine: first-call costs (allocator, cuBLAS handles) are not
     # the serving numbers
     warm = ServingEngine(cfg, params, sc)
-    warm.submit(Request(prompt=prompts[0][:8], max_new_tokens=2))
+    warm_req = Request(prompt=prompts[0][:8], max_new_tokens=2)
+    warm.submit(warm_req)
     warm.run_to_completion()
+    check_clean(f"warm-up {cfg.name} on {cfg.gemm_backend}", warm,
+                [warm_req])
     del warm
     engine = ServingEngine(cfg, params, sc)
     reqs = [Request(prompt=p, max_new_tokens=max_new, rid=i)
@@ -1016,6 +1094,7 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         if not r.done or len(r.out_tokens) != max_new:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
                                  f"{len(r.out_tokens)} of {max_new} tokens")
+    check_clean(f"serving {cfg.name} on {cfg.gemm_backend}", engine, reqs)
     check_launches(f"serving {cfg.name} on {cfg.gemm_backend} ({steps} "
                    f"steps of {L} layers)", launches, want)
     ttft = [r.ttft_s for r in reqs]
@@ -1243,6 +1322,7 @@ def paged_run(cfg, params, prompts, max_new: int, sc, stagger=False):
                                  f"{len(r.out_tokens)} of {max_new} tokens")
     what = (f"paged serving {cfg.name} on {cfg.gemm_backend} ({steps} steps "
             f"of {cfg.n_layers} layers)")
+    check_clean(what, engine, reqs)
     check_launches(what, launches, expected_launches(cfg, steps))
     want = prefill_step_launches(cfg, st["prefill_dispatches"])
     if st["prefill_gemm_dispatches"] != want:
@@ -1290,8 +1370,10 @@ def paged_phase(cfg, params, serving):
     for backend, dense in serving.items():
         bcfg = dataclasses.replace(cfg, gemm_backend=backend)
         warm = ServingEngine(bcfg, params, sc)
-        warm.submit(Request(prompt=prompts[0][:8], max_new_tokens=2))
+        warm_req = Request(prompt=prompts[0][:8], max_new_tokens=2)
+        warm.submit(warm_req)
         warm.run_to_completion()
+        check_clean(f"paged warm-up on {backend}", warm, [warm_req])
         del warm
         run, engine = paged_run(bcfg, params, prompts, MAX_NEW, sc)
         same = run["streams"] == dense["streams"]
@@ -1398,6 +1480,297 @@ def paged_phase(cfg, params, serving):
                 f"{c['prefill_launches']}")
     out["prefix_cold"], out["prefix_warm"] = runs[0], runs[1]
     out["prefix_warm_2"], out["prefix_cold_2"] = runs[2], runs[3]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5, resilience: typed outcomes, retries, seeded chaos, preemption and
+# crash snapshots
+
+# (b): layer 0's attn.pv, the fifth of the nine sites a trace draws (eight
+# of one layer, then the unembed), in the first prefill trace (draws 0-8)
+# and then in the first decode trace (draws 9-17)
+GEMM_FAULT_PREFILL, GEMM_FAULT_DECODE = 4, 9 + 4
+# (d): the engine.tick draw the engine is killed at: tick 7 of the dense
+# runs' 16 (tick 1 prefills and decodes, then one token a tick)
+CRASH_TICK = 6
+# (e): the scratch page and four of 128 tokens, where the batch's worst
+# case needs five (the 128-token prompt grows into a second page)
+PREEMPT_PAGES = 5
+# one decode step alone and one retried after an injected fault, in turns
+RETRY_PAIRS = 10
+
+
+def resilient_run(cfg, params, prompts, max_new: int, sc, stagger=False):
+    """Serve ``prompts`` on ``sc``, restoring the engine from its latest
+    snapshot after each injected crash (the crashed engine released
+    first), the launch counters set to 0 just before and read just after;
+    with ``stagger`` the first request decodes its first token before the
+    others arrive.  Holds the launches to :func:`retried_launches`, the
+    outcome counters to the requests, and the card's allocated bytes just
+    before each restore to what they were before the first engine was
+    built (the crashed engine gone)."""
+    what = (f"resilient serving {cfg.name} on {cfg.gemm_backend} "
+            f"({sc.chaos})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    engine = ServingEngine(cfg, params, sc)
+    engine_bytes = torch.cuda.memory_allocated() - base
+    reqs = [Request(prompt=p, max_new_tokens=max_new, rid=i)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    substrate.DISPATCH_COUNTS.clear()
+    ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    engine.submit(reqs[0])
+    if stagger:
+        while not reqs[0].out_tokens:
+            engine.step()
+    for r in reqs[1:]:
+        engine.submit(r)
+    restore_s = []
+    while True:
+        try:
+            engine.run_to_completion()
+            break
+        except EngineCrash:
+            if len(restore_s) == 3:
+                raise AssertionError("crash recovery livelocked")
+            snap = engine.latest_snapshot()
+        engine = None           # its tree and cache leave the card first
+        gc.collect()
+        left = torch.cuda.memory_allocated() - base
+        if left > engine_bytes // 8:
+            raise AssertionError(
+                f"{what}: {left} B still allocated after the crashed "
+                f"engine ({engine_bytes} B) was released")
+        t1 = time.perf_counter()
+        engine = ServingEngine.restore(cfg, params, sc, snap)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ag.LAUNCHES)            # read just after the run
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("resilient serving launched flash attention")
+    peak = torch.cuda.max_memory_allocated() - built
+    final = {r.rid: r for r in reqs}
+    for r in engine.restored_requests:
+        final[r.rid] = r
+    reqs = [final[r.rid] for r in reqs]
+    st = engine.stats
+    chaos_log = list(engine._chaos.chaos_log) if engine._chaos else []
+    check_launches(what, launches, retried_launches(cfg, st, chaos_log))
+    outcomes = [r.outcome for r in reqs]
+    counted = sum(v for k, v in st.items() if k.startswith("outcome_"))
+    if None in outcomes or counted != len(reqs):
+        raise AssertionError(f"{what}: outcomes {outcomes}, {counted} "
+                             f"counted for {len(reqs)} requests")
+    return dict(
+        streams=[r.out_tokens for r in reqs], outcomes=outcomes,
+        errors=[r.error.split(":")[0] for r in reqs],
+        stats={k: st[k] for k in (
+            "prefill_dispatches", "decode_dispatches", "prefill_tokens",
+            "decode_tokens", "sample_retries", "kernel_fault_retries",
+            "preemptions", "watchdog_fired", "snapshots_taken",
+            "pages_used_peak", "prefix_hit_tokens", "outcome_ok",
+            "outcome_preempted_retried", "outcome_failed")},
+        chaos_log=chaos_log, restarts=len(restore_s), restore_s=restore_s,
+        wall_s=wall, engine_bytes=engine_bytes, peak_above_engine=peak,
+        launches=launches), engine
+
+
+def _require(what: str, run, streams=None, ok=True, **stats):
+    """``run`` gave ``streams`` (when given), every request ``ok`` (when
+    asked) and these stats counters exactly."""
+    bad = {k: (run["stats"][k], v) for k, v in stats.items()
+           if run["stats"][k] != v}
+    if ((streams is not None and run["streams"] != streams) or bad
+            or (ok and any(o != "ok" for o in run["outcomes"]))):
+        raise AssertionError(
+            f"{what}: streams equal "
+            f"{streams is None or run['streams'] == streams}, outcomes "
+            f"{run['outcomes']} {run['errors']}, counters (got, want) {bad}")
+
+
+def snapshot_ms(engine, n: int = 5) -> float:
+    """Median host-clock ms of one ``engine.snapshot()`` (the K/V cache
+    copied to host memory)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.snapshot()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def retry_step_ms(cfg, engine, pairs: int = RETRY_PAIRS):
+    """Host-clock ms (median) of one full-batch decode step alone, and of
+    one whose first attempt took an injected GEMM fault and was run again:
+    at layer 0's attn.pv (the (b) site) and at the unembed (the last
+    dispatch: every layer launched before the fault), in turns.  Every
+    dispatch draws here (no trace scope), so the fault lands at that
+    dispatch."""
+    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    seq = step_sites(cfg)
+
+    def step():
+        lm.decode_step(cfg, engine.params, engine.cache, toks, pos)
+
+    def retried(n):
+        def run():
+            with chaos.scope(ChaosEngine(ChaosConfig(gemm_fault_at=n))):
+                try:
+                    step()
+                except KernelFault:
+                    pass
+                else:
+                    raise AssertionError(f"no fault at dispatch {n}")
+            step()
+        return run
+
+    fns = {"clean": step, "attn.pv": retried(seq.index("attn.pv")),
+           "unembed": retried(len(seq) - 1)}
+    times = {k: [] for k in fns}
+    step()
+    for i in range(pairs):
+        for k in (fns if i % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def resilience_phase(cfg, params, serving, paged):
+    """The hardened engine on full-width ``cfg`` against phase 5's runs
+    (``serving``: backend -> its dense result; ``paged``: the paged
+    results): (a) chaos seeded but quiet, snapshots every 2 ticks; (b) a
+    transient GEMM fault in the prefill trace, then in the decode trace;
+    (c) a transient NaN; (d) a crash mid-decode restored from a snapshot
+    taken every tick, dense on ``arrayflex`` and ``arrayflex_int8`` and
+    paged with the prefix cache; (e) preemption on a pool below the
+    batch's worst case; (f) persistent GEMM faults, then persistent NaNs.
+    Every stream equals its clean run's; every launch count is exact."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    base = dict(max_batch=BATCH, max_seq=MAX_SEQ, seed=0)
+    page = planner.page_plan(MAX_SEQ)
+    dense = serving["arrayflex"]["streams"]
+    runs, out = [], {}
+
+    def serve(key, what, bcfg=cfg, ps=prompts, max_new=MAX_NEW,
+              stagger=False, **sc_kw):
+        run, engine = resilient_run(bcfg, params, ps, max_new,
+                                    ServeConfig(**base, **sc_kw),
+                                    stagger=stagger)
+        runs.append(run)
+        out[key] = run
+        st = run["stats"]
+        log(f"  {what}: {st['prefill_dispatches']} prefill + "
+            f"{st['decode_dispatches']} decode dispatches, retries "
+            f"{st['kernel_fault_retries']} fault / {st['sample_retries']} "
+            f"NaN, chaos log {run['chaos_log']}, outcomes "
+            f"{sorted(set(run['outcomes']))}, {run['wall_s']:.3f} s")
+        return run, engine
+
+    run, _ = serve("quiet", "(a) chaos seed=123, snapshot every 2 ticks",
+                   chaos=ChaosConfig(seed=123), snapshot_every_ticks=2)
+    _require("(a)", run, dense, sample_retries=0, kernel_fault_retries=0,
+             watchdog_fired=0)
+    if run["chaos_log"] or not run["stats"]["snapshots_taken"]:
+        raise AssertionError(f"(a): chaos log {run['chaos_log']}, "
+                             f"{run['stats']['snapshots_taken']} snapshots")
+    for key, n in (("gemm_prefill", GEMM_FAULT_PREFILL),
+                   ("gemm_decode", GEMM_FAULT_DECODE)):
+        run, engine = serve(key, f"(b) gemm_fault_at={n}",
+                            chaos=ChaosConfig(gemm_fault_at=n))
+        _require(f"(b) gemm_fault_at={n}", run, dense,
+                 kernel_fault_retries=1, sample_retries=0)
+    retry = retry_step_ms(cfg, engine)
+    out["retry_step_ms"] = retry
+    log(f"  one decode step alone {retry['clean']:.2f} ms; retried after a "
+        f"fault at layer 0's attn.pv {retry['attn.pv']:.2f} ms, at the "
+        f"unembed {retry['unembed']:.2f} ms (host clock, medians of "
+        f"{RETRY_PAIRS} in turns)")
+    run, _ = serve("nan", "(c) nan_logits_at=0",
+                   chaos=ChaosConfig(nan_logits_at=0))
+    _require("(c)", run, dense, sample_retries=1, kernel_fault_retries=0)
+
+    for backend in ("arrayflex", "arrayflex_int8"):
+        bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+        run, engine = serve(f"crash_{backend}",
+                            f"(d) {backend} crash_at={CRASH_TICK}",
+                            bcfg=bcfg, snapshot_every_ticks=1,
+                            chaos=ChaosConfig(crash_at=CRASH_TICK))
+        _require(f"(d) {backend}", run, serving[backend]["streams"],
+                 kernel_fault_retries=0, sample_retries=0)
+        run["snapshot_ms"] = snapshot_ms(engine)
+        run["kv_cache_bytes"] = engine.kv_cache_bytes()
+        log(f"    restarts {run['restarts']}, restore "
+            f"{1e3 * run['restore_s'][0]:.1f} ms, snapshot "
+            f"{run['snapshot_ms']:.2f} ms a tick ({run['kv_cache_bytes']} B "
+            f"of K/V to host); the run's peak {run['peak_above_engine']} B "
+            f"above one built engine's {run['engine_bytes']} B (the "
+            f"restore's own build included)")
+        if run["restarts"] != 1:
+            raise AssertionError(f"(d) {backend}: {run['restarts']} "
+                                 f"restarts, want 1")
+    warm = paged["prefix_warm"]
+    shared = shared_prefix_prompts(cfg.vocab_size, PREFIX_REQUESTS,
+                                   PREFIX_SYSTEM, PREFIX_TAIL)
+    run, engine = serve(
+        "crash_paged_prefix", f"(d) paged prefix crash_at={CRASH_TICK}",
+        ps=shared, max_new=PREFIX_NEW, stagger=True, prefill_chunk=page,
+        kv_pages=warm["kv_pages"], page_size=page, prefix_cache=True,
+        snapshot_every_ticks=1, chaos=ChaosConfig(crash_at=CRASH_TICK))
+    _require("(d) paged prefix", run, warm["streams"],
+             kernel_fault_retries=0, sample_retries=0)
+    run["snapshot_ms"] = snapshot_ms(engine)
+    run["kv_cache_bytes"] = engine.kv_cache_bytes()
+    log(f"    restarts {run['restarts']}, restore "
+        f"{1e3 * run['restore_s'][0]:.1f} ms, snapshot "
+        f"{run['snapshot_ms']:.2f} ms a tick ({run['kv_cache_bytes']} B of "
+        f"pool to host); prefix hits {run['stats']['prefix_hit_tokens']} "
+        f"tokens (warm run {warm['prefix_hit_tokens']})")
+    if run["restarts"] != 1:
+        raise AssertionError(f"(d) paged: {run['restarts']} restarts")
+    del engine
+
+    clean_prefill = sum(n - 1 for n in PROMPT_LENS)
+    for backend in ("arrayflex", "arrayflex_int8"):
+        bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+        run, _ = serve(f"preempt_{backend}",
+                       f"(e) {backend} {PREEMPT_PAGES} pages, youngest",
+                       bcfg=bcfg, kv_pages=PREEMPT_PAGES, page_size=page,
+                       preempt_policy="youngest")
+        _require(f"(e) {backend}", run, serving[backend]["streams"],
+                 ok=False, kernel_fault_retries=0, sample_retries=0)
+        st = run["stats"]
+        run["recomputed_prefill_tokens"] = st["prefill_tokens"] -             clean_prefill
+        if (not st["preemptions"] or st["outcome_failed"]
+                or st["outcome_ok"] + st["outcome_preempted_retried"]
+                != len(prompts)):
+            raise AssertionError(f"(e) {backend}: {st}")
+        log(f"    preemptions {st['preemptions']}, prefill tokens "
+            f"{st['prefill_tokens']} ({run['recomputed_prefill_tokens']} "
+            f"recomputed), pages_used_peak {st['pages_used_peak']}, "
+            f"outcomes {run['outcomes']}")
+
+    for key, spec in (("persistent_gemm", dict(gemm_fault=1.0)),
+                      ("persistent_nan", dict(nan_logits=1.0))):
+        run, _ = serve(key, f"(f) {spec}", chaos=ChaosConfig(**spec))
+        if any(o != "failed" for o in run["outcomes"]):
+            raise AssertionError(f"(f) {spec}: outcomes {run['outcomes']}")
+    out["runs"] = runs
     return out
 
 
@@ -2125,6 +2498,9 @@ def main() -> int:
     log(f"  paged serving of full-width {cfg.name} (bf16): page "
         f"{planner.page_plan(MAX_SEQ)}, against the dense runs above")
     paged = paged_phase(cfg, params, serving)
+    log(f"  resilient serving of full-width {cfg.name} (bf16): (a)-(f) "
+        f"against the runs above (card: {card})")
+    resilience = resilience_phase(cfg, params, serving, paged)
     log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
@@ -2161,7 +2537,7 @@ def main() -> int:
     paged_runs = list(paged.values()) + [
         {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
-            + paged_runs + list(prefill.values())
+            + paged_runs + resilience["runs"] + list(prefill.values())
             + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
@@ -2174,7 +2550,9 @@ def main() -> int:
                   kernels=kernels, cells=cells, prefill_chunk=chunk,
                   sites=results,
                   kt_quantize=kt_quant, flash_attention=k3, serving=serving,
-                  moe_serving=moe_serving, paged=paged, prefill=prefill,
+                  moe_serving=moe_serving, paged=paged,
+                  resilience={k: v for k, v in resilience.items()
+                              if k != "runs"}, prefill=prefill,
                   prefill_sites=prefill_sites_rows,
                   prefill_kernel_totals=prefill_totals, parity=parity,
                   moe_parity=moe_parity, seconds=elapsed)

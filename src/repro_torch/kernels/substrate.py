@@ -46,11 +46,23 @@ Shape convention matches core.planner: ``gemm(x, w)`` with ``x: (..., K)``
 and ``w: (K, N_out)`` is the planner GEMM ``X[T, M] = A[T, N] x B[N, M]``
 with ``M = N_out``, ``N = K``, ``T = prod(leading dims)``.
 
-Sharded dispatch (``ShardCtx``, and so expert parallelism), the strict
-routing audit and chaos hooks are not ported yet.
+**Chaos** (``substrate.dispatch``, :func:`_maybe_chaos_fault`): under an
+active :mod:`repro_torch.runtime.chaos` engine each dispatch entry may
+raise an injected :class:`~repro_torch.serving.errors.KernelFault` before
+its backend runs, so the faulted site launches nothing.  The reference
+draws while ``jax.jit`` traces a step — once per site of its one traced
+layer, plus the unembed, and never again once the trace is cached — and
+the serving engine reproduces that: inside :func:`chaos_trace_scope` a
+site label draws on its first dispatch of the attempt only, and the
+engine runs a step that has completed once with the point inactive.
+
+Sharded dispatch (``ShardCtx``, and so expert parallelism) and the strict
+routing audit are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 import weakref
@@ -63,6 +75,7 @@ from repro_torch.core import planner, timing
 from repro_torch.kernels import ops
 from repro_torch.kernels.arrayflex_gemm import (INV_127, apply_epilogue,
                                                 prologue_phase)
+from repro_torch.runtime import chaos
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +563,44 @@ SITE_PLANS: Dict[str, GemmPlan] = {}
 DISPATCH_COUNTS: Dict[str, int] = {}
 
 
+# the site labels that already drew in this attempt of a step (None: every
+# dispatch draws)
+_CHAOS_SITES: contextvars.ContextVar[Optional[set]] = \
+    contextvars.ContextVar("repro_torch_chaos_sites", default=None)
+
+
+@contextlib.contextmanager
+def chaos_trace_scope():
+    """One attempt of a serving step that has not yet completed: each site
+    label draws at its first dispatch only, as the reference's trace of
+    one layer (``lax.scan`` body) and the unembed draws once per site."""
+    token = _CHAOS_SITES.set(set())
+    try:
+        yield
+    finally:
+        _CHAOS_SITES.reset(token)
+
+
+def _maybe_chaos_fault(site: str) -> None:
+    """Chaos injection point ``substrate.dispatch``: fail this GEMM launch
+    when the ambient chaos engine says so (no-op — one contextvar read —
+    when chaos is inactive).  Fires before the backend runs: the faulted
+    site neither launches nor counts.  The errors module is imported
+    lazily: serving imports substrate."""
+    if chaos.active() is None:
+        return
+    seen = _CHAOS_SITES.get()
+    if seen is not None:
+        if site in seen:
+            return
+        seen.add(site)
+    if chaos.fire("substrate.dispatch", site):
+        from repro_torch.serving.errors import KernelFault
+        raise KernelFault(
+            f"[chaos] injected GEMM launch fault at site {site!r} "
+            f"(replayable: seed + draw index in the chaos log)")
+
+
 def _record(site: str, plan: GemmPlan, launches: int = 1) -> None:
     if not site:
         return
@@ -597,6 +648,7 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     fp32 base.
     """
     fn = get_backend(backend)
+    _maybe_chaos_fault(site)
     info = _BACKEND_INFO[backend]
     if norm_scale is not None and tuple(norm_scale.shape) != (x.shape[-1],):
         raise ValueError(
@@ -678,6 +730,7 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     planned on the w8a8 datapath; ``attn.pv`` runs on the fp32 base.
     """
     check_backend(backend)
+    _maybe_chaos_fault(site)
     if backend in _QUANT_FP32_BASE and not (
             _BACKEND_INFO[backend].act_quantize and _is_builtin(backend)
             and site in BATCHED_ACTQ_SITES):
@@ -732,6 +785,7 @@ def expert_gemm(x, w, *, site: str = "", backend: str = "xla"):
     quantizes its activation tiles whenever the bank is quantized.
     """
     check_backend(backend)
+    _maybe_chaos_fault(site)
     G, E, C, K = x.shape
     N_out = w.shape[-1]
     info = _BACKEND_INFO[backend]

@@ -25,19 +25,36 @@ included) instead of the dense ``(max_batch, max_seq)`` cache, with
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --gemm-backend arrayflex --kv-pages 40 --page-size 16 --prefix-cache
 
-Prints per-request outputs plus per-phase timing: prefill and decode
-throughput (tokens/s), dispatch counts, and mean time-to-first-token.
+The resilience flags: ``--max-queue`` sheds overload typed
+(``rejected_overload``), ``--deadline-ms`` / ``--ttft-deadline-ms``
+expire requests typed (``deadline_expired``), ``--preempt-policy
+youngest`` reserves pages lazily and preempts instead of failing,
+``--chaos`` injects seeded faults (keys seed, gemm, nan, pages, crash and
+their ``_at`` variants) and ``--snapshot-every`` / ``--max-restarts``
+drive crash recovery (a crash spec forces a snapshot every tick), e.g.
+on the CPU, every request ending ``[ok]``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --gemm-backend arrayflex --requests 4 --max-new 8 --kv-pages 40 \
+      --page-size 16 --chaos "seed=1,crash_at=3"
+
+Prints per-request outputs with their outcome, plus per-phase timing:
+prefill and decode throughput (tokens/s), dispatch counts, and mean
+time-to-first-token.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import time
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import substrate
 from repro_torch.models import lm
-from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.runtime import chaos
+from repro_torch.serving import (AdmissionError, EngineCrash, Request,
+                                 ServeConfig, ServingEngine)
 
 
 def phase_report(engine: ServingEngine, reqs) -> str:
@@ -103,6 +120,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gemm-backend", default="xla",
                     help="GEMM substrate backend (kernels.substrate): "
                          + " | ".join(substrate.backends()))
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request total deadline in ms (0 = none); "
+                         "expired requests terminate with outcome "
+                         "deadline_expired")
+    ap.add_argument("--ttft-deadline-ms", type=float, default=0.0,
+                    help="per-request time-to-first-token deadline in ms "
+                         "(0 = none)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission queue (0 = unbounded); overflow "
+                         "is rejected typed with outcome rejected_overload")
+    ap.add_argument("--chaos", default="",
+                    help="seeded fault injection spec, e.g. "
+                         "'seed=3,gemm=0.05,nan_at=2,crash_at=10' "
+                         "(keys: seed, gemm, nan, pages, crash, + _at "
+                         "variants)")
+    ap.add_argument("--preempt-policy", default="none",
+                    choices=("none", "youngest"),
+                    help="on page-pool exhaustion mid-decode: 'youngest' "
+                         "preempts the youngest resident sequence (release "
+                         "pages, re-queue, recompute via the prefix cache) "
+                         "instead of failing; also switches paged admission "
+                         "to lazy page reservation")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="engine snapshot cadence in ticks for crash "
+                         "recovery (0 = off; forced to 1 when --chaos "
+                         "configures a crash)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="restore-from-snapshot attempts after injected "
+                         "engine crashes before giving up")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the kernels' "
                          "plain PyTorch versions)")
@@ -124,14 +170,24 @@ def main(argv=None):
         param_dtype=cfg.param_dtype if args.reduced else "bfloat16",
         n_layers=args.n_layers or cfg.n_layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
-    engine = ServingEngine(cfg, params,
-                           ServeConfig(max_batch=args.max_batch, max_seq=128,
-                                       prefill_mode=args.prefill_mode,
-                                       prefill_chunk=args.prefill_chunk,
-                                       kv_pages=args.kv_pages,
-                                       page_size=args.page_size,
-                                       prefix_cache=args.prefix_cache),
-                           device=args.device)
+    chaos_cfg = chaos.parse_spec(args.chaos) if args.chaos else None
+    snapshot_every = args.snapshot_every
+    if (chaos_cfg is not None and not snapshot_every
+            and (chaos_cfg.crash > 0.0 or chaos_cfg.crash_at >= 0)):
+        snapshot_every = 1      # crash chaos without snapshots cannot recover
+    sc = ServeConfig(max_batch=args.max_batch, max_seq=128,
+                     prefill_mode=args.prefill_mode,
+                     prefill_chunk=args.prefill_chunk,
+                     kv_pages=args.kv_pages, page_size=args.page_size,
+                     prefix_cache=args.prefix_cache,
+                     max_queue=args.max_queue, deadline_ms=args.deadline_ms,
+                     ttft_deadline_ms=args.ttft_deadline_ms,
+                     preempt_policy=args.preempt_policy,
+                     snapshot_every_ticks=snapshot_every, chaos=chaos_cfg)
+    engine = ServingEngine(cfg, params, sc, device=args.device)
+    if chaos_cfg is not None:
+        print(f"chaos: {args.chaos} (snapshot every "
+              f"{snapshot_every or 'never'} ticks)")
     if args.kv_pages:
         print(f"paged KV: {args.kv_pages} pages x {engine.page_size} tok "
               f"({engine.kv_cache_bytes()/1024:.0f} KiB resident K/V), "
@@ -142,15 +198,44 @@ def main(argv=None):
                     temperature=args.temperature, rid=i)
             for i, p in enumerate(prompts)]
     for r in reqs:
-        engine.submit(r)
+        try:
+            engine.submit(r)
+        except AdmissionError as e:
+            print(f"req {r.rid}: rejected ({e})")
     t0 = time.time()
-    ticks = engine.run_to_completion()
+    ticks, restarts = 0, 0
+    while True:
+        try:
+            ticks += engine.run_to_completion()
+            break
+        except EngineCrash as e:
+            restarts += 1
+            snap = engine.latest_snapshot()
+            if snap is None or restarts > args.max_restarts:
+                raise
+            print(f"engine crashed ({e}); restoring from snapshot "
+                  f"[restart {restarts}/{args.max_restarts}]")
+        # the crashed engine's prepared tree and cache leave the device
+        # before the restored engine prepares its own
+        engine = None
+        gc.collect()
+        engine = ServingEngine.restore(cfg, params, sc, snap,
+                                       device=args.device)
     dt = time.time() - t0
+    # a restored engine rebuilt its Request objects from the snapshot:
+    # merge by rid so reporting reflects the final state of every stream
+    final = {r.rid: r for r in reqs}
+    for r in engine.restored_requests:
+        final[r.rid] = r
+    reqs = [final[r.rid] for r in reqs]
     total = sum(len(r.out_tokens) for r in reqs)
     for r in reqs:
-        print(f"req {r.rid}: prompt={r.prompt} -> {r.out_tokens}")
+        print(f"req {r.rid}: prompt={r.prompt} -> {r.out_tokens} "
+              f"[{r.outcome or 'pending'}]")
     print(f"{total} tokens in {dt:.2f}s ({total/max(dt,1e-9):.1f} tok/s, "
           f"{ticks} ticks) on {engine.device}")
+    if restarts:
+        print(f"recovered from {restarts} injected crash(es)")
     print(phase_report(engine, reqs))
     return reqs
 

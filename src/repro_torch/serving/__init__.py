@@ -1,2 +1,5 @@
 from repro_torch.serving.engine import (  # noqa: F401
     Request, ServeConfig, ServingEngine, Slot)
+from repro_torch.serving.errors import (  # noqa: F401
+    AdmissionError, DeadlineExceeded, EngineCrash, KernelFault, Outcome,
+    PagePoolExhausted, ServingError)

@@ -1,8 +1,8 @@
 """Batched serving engine: chunked batched prefill + continuous batching.
 
-Port of the reference's ``serving/engine.py`` (dense K/V cache, greedy or
-temperature sampling).  A fixed pool of ``max_batch`` sequence
-:class:`Slot`\\ s, each with an explicit lifecycle::
+Port of the reference's ``serving/engine.py`` (dense or paged K/V cache,
+greedy or temperature sampling, the hardened lifecycle).  A fixed pool of
+``max_batch`` sequence :class:`Slot`\\ s, each with an explicit lifecycle::
 
     FREE --admit--> PREFILL --(chunks exhausted)--> DECODE --EOS/limit--> FREE
 
@@ -23,9 +23,9 @@ The engine serves a prepared copy of the parameters
 device — the card unless ``device="cpu"``.  A quantizing backend
 (``arrayflex_int8``/``arrayflex_w8a8``) serves int8 weights quantized once
 here (``lm.prequantize_params``), never inside a step.  Logits come back
-fp32; a non-finite logit row of a live request raises.  Sampling at temperature >
-0 draws from a ``torch.Generator`` seeded with ``ServeConfig.seed`` (its
-draws differ from the reference's ``jax.random`` ones).
+fp32.  Sampling at temperature > 0 draws from a ``torch.Generator``
+seeded with ``ServeConfig.seed`` (its draws differ from the reference's
+``jax.random`` ones).
 
 **Paged mode** (``ServeConfig.kv_pages > 0``): the dense per-slot K/V
 region is replaced by a global page pool + per-sequence block tables
@@ -39,17 +39,64 @@ paged greedy streams are bit-identical to the dense path's (but W8A8's,
 whose per-tile activation scales follow the batch's composition).
 ``prefix_cache=True`` adds the radix prefix cache: requests sharing a
 prompt prefix map their leading block-table entries to the same physical
-pages and skip the shared pages' prefill.  Each admission reserves its
-worst case (prompt + ``max_new_tokens``, clipped to ``max_seq``) up
-front, the reference's ``preempt_policy="none"``; a request that does not
-fit waits at the head of the queue.
+pages and skip the shared pages' prefill.
 
-Not ported yet (ROADMAP Queue 1, resilience): typed outcomes, deadlines,
-retries, preemption (lazy page reservation), chaos injection and
-snapshots; and disaggregated serving.
+**Resilience**: every request terminates with a typed
+:class:`~repro_torch.serving.errors.Outcome`, counted in
+``stats["outcome_*"]``.  The hardened lifecycle adds
+
+* a bounded queue (``max_queue``) with typed overload rejection at
+  ``submit`` (:class:`~repro_torch.serving.errors.AdmissionError`),
+* per-request TTFT/total deadlines (``ttft_deadline_ms``/``deadline_ms``)
+  expired at tick boundaries,
+* non-finite-logit detection after each decode dispatch with one bounded
+  retry (``max_retries``) — a persistent NaN/Inf fails the affected
+  requests instead of streaming garbage tokens,
+* :class:`~repro_torch.serving.errors.KernelFault` retry around each
+  dispatch (the substrate's ``substrate.dispatch`` chaos point; only an
+  injected fault raises it — a CUDA build or launch error propagates),
+* a per-tick heartbeat into
+  :class:`~repro_torch.runtime.fault.HeartbeatMonitor` plus a stuck-tick
+  watchdog (``watchdog_ticks``) that fails the head-of-line request
+  instead of spinning forever,
+* graceful degradation under ``preempt_policy="youngest"``: pages are
+  reserved lazily and on mid-decode pool exhaustion the youngest resident
+  sequence is preempted (pages released, request re-queued at the front,
+  K/V recomputed on re-admission — through the radix prefix cache when
+  warm) rather than deadlocking; preempted streams are bit-identical to
+  un-preempted runs by the prefill == decode equivalence contract,
+* crash recovery: ``snapshot()``/``ServingEngine.restore`` round-trip the
+  scheduling state (queue, slot/sequence metadata, block tables, pool
+  refcounts, radix tree, generator state, chaos draw counters) and the
+  K/V cache (CPU copies) so an
+  :class:`~repro_torch.serving.errors.EngineCrash` mid-stream resumes with
+  bit-identical continuations.
+
+A retried dispatch re-runs the step on the cache the faulted attempt
+wrote in place: every write depends only on the step's inputs and lands on
+the positions the clean attempt writes, so the retry rewrites the same
+bytes (``tests/test_torch_resilience.py`` holds logits and the whole cache
+to a clean step's bit for bit).
+
+Fault injection is driven by :mod:`repro_torch.runtime.chaos` (seeded,
+replayable); ``ServeConfig.chaos`` activates it and the engine scopes the
+chaos engine around each tick.  The reference draws ``substrate.dispatch``
+while ``jax.jit`` traces a step: a step whose first trace succeeded is
+cached and never draws again, and a step whose first trace raised is
+traced anew at every later call (jax 0.9's jit caches no trace for it).
+So the engine draws in each of its four steps (``decode``, ``prefill``,
+``decode_paged``, ``prefill_paged``) once per site label an attempt
+(``substrate.chaos_trace_scope``) until the step completes a dispatch at
+its first attempt, and from then on runs it with the point inactive; a
+step whose first attempt faulted draws at every dispatch.  A restored
+engine starts with no step traced, as the reference's fresh jit does.
+
+Not ported yet: disaggregated serving and the strict routing audit.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -62,6 +109,11 @@ from repro_torch.core import planner
 from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import lm
+from repro_torch.runtime import chaos as chaos_mod
+from repro_torch.runtime.fault import HeartbeatMonitor
+from repro_torch.serving.errors import (AdmissionError, DeadlineExceeded,
+                                        EngineCrash, KernelFault, Outcome,
+                                        PagePoolExhausted)
 from repro_torch.serving.paged import PagePool, PagedSeq, RadixCache
 
 PREFILL_CHUNK_CHOICES = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -76,6 +128,12 @@ class Request:
     out_tokens: list = field(default_factory=list)
     done: bool = False
     ttft_s: Optional[float] = None     # admission -> first generated token
+    # --- resilience -----------------------------------------------------
+    outcome: Optional[str] = None      # Outcome.value once done
+    error: str = ""                    # human-readable failure detail
+    preemptions: int = 0               # times preempted + re-queued
+    t_submit: float = 0.0              # engine clock at submit
+    resume_prompt: Optional[list] = None  # prompt + generated, for re-admit
 
 
 @dataclass(frozen=True)
@@ -90,6 +148,16 @@ class ServeConfig:
     kv_pages: int = 0           # physical pages in the pool (incl. scratch)
     page_size: int = 0          # tokens per page; 0 -> planner.page_plan
     prefix_cache: bool = False  # radix shared-prefix page reuse
+    # --- resilience ------------------------------------------------------
+    max_queue: int = 0          # bounded queue; 0 = unbounded (no shedding)
+    deadline_ms: float = 0.0    # total per-request deadline; 0 = off
+    ttft_deadline_ms: float = 0.0  # submit -> first token deadline; 0 = off
+    max_retries: int = 1        # bounded retry of a faulted/NaN dispatch
+    watchdog_ticks: int = 64    # consecutive no-progress ticks before the
+    #                             stuck-tick watchdog fires; 0 = off
+    snapshot_every_ticks: int = 0  # crash-recovery snapshot cadence; 0 = off
+    preempt_policy: str = "none"   # none | youngest (paged lazy reservation)
+    chaos: Optional[chaos_mod.ChaosConfig] = None  # fault injection
 
 
 class Slot:
@@ -107,10 +175,18 @@ class Slot:
         self.next_token = 0
         self.t_admit = 0.0
 
+    @property
+    def tokens(self) -> list:
+        """The token sequence this residency must make resident: a
+        preempted request re-admits with prompt + already-generated tokens
+        (recompute-on-re-admission), as the paged path's
+        ``_effective_prompt``."""
+        return self.req.resume_prompt or self.req.prompt
+
     def assign(self, req: Request, now: float):
         self.req = req
         self.t_admit = now
-        self.prefill_len = len(req.prompt) - 1
+        self.prefill_len = len(self.tokens) - 1
         self.prefill_done = 0
         if self.prefill_len == 0:
             self._to_decode()
@@ -121,7 +197,7 @@ class Slot:
     def _to_decode(self):
         self.state = Slot.DECODE
         self.pos = self.prefill_len
-        self.next_token = self.req.prompt[-1]
+        self.next_token = self.tokens[-1]
 
     def finish_chunk(self, n_tokens: int):
         self.prefill_done += n_tokens
@@ -140,11 +216,24 @@ class Slot:
         return self.prefill_done if self.state == Slot.PREFILL else self.pos
 
 
+def _req_state(req: Request) -> dict:
+    """Pure-python deep copy of a request for crash-recovery snapshots."""
+    return dataclasses.asdict(req)
+
+
+def _req_from_state(d: dict) -> Request:
+    return Request(**copy.deepcopy(d))
+
+
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  *, device=None, clock=time.perf_counter):
         substrate.check_backend(cfg.gemm_backend)
         lm.check_supported(cfg)
+        if serve_cfg.preempt_policy not in ("none", "youngest"):
+            raise ValueError(
+                f"unknown preempt_policy {serve_cfg.preempt_policy!r} "
+                f"(known: none, youngest)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = lm.prequantize_params(
@@ -174,6 +263,7 @@ class ServingEngine:
         self.paged = serve_cfg.kv_pages > 0
         self.slots: List[Slot] = []
         self.active: List[PagedSeq] = []
+        self._rr = 0                      # paged decode round-robin cursor
         if self.paged:
             if not lm.supports_paged_kv(cfg):
                 raise ValueError(
@@ -193,26 +283,55 @@ class ServingEngine:
                     f"(the paged/dense bit-exactness contract)")
             self.page_size = page
             self.pages_per_seq = S // page
-            if serve_cfg.kv_pages < self.pages_per_seq + 1:
+            if (serve_cfg.preempt_policy == "none"
+                    and serve_cfg.kv_pages < self.pages_per_seq + 1):
+                # worst-case reservation needs a full sequence's pages up
+                # front; lazy reservation (preempt_policy="youngest") can
+                # run a tighter pool and degrade by preempting instead
                 raise ValueError(
                     f"kv_pages={serve_cfg.kv_pages}: need at least "
                     f"{self.pages_per_seq + 1} (max_seq/page_size pages "
-                    f"for one worst-case sequence + the scratch page)")
+                    f"for one worst-case sequence + the scratch page), "
+                    f"or set preempt_policy='youngest' for lazy "
+                    f"reservation over a smaller pool")
             self.pool = PagePool(serve_cfg.kv_pages, page)
             self.radix = (RadixCache(page) if serve_cfg.prefix_cache
                           else None)
             self.cache = lm.init_paged_cache(cfg, serve_cfg.kv_pages, page,
                                              device=self.device)
-            self._rr = 0                  # decode round-robin cursor
         else:
             self.cache = lm.init_cache(cfg, B, S, device=self.device)
             self.slots = [Slot(i) for i in range(B)]
+
+        # --- resilience state --------------------------------------------
+        self._chaos = (chaos_mod.ChaosEngine(serve_cfg.chaos)
+                       if serve_cfg.chaos is not None else None)
+        # the reference's jit trace cache, per step: "cached" (the first
+        # attempt completed: the substrate.dispatch point is inactive from
+        # then on) or "retrace" (the first attempt faulted: every dispatch
+        # draws); absent until the step's first attempt
+        self._trace: dict = {}
+        # single-host serving: the engine heartbeats host 0 once per tick;
+        # an external supervisor (or test) reads dead_hosts()/stragglers()
+        self.monitor = HeartbeatMonitor(1, dead_after_s=60.0)
+        self._tick = 0
+        self._no_progress = 0
+        self._admit_seq = 0        # monotonic admission number (preemption)
+        self._admitted = 0
+        self._terminated = 0
+        self._snapshots: List[dict] = []   # latest crash-recovery snapshot
+        self.restored_requests: List[Request] = []  # set by restore()
+
         self.stats = dict(prefill_dispatches=0, decode_dispatches=0,
                           prefill_tokens=0, decode_tokens=0,
                           prefill_time_s=0.0, decode_time_s=0.0,
                           prefill_gemm_dispatches=0,
                           pages_used_peak=0, concurrency_peak=0,
-                          prefix_hit_tokens=0)
+                          prefix_hit_tokens=0,
+                          sample_retries=0, kernel_fault_retries=0,
+                          preemptions=0, watchdog_fired=0,
+                          snapshots_taken=0,
+                          **{f"outcome_{o.value}": 0 for o in Outcome})
 
     def kv_cache_bytes(self) -> int:
         """Resident K/V bytes (pool pages in paged mode, the dense
@@ -228,13 +347,35 @@ class ServingEngine:
         return torch.as_tensor(a, dtype=torch.int64, device=self.device)
 
     # ------------------------------------------------------------- intake
+    def _finish(self, req: Request, outcome: Outcome, error: str = ""):
+        """Terminate ``req`` with its typed outcome (idempotent)."""
+        if req.done and req.outcome is not None:
+            return
+        req.done = True
+        req.outcome = outcome.value
+        req.error = error
+        self._terminated += 1
+        self.stats[f"outcome_{outcome.value}"] += 1
+
     def submit(self, req: Request):
         if not req.prompt:
-            raise ValueError(f"request {req.rid}: empty prompt")
+            msg = f"request {req.rid}: empty prompt"
+            self._finish(req, Outcome.FAILED, msg)
+            raise AdmissionError(msg)
         if len(req.prompt) > self.sc.max_seq:
-            raise ValueError(
-                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
-                f"exceeds max_seq={self.sc.max_seq}")
+            msg = (f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                   f"exceeds max_seq={self.sc.max_seq}")
+            self._finish(req, Outcome.FAILED, msg)
+            raise AdmissionError(msg)
+        if self.sc.max_queue and len(self.queue) >= self.sc.max_queue:
+            # bounded queue: shed load with a typed rejection instead of
+            # growing without bound (backpressure the caller can act on)
+            msg = (f"request {req.rid}: queue full "
+                   f"({len(self.queue)}/{self.sc.max_queue}) — overload, "
+                   f"retry later")
+            self._finish(req, Outcome.REJECTED_OVERLOAD, msg)
+            raise AdmissionError(msg, Outcome.REJECTED_OVERLOAD)
+        req.t_submit = self.clock()
         self.queue.append(req)
 
     def _admit(self):
@@ -245,25 +386,39 @@ class ServingEngine:
         for slot in self.slots:
             if slot.state == Slot.FREE and self.queue:
                 slot.assign(self.queue.pop(0), now)
+                self._admitted += 1
+
+    def _effective_prompt(self, req: Request) -> list:
+        """The token sequence this admission must make resident: a
+        preempted request re-admits with prompt + already-generated tokens
+        (recompute-on-re-admission; prefix-cache hits make it cheap)."""
+        return req.resume_prompt if req.resume_prompt else req.prompt
 
     def _admit_paged(self):
         """Memory-bounded admission: FIFO-pop the queue while the pool can
-        reserve each request's worst-case page span (prompt + max_new,
-        clipped to max_seq) minus whatever the radix prefix cache already
-        holds.  Concurrency is whatever the page budget sustains, not
-        ``max_batch``."""
+        reserve each request's page span — worst-case (prompt + max_new,
+        clipped to max_seq) under ``preempt_policy="none"``, lazy (prompt
+        only, grown page by page in decode) under ``"youngest"`` — minus
+        whatever the radix prefix cache already holds.  Concurrency is
+        whatever the page budget sustains, not ``max_batch``."""
         now = self.clock()
         while self.queue:
             req = self.queue[0]
-            target = min(len(req.prompt) + req.max_new_tokens,
-                         self.sc.max_seq)
-            need = -(-target // self.page_size)
+            eff = self._effective_prompt(req)
+            if self.sc.preempt_policy == "youngest":
+                # lazy: cover the prompt (prefill writes 0..len-2, first
+                # decode write at len-1); decode growth allocates the rest
+                need = -(-len(eff) // self.page_size)
+            else:
+                target = min(len(eff) + req.max_new_tokens
+                             - len(req.out_tokens), self.sc.max_seq)
+                need = -(-target // self.page_size)
             shared: List[int] = []
-            if self.radix is not None and len(req.prompt) > 1:
+            if self.radix is not None and len(eff) > 1:
                 # only K/V of prompt[:-1] may be borrowed: the final
                 # prompt token must run through this request's own decode
                 # to produce its first logits
-                shared = self.radix.match(req.prompt[:-1])[:need]
+                shared = self.radix.match(eff[:-1])[:need]
                 for pg in shared:
                     self.pool.incref(pg)   # pin before any eviction below
             fresh = need - len(shared)
@@ -275,11 +430,15 @@ class ServingEngine:
                     self.pool.decref(pg)
                 break
             self.queue.pop(0)
-            seq = PagedSeq(req, self.pages_per_seq)
+            seq = PagedSeq(req, self.pages_per_seq, prompt=eff)
             m = len(shared)
             seq.block_table[:m] = shared
             seq.block_table[m:m + len(pages)] = pages
+            seq.n_shared = m
             seq.t_admit = now
+            seq.admit_idx = self._admit_seq
+            self._admit_seq += 1
+            self._admitted += 1
             seq.prefill_done = m * self.page_size
             self.stats["prefix_hit_tokens"] += m * self.page_size
             if seq.prefill_done >= seq.prefill_len:
@@ -310,6 +469,60 @@ class ServingEngine:
     def _pos_vector(self) -> np.ndarray:
         return np.asarray([s.write_pos for s in self.slots], np.int64)
 
+    # -------------------------------------------------- guarded dispatch
+    def _guarded_dispatch(self, step: str, dispatch, rows):
+        """Run one step (``dispatch()`` -> logits, or None for a prefill)
+        under the fault guards: retry (at most ``max_retries`` times) on a
+        :class:`KernelFault`, and on non-finite logits in the active
+        ``rows`` (the ``engine.sample`` corruption point — also catches a
+        *real* kernel producing NaN/Inf).  Returns ``(logits, bad_rows)``;
+        ``bad_rows`` non-empty means the retry budget is spent and the
+        caller must fail those rows' requests instead of sampling
+        garbage.  A persistent KernelFault re-raises.
+
+        Unless ``step`` is cached, each attempt draws the
+        ``substrate.dispatch`` point once per site label (module
+        docstring).  A retry re-runs the
+        step on the cache the faulted attempt wrote in place, which it
+        rewrites with the same bytes; the generator is untouched
+        (sampling happens after validation)."""
+        retries = max(0, self.sc.max_retries)
+        for attempt in range(retries + 1):
+            cached = self._trace.get(step) == "cached"
+            try:
+                with (chaos_mod.scope(None) if cached
+                      else substrate.chaos_trace_scope()):
+                    logits = dispatch()
+            except KernelFault:
+                self._trace[step] = "retrace"
+                if attempt < retries:
+                    self.stats["kernel_fault_retries"] += 1
+                    continue
+                raise
+            self._trace.setdefault(step, "cached")
+            if logits is None:           # prefill: nothing to sample
+                return None, ()
+            if self._chaos is not None and self._chaos.fire("engine.sample"):
+                # corrupt to NaN on even draws, +Inf on odd (both must be
+                # caught by the same finiteness check)
+                n = self._chaos.chaos_draws["engine.sample"] - 1
+                logits = torch.full_like(
+                    logits, float("nan") if n % 2 == 0 else float("inf"))
+            finite = torch.isfinite(logits).all(dim=-1).cpu().numpy()
+            bad = tuple(r for r in rows if not finite[r])
+            if bad and attempt < retries:
+                self.stats["sample_retries"] += 1
+                continue
+            if not finite.all():
+                # no row is sampled from non-finite logits (the bad rows'
+                # tokens are dropped; multinomial refuses NaN rows)
+                logits = torch.where(
+                    torch.as_tensor(finite, device=logits.device)[:, None],
+                    logits, torch.zeros((), dtype=logits.dtype,
+                                        device=logits.device))
+            return logits, bad
+        raise AssertionError("unreachable")
+
     # ------------------------------------------------------------ prefill
     def _prefill_tick(self):
         if self.paged:
@@ -328,27 +541,35 @@ class ServingEngine:
         lens = np.zeros(B, np.int64)
         for s in pre:
             c = min(C, s.prefill_len - s.prefill_done)
-            toks[s.index, :c] = s.req.prompt[s.prefill_done:
-                                             s.prefill_done + c]
+            toks[s.index, :c] = s.tokens[s.prefill_done:s.prefill_done + c]
             lens[s.index] = c
-        self._run_prefill(lambda: lm.prefill_step(
-            self.cfg, self.params, self.cache, self._tensor(toks),
-            self._tensor(pos), self._tensor(lens)), lens)
+        try:
+            self._run_prefill("prefill", lambda: lm.prefill_step(
+                self.cfg, self.params, self.cache, self._tensor(toks),
+                self._tensor(pos), self._tensor(lens)), lens)
+        except KernelFault as exc:
+            for s in pre:
+                self._finish(s.req, Outcome.FAILED,
+                             f"KernelFault during prefill: {exc}")
+                s.release()
+            return
         for s in pre:
             s.finish_chunk(int(lens[s.index]))
 
-    def _run_prefill(self, step, lens: np.ndarray):
-        """Run one prefill-chunk dispatch and book its time, tokens and
-        GEMM dispatches."""
+    def _run_prefill(self, step: str, run, lens: np.ndarray):
+        """Run one guarded prefill-chunk dispatch and book its time, tokens
+        and GEMM dispatches (a retried attempt's included)."""
         t0 = self.clock()
         d0 = sum(substrate.DISPATCH_COUNTS.values())
-        step()
+        try:
+            self._guarded_dispatch(step, lambda: (run(), None)[1], rows=())
+        finally:
+            self.stats["prefill_gemm_dispatches"] += (
+                sum(substrate.DISPATCH_COUNTS.values()) - d0)
         self._sync()
         self.stats["prefill_time_s"] += self.clock() - t0
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += int(lens.sum())
-        self.stats["prefill_gemm_dispatches"] += (
-            sum(substrate.DISPATCH_COUNTS.values()) - d0)
 
     def _prefill_tick_paged(self):
         pre = [s for s in self.active if s.state == PagedSeq.PREFILL]
@@ -366,9 +587,17 @@ class ServingEngine:
             pos[r] = s.prefill_done
             lens[r] = c
             bt[r] = s.block_table
-        self._run_prefill(lambda: lm.prefill_step_paged(
-            self.cfg, self.params, self.cache, self._tensor(toks),
-            self._tensor(pos), self._tensor(lens), self._tensor(bt)), lens)
+        try:
+            self._run_prefill("prefill_paged", lambda: lm.prefill_step_paged(
+                self.cfg, self.params, self.cache, self._tensor(toks),
+                self._tensor(pos), self._tensor(lens), self._tensor(bt)),
+                lens)
+        except KernelFault as exc:
+            for s in sel:
+                self._finish(s.req, Outcome.FAILED,
+                             f"KernelFault during prefill: {exc}")
+                self._release_paged(s)
+            return
         for r, s in enumerate(sel):
             s.prefill_done += int(lens[r])
             if s.prefill_done >= s.prefill_len:
@@ -379,20 +608,79 @@ class ServingEngine:
         """One full-batch decode dispatch per prompt token.  Other slots'
         rows write garbage at their own next position, which their next
         real write overwrites before it is ever attended to."""
-        for i, t in enumerate(slot.req.prompt[:-1]):
+        for i, t in enumerate(slot.tokens[:-1]):
             toks = np.zeros(self.sc.max_batch, np.int64)
             toks[slot.index] = t
             pos_v = self._pos_vector()
             pos_v[slot.index] = i
             t0 = self.clock()
-            lm.decode_step(self.cfg, self.params, self.cache,
-                           self._tensor(toks), self._tensor(pos_v))
+            try:
+                self._guarded_dispatch("decode", lambda: (lm.decode_step(
+                    self.cfg, self.params, self.cache, self._tensor(toks),
+                    self._tensor(pos_v)), None)[1], rows=())
+            except KernelFault as exc:
+                self._finish(slot.req, Outcome.FAILED,
+                             f"KernelFault during prefill: {exc}")
+                slot.release()
+                return
             self._sync()
             self.stats["prefill_time_s"] += self.clock() - t0
             self.stats["prefill_dispatches"] += 1
             self.stats["prefill_tokens"] += 1
             slot.prefill_done = i + 1
         slot._to_decode()
+
+    # ------------------------------------------------- preemption (paged)
+    def _youngest_other(self, s: PagedSeq) -> Optional[PagedSeq]:
+        if self.sc.preempt_policy != "youngest":
+            return None
+        cands = [q for q in self.active if q is not s]
+        return max(cands, key=lambda q: q.admit_idx) if cands else None
+
+    def _preempt(self, victim: PagedSeq):
+        """Release the victim's pages and re-queue it at the front; on
+        re-admission the effective prompt (original + generated so far)
+        is recomputed — through the radix prefix cache when warm — which
+        reproduces the K/V state exactly (prefill == decode equivalence),
+        so the continued stream is bit-identical."""
+        req = victim.req
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        req.resume_prompt = list(req.prompt) + list(req.out_tokens)
+        self._release_paged(victim)
+        self.queue.insert(0, req)
+
+    def _ensure_write_page(self, s: PagedSeq) -> bool:
+        """Make sure the page backing ``s.pos`` exists before this tick's
+        decode write (lazy reservation under ``preempt_policy="youngest"``).
+        Escalation on exhaustion: radix eviction -> preempt the youngest
+        *other* resident -> fail ``s`` itself (PagePoolExhausted).  Under
+        ``"none"`` the worst-case reservation made this a no-op."""
+        idx = s.pos // self.page_size
+        if s.block_table[idx] != PagePool.SCRATCH:
+            return True
+        pages = self.pool.alloc(1)
+        if pages is None and self.radix is not None:
+            self.radix.evict(1, self.pool)
+            pages = self.pool.alloc(1)
+        while pages is None:
+            victim = self._youngest_other(s)
+            if victim is None:
+                break
+            self._preempt(victim)
+            pages = self.pool.alloc(1)
+        if pages is None:
+            err = PagePoolExhausted(
+                f"request {s.req.rid}: no page for decode growth at pos "
+                f"{s.pos} after eviction and preemption")
+            self._finish(s.req, Outcome.FAILED,
+                         f"{type(err).__name__}: {err}")
+            self._release_paged(s)
+            return False
+        s.block_table[idx] = pages[0]
+        self.stats["pages_used_peak"] = max(
+            self.stats["pages_used_peak"], self.pool.n_used)
+        return True
 
     # ------------------------------------------------------------- decode
     def _sample(self, logits, temps: np.ndarray) -> np.ndarray:
@@ -405,6 +693,12 @@ class ServingEngine:
             nxt = torch.where(t > 0, sampled, nxt)
         return nxt.cpu().numpy()
 
+    def _finish_stream(self, req: Request):
+        """Normal terminal: OK, or PREEMPTED_RETRIED if the stream was
+        ever preempted and recomputed on the way."""
+        self._finish(req, Outcome.PREEMPTED_RETRIED if req.preemptions
+                     else Outcome.OK)
+
     def _decode_tick(self):
         if self.paged:
             self._decode_tick_paged()
@@ -415,33 +709,10 @@ class ServingEngine:
         toks = np.zeros(self.sc.max_batch, np.int64)
         for s in dec:
             toks[s.index] = s.next_token
-        t0 = self.clock()
-        logits, _ = lm.decode_step(self.cfg, self.params, self.cache,
-                                   self._tensor(toks),
-                                   self._tensor(self._pos_vector()))
-        for s in self._emit(logits, [(s.index, s) for s in dec], t0):
-            s.release()
-
-    def _ensure_write_page(self, s: PagedSeq):
-        """Make sure the page backing ``s.pos`` exists before this tick's
-        decode write.  Admission reserved the worst case, so it does; were
-        it missing, the radix tree gives up LRU pages before the pool is
-        declared exhausted (the reference's lazy reservation, which grows
-        here and preempts on exhaustion, is not ported)."""
-        idx = s.pos // self.page_size
-        if s.block_table[idx] != PagePool.SCRATCH:
-            return
-        pages = self.pool.alloc(1)
-        if pages is None and self.radix is not None:
-            self.radix.evict(1, self.pool)
-            pages = self.pool.alloc(1)
-        if pages is None:
-            raise RuntimeError(
-                f"request {s.req.rid}: no page for decode growth at pos "
-                f"{s.pos} after radix eviction")
-        s.block_table[idx] = pages[0]
-        self.stats["pages_used_peak"] = max(
-            self.stats["pages_used_peak"], self.pool.n_used)
+        self._decode_rows("decode", lambda: lm.decode_step(
+            self.cfg, self.params, self.cache, self._tensor(toks),
+            self._tensor(self._pos_vector()))[0],
+            [(s.index, s) for s in dec], Slot.release)
 
     def _decode_tick_paged(self):
         dec = [s for s in self.active if s.state == PagedSeq.DECODE]
@@ -451,32 +722,47 @@ class ServingEngine:
         # round-robin: when more sequences are resident than dispatch rows,
         # rotate so every sequence makes progress (no starvation)
         start = self._rr % len(dec)
-        sel = (dec[start:] + dec[:start])[:B]
+        order = dec[start:] + dec[:start]
+        sel: List[PagedSeq] = []
+        for s in order:
+            if len(sel) >= B:
+                break
+            if s not in self.active:   # preempted/failed by earlier growth
+                continue
+            if self._ensure_write_page(s):
+                sel.append(s)
+        # growth may have preempted a sequence selected earlier this loop
+        sel = [s for s in sel if s in self.active]
+        if not sel:
+            return
         self._rr += len(sel)
         toks = np.zeros(B, np.int64)
         pos = np.zeros(B, np.int64)
         bt = np.zeros((B, self.pages_per_seq), np.int64)
         for r, s in enumerate(sel):
-            self._ensure_write_page(s)
             toks[r] = s.next_token
             pos[r] = s.pos
             bt[r] = s.block_table
-        t0 = self.clock()
-        logits, _ = lm.decode_step_paged(self.cfg, self.params, self.cache,
-                                         self._tensor(toks),
-                                         self._tensor(pos), self._tensor(bt))
-        for s in self._emit(logits, list(enumerate(sel)), t0):
-            self._release_paged(s)
+        self._decode_rows("decode_paged", lambda: lm.decode_step_paged(
+            self.cfg, self.params, self.cache, self._tensor(toks),
+            self._tensor(pos), self._tensor(bt))[0],
+            list(enumerate(sel)), self._release_paged)
 
-    def _emit(self, logits, rows, t0: float) -> list:
-        """Sample the next token of each (row, sequence) of a decode
-        dispatch started at ``t0`` and append it to its request; returns
-        the sequences that finished."""
-        idx = [r for r, _ in rows]
-        if not bool(torch.isfinite(logits[idx]).all()):
-            raise FloatingPointError(
-                f"non-finite logits in decode rows {idx} at positions "
-                f"{[s.pos for _, s in rows]}")
+    def _decode_rows(self, step: str, dispatch, rows, release):
+        """One guarded decode dispatch over ``rows`` ((row, sequence)
+        pairs): sample each row's next token and append it to its request,
+        or fail the rows typed — all of them on a persistent KernelFault,
+        a row whose logits stayed non-finite through the retries.
+        ``release`` frees a finished sequence."""
+        t0 = self.clock()
+        try:
+            logits, bad = self._guarded_dispatch(
+                step, dispatch, rows=[r for r, _ in rows])
+        except KernelFault as exc:
+            for _, s in rows:
+                self._finish(s.req, Outcome.FAILED, f"KernelFault: {exc}")
+                release(s)
+            return
         temps = np.zeros(self.sc.max_batch, np.float32)
         for r, s in rows:
             temps[r] = s.req.temperature
@@ -485,9 +771,14 @@ class ServingEngine:
         self.stats["decode_dispatches"] += 1
         self.stats["decode_tokens"] += len(rows)
         now = self.clock()
-        finished = []
         for r, s in rows:
             req = s.req
+            if r in bad:
+                self._finish(req, Outcome.FAILED,
+                             "non-finite logits at sample time "
+                             "(retry budget spent)")
+                release(s)
+                continue
             tok = int(nxt[r])
             if not req.out_tokens:
                 req.ttft_s = now - s.t_admit
@@ -497,9 +788,73 @@ class ServingEngine:
             if (tok == self.sc.eos_id
                     or len(req.out_tokens) >= req.max_new_tokens
                     or s.pos >= self.sc.max_seq - 1):
-                req.done = True
-                finished.append(s)
-        return finished
+                self._finish_stream(req)
+                release(s)
+
+    # ---------------------------------------------------------- deadlines
+    def _deadline_reason(self, req: Request, now: float) -> str:
+        waited_ms = (now - req.t_submit) * 1e3
+        if self.sc.deadline_ms and waited_ms > self.sc.deadline_ms:
+            return (f"total deadline {self.sc.deadline_ms:g}ms passed "
+                    f"({waited_ms:.1f}ms since submit)")
+        if (self.sc.ttft_deadline_ms and not req.out_tokens
+                and waited_ms > self.sc.ttft_deadline_ms):
+            return (f"TTFT deadline {self.sc.ttft_deadline_ms:g}ms passed "
+                    f"({waited_ms:.1f}ms since submit, no token yet)")
+        return ""
+
+    def _expire_deadlines(self):
+        if not (self.sc.deadline_ms or self.sc.ttft_deadline_ms):
+            return
+        now = self.clock()
+        for req in list(self.queue):
+            why = self._deadline_reason(req, now)
+            if why:
+                self.queue.remove(req)
+                self._finish(req, Outcome.DEADLINE_EXPIRED,
+                             f"{DeadlineExceeded.__name__}: {why}")
+        if self.paged:
+            for s in list(self.active):
+                why = self._deadline_reason(s.req, now)
+                if why:
+                    self._finish(s.req, Outcome.DEADLINE_EXPIRED,
+                                 f"{DeadlineExceeded.__name__}: {why}")
+                    self._release_paged(s)
+        else:
+            for slot in self.slots:
+                if slot.state == Slot.FREE:
+                    continue
+                why = self._deadline_reason(slot.req, now)
+                if why:
+                    self._finish(slot.req, Outcome.DEADLINE_EXPIRED,
+                                 f"{DeadlineExceeded.__name__}: {why}")
+                    slot.release()
+
+    # ----------------------------------------------------------- watchdog
+    def _watchdog_fire(self):
+        """Break a stuck engine: no admission, dispatch or termination for
+        ``watchdog_ticks`` consecutive ticks means the head-of-line
+        request can never be paid for — fail it (typed) and move on
+        instead of spinning to max_ticks."""
+        self.stats["watchdog_fired"] += 1
+        self._no_progress = 0
+        msg = (f"stuck-tick watchdog: no engine progress for "
+               f"{self.sc.watchdog_ticks} ticks")
+        if self.queue:
+            req = self.queue.pop(0)
+            self._finish(req, Outcome.FAILED,
+                         f"{msg} — failing head-of-line request")
+            return
+        if self.paged and self.active:
+            s = min(self.active, key=lambda q: q.admit_idx)
+            self._finish(s.req, Outcome.FAILED, msg)
+            self._release_paged(s)
+        elif not self.paged:
+            occ = [s for s in self.slots if s.state != Slot.FREE]
+            if occ:
+                s = min(occ, key=lambda q: q.t_admit)
+                self._finish(s.req, Outcome.FAILED, msg)
+                s.release()
 
     # --------------------------------------------------------------- run
     def _resident(self) -> bool:
@@ -507,20 +862,195 @@ class ServingEngine:
             return bool(self.active)
         return any(s.state != Slot.FREE for s in self.slots)
 
+    def _progress_sig(self):
+        return (self.stats["prefill_dispatches"],
+                self.stats["decode_dispatches"],
+                self._admitted, self._terminated)
+
     def step(self):
-        """One engine tick: admit, at most one prefill chunk dispatch, one
-        fused decode dispatch."""
+        """One engine tick: expire deadlines, admit, at most one prefill
+        chunk dispatch, one fused decode dispatch.  Returns True when the
+        tick made progress (an admission, a dispatch, or a termination).
+
+        Chaos point ``engine.tick``: an injected :class:`EngineCrash`
+        raises out of here mid-stream; recover via ``restore()`` from
+        ``latest_snapshot()``."""
+        self._tick += 1
+        if self._chaos is not None and self._chaos.fire(
+                "engine.tick", f"tick={self._tick}"):
+            raise EngineCrash(
+                f"[chaos] engine killed at tick {self._tick} — restore "
+                f"from latest_snapshot() and rerun run_to_completion()")
+        with chaos_mod.scope(self._chaos):
+            return self._step_inner()
+
+    def _step_inner(self):
+        sig0 = self._progress_sig()
+        self._expire_deadlines()
         self._admit()
         if self._resident():
             self._prefill_tick()
             self._decode_tick()
+        return self._progress_sig() != sig0
 
     def run_to_completion(self, max_ticks: int = 10000):
         ticks = 0
+        if self.sc.snapshot_every_ticks and not self._snapshots:
+            self._take_snapshot()
         while (self.queue or self._resident()) and ticks < max_ticks:
-            self.step()
+            t0 = self.clock()
+            progress = self.step()
+            # per-tick heartbeat: host 0's liveness + step time feed the
+            # monitor an external supervisor would watch
+            self.monitor.beat(0, self._tick, self.clock() - t0)
             ticks += 1
+            if (self.sc.snapshot_every_ticks
+                    and self._tick % self.sc.snapshot_every_ticks == 0):
+                self._take_snapshot()
+            if progress:
+                self._no_progress = 0
+            else:
+                self._no_progress += 1
+                if (self.sc.watchdog_ticks
+                        and self._no_progress >= self.sc.watchdog_ticks):
+                    self._watchdog_fire()
         return ticks
+
+    # ------------------------------------------------- snapshot / restore
+    def _take_snapshot(self):
+        self._snapshots[:] = [self.snapshot()]
+        self.stats["snapshots_taken"] += 1
+
+    def latest_snapshot(self) -> Optional[dict]:
+        return self._snapshots[-1] if self._snapshots else None
+
+    def snapshot(self) -> dict:
+        """Deep copy of the scheduling state at a tick boundary: queue,
+        slot/sequence metadata, block tables, pool refcounts, radix tree,
+        generator state, stats, chaos draw counters and the K/V cache (as
+        CPU tensor copies: the engine writes its cache in place).
+        ``restore()`` rebuilds an engine that continues with bit-identical
+        streams."""
+        snap = {
+            "paged": self.paged,
+            "tick": self._tick,
+            "admit_seq": self._admit_seq,
+            "admitted": self._admitted,
+            "terminated": self._terminated,
+            "rr": self._rr,
+            "gen": self.gen.get_state(),
+            "stats": dict(self.stats),
+            "queue": [_req_state(r) for r in self.queue],
+            "cache": tuple({k: t.to("cpu", copy=True) for k, t in
+                            layer.items()} for layer in self.cache),
+            "chaos": (self._chaos.state_snapshot()
+                      if self._chaos is not None else None),
+        }
+        if self.paged:
+            snap["seqs"] = [
+                {"req": _req_state(s.req), "prompt": list(s.prompt),
+                 "block_table": list(s.block_table),
+                 "n_shared": s.n_shared, "published": s.published,
+                 "state": s.state, "pos": s.pos,
+                 "prefill_len": s.prefill_len,
+                 "prefill_done": s.prefill_done,
+                 "next_token": s.next_token, "t_admit": s.t_admit,
+                 "admit_idx": s.admit_idx}
+                for s in self.active]
+            snap["pool"] = {"free_pages": list(self.pool.free_pages),
+                            "refcounts": list(self.pool.refcounts)}
+            snap["radix"] = (self.radix.to_snapshot()
+                             if self.radix is not None else None)
+        else:
+            snap["slots"] = [
+                {"state": s.state, "pos": s.pos,
+                 "prefill_len": s.prefill_len,
+                 "prefill_done": s.prefill_done,
+                 "next_token": s.next_token, "t_admit": s.t_admit,
+                 "req": _req_state(s.req) if s.req is not None else None}
+                for s in self.slots]
+        return snap
+
+    def _load_snapshot(self, snap: dict):
+        if bool(snap["paged"]) != self.paged:
+            raise ValueError("snapshot/config mode mismatch: snapshot is "
+                             f"{'paged' if snap['paged'] else 'dense'}, "
+                             f"engine is "
+                             f"{'paged' if self.paged else 'dense'}")
+        self._tick = snap["tick"]
+        self._admit_seq = snap["admit_seq"]
+        self._admitted = snap["admitted"]
+        self._terminated = snap["terminated"]
+        self._rr = snap["rr"]
+        self.gen.set_state(snap["gen"])
+        self.stats.update(snap["stats"])
+        for layer, saved in zip(self.cache, snap["cache"]):
+            for k, t in layer.items():
+                t.copy_(saved[k])
+        self.queue = [_req_from_state(d) for d in snap["queue"]]
+        restored: List[Request] = list(self.queue)
+        if self.paged:
+            self.pool.free_pages[:] = list(snap["pool"]["free_pages"])
+            self.pool.refcounts[:] = list(snap["pool"]["refcounts"])
+            if snap.get("radix") is not None:
+                if self.radix is None:
+                    raise ValueError("snapshot carries a radix tree but "
+                                     "prefix_cache is off in this config")
+                self.radix = RadixCache.from_snapshot(snap["radix"])
+            self.active = []
+            for d in snap["seqs"]:
+                req = _req_from_state(d["req"])
+                seq = PagedSeq(req, len(d["block_table"]),
+                               prompt=d["prompt"])
+                seq.block_table[:] = list(d["block_table"])
+                seq.n_shared = d["n_shared"]
+                seq.published = d["published"]
+                seq.state = d["state"]
+                seq.pos = d["pos"]
+                seq.prefill_len = d["prefill_len"]
+                seq.prefill_done = d["prefill_done"]
+                seq.next_token = d["next_token"]
+                seq.t_admit = d["t_admit"]
+                seq.admit_idx = d["admit_idx"]
+                self.active.append(seq)
+                restored.append(req)
+        else:
+            for slot, d in zip(self.slots, snap["slots"]):
+                slot.state = d["state"]
+                slot.pos = d["pos"]
+                slot.prefill_len = d["prefill_len"]
+                slot.prefill_done = d["prefill_done"]
+                slot.next_token = d["next_token"]
+                slot.t_admit = d["t_admit"]
+                slot.req = (_req_from_state(d["req"])
+                            if d["req"] is not None else None)
+                if slot.req is not None:
+                    restored.append(slot.req)
+        if self._chaos is not None and snap.get("chaos") is not None:
+            self._chaos.load_state(snap["chaos"])
+        self.restored_requests = restored
+
+    @classmethod
+    def restore(cls, cfg: ModelConfig, params, serve_cfg: ServeConfig,
+                snap: dict, *, device=None, clock=time.perf_counter,
+                reinject_crash: bool = False) -> "ServingEngine":
+        """Rebuild an engine from ``snapshot()`` state after a crash.
+
+        In-flight requests are rebuilt as fresh :class:`Request` objects
+        (exposed on ``restored_requests``) and continue bit-identically.
+        The new engine prepares its own copy of ``params`` on its device:
+        on the card, drop every reference to the crashed engine first, or
+        two prepared trees share the card.  By default the inherited chaos
+        config drops its ``crash`` triggers
+        (:meth:`ChaosConfig.without_crash`): replaying the same seed would
+        otherwise re-kill the engine at the same draw forever.  Pass
+        ``reinject_crash=True`` to keep them."""
+        if serve_cfg.chaos is not None and not reinject_crash:
+            serve_cfg = dataclasses.replace(
+                serve_cfg, chaos=serve_cfg.chaos.without_crash())
+        eng = cls(cfg, params, serve_cfg, device=device, clock=clock)
+        eng._load_snapshot(snap)
+        return eng
 
 
 def _to_device(tree, device):

@@ -1,7 +1,6 @@
 """Paged K/V state for the serving engine: page pool, radix prefix cache.
 
-Port of the reference's ``serving/paged.py`` (framework-free; a copy apart
-from what the port does not run yet, listed below).
+Port of the reference's ``serving/paged.py`` (framework-free, a copy).
 
 The dense engine pre-allocates one ``(max_batch, max_seq)`` K/V region and
 binds every request to a fixed :class:`~repro_torch.serving.engine.Slot`,
@@ -29,16 +28,12 @@ page-aligned boundary, so a shared page is never written after
 publication — which keeps paged streams bit-identical to the dense path
 (a shared page's K/V is a pure function of (token prefix, positions,
 params), independent of who computed it).
-
-Not ported yet (ROADMAP Queue 1, resilience): the reference's chaos
-injection point in ``PagePool.alloc``, the snapshot state (the radix
-tree's round-trip and hit counters, ``PagedSeq.n_shared``) and the
-preemption bookkeeping of ``PagedSeq`` (a re-admitted prompt, the
-admission number).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.runtime import chaos
 
 
 class PagePool:
@@ -72,7 +67,16 @@ class PagePool:
         return (self.n_pages - 1) - len(self.free_pages)
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """Reserve ``n`` pages (refcount 1 each), or None if short."""
+        """Reserve ``n`` pages (refcount 1 each), or None if short.
+
+        Chaos injection point ``pool.alloc``: the ambient
+        :mod:`repro_torch.runtime.chaos` engine may report exhaustion even
+        when pages are free — exercising the caller's head-of-line-retry /
+        evict / preempt paths without shrinking the pool (a contextvar
+        read when chaos is inactive)."""
+        if n > 0 and chaos.fire("pool.alloc",
+                                f"n={n} free={len(self.free_pages)}"):
+            return None
         if n > len(self.free_pages):
             return None
         pages = [self.free_pages.pop() for _ in range(n)]
@@ -125,6 +129,8 @@ class RadixCache:
         self.page_size = page_size
         self.root = _Node()
         self._clock = 0
+        self.hit_tokens = 0
+        self.lookup_tokens = 0
 
     # ------------------------------------------------------------ helpers
     def _keys(self, tokens) -> List[Tuple[int, ...]]:
@@ -166,6 +172,7 @@ class RadixCache:
         page-aligned divergence point (recompute-on-divergence COW)."""
         self._clock += 1
         keys = self._keys(tokens)
+        self.lookup_tokens += len(tokens)
         pages: List[int] = []
         node, i = self.root, 0
         while i < len(keys):
@@ -182,6 +189,7 @@ class RadixCache:
             if j < len(child.keys):                     # diverged mid-node
                 break
             node = child
+        self.hit_tokens += len(pages) * self.page_size
         return pages
 
     # ------------------------------------------------------------ insert
@@ -215,6 +223,40 @@ class RadixCache:
                 self._split(child, j)                   # diverged mid-node
             node = child
         return 0
+
+    # --------------------------------------------------------- snapshot
+    def to_snapshot(self) -> dict:
+        """Pure-python serialization of the trie (engine crash-recovery
+        snapshots).  Pool refcounts are snapshotted by the engine; the
+        tree carries only its structure and LRU clocks."""
+        def ser(node: _Node) -> dict:
+            return {"keys": [list(k) for k in node.keys],
+                    "pages": list(node.pages),
+                    "last_used": node.last_used,
+                    "children": [ser(c) for c in node.children.values()]}
+        return {"page_size": self.page_size, "clock": self._clock,
+                "hit_tokens": self.hit_tokens,
+                "lookup_tokens": self.lookup_tokens,
+                "root": ser(self.root)}
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "RadixCache":
+        out = cls(snap["page_size"])
+        out._clock = snap["clock"]
+        out.hit_tokens = snap["hit_tokens"]
+        out.lookup_tokens = snap["lookup_tokens"]
+
+        def de(d: dict, parent: Optional[_Node]) -> _Node:
+            node = _Node([tuple(k) for k in d["keys"]], d["pages"],
+                         parent=parent)
+            node.last_used = d["last_used"]
+            for cd in d["children"]:
+                child = de(cd, node)
+                node.children[child.keys[0]] = child
+            return node
+
+        out.root = de(snap["root"], None)
+        return out
 
     # ------------------------------------------------------------- evict
     def evict(self, n_needed: int, pool: PagePool) -> int:
@@ -251,10 +293,15 @@ class PagedSeq:
 
     PREFILL, DECODE = "prefill", "decode"
 
-    def __init__(self, req, n_table_entries: int):
+    def __init__(self, req, n_table_entries: int, prompt=None):
         self.req = req
-        self.prompt: List[int] = list(req.prompt)
+        # effective prompt: a preempted request re-admits with its
+        # original prompt + already-generated tokens, so recompute (via
+        # the prefix cache when warm) reproduces the K/V state exactly
+        self.prompt: List[int] = (list(prompt) if prompt is not None
+                                  else list(req.prompt))
         self.block_table = [PagePool.SCRATCH] * n_table_entries
+        self.n_shared = 0          # leading block_table entries borrowed
         self.published = False     # prefix pages handed to the radix tree
         self.state = PagedSeq.PREFILL
         self.pos = 0
@@ -262,8 +309,15 @@ class PagedSeq:
         self.prefill_done = 0
         self.next_token = 0
         self.t_admit = 0.0
+        self.admit_idx = 0         # monotonic admission number (preemption
+        #                            picks the youngest deterministically)
 
     def to_decode(self):
         self.state = PagedSeq.DECODE
         self.pos = self.prefill_len
         self.next_token = self.prompt[-1]
+
+    @property
+    def write_pos(self) -> int:
+        return (self.prefill_done if self.state == PagedSeq.PREFILL
+                else self.pos)

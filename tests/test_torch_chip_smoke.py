@@ -308,3 +308,109 @@ def test_profile_block_tables_write_distinct_pages(smoke, write_idx):
     # phase 5's pool (6 pages) holds every page the tables name
     assert bt.max() < smoke.paged_pool_pages(
         smoke.PROMPT_LENS, smoke.MAX_NEW, smoke.MAX_SEQ, 128)
+
+
+# ------------------------------------------------ resilient serving's plan
+def _reduced(arch, backend="arrayflex"):
+    from repro_torch.configs import reduced
+    return dataclasses.replace(reduced(get_config(arch)),
+                               gemm_backend=backend, compute_dtype="float32")
+
+
+def _dispatched(smoke, cfg):
+    """The launch counters the substrate's dispatches of the run imply
+    (on the CPU the wrappers run their plain versions and count nothing;
+    one dispatch on an arrayflex backend is one launch)."""
+    from repro_torch.kernels import substrate
+    got = {name: 0 for name in ag.LAUNCHES}
+    for site, n in substrate.DISPATCH_COUNTS.items():
+        for name, k in smoke.site_launches(cfg, site).items():
+            got[name] += k * n
+    return got
+
+
+@pytest.mark.parametrize("arch,step", [("qwen2-0.5b", "prefill"),
+                                       ("qwen2-0.5b", "decode"),
+                                       ("qwen3-moe-30b-a3b", "decode")])
+def test_step_sites_are_the_dispatch_order(smoke, arch, step, monkeypatch):
+    """``step_sites`` — what a faulted attempt launched before its site is
+    read from it — is the order the port's step dispatches in."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    cfg = _reduced(arch)
+    order = []
+    real = substrate._record
+
+    def record(site, plan, launches=1):
+        order.append(site)
+        real(site, plan, launches)
+
+    monkeypatch.setattr(substrate, "_record", record)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    cache = lm.init_cache(cfg, 2, 16, device="cpu")
+    zero = torch.zeros(2, dtype=torch.int64)
+    if step == "prefill":
+        lm.prefill_step(cfg, params, cache, torch.ones(2, 4, dtype=torch.int64),
+                        zero, torch.tensor([4, 2]))
+    else:
+        lm.decode_step(cfg, params, cache, zero, zero)
+    assert order == smoke.step_sites(cfg)
+
+
+def test_expected_launches_are_per_site_launches(smoke):
+    """Per step: every site of :func:`step_sites` on its form (8 L + 1 on
+    qwen2's backends, the MoE router, banks and attention per layer)."""
+    for arch in ARCHS:
+        for backend in ("arrayflex", "arrayflex_int8", "arrayflex_w8a8"):
+            cfg = _cfg(arch, backend, "bfloat16")
+            one = smoke.expected_launches(cfg, 1)
+            L = cfg.n_layers
+            forms = sum(v for k, v in one.items()
+                        if k not in smoke.TC_COUNTERS)
+            assert forms == len(smoke.step_sites(cfg)) == (
+                10 if cfg.moe else 8) * L + 1
+            assert smoke.expected_launches(cfg, 3) == {
+                k: 3 * v for k, v in one.items()}
+
+
+@pytest.mark.parametrize("chaos_kw", [
+    dict(gemm_fault_at=4), dict(gemm_fault_at=13), dict(gemm_fault_at=17),
+    dict(nan_logits_at=0), dict(gemm_fault=1.0), dict(nan_logits=1.0),
+    dict(seed=5, gemm_fault=0.1, nan_logits=0.3),
+    dict(seed=7, gemm_fault=0.3, crash=0.2)],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("mode", ["dense", "paged", "moe"])
+def test_retried_launches_count_partial_attempts(smoke, chaos_kw, mode):
+    """A run with retries launches the per-step counts times every
+    dispatch that ran in full (sample retries included), plus what each
+    faulted attempt launched before its faulted site — the site itself
+    launching nothing; a crash restored from a snapshot taken every tick
+    loses no launch."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.serving import (EngineCrash, Request, ServeConfig,
+                                     ServingEngine)
+    cfg = _reduced("qwen3-moe-30b-a3b" if mode == "moe" else "qwen2-0.5b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    kw = dict(kv_pages=12, page_size=8) if mode == "paged" else {}
+    sc = ServeConfig(max_batch=2, max_seq=32, prefill_chunk=4,
+                     snapshot_every_ticks=1, chaos=ChaosConfig(**chaos_kw),
+                     **kw)
+    eng = ServingEngine(cfg, params, sc, device="cpu")
+    for i, p in enumerate([[5, 6, 7], [11, 12, 13, 14, 15], [21]]):
+        eng.submit(Request(prompt=p, max_new_tokens=4, rid=i))
+    substrate.DISPATCH_COUNTS.clear()
+    for _ in range(4):
+        try:
+            eng.run_to_completion()
+            break
+        except EngineCrash:
+            eng = ServingEngine.restore(cfg, params, sc,
+                                        eng.latest_snapshot(), device="cpu")
+    log = eng._chaos.chaos_log
+    assert _dispatched(smoke, cfg) == smoke.retried_launches(
+        cfg, eng.stats, log)
+    draws = 11 if mode == "moe" else 18     # the first traces' draws
+    if chaos_kw.get("gemm_fault_at", draws) < draws:
+        assert eng.stats["kernel_fault_retries"] == 1

@@ -4,7 +4,9 @@ versions, and the full-sequence ``lm.prefill`` against the ``ref``
 backend, on the card.  bf16 K1 float, W8 K1 on bf16 x, bf16 K2 float and
 bf16 K3 run the tensor-core kernels, fp32 the FFMA ones (``gemm_kernel``
 / ``gemm_q_kernel`` / ``expert_gemm_kernel`` / ``attention_kernel``); the
-per-kernel launch counters show which ran.
+per-kernel launch counters show which ran.  Also the resilient engine on
+the card: a transient GEMM fault, a crash restored from a snapshot and
+preemption against a clean run's streams.
 
     pytest -m gpu tests/test_torch_gpu.py
 
@@ -29,7 +31,9 @@ from repro_torch.kernels import arrayflex_gemm as ag
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, substrate
 from repro_torch.models import lm
-from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.runtime.chaos import ChaosConfig
+from repro_torch.serving import (EngineCrash, Request, ServeConfig,
+                                 ServingEngine)
 
 pytestmark = pytest.mark.gpu
 
@@ -1446,3 +1450,68 @@ def test_prefill_matches_ref_backend(cuda, path):
     scale = out["ref"].abs().max().item()
     err = (out["arrayflex"] - out["ref"]).abs().max().item()
     assert err <= 1e-4 * scale, (err, scale)
+
+
+RESILIENCE_PROMPTS = [[5, 6, 7], [11, 12, 13, 14, 15], [21]]
+
+
+def _serve_restoring(cfg, params, sc, max_new=8):
+    """Serve RESILIENCE_PROMPTS, restoring from the latest snapshot after
+    an injected crash (the crashed engine released first); returns the
+    final engine and the requests merged by rid."""
+    eng = ServingEngine(cfg, params, sc)
+    reqs = [Request(prompt=list(p), max_new_tokens=max_new, rid=i)
+            for i, p in enumerate(RESILIENCE_PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        try:
+            eng.run_to_completion()
+            break
+        except EngineCrash:
+            snap = eng.latest_snapshot()
+        eng = None
+        eng = ServingEngine.restore(cfg, params, sc, snap)
+    final = {r.rid: r for r in reqs}
+    for r in eng.restored_requests:
+        final[r.rid] = r
+    return eng, [final[r.rid] for r in reqs]
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8"])
+@pytest.mark.parametrize("case", ["gemm_prefill", "gemm_decode", "crash",
+                                  "crash_paged", "preempt"])
+def test_resilient_serving_matches_clean_run(cuda, backend, case):
+    """Reduced qwen2-0.5b in bf16 on the kernels: a transient GEMM fault
+    at layer 0's attn.pv of the first prefill or decode trace (retried
+    once), a crash at tick 3 restored from a snapshot taken every tick
+    (dense, and paged with the prefix cache), and preemption on a
+    five-page pool: every stream equals the clean run's."""
+    cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
+                              gemm_backend=backend,
+                              compute_dtype="bfloat16")
+    params = lm.init_params(cfg, seed=0)
+    base = dict(max_batch=2, max_seq=64, prefill_chunk=4)
+    paged = dict(kv_pages=40, page_size=8, prefix_cache=True)
+    sc = {"gemm_prefill": dict(chaos=ChaosConfig(gemm_fault_at=4)),
+          "gemm_decode": dict(chaos=ChaosConfig(gemm_fault_at=13)),
+          "crash": dict(chaos=ChaosConfig(crash_at=3),
+                        snapshot_every_ticks=1),
+          "crash_paged": dict(paged, chaos=ChaosConfig(crash_at=3),
+                              snapshot_every_ticks=1),
+          "preempt": dict(kv_pages=5, page_size=8,
+                          preempt_policy="youngest", prefix_cache=True),
+          }[case]
+    _, clean = _serve_restoring(cfg, params, ServeConfig(
+        **base, **(paged if case == "crash_paged" else {})))
+    eng, reqs = _serve_restoring(cfg, params, ServeConfig(**base, **sc))
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in clean]
+    assert all(r.outcome == "ok" for r in clean)
+    st = eng.stats
+    assert st["kernel_fault_retries"] == case.startswith("gemm")
+    assert st["sample_retries"] == 0 and st["watchdog_fired"] == 0
+    if case == "preempt":
+        assert st["preemptions"] >= 1
+        assert {r.outcome for r in reqs} == {"ok", "preempted_retried"}
+    else:
+        assert all(r.outcome == "ok" for r in reqs)

@@ -419,7 +419,9 @@ def test_moe_is_refused():
 
 def test_write_page_grows_then_raises(params):
     """A missing write page is allocated (radix eviction first when the
-    pool is dry), and a dry pool with nothing to evict raises."""
+    pool is dry), and a dry pool with nothing to evict (and, under the
+    default ``preempt_policy="none"``, no one to preempt) fails the
+    request typed: ``PagePoolExhausted``, the sequence released."""
     _, tc = _cfgs("xla")
     eng = ServingEngine(tc, params[1], ServeConfig(
         max_batch=2, max_seq=32, kv_pages=6, page_size=8,
@@ -440,8 +442,10 @@ def test_write_page_grows_then_raises(params):
     eng.pool.decref(seq.block_table[idx])
     seq.block_table[idx] = paged.PagePool.SCRATCH
     eng.pool.alloc(eng.pool.n_free)
-    with pytest.raises(RuntimeError, match="no page"):
-        eng._ensure_write_page(seq)
+    assert eng._ensure_write_page(seq) is False
+    assert seq.req.done and seq.req.outcome == "failed"
+    assert seq.req.error.startswith("PagePoolExhausted: ")
+    assert "no page" in seq.req.error and seq not in eng.active
 
 
 def _staggered(run, cfg, params, *, prefix_cache):
