@@ -22,9 +22,11 @@ failure of which exits non-zero:
    (M = 4) and at one prefill chunk, and of full-width qwen3-moe-30b-a3b's
    path at decode (its attention and unembed GEMMs, the router on fp32 K1,
    and moe.wi_gate / wi_up / wo on K2 with 128 experts of one capacity row
-   each), in bf16 and fp32, k in {1, 2, 4}, each epilogue flag at least
-   once; then the kernel, the plain version and one PyTorch library call
-   timed with CUDA events, beside the least time the card could take (the
+   each), and of full-width mamba2-370m's K1 sites (mamba.z, mamba.xbc,
+   mamba.dt at N = 32, mamba.out, the unembed) at decode and at its
+   full-sequence prefill (M = 2048), in bf16 and fp32, k in {1, 2, 4},
+   each epilogue flag at least once; then the kernel, the plain version
+   and one PyTorch library call timed with CUDA events, beside the least time the card could take (the
    bound).  bf16 float-form K1 and K2 and the bf16-x W8 K1 run the
    tensor-core kernels, fp32 the FFMA kernels (``gemm_kernel`` /
    ``gemm_q_kernel`` / ``expert_gemm_kernel``): each check and time is
@@ -52,10 +54,18 @@ failure of which exits non-zero:
    qwen3-moe-30b-a3b (bf16 parameters, token-by-token prefill) on
    ``arrayflex`` at all 48 layers and on the two int8 backends at 24 (a
    48-layer bf16 tree and its int8 copy do not fit one 80 GB card
-   together): every request must finish with its tokens and finite
+   together), and full-width mamba2-370m (bf16 parameters, token-by-token
+   prefill, 193 K1 launches a step and no K2) on the three backends:
+   every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
-   it) must equal its forms' launches per step times the steps, every
+   it) must equal its forms' launches per step (each layer's sites from
+   ``lm.sublayer_kind``: :func:`step_sites`) times the steps, every
    bf16 K1 and K2 launch (the W8 K1's too) on the tensor-core kernels;
+   then mamba2 once more with a GEMM fault at its last layer's mamba.out
+   in the first token-prefill step (every dispatch drawing) and a NaN at
+   the first sampling, both retried: streams equal to the clean run's,
+   with the stream time of the two retry designs the step does not take
+   (per-layer copies of its recurrent leaves, a save of them);
    then paged serving of full-width qwen2-0.5b (page
    ``planner.page_plan(256)`` = 128, every run's counters checked the same
    way, its prefill K1/K2 launches too): (a) the same requests on each
@@ -92,7 +102,9 @@ failure of which exits non-zero:
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
    launch counters set to 0 just before it and read just after (K1 and K2
    per layer, never K3; every launch on the tensor-core kernels), with
-   its host-clock time, device-busy time and peak memory;
+   its host-clock time, device-busy time and peak memory; then
+   full-width mamba2-370m ``lm.prefill`` at S = 2048 (8 SSD chunks of
+   256) the same way (4 K1 launches a layer and the unembed);
 7. model parity: one ``prefill_step`` + ``decode_step`` on the kernels
    against the ``ref`` backend on the card, in bf16 and in fp32; then
    ``arrayflex_int8`` against ``ref`` on the dequantized weights (its
@@ -107,15 +119,23 @@ failure of which exits non-zero:
    4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
    ``ref``, each reporting whether both runs routed every token to the
    same experts at every layer (the W8 run counted as above); the fp32
-   runs launch the FFMA K1 only;
-8. summary: each form's totals per decode step of each model and per
-   prefill-chunk step of qwen2-0.5b, one JSON line of kernel numbers, the
-   card's name and power limit, and the ``{"ok": true, ...}`` line last.
+   runs launch the FFMA K1 only; then full-width mamba2-370m in fp32
+   (decode steps and ``lm.prefill`` at S = 2048 against ``ref``, counted;
+   the max_batch=1 anchor: one request alone, its decode-by-decode logits
+   against ``lm.forward``'s within the ``ref`` backend's own gap plus
+   BF16_WINDOW_TOL), and reduced jamba-1.5-large-398b in fp32 against
+   ``ref`` (decode counted: K1 and K2, the attention products and the
+   expert banks, per step from :func:`step_sites`);
+8. summary: each form's totals per decode step of each model, per
+   prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
+   JSON line of kernel numbers, the card's name and power limit, and the
+   ``{"ok": true, ...}`` line last.
 
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -132,7 +152,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import build, ops, substrate  # noqa: E402
@@ -186,10 +206,11 @@ TC_FLIP_SITES = {
 
 def kernel_tol(site, dt, scale: float) -> float:
     """Absolute tolerance of a decode / prefill-chunk site's check: the
-    int8 forms and TC_FLIP_SITES take :func:`step_tol`; the other float
-    sites keep KERNEL_TOL."""
-    if site.form != "float" or (site.cell, site.name,
-                                tuple(site.shape)) in TC_FLIP_SITES:
+    int8 forms, TC_FLIP_SITES and every site of the SSM cell (whose bf16
+    checks on the tensor-core K1 have no earlier run to list flips from)
+    take :func:`step_tol`; the other float sites keep KERNEL_TOL."""
+    if (site.form != "float" or site.cell == SSM_ARCH
+            or (site.cell, site.name, tuple(site.shape)) in TC_FLIP_SITES):
         return step_tol(dt, scale)
     return KERNEL_TOL[dt] * max(scale, 1.0)
 # Model logits, relative to max |ref logit|: fp32 (with an fp32 K/V cache,
@@ -223,6 +244,21 @@ MOE_PROMPT_LENS = (8, 12, 16, 24)
 MOE_QUANT_LAYERS, MOE_PARITY_LAYERS, MOE_PARITY_STEPS = 24, 4, 4
 # the MoE full-sequence prefill checked in fp32 at MOE_PARITY_LAYERS
 MOE_FWD_SEQ = 256
+# the SSM cell: full-width mamba2-370m, prompts prefilled token by token
+# (its only mode), a full-sequence prefill of SSM_FWD_SEQ tokens (8 chunks
+# of 256), SSM_PARITY_STEPS fp32 decode steps against ref; and the hybrid
+# at reduced size, fp32, against ref
+SSM_ARCH = "mamba2-370m"
+SSM_MAX_SEQ, SSM_MAX_NEW = 64, 8
+SSM_PROMPT_LENS = (8, 12, 16, 24)
+SSM_FWD_SEQ = 2048
+SSM_PARITY_STEPS = 4
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_STEPS, HYBRID_FWD_SEQ = 4, 32
+# the bf16 conv window's share of a decode-vs-forward gap: two runs that
+# differ in fp32 rounding may round a window value to neighbouring bf16
+# values (tests/test_torch_ssm_model.py's bf16-window tolerance)
+BF16_WINDOW_TOL = 1e-3
 
 
 def log(msg=""):
@@ -638,11 +674,43 @@ def w8a8_tile_time(site: Site, x, calls, k: int, iters: int) -> dict:
     return dict(quantize_ms=q_ms, **w8a8_tile(site, k))
 
 
-def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
+def ssm_sites(cfg, rows: int, form: str = "float"):
+    """The K1 sites of the SSM cell ``cfg`` at ``rows`` token rows (B at
+    decode; S of the full-sequence prefill at B = 1, where the tied
+    unembed takes every row, as ``lm.prefill`` computes every position's
+    logits before it keeps the last): the mamba mixer's four GEMMs per
+    layer, none with a fused prologue or epilogue (the mixer's rmsnorm
+    runs before mamba.z / xbc / dt, the residual join after mamba.out),
+    and the unembed.  mamba.dt has N = H = 32 columns.  At the prefill two
+    weight copies rotate: the products, not the weight bytes, set the
+    time."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
+    ssm = cfg.ssm
+    d_in = ssm.expand * d
+    H = d_in // ssm.head_dim
+    ch = d_in + 2 * ssm.n_groups * ssm.d_state
+    kw = dict(cell=cfg.name, form=form)
+    if rows > BATCH:
+        kw["copies"] = 2
+    return [
+        Site("mamba.z", "arrayflex_gemm", (rows, d, d_in), L, **kw),
+        Site("mamba.xbc", "arrayflex_gemm", (rows, d, ch), L, **kw),
+        Site("mamba.dt", "arrayflex_gemm", (rows, d, H), L, **kw),
+        Site("mamba.out", "arrayflex_gemm", (rows, d_in, d), L, **kw),
+        Site("unembed", "arrayflex_gemm", (rows, d, V), 1,
+             dict(out_f32=True) if cfg.tie_embeddings else {}, copies=1,
+             cell=cfg.name, form=form),
+    ]
+
+
+def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float",
+                 ssm_cfg=None):
     """Check and time every site of ``form`` (the float sites of the
     arrayflex path, or the int8 sites of a quantizing backend's path) on
-    the dense model ``cfg`` at decode and at the prefill chunk, and on the
-    MoE model ``moe_cfg`` at decode (its prefill runs decode steps)."""
+    the dense model ``cfg`` at decode and at the prefill chunk, on the
+    MoE model ``moe_cfg`` at decode (its prefill runs decode steps), and
+    on the SSM model ``ssm_cfg`` at decode and at its full-sequence
+    prefill (phase ``prefill S=SSM_FWD_SEQ``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the K1 sites' fp32 timings draw from a generator of their own, so the
     # operands every check draws from ``gen`` do not depend on them (a
@@ -659,6 +727,10 @@ def kernel_phase(cfg, moe_cfg, chunk: int, form: str = "float"):
     plan.append(("decode", moe_path + [
         dataclasses.replace(s, form=form) for s in moe_sites(moe_cfg)
         if form == "float" or s.kernel == "arrayflex_expert_gemm"]))
+    if ssm_cfg is not None:
+        plan += [("decode", ssm_sites(ssm_cfg, BATCH, form)),
+                 (f"prefill S={SSM_FWD_SEQ}",
+                  ssm_sites(ssm_cfg, SSM_FWD_SEQ, form))]
     for phase, sites in plan:
         for site in sites:
             if (form == "int8" and site.kernel == "arrayflex_expert_gemm"
@@ -938,20 +1010,31 @@ ATTN_SITES = ("attn.wq", "attn.wk", "attn.wv", "attn.qk", "attn.pv",
               "attn.wo")
 MLP_SITES = ("mlp.wi_gate+mlp.wi_up", "mlp.wo")
 MOE_SITES = ("moe.router", "moe.wi_gate", "moe.wi_up", "moe.wo")
+# a mamba mixer's dispatches, in the order nn.mamba runs them
+MAMBA_SITES = ("mamba.z", "mamba.xbc", "mamba.dt", "mamba.out")
 
 
 def step_sites(cfg):
-    """One engine step's substrate dispatches, in order: per layer the
-    attention's projections and products, then the dense MLP's two GEMMs
-    (or the MoE router and three expert banks); the unembed last."""
-    layer = ATTN_SITES + (MOE_SITES if cfg.moe is not None else MLP_SITES)
-    return list(layer) * cfg.n_layers + ["unembed"]
+    """One engine step's substrate dispatches, in order: per layer its
+    mixer's (:func:`lm.sublayer_kind`: the attention's projections and
+    products, or the mamba mixer's four GEMMs), then its MLP's (the dense
+    MLP's two GEMMs, the MoE router and three expert banks, or none); the
+    unembed last."""
+    seq = []
+    for _ in range(lm.n_super(cfg)):
+        for i in range(lm.period(cfg)):
+            kind = lm.sublayer_kind(cfg, i)
+            seq += ATTN_SITES if kind["mixer"] == "attn" else MAMBA_SITES
+            seq += {"dense": MLP_SITES, "moe": MOE_SITES,
+                    None: ()}[kind["mlp"]]
+    return seq + ["unembed"]
 
 
 def site_launches(cfg, site: str) -> dict:
     """The kernel launches one dispatch of ``site`` makes on ``cfg``'s
-    backend, by counter: the attention projections, a dense MLP's GEMMs
-    and the unembed on the backend's K1 form, an MoE router on the float
+    backend, by counter: the attention projections, the mamba mixer's
+    GEMMs, a dense MLP's GEMMs and the unembed on the backend's K1 form,
+    an MoE router on the float
     K1, the expert banks on the backend's K2 form, attn.qk on K2 (its
     W8A8 form under W8A8) and attn.pv on the float K2.  Every bf16 K1
     launch, float or W8, and every float K2 launch in bf16 also counts on
@@ -985,22 +1068,31 @@ def expected_launches(cfg, steps: int):
     return want
 
 
-def retried_launches(cfg, stats: dict, chaos_log) -> dict:
+def retried_launches(cfg, stats: dict, chaos_log,
+                     per_dispatch: bool = False) -> dict:
     """Kernel launches of a serving run with retries: the per-step counts
     times every dispatch that ran in full — the prefill and decode steps,
     and each decode step a non-finite retry ran again — plus, for each
     injected GEMM fault of ``chaos_log``, the launches its attempt made
     before the faulted site: the sites that precede the site label's
-    first dispatch of the step (an attempt draws each label once, at its
-    first dispatch), the faulted one launching nothing."""
+    first dispatch of the step (an attempt draws each label once a
+    sub-layer position, at its first dispatch there: for a model of
+    period 1, and for a fault at a label's first position, that is the
+    label's first dispatch), the faulted one launching nothing.  With
+    ``per_dispatch`` every dispatch of an attempt drew
+    (:func:`every_dispatch_draws`) and each fault was in the run's first
+    attempt, so its draw index is its dispatch's index in the step."""
     steps = (stats["prefill_dispatches"] + stats["decode_dispatches"]
              + stats["sample_retries"])
     want = expected_launches(cfg, steps)
     seq = step_sites(cfg)
-    for point, _, site in chaos_log:
+    for point, n, site in chaos_log:
         if point != "substrate.dispatch":
             continue
-        for before in seq[:seq.index(site)]:
+        if per_dispatch and not (n < len(seq) and seq[n] == site):
+            raise AssertionError(f"fault at draw {n} ({site}) is not "
+                                 f"dispatch {n} of the first step")
+        for before in seq[:n if per_dispatch else seq.index(site)]:
             for name, n in site_launches(cfg, before).items():
                 want[name] += n
     return want
@@ -1501,7 +1593,8 @@ PREEMPT_PAGES = 5
 RETRY_PAIRS = 10
 
 
-def resilient_run(cfg, params, prompts, max_new: int, sc, stagger=False):
+def resilient_run(cfg, params, prompts, max_new: int, sc, stagger=False,
+                  per_dispatch=False):
     """Serve ``prompts`` on ``sc``, restoring the engine from its latest
     snapshot after each injected crash (the crashed engine released
     first), the launch counters set to 0 just before and read just after;
@@ -1509,7 +1602,8 @@ def resilient_run(cfg, params, prompts, max_new: int, sc, stagger=False):
     others arrive.  Holds the launches to :func:`retried_launches`, the
     outcome counters to the requests, and the card's allocated bytes just
     before each restore to what they were before the first engine was
-    built (the crashed engine gone)."""
+    built (the crashed engine gone); ``per_dispatch`` as in
+    :func:`retried_launches`."""
     what = (f"resilient serving {cfg.name} on {cfg.gemm_backend} "
             f"({sc.chaos})")
     torch.cuda.synchronize()
@@ -1563,7 +1657,8 @@ def resilient_run(cfg, params, prompts, max_new: int, sc, stagger=False):
     reqs = [final[r.rid] for r in reqs]
     st = engine.stats
     chaos_log = list(engine._chaos.chaos_log) if engine._chaos else []
-    check_launches(what, launches, retried_launches(cfg, st, chaos_log))
+    check_launches(what, launches, retried_launches(cfg, st, chaos_log,
+                                                    per_dispatch))
     outcomes = [r.outcome for r in reqs]
     counted = sum(v for k, v in st.items() if k.startswith("outcome_"))
     if None in outcomes or counted != len(reqs):
@@ -1784,15 +1879,19 @@ FWD_SEQS = (2048, 4096)
 
 
 def forward_launches(cfg, S: int):
-    """Kernel launches of one ``lm.prefill`` of ``cfg`` (a dense model on
-    ``arrayflex``) at S tokens: per layer 6 K1 launches (q, k, v, o, the
-    dual-GEMM swiglu, mlp.wo) and, on the dense attention path, attn.qk
-    and attn.pv on K2; the unembed once.  K3 is never on the model path."""
-    L = cfg.n_layers
+    """Kernel launches of one ``lm.prefill`` of ``cfg`` (a model without
+    MoE on ``arrayflex``) at S tokens: every weight GEMM of
+    :func:`step_sites` on K1 (a dense layer's q, k, v, o, the dual-GEMM
+    swiglu and mlp.wo; a mamba layer's four) and, on the dense attention
+    path, each attention layer's attn.qk and attn.pv on K2; the unembed
+    once.  K3 is never on the model path."""
+    assert cfg.moe is None
+    seq = step_sites(cfg)
     want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
-    want["arrayflex_gemm"] = 6 * L + 1
+    products = sum(s in ("attn.qk", "attn.pv") for s in seq)
+    want["arrayflex_gemm"] = len(seq) - products
     if S <= cfg.attn_dense_below:
-        want["arrayflex_expert_gemm"] = 2 * L
+        want["arrayflex_expert_gemm"] = products
     if cfg.compute_dtype == "bfloat16":              # all on tensor cores
         want["arrayflex_gemm_tc"] = want["arrayflex_gemm"]
         want["arrayflex_expert_gemm_tc"] = want["arrayflex_expert_gemm"]
@@ -1872,15 +1971,15 @@ def prefill_kernel_phase(cfg):
     return rows, totals
 
 
-def forward_phase(cfg, params):
-    """Full-width ``lm.prefill`` at each of FWD_SEQS (B = 1, the served
+def forward_phase(cfg, params, seqs=FWD_SEQS):
+    """Full-width ``lm.prefill`` at each of ``seqs`` (B = 1, the served
     bf16 tree): host-clock time of the run whose counters are checked,
     device busy time of another (profiler), peak memory, logits and cache
-    shapes."""
+    shapes and dtypes (``lm.init_cache``'s at S)."""
     served = lm.prepare_params(cfg, params)
     rng = np.random.default_rng(4)
     out = {}
-    for S in FWD_SEQS:
+    for S in seqs:
         batch = {"tokens": torch.as_tensor(
             rng.integers(0, cfg.vocab_size, (1, S)), device="cuda")}
         lm.prefill(cfg, served, batch)           # warm-up
@@ -1894,19 +1993,24 @@ def forward_phase(cfg, params):
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = dict(ag.LAUNCHES, **fa.LAUNCHES)   # read just after
         peak = torch.cuda.max_memory_allocated()
-        check_launches(f"prefill S={S}", launches, forward_launches(cfg, S))
-        kv = (lm.n_super(cfg), 1, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        check_launches(f"{cfg.name} prefill S={S}", launches,
+                       forward_launches(cfg, S))
+
+        def leaves(caches):
+            return [(tuple(t.shape), t.dtype) for c in caches
+                    for t in c.values()]
         if (tuple(logits.shape) != (1, cfg.padded_vocab)
                 or not bool(torch.isfinite(logits).all())
-                or any(tuple(c[n].shape) != kv for c in caches
-                       for n in ("k", "v"))):
+                or leaves(caches) != leaves(lm.init_cache(cfg, 1, S))):
             raise AssertionError(f"prefill S={S}: logits "
                                  f"{tuple(logits.shape)} or caches wrong, "
                                  f"or non-finite logits")
         del logits, caches
-        path = "dense" if S <= cfg.attn_dense_below else "chunked"
-        log(f"  {cfg.name} x{cfg.n_layers} lm.prefill B=1 S={S} ({path} "
-            f"attention): {wall_ms:.1f} ms host clock, peak "
+        path = ("the SSD scan" if cfg.family == "ssm" else
+                "dense attention" if S <= cfg.attn_dense_below
+                else "chunked attention")
+        log(f"  {cfg.name} x{cfg.n_layers} lm.prefill B=1 S={S} ({path}"
+            f"): {wall_ms:.1f} ms host clock, peak "
             f"{peak / 2**30:.2f} GiB; launches "
             f"{ {k: v for k, v in launches.items() if v} }")
         prof = profile_device(lambda: lm.prefill(cfg, served, batch),
@@ -2215,6 +2319,330 @@ def moe_parity_phase(moe_cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SSM cell (full-width mamba2-370m) and the hybrid interleave: serving
+# (phase 5), the full-sequence prefill (phase 6) and parity (phase 7)
+
+@contextlib.contextmanager
+def every_dispatch_draws():
+    """Inside, every GEMM dispatch of a step attempt draws the
+    ``substrate.dispatch`` chaos point (the engine's trace scope, where
+    each site label draws at its first dispatch in each sub-layer position
+    of the period only, is replaced by no scope), so an injected fault can
+    land at any layer."""
+    saved = substrate.chaos_trace_scope
+    substrate.chaos_trace_scope = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        substrate.chaos_trace_scope = saved
+
+
+def state_commit_ms(engine, iters: int = 20) -> dict:
+    """Stream time (CUDA events around ``iters`` runs, issued from the
+    host) of the two ways a retry could be made safe that the decode step
+    does not take: ``copy_ms``, every layer's new ``state`` and ``conv``
+    copied into fresh stacked tensors after the recurrence (the step
+    instead has the recurrence write its result there: no copy kernel),
+    and ``save_ms``, a whole copy of the recurrent leaves before each
+    attempt, to put back before a retry."""
+    leaves = [t for c in engine.cache for k, t in c.items()
+              if k in ("state", "conv")]
+    layers_ = [[t[l].clone() for l in range(t.shape[0])] for t in leaves]
+
+    def copy():
+        for t, per_layer in zip(leaves, layers_):
+            new = torch.empty_like(t)
+            for l, x in enumerate(per_layer):
+                new[l] = x
+
+    def save():
+        for t in leaves:
+            t.clone()
+
+    out = {}
+    for name, fn in (("copy", copy), ("save", save)):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = start.elapsed_time(end) / iters
+    out["bytes"] = sum(t.numel() * t.element_size() for t in leaves)
+    return out
+
+
+def ssm_serving_phase(ssm_cfg):
+    """Full-width mamba2-370m (bf16 parameters, seed 0) served on the three
+    backends (:func:`serving_phase`: token prefill, launches per step from
+    :func:`step_sites` — 48 x 4 mamba sites and the unembed on K1, no K2 or
+    K3 — every request ``ok``, the decode step's host-clock and
+    device-busy time, peak memory), then one resilient run on
+    ``arrayflex``: a GEMM fault at the last layer's mamba.out in the first
+    step of the decode path (the first token-prefill step; every dispatch
+    draws) and a NaN at the first sampling, each retried: streams equal to
+    the clean run's.  Returns (results, the runs whose launches count,
+    params)."""
+    cfg = ssm_cfg
+    params = lm.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    log(f"  {cfg.name} x{cfg.n_layers}: {n_bytes / 1e9:.3f} GB of bf16 "
+        f"parameters")
+    out = {}
+    for backend in ("arrayflex", "arrayflex_int8", "arrayflex_w8a8"):
+        bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+        out[backend] = serving_phase(bcfg, params, SSM_PROMPT_LENS,
+                                     SSM_MAX_NEW, SSM_MAX_SEQ)
+        out[backend]["param_bytes"] = n_bytes
+        per_step = {k: v for k, v in expected_launches(bcfg, 1).items() if v}
+        log(f"  launches per step {per_step}")
+        _free()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SSM_PROMPT_LENS]
+    seq = step_sites(cfg)
+    n = len(seq) - 1 - seq[::-1].index("mamba.out")
+    sc = ServeConfig(max_batch=BATCH, max_seq=SSM_MAX_SEQ, seed=0,
+                     chaos=ChaosConfig(gemm_fault_at=n, nan_logits_at=0))
+    with every_dispatch_draws():
+        run, engine = resilient_run(cfg, params, prompts, SSM_MAX_NEW, sc,
+                                    per_dispatch=True)
+    _require(f"{cfg.name} retried fault at dispatch {n} and NaN", run,
+             out["arrayflex"]["streams"], kernel_fault_retries=1,
+             sample_retries=1)
+    if run["chaos_log"][0] != ("substrate.dispatch", n, "mamba.out"):
+        raise AssertionError(f"chaos log {run['chaos_log']}")
+    run["commit"] = state_commit_ms(engine)
+    run["kv_cache_bytes"] = engine.kv_cache_bytes()
+    out["resilience"] = run
+    c = run["commit"]
+    log(f"  resilient run: fault at dispatch {n} (layer {cfg.n_layers - 1}'s"
+        f" mamba.out) of the first token-prefill step and a NaN at the "
+        f"first sampling, each retried: streams equal the clean run's; "
+        f"chaos log {run['chaos_log']}")
+    log(f"  the step writes its {c['bytes']} B of recurrent leaves into "
+        f"fresh tensors from the recurrence itself; per-layer copies there "
+        f"would take {c['copy_ms']:.4f} ms of stream time, a save of the "
+        f"leaves before each attempt {c['save_ms']:.4f} ms")
+    del engine
+    _free()
+    runs = [out[b] for b in ("arrayflex", "arrayflex_int8",
+                             "arrayflex_w8a8")] + [run]
+    return out, runs, params
+
+
+def _rel(what, got, want, tol):
+    """max |got - want| against ``tol`` of max |want|; raises beyond."""
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"{what}: non-finite logits")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"  {what}: max |logit diff| {err:.4g} = {err / scale:.3g} of max "
+        f"|logit| {scale:.4g} (tol {tol:.3g})")
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: {err} > {tol * scale}")
+    return dict(max_abs_err=err, max_abs_logit=scale, rel_err=err / scale,
+                rel_tol=tol)
+
+
+def _counted(what, c, fn):
+    """``fn()`` with the launch counters set to 0 just before and read
+    just after: an fp32 run, so every launch must be on the FFMA kernels.
+    Returns (fn's result, the launches)."""
+    torch.cuda.synchronize()
+    ag.reset_launches()
+    fa.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    launches = dict(ag.LAUNCHES)
+    if any(launches[name] for name in TC_COUNTERS) or \
+            fa.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"{what}: fp32 launches {launches} reached a "
+                             f"tensor-core kernel or K3")
+    return res, launches
+
+
+def ssm_parity_phase(cfg, params):
+    """fp32 on the card, full-width mamba2-370m (the bf16 tree in fp32):
+    (a) SSM_PARITY_STEPS decode steps (batch 2, an fp32 cache) and (b)
+    ``lm.prefill`` at S = SSM_FWD_SEQ on the kernels against ``ref``
+    within MODEL_TOL, each kernels' run counted (launches per step / per
+    prefill, all on the FFMA K1); (c) the max_batch=1 anchor: one request
+    alone served on ``arrayflex`` in fp32 with the bf16 conv window as
+    served, its stream the argmax of its decode-by-decode logits, whose
+    gap to ``lm.forward``'s logits at every position must be within the
+    same gap of the ``ref`` backend plus BF16_WINDOW_TOL of the logit
+    scale (the two differ in fp32 rounding, and the window flips it can
+    cause).  Returns (results, the counted launches)."""
+    # the bf16 tree in fp32 compute: every leaf is cast to fp32 (or read
+    # as fp32) where it is used, so no fp32 copy of the tree is needed
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    B = 2
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (SSM_PARITY_STEPS, B)), device="cuda")
+    out, counted = {}, []
+
+    def decode(c, p):
+        cache = lm.init_cache(c, B, 16, dtype=torch.float32)
+        logits = []
+        for t in range(SSM_PARITY_STEPS):
+            pos = torch.full((B,), t, dtype=torch.int64, device="cuda")
+            lg, cache = lm.decode_step(c, p, cache, toks[t], pos)
+            logits.append(lg.float())
+        return torch.cat(logits)
+
+    fwd = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, SSM_FWD_SEQ)), device="cuda")}
+    runs = {}
+    for backend in ("arrayflex", "ref"):
+        c = dataclasses.replace(c32, gemm_backend=backend)
+        p = lm.prepare_params(c, params)
+        if backend == "arrayflex":
+            runs[backend, "decode"], n = _counted(
+                "fp32 mamba2 decode", c, lambda: decode(c, p))
+            if n != expected_launches(c, SSM_PARITY_STEPS):
+                raise AssertionError(f"fp32 mamba2 decode launches {n}")
+            counted.append(n)
+            (runs[backend, "prefill"], _), n = _counted(
+                "fp32 mamba2 prefill", c, lambda: lm.prefill(c, p, fwd))
+            check_launches(f"fp32 {cfg.name} prefill", dict(n, **fa.LAUNCHES),
+                           forward_launches(c, SSM_FWD_SEQ))
+            counted.append(n)
+        else:
+            runs[backend, "decode"] = decode(c, p)
+            runs[backend, "prefill"], _ = lm.prefill(c, p, fwd)
+        del p
+        _free()
+    for what, shape in (("decode", f"{SSM_PARITY_STEPS} steps"),
+                        ("prefill", f"S={SSM_FWD_SEQ}")):
+        out[f"{what} arrayflex vs ref"] = _rel(
+            f"{cfg.name} x{cfg.n_layers} {what} arrayflex vs ref (fp32, "
+            f"{shape})", runs["arrayflex", what], runs["ref", what],
+            MODEL_TOL[torch.float32])
+    del runs
+    _free()
+    out["anchor"] = ssm_anchor(c32, params)
+    return out, counted
+
+
+def ssm_anchor(c32, params):
+    """The max_batch=1 anchor of :func:`ssm_parity_phase` (c)."""
+    prompt = np.random.default_rng(9).integers(
+        0, c32.vocab_size, 16).tolist()
+    new = 8
+    c = dataclasses.replace(c32, gemm_backend="arrayflex")
+    engine = ServingEngine(c, params, ServeConfig(max_batch=1,
+                                               max_seq=SSM_MAX_SEQ, seed=0))
+    req = Request(prompt=prompt, max_new_tokens=new)
+    engine.submit(req)
+    engine.run_to_completion()
+    check_clean(f"{c.name} one request alone", engine, [req])
+    del engine
+    _free()
+    toks = prompt + req.out_tokens[:-1]
+    out = dict(stream=req.out_tokens)
+    for backend in ("arrayflex", "ref"):
+        cb = dataclasses.replace(c32, gemm_backend=backend)
+        p = lm.prepare_params(cb, params)
+        full, _, _ = lm.forward(cb, p, {"tokens": torch.tensor(
+            [toks], device="cuda")})
+        cache = lm.init_cache(cb, 1, SSM_MAX_SEQ)        # bf16 window
+        steps = []
+        for t, tok in enumerate(toks):
+            lg, cache = lm.decode_step(cb, p, cache,
+                                       torch.tensor([tok], device="cuda"),
+                                       torch.tensor([t], device="cuda"))
+            steps.append(lg[0].float())
+        steps = torch.stack(steps)
+        out[backend] = dict(
+            gap=(steps - full[0]).abs().max().item(),
+            scale=full[0].abs().max().item(),
+            decode_argmax=steps[len(prompt) - 1:].argmax(-1).tolist(),
+            forward_argmax=full[0, len(prompt) - 1:].argmax(-1).tolist())
+        del p, full, cache
+        _free()
+    af, ref = out["arrayflex"], out["ref"]
+    tol = ref["gap"] + BF16_WINDOW_TOL * max(1.0, ref["scale"])
+    log(f"  {c32.name} one request alone (max_batch=1, fp32, bf16 conv "
+        f"window): decode-by-decode vs lm.forward logits gap "
+        f"{af['gap']:.4g} on the kernels, {ref['gap']:.4g} on ref (max "
+        f"|logit| {ref['scale']:.4g}; tol {tol:.4g}); stream {req.out_tokens}"
+        f"; the forward's argmax gives it: "
+        f"{af['forward_argmax'] == req.out_tokens}")
+    if af["decode_argmax"] != req.out_tokens or not af["gap"] <= tol:
+        raise AssertionError(f"anchor: {out}")
+    return out
+
+
+def hybrid_parity_phase():
+    """Reduced jamba-1.5-large-398b (the hybrid interleave: period 8, one
+    attention sub-layer, the MoE on odd sub-layers) in fp32 on the card,
+    seed 0: HYBRID_STEPS decode steps (batch 2, an fp32 cache) and one
+    ``lm.forward`` of HYBRID_FWD_SEQ tokens on the kernels against
+    ``ref`` within MODEL_TOL, with whether both routed every token to the
+    same experts; the kernels' decode run counted: K1 at the mamba,
+    attention-projection, MLP, router and unembed sites, K2 at attn.qk /
+    attn.pv and the expert banks, launches per step from
+    :func:`step_sites`, all on the FFMA kernels.  Returns (results, the
+    counted launches)."""
+    cfg = dataclasses.replace(reduced(get_config(HYBRID_ARCH)),
+                              compute_dtype="float32")
+    params = lm.init_params(cfg, seed=0)
+    B = 2
+    rng = np.random.default_rng(10)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (HYBRID_STEPS, B)), device="cuda")
+    fwd = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (1, HYBRID_FWD_SEQ)), device="cuda")}
+    runs, counted = {}, None
+    for backend in ("arrayflex", "ref"):
+        c = dataclasses.replace(cfg, gemm_backend=backend)
+        p = lm.prepare_params(c, params)
+
+        def decode():
+            cache = lm.init_cache(c, B, 16, dtype=torch.float32)
+            logits = []
+            for t in range(HYBRID_STEPS):
+                pos = torch.full((B,), t, dtype=torch.int64, device="cuda")
+                lg, cache = lm.decode_step(c, p, cache, toks[t], pos)
+                logits.append(lg.float())
+            return torch.cat(logits)
+
+        with moe.record_routing() as routing:
+            if backend == "arrayflex":
+                logits, counted = _counted("fp32 hybrid decode", c, decode)
+                want = expected_launches(c, HYBRID_STEPS)
+                if counted != want:
+                    raise AssertionError(f"hybrid decode launches {counted}"
+                                         f" != {want}")
+            else:
+                logits = decode()
+            full, _, _ = lm.forward(c, p, fwd)
+        runs[backend] = (logits, full[0].float(),
+                         [idx for idx, _ in routing])
+    (d_a, f_a, r_a), (d_r, f_r, r_r) = runs["arrayflex"], runs["ref"]
+    tol = MODEL_TOL[torch.float32]
+    out = {"decode": _rel(f"reduced {cfg.name} decode arrayflex vs ref "
+                          f"(fp32, {HYBRID_STEPS} steps)", d_a, d_r, tol),
+           "forward": _rel(f"reduced {cfg.name} lm.forward arrayflex vs ref "
+                           f"(fp32, S={HYBRID_FWD_SEQ})", f_a, f_r, tol)}
+    same = len(r_a) == len(r_r) and all(
+        torch.equal(x, y) for x, y in zip(r_a, r_r))
+    out["same_experts"] = same
+    out["launches_per_step"] = {k: v // HYBRID_STEPS
+                                for k, v in counted.items() if v}
+    log(f"  same top-{cfg.moe.top_k} experts at all {len(r_a)} routings: "
+        f"{same}; launches per decode step {out['launches_per_step']}")
+    return out, counted
+
+
 def _step_totals(sel):
     """Per-step sums of the site rows ``sel``: each site's per-launch
     time and bound times its launches per step; library_ms is null where
@@ -2470,15 +2898,19 @@ def main() -> int:
                                   gemm_backend="arrayflex",
                                   compute_dtype="bfloat16",
                                   param_dtype="bfloat16")
+    ssm_cfg = dataclasses.replace(get_config(SSM_ARCH),
+                                  gemm_backend="arrayflex",
+                                  compute_dtype="bfloat16",
+                                  param_dtype="bfloat16")
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
     tc_report(cfg, moe_cfg, chunk)
     log(f"[3/8] GEMM kernel checks and times (bf16, the MoE router fp32; "
         f"per call: device time from a CUDA-graph replay, eager time with "
         f"host launches; card: {card})")
-    results, max_err = kernel_phase(cfg, moe_cfg, chunk)
+    results, max_err = kernel_phase(cfg, moe_cfg, chunk, ssm_cfg=ssm_cfg)
     for form in ("int8", "w8a8"):
-        r, e = kernel_phase(cfg, moe_cfg, chunk, form)
+        r, e = kernel_phase(cfg, moe_cfg, chunk, form, ssm_cfg=ssm_cfg)
         results += r
         max_err.update(e)
     kt_quant = kt_quantize_time(cfg)
@@ -2505,12 +2937,19 @@ def main() -> int:
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
     moe_serving = moe_serving_phase(moe_cfg)
+    log(f"  serving full-width {ssm_cfg.name} (bf16 parameters, token "
+        f"prefill) on arrayflex, arrayflex_int8 and arrayflex_w8a8, then "
+        f"one resilient run (card: {card})")
+    ssm_serving, ssm_runs, ssm_params = ssm_serving_phase(ssm_cfg)
 
     log(f"[6/8] full-sequence lm.prefill of full-width {cfg.name} on "
         f"arrayflex/bf16 at S = {', '.join(map(str, FWD_SEQS))}")
     prefill = forward_phase(cfg, params)
     log(f"  K1/K2 at the prefill's site shapes (bf16 timed; card: {card})")
     prefill_sites_rows, prefill_totals = prefill_kernel_phase(cfg)
+    log(f"  full-sequence lm.prefill of full-width {ssm_cfg.name} on "
+        f"arrayflex/bf16 at S = {SSM_FWD_SEQ}")
+    ssm_prefill = forward_phase(ssm_cfg, ssm_params, (SSM_FWD_SEQ,))
 
     log("[7/8] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
@@ -2528,6 +2967,15 @@ def main() -> int:
     log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
     moe_parity = moe_parity_phase(moe_cfg)
     fp32_runs += moe_parity.pop("launches").values()
+    log(f"  {ssm_cfg.name} at full width (fp32): decode and prefill against "
+        f"ref, and one request alone")
+    ssm_parity, ssm_counted = ssm_parity_phase(ssm_cfg, ssm_params)
+    fp32_runs += ssm_counted
+    del ssm_params
+    _free()
+    log(f"  reduced {HYBRID_ARCH} (fp32) against ref")
+    hybrid_parity, hybrid_counted = hybrid_parity_phase()
+    fp32_runs.append(hybrid_counted)
 
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
@@ -2538,12 +2986,20 @@ def main() -> int:
         {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
             + paged_runs + resilience["runs"] + list(prefill.values())
+            + ssm_runs + list(ssm_prefill.values())
             + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     for tc in TC_COUNTERS:
         launches[tc[:-len("_tc")]] -= launches[tc]
     kernels, cells, chunk = summarize(results, max_err, launches)
+    ssm_fwd = f"prefill S={SSM_FWD_SEQ}"
+    ssm_prefill_totals = {
+        name: _step_totals([r for r in results if r["phase"] == ssm_fwd
+                            and r["launch_name"] == name])
+        for name in REPLACES
+        if any(r["phase"] == ssm_fwd and r["launch_name"] == name
+               for r in results)}
     kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
@@ -2555,7 +3011,11 @@ def main() -> int:
                               if k != "runs"}, prefill=prefill,
                   prefill_sites=prefill_sites_rows,
                   prefill_kernel_totals=prefill_totals, parity=parity,
-                  moe_parity=moe_parity, seconds=elapsed)
+                  moe_parity=moe_parity, ssm_serving=ssm_serving,
+                  ssm_prefill=ssm_prefill,
+                  ssm_prefill_kernel_totals=ssm_prefill_totals,
+                  ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
+                  seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2576,6 +3036,14 @@ def main() -> int:
             f"{'none' if lib is None else f'{lib:.3f}'} / bound "
             f"{t['bound_ms']:.4f} ms per prefill-chunk step "
             f"({t['bound_by']})")
+    for name, t in ssm_prefill_totals.items():
+        lib = t["library_ms"]
+        quant = (f" (its quantize passes {t['quantize_ms']:.3f})"
+                 if "quantize_ms" in t else "")
+        log(f"  {ssm_cfg.name} prefill S={SSM_FWD_SEQ} {name}: kernel "
+            f"{t['ms']:.3f}{quant} / plain {t['plain_ms']:.3f} / library "
+            f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+            f"{t['bound_ms']:.4f} ms per prefill ({t['bound_by']})")
     for t in kernels[-2:]:
         log(f"  {t['name']} over its cases with a library time: kernel "
             f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "

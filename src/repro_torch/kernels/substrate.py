@@ -50,11 +50,14 @@ with ``M = N_out``, ``N = K``, ``T = prod(leading dims)``.
 active :mod:`repro_torch.runtime.chaos` engine each dispatch entry may
 raise an injected :class:`~repro_torch.serving.errors.KernelFault` before
 its backend runs, so the faulted site launches nothing.  The reference
-draws while ``jax.jit`` traces a step — once per site of its one traced
-layer, plus the unembed, and never again once the trace is cached — and
-the serving engine reproduces that: inside :func:`chaos_trace_scope` a
-site label draws on its first dispatch of the attempt only, and the
-engine runs a step that has completed once with the point inactive.
+draws while ``jax.jit`` traces a step — once per dispatch of its one
+traced super-block (the ``lax.scan`` body: one layer, or the hybrid's
+period of eight sub-layers), plus the unembed, and never again once the
+trace is cached — and the serving engine reproduces that: inside
+:func:`chaos_trace_scope` a site label draws on its first dispatch of
+the attempt in each sub-layer position of the period
+(:func:`chaos_sublayer`, which ``lm.decode_step`` sets), and the engine
+runs a step that has completed once with the point inactive.
 
 Sharded dispatch (``ShardCtx``, and so expert parallelism) and the strict
 routing audit are not ported yet.
@@ -563,22 +566,37 @@ SITE_PLANS: Dict[str, GemmPlan] = {}
 DISPATCH_COUNTS: Dict[str, int] = {}
 
 
-# the site labels that already drew in this attempt of a step (None: every
-# dispatch draws)
+# the (sub-layer position, site label) pairs that already drew in this
+# attempt of a step (None: every dispatch draws)
 _CHAOS_SITES: contextvars.ContextVar[Optional[set]] = \
     contextvars.ContextVar("repro_torch_chaos_sites", default=None)
+# the position in the period of the sub-layer now dispatching (None
+# outside the layer stack: the unembed)
+_CHAOS_SUBLAYER: contextvars.ContextVar[Optional[int]] = \
+    contextvars.ContextVar("repro_torch_chaos_sublayer", default=None)
 
 
 @contextlib.contextmanager
 def chaos_trace_scope():
     """One attempt of a serving step that has not yet completed: each site
-    label draws at its first dispatch only, as the reference's trace of
-    one layer (``lax.scan`` body) and the unembed draws once per site."""
+    label draws at its first dispatch in each sub-layer position only, as
+    the reference's trace of one super-block (``lax.scan`` body) and the
+    unembed draws once per dispatch."""
     token = _CHAOS_SITES.set(set())
     try:
         yield
     finally:
         _CHAOS_SITES.reset(token)
+
+
+@contextlib.contextmanager
+def chaos_sublayer(pos: int):
+    """The dispatches inside are sub-layer ``pos`` of the period's."""
+    token = _CHAOS_SUBLAYER.set(pos)
+    try:
+        yield
+    finally:
+        _CHAOS_SUBLAYER.reset(token)
 
 
 def _maybe_chaos_fault(site: str) -> None:
@@ -591,9 +609,10 @@ def _maybe_chaos_fault(site: str) -> None:
         return
     seen = _CHAOS_SITES.get()
     if seen is not None:
-        if site in seen:
+        key = (_CHAOS_SUBLAYER.get(), site)
+        if key in seen:
             return
-        seen.add(site)
+        seen.add(key)
     if chaos.fire("substrate.dispatch", site):
         from repro_torch.serving.errors import KernelFault
         raise KernelFault(

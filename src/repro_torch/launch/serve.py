@@ -11,6 +11,19 @@ prefill), e.g. on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch qwen3-moe-30b-a3b --gemm-backend arrayflex_int8
 
+``--arch mamba2-370m`` serves the SSM family and ``--arch
+jamba-1.5-large-398b`` the hybrid (mamba layers, one attention layer in
+eight, a 16-expert MoE on odd layers), both in token mode on every
+backend, e.g. on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch mamba2-370m --gemm-backend arrayflex_int8
+
+and full-width mamba2-370m on the card with ``--no-reduced`` (0.74 GB of
+bf16 parameters); the full hybrid (398B parameters) fits no single card,
+so serve it reduced.  An arch the port does not run yet (the vlm and
+audio families, mixtral's sliding window) fails at once, naming ROADMAP.
+
 Runs on the card unless ``--device cpu``.  ``--reduced`` (the default)
 serves the smoke-test sized config; ``--no-reduced`` serves the full
 published width, with bf16 parameters (full-width qwen3-moe-30b-a3b is
@@ -162,6 +175,7 @@ def main(argv=None):
         ap.error("--prefix-cache requires --kv-pages (paged mode)")
 
     cfg = get_config(args.arch)
+    lm.check_supported(cfg)
     if args.reduced:
         cfg = reduced(cfg)
     substrate.check_backend(args.gemm_backend)

@@ -1,4 +1,4 @@
-"""Unified LM model family — the dense and MoE families are ported so far.
+"""Unified LM model family: dense / MoE / hybrid (Jamba) / SSM.
 
 Port of the reference's ``models/lm.py``.  Layers are grouped into
 *super-blocks* of ``period(cfg)`` sub-layers, and parameter and cache leaves
@@ -29,8 +29,21 @@ family only: ``supports_paged_kv``) run against the engine's page pools
 of the dense cache's length, so they dispatch the same GEMMs as the
 dense steps; the pools are updated in place.
 
-Families other than ``dense`` and ``moe`` (hybrid, SSM, VLM, audio),
-sliding windows and the pipeline-sharded steps are not ported yet.
+A mamba sub-layer (``sublayer_kind(...)["mixer"] == "mamba"``: every
+layer of the SSM family, seven of each eight of the hybrid) runs
+``nn.mamba``: the chunked SSD scan in ``forward``/``prefill``, the
+one-token recurrence in ``decode_step``.  Its cache entry is the fp32
+recurrent ``state`` and the ``conv`` window in the cache dtype.  Unlike
+the K/V rows, the recurrent leaves are **not** updated in place:
+``decode_step`` writes each layer's new state into fresh stacked tensors
+and returns them in a new cache tuple, leaving the input's untouched, so
+a step that faults part way (or whose logits a caller rejects) can be run
+again on the same cache and give a clean step's bytes — the reference's
+functional steps behave so.  A sub-layer without an MLP (``d_ff == 0``
+outside the MoE layers, as full-width mamba2-370m) has no ln2.
+
+The VLM and audio families, sliding windows and the pipeline-sharded
+steps are not ported yet (``check_supported``).
 """
 from __future__ import annotations
 
@@ -38,11 +51,12 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers
+from repro_torch.nn import mamba as mamba_lib
 from repro_torch.nn import moe as moe_lib
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -96,12 +110,17 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return min(cfg.sliding_window, max_seq) if cfg.sliding_window else max_seq
 
 
+def _ssm(cfg: ModelConfig) -> SSMConfig:
+    return cfg.ssm or SSMConfig()
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet (ROADMAP Queue 1)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1: other families); only 'dense' and 'moe' run")
+            f"Queue 1: other families); 'dense', 'moe', 'ssm' and 'hybrid' "
+            f"run")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet "
@@ -320,20 +339,28 @@ def attn_prefill_paged(p, x, cfg: ModelConfig, cache, pos, lengths,
 # sub-layer (one transformer layer)
 
 def sublayer_init(gen, cfg: ModelConfig, pos: int, device):
+    """One sub-layer's leaves, by :func:`sublayer_kind`: ln1, the mixer
+    (``attn`` or ``mamba``), and ln2 with ``mlp`` or ``moe`` only when the
+    sub-layer has an MLP."""
     check_supported(cfg)
+    kind = sublayer_kind(cfg, pos)
     dtype = _pdtype(cfg)
     d = cfg.d_model
-    p = {"ln1": layers.rmsnorm_init(d, dtype, device),
-         "attn": attn_init(gen, cfg, dtype, device),
-         "ln2": layers.rmsnorm_init(d, dtype, device)}
-    if sublayer_kind(cfg, pos)["mlp"] == "moe":
+    p = {"ln1": layers.rmsnorm_init(d, dtype, device)}
+    if kind["mixer"] == "attn":
+        p["attn"] = attn_init(gen, cfg, dtype, device)
+    else:
+        p["mamba"] = mamba_lib.mamba_init(gen, d, _ssm(cfg), dtype, device)
+    if kind["mlp"] == "dense":
+        p["ln2"] = layers.rmsnorm_init(d, dtype, device)
+        p["mlp"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype, device)
+    elif kind["mlp"] == "moe":
         m = cfg.moe
+        p["ln2"] = layers.rmsnorm_init(d, dtype, device)
         p["moe"] = moe_lib.moe_init(gen, d, m.expert_d_ff or cfg.d_ff,
                                     m.num_experts,
                                     num_shared=m.num_shared_experts,
                                     dtype=dtype, device=device)
-    else:
-        p["mlp"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype, device)
     return p
 
 
@@ -346,54 +373,73 @@ def _mlp(p, cfg, x):
                          norm_scale=p["ln2"]["scale"])
 
 
+def _ffn(p, cfg: ModelConfig, kind, x, aux, groups: int):
+    """The sub-layer's MLP after its mixer: the dense swiglu, the MoE
+    (``groups`` 0: one dispatch group per sequence at the config's
+    capacity, with its aux loss; 1: decode's one global group at capacity
+    factor at least 2.0, no aux loss) or nothing (``mlp`` None)."""
+    if kind["mlp"] == "dense":
+        return _mlp(p, cfg, x), aux
+    if kind["mlp"] == "moe":
+        h = layers.rmsnorm(p["ln2"], x, cfg.rms_eps)
+        m = cfg.moe
+        y, a = moe_lib.moe_apply(
+            p["moe"], h, top_k=m.top_k,
+            capacity_factor=(m.capacity_factor if groups == 0
+                             else max(m.capacity_factor, 2.0)),
+            groups=groups, compute_dtype=_cdtype(cfg),
+            aux_loss_weight=m.aux_loss_weight if groups == 0 else 0.0,
+            backend=cfg.gemm_backend)
+        return x + y, aux + a
+    return x, aux
+
+
 def sublayer_full(p, cfg: ModelConfig, pos: int, x, aux, positions):
-    """Full-sequence sub-layer.  Returns (x, aux, cache_entry): the rope'd
-    K/V of every position in bf16, as the reference caches them."""
+    """Full-sequence sub-layer.  Returns (x, aux, cache_entry): for
+    attention the rope'd K/V of every position in bf16, for mamba the
+    final fp32 state and the last d_conv - 1 conv inputs in bf16, as the
+    reference caches them."""
     kind = sublayer_kind(cfg, pos)
-    assert kind["mixer"] == "attn" and not kind["cross"] \
-        and kind["mlp"] in ("dense", "moe"), \
-        "check_supported() gates the callers"
-    # ln1 scale fuses into the q/k/v projection prologues
-    h = layers.rmsnorm_normalize(x, cfg.rms_eps)
-    out, (k, v) = attn_full(p["attn"], h, cfg, positions,
-                            norm_scale=p["ln1"]["scale"])
-    cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-    x = x + out
-    if kind["mlp"] == "moe":
-        h = layers.rmsnorm(p["ln2"], x, cfg.rms_eps)
-        m = cfg.moe
-        y, a = moe_lib.moe_apply(p["moe"], h, top_k=m.top_k,
-                                 capacity_factor=m.capacity_factor,
-                                 groups=0,  # one dispatch group per sequence
-                                 compute_dtype=_cdtype(cfg),
-                                 aux_loss_weight=m.aux_loss_weight,
-                                 backend=cfg.gemm_backend)
-        return x + y, aux + a, cache
-    return _mlp(p, cfg, x), aux, cache
+    assert not kind["cross"], "check_supported() gates the callers"
+    if kind["mixer"] == "attn":
+        # ln1 scale fuses into the q/k/v projection prologues
+        h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+        out, (k, v) = attn_full(p["attn"], h, cfg, positions,
+                                norm_scale=p["ln1"]["scale"])
+        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    else:
+        h = layers.rmsnorm(p["ln1"], x, cfg.rms_eps)
+        out, state, conv = mamba_lib.mamba_forward(
+            p["mamba"], h, _ssm(cfg), _cdtype(cfg), backend=cfg.gemm_backend)
+        cache = {"state": state.float(), "conv": conv.to(torch.bfloat16)}
+    x, aux = _ffn(p, cfg, kind, x + out, aux, groups=0)
+    return x, aux, cache
 
 
-def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos):
-    """One-token sub-layer.  x: (B,1,d).  Returns (x, cache)."""
+def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
+                    dst=None):
+    """One-token sub-layer.  x: (B,1,d).  Returns (x, cache_entry): the
+    attention's K/V written in place into ``cache``, or a mamba layer's
+    new ``state`` and ``conv`` window (cast to the cache's dtype), written
+    into ``dst``'s ``state``/``conv`` tensors when given, else new ones;
+    a mamba layer's ``cache`` is not written."""
     kind = sublayer_kind(cfg, pos_idx)
-    assert kind["mixer"] == "attn" and not kind["cross"] \
-        and kind["mlp"] in ("dense", "moe"), \
-        "check_supported() gates the callers"
-    # ln1 scale fuses into the q/k/v projection prologues
-    h = layers.rmsnorm_normalize(x, cfg.rms_eps)
-    out, kv = attn_decode(p["attn"], h, cfg, cache, pos,
-                          norm_scale=p["ln1"]["scale"])
-    x = x + out
-    if kind["mlp"] == "moe":
-        h = layers.rmsnorm(p["ln2"], x, cfg.rms_eps)
-        m = cfg.moe
-        y, _ = moe_lib.moe_apply(p["moe"], h, top_k=m.top_k,
-                                 capacity_factor=max(m.capacity_factor, 2.0),
-                                 groups=1,  # decode: one global group
-                                 compute_dtype=_cdtype(cfg),
-                                 aux_loss_weight=0.0,
-                                 backend=cfg.gemm_backend)
-        return x + y, kv
-    return _mlp(p, cfg, x), kv
+    assert not kind["cross"], "check_supported() gates the callers"
+    if kind["mixer"] == "attn":
+        # ln1 scale fuses into the q/k/v projection prologues
+        h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+        out, entry = attn_decode(p["attn"], h, cfg, cache, pos,
+                                 norm_scale=p["ln1"]["scale"])
+    else:
+        h = layers.rmsnorm(p["ln1"], x, cfg.rms_eps)
+        y, state, conv = mamba_lib.mamba_decode_step(
+            p["mamba"], h[:, 0], cache["state"], cache["conv"], _ssm(cfg),
+            _cdtype(cfg), backend=cfg.gemm_backend,
+            out=None if dst is None else (dst["state"], dst["conv"]))
+        out = y[:, None]
+        entry = {"state": state, "conv": conv.to(cache["conv"].dtype)}
+    x, _ = _ffn(p, cfg, kind, x + out, 0.0, groups=1)
+    return x, entry
 
 
 def sublayer_prefill(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
@@ -577,10 +623,11 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     """Returns (logits (B,S,V) fp32, aux_loss, caches-or-None).
     batch['tokens']: (B,S).
 
-    ``caches`` is laid out as :func:`init_cache`'s with ``max_seq = S``:
-    per sub-layer of the period a dict ``{'k','v'}`` of bf16 tensors
-    (n_super, B, S, KV, hd), each layer's rope'd K/V written into its
-    slice as the layer runs."""
+    ``caches`` is laid out as :func:`init_cache`'s with ``max_seq = S``
+    (bf16): each layer's rope'd K/V, or its final fp32 state and bf16
+    conv window, written into its slice as the layer runs.  A mamba
+    sub-layer's chunked scan needs S to be a multiple of
+    ``min(chunk_size, S)``, as the reference asserts."""
     substrate.check_backend(cfg.gemm_backend)
     check_supported(cfg)
     P = period(cfg)
@@ -610,18 +657,28 @@ def prefill(cfg: ModelConfig, params, batch):
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token: (B,) int; pos: scalar or (B,) int.  Returns (logits (B,V),
-    cache) — the cache tensors are updated in place and returned."""
+    cache): a new cache tuple whose K/V leaves are the input's, updated
+    in place, and whose ``state``/``conv`` leaves (mamba sub-layers) are
+    new tensors holding the advanced recurrence — the input's are not
+    written, so use the returned cache."""
     substrate.check_backend(cfg.gemm_backend)
     check_supported(cfg)
     P = period(cfg)
     cd = _cdtype(cfg)
     x = layers.embed(params["embed"], token[:, None], cd)
+    # the advanced recurrent leaves go to fresh stacked tensors, each
+    # layer's written in place there by the recurrence itself
+    new = tuple({k: (torch.empty_like(t) if k in ("state", "conv") else t)
+                 for k, t in c.items()} for c in cache)
     for l in range(n_super(cfg)):
         for i in range(P):
-            x, _ = sublayer_decode(_layer(params["blocks"][i], l), cfg, i, x,
-                                   _layer(cache[i], l), pos)
+            with substrate.chaos_sublayer(i):
+                x, _ = sublayer_decode(
+                    _layer(params["blocks"][i], l), cfg, i, x,
+                    _layer(cache[i], l), pos,
+                    dst=_layer(new[i], l) if "state" in new[i] else None)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    return _logits(cfg, params, x, cd)[:, 0], cache
+    return _logits(cfg, params, x, cd)[:, 0], new
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
@@ -724,17 +781,34 @@ def _paged_step(cfg, params, cache, tokens, pos, lengths, bt):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                dtype=torch.bfloat16, device=None):
-    """Zero-initialized decode cache: per sub-layer of the period a dict
-    ``{'k','v'}`` of shape (n_super, B, max_seq, KV, hd).  On the card
-    unless ``device="cpu"``."""
+    """Zero-initialized decode cache, per sub-layer of the period: an
+    attention sub-layer's ``{'k','v'}`` of shape (n_super, B, max_seq, KV,
+    hd) in ``dtype``; a mamba sub-layer's ``{'state','conv'}``: the fp32
+    state (n_super, B, G, hg, P, N) and the conv window (n_super, B,
+    d_conv - 1, conv_ch) in ``dtype``.  On the card unless
+    ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
+    NS = n_super(cfg)
+    ssm = _ssm(cfg)
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
     cl = cache_len(cfg, max_seq)
-    shape = (n_super(cfg), batch_size, cl, KV, hd)
-    return tuple({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                 for _ in range(period(cfg)))
+    G, N = ssm.n_groups, ssm.d_state
+    hg = (cfg.d_inner // ssm.head_dim) // G
+    conv_ch = cfg.d_inner + 2 * G * N
+    out = []
+    for i in range(period(cfg)):
+        if sublayer_kind(cfg, i)["mixer"] == "attn":
+            shape = (NS, batch_size, cl, KV, hd)
+            out.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            out.append({
+                "state": torch.zeros((NS, batch_size, G, hg, ssm.head_dim, N),
+                                     dtype=torch.float32, device=dev),
+                "conv": torch.zeros((NS, batch_size, ssm.d_conv - 1,
+                                     conv_ch), dtype=dtype, device=dev)})
+    return tuple(out)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,

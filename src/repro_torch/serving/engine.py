@@ -73,10 +73,25 @@ pages and skip the shared pages' prefill.
   bit-identical continuations.
 
 A retried dispatch re-runs the step on the cache the faulted attempt
-wrote in place: every write depends only on the step's inputs and lands on
-the positions the clean attempt writes, so the retry rewrites the same
-bytes (``tests/test_torch_resilience.py`` holds logits and the whole cache
-to a clean step's bit for bit).
+wrote in place: every K/V write depends only on the step's inputs and
+lands on the positions the clean attempt writes, so the retry rewrites the
+same bytes (``tests/test_torch_resilience.py`` holds logits and the whole
+cache to a clean step's bit for bit).  A mamba sub-layer's recurrent
+``state``/``conv`` leaves would not survive that (``state <- state *
+exp(dt A) + upd`` run twice advances twice), so ``lm.decode_step``
+advances them out of place and the engine commits the cache a step
+returns only when the step is accepted: a faulted attempt, or one whose
+logits a NaN retry rejects, leaves ``self.cache``'s recurrent leaves as
+they were, as the reference's functional step leaves its cache
+(``tests/test_torch_ssm_serving.py``).
+
+SSM and hybrid models serve in token mode, as the reference does, with
+its behaviour: a token-prefill step is a full-batch decode step, so every
+other resident row advances its recurrent state on token 0 at its own
+position, and a slot's state is not reset when a new request takes it.
+The K/V rows that step writes are overwritten before they are attended;
+a mamba state is not, so a request's stream can depend on what shares
+the batch with it (ROADMAP Queue 3).
 
 Fault injection is driven by :mod:`repro_torch.runtime.chaos` (seeded,
 replayable); ``ServeConfig.chaos`` activates it and the engine scopes the
@@ -85,8 +100,10 @@ while ``jax.jit`` traces a step: a step whose first trace succeeded is
 cached and never draws again, and a step whose first trace raised is
 traced anew at every later call (jax 0.9's jit caches no trace for it).
 So the engine draws in each of its four steps (``decode``, ``prefill``,
-``decode_paged``, ``prefill_paged``) once per site label an attempt
-(``substrate.chaos_trace_scope``) until the step completes a dispatch at
+``decode_paged``, ``prefill_paged``) once per site label and sub-layer
+position of the period an attempt (``substrate.chaos_trace_scope``: the
+reference's scan body holds the whole period, eight sub-layers for the
+hybrid) until the step completes a dispatch at
 its first attempt, and from then on runs it with the point inactive; a
 step whose first attempt faulted draws at every dispatch.  A restored
 engine starts with no step traced, as the reference's fresh jit does.
@@ -334,8 +351,9 @@ class ServingEngine:
                           **{f"outcome_{o.value}": 0 for o in Outcome})
 
     def kv_cache_bytes(self) -> int:
-        """Resident K/V bytes (pool pages in paged mode, the dense
-        (max_batch, max_seq) region otherwise)."""
+        """Resident cache bytes: the K/V (pool pages in paged mode, the
+        dense (max_batch, max_seq) region otherwise) and, for mamba
+        sub-layers, the recurrent ``state`` and ``conv`` leaves."""
         return sum(t.numel() * t.element_size()
                    for layer in self.cache for t in layer.values())
 
@@ -480,19 +498,23 @@ class ServingEngine:
         caller must fail those rows' requests instead of sampling
         garbage.  A persistent KernelFault re-raises.
 
+        ``dispatch()`` returns ``(logits or None, cache)``; the cache
+        becomes ``self.cache`` only when the attempt is accepted (it
+        completed, and its logits are finite or the retries are spent).
         Unless ``step`` is cached, each attempt draws the
-        ``substrate.dispatch`` point once per site label (module
-        docstring).  A retry re-runs the
-        step on the cache the faulted attempt wrote in place, which it
-        rewrites with the same bytes; the generator is untouched
-        (sampling happens after validation)."""
+        ``substrate.dispatch`` point once per site label and sub-layer
+        position (module docstring).  A retry re-runs the step on
+        ``self.cache``: its K/V tensors as the faulted attempt wrote them
+        in place, which it rewrites with the same bytes, and its
+        recurrent leaves as they were before the attempt; the generator
+        is untouched (sampling happens after validation)."""
         retries = max(0, self.sc.max_retries)
         for attempt in range(retries + 1):
             cached = self._trace.get(step) == "cached"
             try:
                 with (chaos_mod.scope(None) if cached
                       else substrate.chaos_trace_scope()):
-                    logits = dispatch()
+                    logits, cache = dispatch()
             except KernelFault:
                 self._trace[step] = "retrace"
                 if attempt < retries:
@@ -501,6 +523,7 @@ class ServingEngine:
                 raise
             self._trace.setdefault(step, "cached")
             if logits is None:           # prefill: nothing to sample
+                self.cache = cache
                 return None, ()
             if self._chaos is not None and self._chaos.fire("engine.sample"):
                 # corrupt to NaN on even draws, +Inf on odd (both must be
@@ -513,6 +536,7 @@ class ServingEngine:
             if bad and attempt < retries:
                 self.stats["sample_retries"] += 1
                 continue
+            self.cache = cache
             if not finite.all():
                 # no row is sampled from non-finite logits (the bad rows'
                 # tokens are dropped; multinomial refuses NaN rows)
@@ -562,7 +586,7 @@ class ServingEngine:
         t0 = self.clock()
         d0 = sum(substrate.DISPATCH_COUNTS.values())
         try:
-            self._guarded_dispatch(step, lambda: (run(), None)[1], rows=())
+            self._guarded_dispatch(step, lambda: (None, run()[1]), rows=())
         finally:
             self.stats["prefill_gemm_dispatches"] += (
                 sum(substrate.DISPATCH_COUNTS.values()) - d0)
@@ -606,8 +630,11 @@ class ServingEngine:
 
     def _prefill_token_by_token(self, slot: Slot):
         """One full-batch decode dispatch per prompt token.  Other slots'
-        rows write garbage at their own next position, which their next
-        real write overwrites before it is ever attended to."""
+        rows run token 0 at their own next position: the K/V rows they
+        write there are overwritten by their next real write before they
+        are ever attended to, but a mamba sub-layer's recurrent state
+        accumulates that token, as the reference's does (module
+        docstring)."""
         for i, t in enumerate(slot.tokens[:-1]):
             toks = np.zeros(self.sc.max_batch, np.int64)
             toks[slot.index] = t
@@ -615,9 +642,9 @@ class ServingEngine:
             pos_v[slot.index] = i
             t0 = self.clock()
             try:
-                self._guarded_dispatch("decode", lambda: (lm.decode_step(
+                self._guarded_dispatch("decode", lambda: (None, lm.decode_step(
                     self.cfg, self.params, self.cache, self._tensor(toks),
-                    self._tensor(pos_v)), None)[1], rows=())
+                    self._tensor(pos_v))[1]), rows=())
             except KernelFault as exc:
                 self._finish(slot.req, Outcome.FAILED,
                              f"KernelFault during prefill: {exc}")
@@ -711,7 +738,7 @@ class ServingEngine:
             toks[s.index] = s.next_token
         self._decode_rows("decode", lambda: lm.decode_step(
             self.cfg, self.params, self.cache, self._tensor(toks),
-            self._tensor(self._pos_vector()))[0],
+            self._tensor(self._pos_vector())),
             [(s.index, s) for s in dec], Slot.release)
 
     def _decode_tick_paged(self):
@@ -745,7 +772,7 @@ class ServingEngine:
             bt[r] = s.block_table
         self._decode_rows("decode_paged", lambda: lm.decode_step_paged(
             self.cfg, self.params, self.cache, self._tensor(toks),
-            self._tensor(pos), self._tensor(bt))[0],
+            self._tensor(pos), self._tensor(bt)),
             list(enumerate(sel)), self._release_paged)
 
     def _decode_rows(self, step: str, dispatch, rows, release):
@@ -927,8 +954,9 @@ class ServingEngine:
     def snapshot(self) -> dict:
         """Deep copy of the scheduling state at a tick boundary: queue,
         slot/sequence metadata, block tables, pool refcounts, radix tree,
-        generator state, stats, chaos draw counters and the K/V cache (as
-        CPU tensor copies: the engine writes its cache in place).
+        generator state, stats, chaos draw counters and the cache — K/V
+        and any recurrent leaves — as CPU tensor copies (the engine writes
+        its K/V in place).
         ``restore()`` rebuilds an engine that continues with bit-identical
         streams."""
         snap = {

@@ -4,6 +4,7 @@ replaces.  The script's checks and times need the card; its launch plan,
 its kernel booking and its launch checks are plain Python, imported here
 from the repository root without running anything.
 """
+import contextlib
 import dataclasses
 import importlib.util
 import sys
@@ -414,3 +415,118 @@ def test_retried_launches_count_partial_attempts(smoke, chaos_kw, mode):
     draws = 11 if mode == "moe" else 18     # the first traces' draws
     if chaos_kw.get("gemm_fault_at", draws) < draws:
         assert eng.stats["kernel_fault_retries"] == 1
+
+
+# ------------------------------------------------ the SSM cell and the hybrid
+@pytest.mark.parametrize("arch,kw", [("mamba2-370m", {}),
+                                     ("mamba2-370m", {"d_ff": 0}),
+                                     ("jamba-1.5-large-398b", {})],
+                         ids=["mamba2", "mamba2-noffn", "jamba"])
+def test_ssm_step_sites_are_the_dispatch_order(smoke, arch, kw, monkeypatch):
+    """Each sub-layer's sites follow its ``lm.sublayer_kind``: a mamba
+    layer's four GEMMs, an attention layer's six dispatches, a dense MLP's
+    two, an MoE's four, none for ``mlp=None``; the unembed last."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(_reduced(arch), **kw)
+    order = []
+    real = substrate._record
+
+    def record(site, plan, launches=1):
+        order.append(site)
+        real(site, plan, launches)
+
+    monkeypatch.setattr(substrate, "_record", record)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    zero = torch.zeros(2, dtype=torch.int64)
+    lm.decode_step(cfg, params, lm.init_cache(cfg, 2, 16, device="cpu"),
+                   zero, zero)
+    assert order == smoke.step_sites(cfg)
+    if kw.get("d_ff") == 0:
+        assert order == list(smoke.MAMBA_SITES) * cfg.n_layers + ["unembed"]
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8",
+                                     "arrayflex_w8a8"])
+def test_ssm_launch_plan_at_full_width(smoke, backend):
+    """Full-width mamba2-370m: 193 K1 launches a step (48 layers x 4 mamba
+    sites, and the unembed), no K2; in bf16 all on the tensor-core K1 but
+    under W8A8; its full-sequence prefill the same 193, never K2 or K3."""
+    cfg = _cfg("mamba2-370m", backend, "bfloat16")
+    want = smoke.expected_launches(cfg, 1)
+    form = {"arrayflex": "arrayflex_gemm", "arrayflex_int8":
+            "arrayflex_gemm_int8", "arrayflex_w8a8": "arrayflex_gemm_w8a8"}
+    assert {k: v for k, v in want.items() if v} == (
+        {form[backend]: 193} if backend == "arrayflex_w8a8"
+        else {form[backend]: 193, form[backend] + "_tc": 193})
+    fwd = smoke.forward_launches(_cfg("mamba2-370m", "arrayflex", "bfloat16"),
+                                 smoke.SSM_FWD_SEQ)
+    assert {k: v for k, v in fwd.items() if v} == {
+        "arrayflex_gemm": 193, "arrayflex_gemm_tc": 193}
+    fp32 = smoke.forward_launches(_cfg("mamba2-370m", "arrayflex", "float32"),
+                                  smoke.SSM_FWD_SEQ)
+    assert {k: v for k, v in fp32.items() if v} == {"arrayflex_gemm": 193}
+
+
+def test_ssm_sites_are_the_mixer_and_unembed_shapes(smoke):
+    """Phase 3's mamba2 sites at decode (M = 4) and at the full prefill
+    (M = 2048, the unembed of every row): N = 2048, 2304, 32 and 1024 and
+    the padded vocab; the SSM cell's checks take ``step_tol``."""
+    cfg = _cfg("mamba2-370m", "arrayflex", "bfloat16")
+    for rows, form in ((smoke.BATCH, "float"), (smoke.SSM_FWD_SEQ, "w8a8")):
+        sites = {s.name: s for s in smoke.ssm_sites(cfg, rows, form)}
+        assert {n: s.shape for n, s in sites.items()} == {
+            "mamba.z": (rows, 1024, 2048), "mamba.xbc": (rows, 1024, 2304),
+            "mamba.dt": (rows, 1024, 32), "mamba.out": (rows, 2048, 1024),
+            "unembed": (rows, 1024, 50432)}
+        assert all(s.form == form and s.cell == "mamba2-370m"
+                   for s in sites.values())
+        assert [s.per_step for s in sites.values()] == [48] * 4 + [1]
+        assert sites["unembed"].flags == {"out_f32": True}
+        assert all(not s.flags for n, s in sites.items() if n != "unembed")
+        for dt in (torch.bfloat16, torch.float32):
+            assert smoke.kernel_tol(sites["mamba.dt"], dt, 3.0) == \
+                smoke.step_tol(dt, 3.0)
+    # mamba.dt at decode: 32 columns, 16 a block on the narrow int8 tile
+    assert smoke.narrow_int8_cols(smoke.BATCH, 32) == 16
+
+
+@pytest.mark.parametrize("case", ["mamba2", "jamba"])
+def test_retried_launches_count_partial_attempts_ssm(smoke, case):
+    """An SSM run whose first step faults at the last layer's mamba.out
+    (every dispatch drawing: ``per_dispatch``) and whose first sampling is
+    NaN; a hybrid run whose first trace faults at its first mlp.wo (each
+    label drawing once): the launches are the full steps' plus what each
+    faulted attempt launched before its site."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    from repro_torch.runtime.chaos import ChaosConfig
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    arch = "mamba2-370m" if case == "mamba2" else "jamba-1.5-large-398b"
+    cfg = _reduced(arch)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    seq = smoke.step_sites(cfg)
+    if case == "mamba2":
+        n = len(seq) - 1 - seq[::-1].index("mamba.out")
+        chaos_cfg = ChaosConfig(gemm_fault_at=n, nan_logits_at=0)
+        scope = smoke.every_dispatch_draws()
+    else:
+        n = 5
+        chaos_cfg = ChaosConfig(gemm_fault_at=n)
+        scope = contextlib.nullcontext()
+    eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_seq=32,
+                                                 chaos=chaos_cfg),
+                        device="cpu")
+    for i, p in enumerate([[5, 6, 7], [11, 12, 13, 14, 15], [21]]):
+        eng.submit(Request(prompt=p, max_new_tokens=4, rid=i))
+    substrate.DISPATCH_COUNTS.clear()
+    with scope:
+        eng.run_to_completion()
+    log = eng._chaos.chaos_log
+    fault = [e for e in log if e[0] == "substrate.dispatch"]
+    assert fault == [("substrate.dispatch", n,
+                      "mamba.out" if case == "mamba2" else "mlp.wo")]
+    assert _dispatched(smoke, cfg) == smoke.retried_launches(
+        cfg, eng.stats, log, per_dispatch=case == "mamba2")
+    assert eng.stats["kernel_fault_retries"] == 1
+    assert eng.stats["sample_retries"] == (case == "mamba2")

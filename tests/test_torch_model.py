@@ -227,7 +227,7 @@ def test_prepare_params_casts_once(port_params):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm"),
+@pytest.mark.parametrize("change", [dict(family="audio"),
                                     dict(sliding_window=8)])
 def test_unported_families_raise(change):
     _, tc = _cfgs("xla")
