@@ -125,11 +125,38 @@ failure of which exits non-zero:
    against ``lm.forward``'s within the ``ref`` backend's own gap plus
    BF16_WINDOW_TOL), and reduced jamba-1.5-large-398b in fp32 against
    ``ref`` (decode counted: K1 and K2, the attention products and the
-   expert banks, per step from :func:`step_sites`);
+   expert banks, per step from :func:`step_sites`); then the last
+   families and the three dense archs (``family_phase``), each at full
+   published width in bf16 parameters, one tree at a time:
+   mixtral-8x22b (8 of 56 layers on ``arrayflex``, 6 on the int8
+   backends; its window cut to 16 for serving, so that the ring wraps in
+   the prompts), llama-3.2-vision-90b (10 of 100 layers: 8 self-attention,
+   2 cross), whisper-base (6 + 6 layers), llama3-8b, qwen2.5-14b and
+   stablelm-12b (all layers): each served on the three backends (token
+   prefill for the families, batched for the dense archs; launches per
+   step from :func:`step_sites`, which adds a cross layer's xattn.wq,
+   attn.qk, attn.pv and xattn.wo; the decode step profiled, peak
+   memory), the K1 / K2 launches of one decode step and one prefill chunk
+   recorded at the shapes, flags and k the path gave them
+   (``recorded_sites``); the families' ``lm.prefill`` at B = 1 on
+   ``arrayflex`` (mixtral S = 4608 at its published window 4096: a ring
+   of 4096 rolled by 512, the chunked scan; the vlm S = 512 against 1600
+   image tokens: ``frontend.img``, ``xattn.kv`` at 1600 rows, K2 at 1600
+   keys; whisper 64 tokens against 1500 encoded frames), counted
+   (``forward_launches``), timed, profiled; then, each tree freed, every
+   recorded site checked against its plain version at its k in bf16 and
+   fp32 (head_dim 128 and 160, the 1500- and 1600-key cross products
+   among them) and timed; and fp32 parity against ``ref``
+   (:data:`PARITY_LAYERS`: the families' ``lm.forward`` with its context
+   and six decode steps, mixtral through a ring of 4, counted; the dense
+   archs' ``prefill_step`` + ``decode_step``);
 8. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
-   ``{"ok": true, ...}`` line last.
+   ``{"ok": true, ...}`` line last.  Each site check's error, the plain
+   version's scale and the tolerance go to the JSON report
+   (``site_checks``); a bf16 check one step above KERNEL_TOL at a site
+   TC_FLIP_SITES does not name fails the run here, after every phase.
 
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -201,18 +228,42 @@ TC_FLIP_SITES = {
     ("qwen2-0.5b", "attn.wq", (1024, 896, 896)),
     ("qwen2-0.5b", "mlp.wo", (1024, 4864, 896)),
     ("qwen3-moe-30b-a3b", "attn.wo", (4, 4096, 2048)),
+    # the SSM cell, at decode and at its full-sequence prefill
+    ("mamba2-370m", "mamba.out", (4, 2048, 1024)),
+    ("mamba2-370m", "mamba.xbc", (2048, 1024, 2304)),
+    # the last families and the dense archs, at their recorded sites
+    ("llama-3.2-vision-90b", "attn.wk", (4, 8192, 1024)),
+    ("llama3-8b", "attn.wq", (1024, 4096, 4096)),
+    ("llama3-8b", "mlp.wo", (1024, 14336, 4096)),
+    ("qwen2.5-14b", "attn.wo", (4, 5120, 5120)),
+    ("qwen2.5-14b", "attn.wq", (1024, 5120, 5120)),
+    ("qwen2.5-14b", "attn.wk", (1024, 5120, 1024)),
+    ("qwen2.5-14b", "attn.wv", (1024, 5120, 1024)),
+    ("qwen2.5-14b", "mlp.wo", (1024, 13824, 5120)),
+    ("stablelm-12b", "attn.wo", (4, 5120, 5120)),
+    ("stablelm-12b", "attn.wq", (1024, 5120, 5120)),
+    ("stablelm-12b", "mlp.wi_gate+mlp.wi_up", (1024, 5120, 13824)),
+    ("stablelm-12b", "mlp.wo", (1024, 13824, 5120)),
 }
 
 
 def kernel_tol(site, dt, scale: float) -> float:
     """Absolute tolerance of a decode / prefill-chunk site's check: the
-    int8 forms, TC_FLIP_SITES and every site of the SSM cell (whose bf16
-    checks on the tensor-core K1 have no earlier run to list flips from)
-    take :func:`step_tol`; the other float sites keep KERNEL_TOL."""
-    if (site.form != "float" or site.cell == SSM_ARCH
+    int8 forms and TC_FLIP_SITES take :func:`step_tol`; the other float
+    sites keep KERNEL_TOL."""
+    if (site.form != "float"
             or (site.cell, site.name, tuple(site.shape)) in TC_FLIP_SITES):
         return step_tol(dt, scale)
     return KERNEL_TOL[dt] * max(scale, 1.0)
+
+
+# every site check: (cell, site, shape, form, dtype, k, max abs error, the
+# plain version's max |value| (scale), tolerance), in the JSON report
+SITE_CHECKS = []
+# float bf16 checks above KERNEL_TOL by exactly one bf16 step at the top
+# binade at a site TC_FLIP_SITES does not name: each fails the run at its
+# end, after every phase has run, so that one run lists them all
+UNLISTED_FLIPS = []
 # Model logits, relative to max |ref logit|: fp32 (with an fp32 K/V cache,
 # so no bf16 rounding enters) — summation order through 24 layers; bf16
 # (bf16 cache, as served) — hidden states are rounded to bf16 after every
@@ -287,6 +338,7 @@ class Site:
     form: str = "float"     # "float" | "int8" (W8) | "w8a8"
     cell: str = "qwen2-0.5b"
     time_dtype: torch.dtype = torch.bfloat16   # the path's dtype here
+    k: int = 0              # the path's k (0: the substrate's plan)
 
     @property
     def launch_name(self) -> str:
@@ -585,7 +637,19 @@ def check_site(site: Site, dt, gen, k: int, tol_fn=None) -> float:
     scale = want.float().abs().max().item()
     tol = (tol_fn(dt, scale) if tol_fn is not None
            else kernel_tol(site, dt, scale))
-    if not (err <= tol) or got.shape != want.shape:
+    SITE_CHECKS.append(dict(cell=site.cell, site=site.name,
+                            shape=list(site.shape), form=site.form,
+                            dtype=str(dt).split(".")[-1], k=k,
+                            max_abs_err=err, scale=scale, tol=tol))
+    flip = (dt == torch.bfloat16 and site.form == "float"
+            and err == step_tol(dt, scale) and got.shape == want.shape)
+    if not (err <= tol) and flip:
+        UNLISTED_FLIPS.append((site.cell, site.name, tuple(site.shape), k,
+                               err, scale))
+        log(f"  UNLISTED FLIP {site.cell} {site.name} {site.shape} k={k}: "
+            f"err {err} = one bf16 step at scale {scale} (fails the run at "
+            f"its end)")
+    elif not (err <= tol) or got.shape != want.shape:
         raise AssertionError(
             f"{site.name} {site.shape} {dt} k={k}: max abs err {err} > "
             f"tol {tol} (scale {scale})")
@@ -616,7 +680,7 @@ def time_site(site: Site, gen, iters: int):
     dt = site.time_dtype
     fn, plain = _kernel_fns(site)
     x, calls = _operands(site, dt, gen, site.copies)
-    k = planned_k(site)
+    k = site.k or planned_k(site)
 
     def bind(f_, kw):
         kw = dict(kw)
@@ -1012,19 +1076,28 @@ MLP_SITES = ("mlp.wi_gate+mlp.wi_up", "mlp.wo")
 MOE_SITES = ("moe.router", "moe.wi_gate", "moe.wi_up", "moe.wo")
 # a mamba mixer's dispatches, in the order nn.mamba runs them
 MAMBA_SITES = ("mamba.z", "mamba.xbc", "mamba.dt", "mamba.out")
+# a cross-attending sub-layer's cross-attention at decode (the context's
+# K/V read from the cache), and over a full sequence (K/V projected from
+# the context, both at the one xattn.kv label)
+CROSS_DECODE_SITES = ("xattn.wq", "attn.qk", "attn.pv", "xattn.wo")
+CROSS_FULL_SITES = ("xattn.wq", "xattn.kv", "xattn.kv", "attn.qk",
+                    "attn.pv", "xattn.wo")
 
 
-def step_sites(cfg):
+def step_sites(cfg, full: bool = False):
     """One engine step's substrate dispatches, in order: per layer its
     mixer's (:func:`lm.sublayer_kind`: the attention's projections and
-    products, or the mamba mixer's four GEMMs), then its MLP's (the dense
-    MLP's two GEMMs, the MoE router and three expert banks, or none); the
-    unembed last."""
+    products, or the mamba mixer's four GEMMs), its cross-attention's
+    where it cross-attends (``full``: a full sequence's, which projects
+    the context's K/V), then its MLP's (the dense MLP's two GEMMs, the MoE
+    router and three expert banks, or none); the unembed last."""
     seq = []
     for _ in range(lm.n_super(cfg)):
         for i in range(lm.period(cfg)):
             kind = lm.sublayer_kind(cfg, i)
             seq += ATTN_SITES if kind["mixer"] == "attn" else MAMBA_SITES
+            if kind["cross"]:
+                seq += CROSS_FULL_SITES if full else CROSS_DECODE_SITES
             seq += {"dense": MLP_SITES, "moe": MOE_SITES,
                     None: ()}[kind["mlp"]]
     return seq + ["unembed"]
@@ -1145,7 +1218,12 @@ def check_clean(what: str, engine, reqs) -> None:
 
 
 def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
-                  max_seq=MAX_SEQ):
+                  max_seq=MAX_SEQ, record=False):
+    """Serve ``prompt_lens`` greedy requests on ``cfg``'s backend after a
+    warm-up engine, holding the run's launches to the per-step plan; with
+    ``record`` the result also carries ``sites``: the K1 / K2 launches of
+    one decode step and, in batched prefill, of one prefill chunk of every
+    row, on the engine's own tree and cache (:func:`recorded_sites`)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in prompt_lens]
@@ -1221,6 +1299,93 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         f"== per-step counts x {steps} steps")
     out["profile"] = profile_decode_step(cfg, engine, out["decode_step_ms"],
                                          max_seq)
+    if record:
+        out["sites"] = record_step_sites(cfg, engine, max_seq)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_sites(cell: str):
+    """Record the K1 / K2 launches made inside (through
+    ``ops.arrayflex_matmul`` / ``ops.arrayflex_expert_matmul``, each
+    labelled by the substrate dispatch that made it) as :class:`Site`
+    rows, one per distinct (label, kernel, shape, form, epilogue flags, k,
+    x dtype), ``per_step`` its launches inside: the shapes, flags and
+    planned k the path gave each kernel.  Yields the list, filled on
+    exit."""
+    seen, label = {}, [""]
+    record = substrate._record
+    mm, emm = ops.arrayflex_matmul, ops.arrayflex_expert_matmul
+
+    def rec(site, plan, launches=1):
+        label[0] = site
+        return record(site, plan, launches)
+
+    def note(kernel, shape, x, w, kw):
+        form = ("w8a8" if kw.get("act_quant") else
+                "int8" if kw.get("w_scale") is not None else "float")
+        flags = dict(
+            bias=kw.get("bias") is not None,
+            bias2=kw.get("bias2") is not None,
+            dual=kw.get("w2") is not None,
+            norm_scale=kw.get("norm_scale") is not None,
+            residual=kw.get("residual") is not None,
+            out_f32=kw.get("out_dtype") == torch.float32,
+            activation=kw.get("activation", "none"))
+        flags = tuple(sorted((key, v) for key, v in flags.items()
+                             if v and v != "none"))
+        w_bytes = w.numel() * w.element_size() * (2 if kw.get("w2")
+                                                  is not None else 1)
+        key = (label[0], kernel, shape, form, flags, kw["k_collapse"],
+               x.dtype, w_bytes)
+        seen[key] = seen.get(key, 0) + 1
+
+    def mm_rec(x, w, **kw):
+        note("arrayflex_gemm",
+             (math.prod(x.shape[:-1]), x.shape[-1], w.shape[-1]), x, w, kw)
+        return mm(x, w, **kw)
+
+    def emm_rec(x, w, **kw):
+        note("arrayflex_expert_gemm", (*x.shape, w.shape[-1]), x, w, kw)
+        return emm(x, w, **kw)
+
+    sites = []
+    substrate._record = rec
+    ops.arrayflex_matmul, ops.arrayflex_expert_matmul = mm_rec, emm_rec
+    try:
+        yield sites
+    finally:
+        substrate._record = record
+        ops.arrayflex_matmul, ops.arrayflex_expert_matmul = mm, emm
+    for (name, kernel, shape, form, flags, k, dt, w_bytes), n in seen.items():
+        # weight copies rotate past the 50 MB L2, as the layers' do
+        copies = int(min(24, max(2, -(-64 * 2 ** 20 // max(w_bytes, 1)))))
+        sites.append(Site(name, kernel, shape, n, dict(flags), copies=copies,
+                          form=form, cell=cell, time_dtype=dt, k=k))
+    sites.sort(key=lambda st: (st.kernel, st.name, st.shape))
+
+
+def record_step_sites(cfg, engine, max_seq: int):
+    """The K1 / K2 sites of one decode step of ``engine`` (all BATCH rows,
+    at position max_seq / 2) and, when it prefills in batches, of one
+    prefill chunk of BATCH x chunk rows from position 0
+    (:func:`recorded_sites`), by phase."""
+    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+    pos = torch.full((BATCH,), max_seq // 2, dtype=torch.int64,
+                     device="cuda")
+    with recorded_sites(cfg.name) as sites:
+        lm.decode_step(cfg, engine.params, engine.cache, toks, pos)
+    out = {"decode": sites}
+    if engine.prefill_mode == "batched":
+        C = engine.prefill_chunk
+        chunk = torch.zeros((BATCH, C), dtype=torch.int64, device="cuda")
+        start = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+        lens = torch.full((BATCH,), C, dtype=torch.int64, device="cuda")
+        with recorded_sites(cfg.name) as sites:
+            lm.prefill_step(cfg, engine.params, engine.cache, chunk, start,
+                            lens)
+        out[f"prefill chunk {C}"] = sites
+    torch.cuda.synchronize()
     return out
 
 
@@ -1878,23 +2043,35 @@ def resilience_phase(cfg, params, serving, paged):
 FWD_SEQS = (2048, 4096)
 
 
-def forward_launches(cfg, S: int):
-    """Kernel launches of one ``lm.prefill`` of ``cfg`` (a model without
-    MoE on ``arrayflex``) at S tokens: every weight GEMM of
-    :func:`step_sites` on K1 (a dense layer's q, k, v, o, the dual-GEMM
-    swiglu and mlp.wo; a mamba layer's four) and, on the dense attention
-    path, each attention layer's attn.qk and attn.pv on K2; the unembed
-    once.  K3 is never on the model path."""
-    assert cfg.moe is None
-    seq = step_sites(cfg)
+def forward_seq(cfg, S: int, n_ctx: int = 0):
+    """(site, query rows) of every dispatch of one ``lm.prefill`` of
+    ``cfg`` at B = 1, S tokens and a context of ``n_ctx`` rows: the VLM's
+    ``frontend.img``, or the audio encoder (``frontend.audio``, then each
+    encoder layer's attention and MLP over the frames), then
+    :func:`step_sites` over the full sequence."""
+    seq = []
+    if cfg.family == "vlm":
+        seq.append(("frontend.img", n_ctx))
+    if cfg.family == "audio":
+        seq.append(("frontend.audio", n_ctx))
+        seq += [(s, n_ctx) for _ in range(cfg.n_encoder_layers)
+                for s in ATTN_SITES + MLP_SITES]
+    return seq + [(s, S) for s in step_sites(cfg, full=True)]
+
+
+def forward_launches(cfg, S: int, n_ctx: int = 0):
+    """Kernel launches of one ``lm.prefill`` of ``cfg`` on ``arrayflex``
+    (:func:`forward_seq`): every weight GEMM on K1, the MoE router on the
+    fp32 K1 and the expert banks on K2, and attn.qk / attn.pv on K2 where
+    their query rows take the dense attention path (the chunked scan above
+    ``attn_dense_below`` dispatches nothing).  K3 is never on the model
+    path."""
     want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
-    products = sum(s in ("attn.qk", "attn.pv") for s in seq)
-    want["arrayflex_gemm"] = len(seq) - products
-    if S <= cfg.attn_dense_below:
-        want["arrayflex_expert_gemm"] = products
-    if cfg.compute_dtype == "bfloat16":              # all on tensor cores
-        want["arrayflex_gemm_tc"] = want["arrayflex_gemm"]
-        want["arrayflex_expert_gemm_tc"] = want["arrayflex_expert_gemm"]
+    for site, rows in forward_seq(cfg, S, n_ctx):
+        if site in ("attn.qk", "attn.pv") and rows > cfg.attn_dense_below:
+            continue
+        for name, n in site_launches(cfg, site).items():
+            want[name] += n
     return want
 
 
@@ -2643,6 +2820,285 @@ def hybrid_parity_phase():
     return out, counted
 
 
+# ---------------------------------------------------------------------------
+# the last families and the three dense archs at full width
+
+MIXTRAL_ARCH = "mixtral-8x22b"
+VLM_ARCH = "llama-3.2-vision-90b"
+AUDIO_ARCH = "whisper-base"
+DENSE_ARCHS = ("llama3-8b", "qwen2.5-14b", "stablelm-12b")
+FAMILY_ARCHS = (MIXTRAL_ARCH, VLM_ARCH, AUDIO_ARCH) + DENSE_ARCHS
+BACKENDS = ("arrayflex", "arrayflex_int8", "arrayflex_w8a8")
+# (layers, backends) of each tree built in turn, bf16 parameters; the
+# default is the published depth on all three backends.  mixtral: 5.0 GB
+# a layer, 8 layers on arrayflex, 6 on the int8 backends (each engine
+# holds the bf16 tree and its int8 copy); the vlm: two super-blocks of 5
+# (8 self-attention layers, 2 cross layers) of 100
+FAMILY_TREES = {
+    MIXTRAL_ARCH: ((8, ("arrayflex",)),
+                   (6, ("arrayflex_int8", "arrayflex_w8a8"))),
+    VLM_ARCH: ((10, BACKENDS),),
+}
+# serving: mixtral's window cut to 16, below FAMILY_MAX_SEQ, so that the
+# ring wraps within the prompts; token prefill for the three families,
+# batched prefill for the dense archs (PROMPT_LENS, MAX_SEQ)
+MIXTRAL_SERVE_WINDOW = 16
+FAMILY_MAX_SEQ, FAMILY_MAX_NEW = 64, 8
+# lm.prefill at B = 1, on arrayflex: (tokens, context rows).  mixtral at
+# the published window 4096: S = 4608 keeps a ring of 4096 rolled by 512
+# (the chunked scan above attn_dense_below); the vlm against 1600 image
+# tokens; whisper's 64 decoder tokens against 1500 encoded frames
+FAMILY_FWD = {MIXTRAL_ARCH: (4608, 0), VLM_ARCH: (512, 1600),
+              AUDIO_ARCH: (64, 1500)}
+# fp32 parity against ref at this depth (None: the published one): the
+# families' lm.forward (S = PARITY_SEQ, the full context) and
+# FAMILY_PARITY_STEPS decode steps, mixtral with a ring of
+# MIXTRAL_PARITY_WINDOW that wraps within them; the dense archs'
+# prefill_step + decode_step (:func:`parity_phase`)
+PARITY_LAYERS = {MIXTRAL_ARCH: 2, VLM_ARCH: 5, AUDIO_ARCH: None,
+                 **{a: 2 for a in DENSE_ARCHS}}
+PARITY_SEQ, FAMILY_PARITY_STEPS, MIXTRAL_PARITY_WINDOW = 32, 6, 4
+
+
+def family_batch(cfg, S: int, n_ctx: int, seed: int = 5):
+    """Seeded tokens (1, S) and the family's context input: image
+    embeddings (1, n_ctx, d_frontend) or audio frames, fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S),
+                                     generator=gen, device="cuda")}
+    if cfg.family in ("vlm", "audio"):
+        batch["image_embeds" if cfg.family == "vlm" else "frames"] = \
+            torch.randn((1, n_ctx, cfg.d_frontend), generator=gen,
+                        device="cuda")
+    return batch
+
+
+def family_prefill(cfg, params):
+    """``lm.prefill`` of ``cfg`` at B = 1 (:data:`FAMILY_FWD`) on the
+    served tree: a recorded warm-up run (its K1 / K2 sites), then the run
+    whose launch counters are set to 0 just before and read just after
+    (held to :func:`forward_launches`), its host-clock time, peak memory,
+    logits and cache leaves (``lm.init_cache``'s at S, the cross leaves
+    as long as the context), and a profiled run's device-busy time."""
+    S, n_ctx = FAMILY_FWD[cfg.name]
+    served = lm.prepare_params(cfg, params)
+    batch = family_batch(cfg, S, n_ctx)
+    with recorded_sites(cfg.name) as sites:              # warm-up
+        lm.prefill(cfg, served, batch)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, served, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ag.LAUNCHES, **fa.LAUNCHES)   # read just after
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"{cfg.name} prefill S={S}", launches,
+                   forward_launches(cfg, S, n_ctx))
+    want = lm.init_cache(cfg, 1, S, n_cross=n_ctx or None)
+    leaves = [[(k, tuple(t.shape), t.dtype) for k, t in c.items()]
+              for c in caches]
+    if (tuple(logits.shape) != (1, cfg.padded_vocab)
+            or not bool(torch.isfinite(logits).all())
+            or leaves != [[(k, tuple(t.shape), t.dtype)
+                           for k, t in c.items()] for c in want]):
+        raise AssertionError(f"{cfg.name} prefill S={S}: logits "
+                             f"{tuple(logits.shape)} or caches {leaves} "
+                             f"wrong, or non-finite logits")
+    del logits, caches, want
+    log(f"  {cfg.name} x{cfg.n_layers} lm.prefill B=1 S={S}"
+        f"{f' against {n_ctx} context rows' if n_ctx else ''}: "
+        f"{wall_ms:.1f} ms host clock, peak {peak / 2**30:.2f} GiB; "
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    prof = profile_device(lambda: lm.prefill(cfg, served, batch), wall_ms,
+                          f"prefill of {S} tokens")
+    del served
+    _free()
+    return dict(S=S, n_ctx=n_ctx, n_layers=cfg.n_layers, prefill_ms=wall_ms,
+                max_memory_allocated_bytes=peak, launches=launches,
+                profile=prof), sites
+
+
+def family_kernel_phase(cell_sites, gen):
+    """Each recorded site (:func:`recorded_sites`, by phase) checked
+    against its plain version at the path's k in bf16 and fp32 (the
+    full-sequence prefill's sites to :func:`step_tol`, as
+    :func:`prefill_kernel_phase`'s; the others to :func:`kernel_tol`),
+    then timed in the path's dtype.  Returns the rows and each kernel's
+    largest error (bf16 for the tensor-core kernels, fp32 for the FFMA
+    kernels of fp32 x)."""
+    rows, max_err = [], {}
+    for phase, sites in cell_sites.items():
+        full = phase.startswith("prefill S=")
+        for site in sites:
+            errs = {}
+            for dt in (torch.bfloat16, torch.float32):
+                dname = str(dt).split(".")[-1]
+                errs[f"{dname}/k{site.k}"] = check_site(
+                    site, dt, gen, site.k, step_tol if full else None)
+                name = site.kernel_key(dt)
+                if dt == torch.bfloat16 or name in FFMA_FP32:
+                    max_err[name] = max(max_err.get(name, 0.0),
+                                        errs[f"{dname}/k{site.k}"])
+            t = time_site(site, gen, max(4, 2 * site.copies))
+            rows.append(dict(phase=phase, cell=site.cell, site=site.name,
+                             kernel=site.kernel, form=site.form,
+                             launch_name=site.kernel_key(site.time_dtype),
+                             shape=site.shape, per_step=site.per_step,
+                             max_abs_err=errs, **t))
+            log(f"  {site.cell} {phase:17s} {site.form:5s} {site.name:22s} "
+                f"{str(site.shape):28s} x{site.per_step:<3d} "
+                f"{t['dtype']:8s} k={t['k']} kernel {_us(t['ms'])} us  "
+                f"plain {_us(t['plain_ms'])} us  library "
+                f"{_us(t['library_ms'])} us  bound "
+                f"{t['bound_ms'] * 1e3:8.2f} us ({t['bound_by']})  err "
+                f"{max(errs.values()):.3g}")
+            _free()
+    return rows, max_err
+
+
+def family_totals(rows):
+    """Per (phase, kernel) totals of one cell's rows (:func:`_step_totals`:
+    a decode step, a prefill chunk step, or one prefill).  A prefill
+    chunk's totals leave out its unembed of B rows, as
+    :func:`summarize`'s chunk totals do (so that W8A8 has an ``_int_mm``
+    library time: no site of 16 rows or fewer has one)."""
+    out = {}
+    for phase in dict.fromkeys(r["phase"] for r in rows):
+        sel = [r for r in rows if r["phase"] == phase and not (
+            phase.startswith("prefill chunk") and r["shape"][-3] <= 16)]
+        for name in dict.fromkeys(r["launch_name"] for r in sel):
+            out[f"{phase} {name}"] = _step_totals(
+                [r for r in sel if r["launch_name"] == name])
+    return out
+
+
+def cross_parity(cfg, params):
+    """fp32 on the card, ``cfg``'s depth: ``lm.forward`` of PARITY_SEQ
+    tokens (B = 1, the full-size context) and FAMILY_PARITY_STEPS decode
+    steps (B = 2, a zero fp32 cache: the served cross leaves) on the
+    kernels against ``ref`` within MODEL_TOL, the kernels' run counted
+    (all on the FFMA kernels; launches :func:`forward_launches` plus
+    :func:`expected_launches` a step)."""
+    S, n_ctx = PARITY_SEQ, FAMILY_FWD[cfg.name][1]
+    batch = family_batch(cfg, S, n_ctx, seed=6)
+    B = 2
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (FAMILY_PARITY_STEPS, B),
+                         generator=gen, device="cuda")
+    res, counted = {}, None
+    for backend in ("arrayflex", "ref"):
+        c = dataclasses.replace(cfg, gemm_backend=backend,
+                                compute_dtype="float32")
+        p = lm.prepare_params(c, params)
+
+        def run():
+            full, _, _ = lm.forward(c, p, batch)
+            cache = lm.init_cache(c, B, 16, dtype=torch.float32)
+            steps = []
+            for t in range(FAMILY_PARITY_STEPS):
+                pos = torch.tensor([t, t + 1], device="cuda")
+                lg, cache = lm.decode_step(c, p, cache, toks[t], pos)
+                steps.append(lg.float())
+            return full[0].float(), torch.cat(steps)
+
+        if backend == "arrayflex":
+            res[backend], counted = _counted(f"fp32 {cfg.name}", c, run)
+            want = expected_launches(c, FAMILY_PARITY_STEPS)
+            for name, n in forward_launches(c, S, n_ctx).items():
+                if name in want:
+                    want[name] += n
+            check_launches(f"fp32 {cfg.name} forward + decode", counted,
+                           want)
+        else:
+            res[backend] = run()
+        del p
+        _free()
+    tol = MODEL_TOL[torch.float32]
+    (fa_, da), (fr, dr) = res["arrayflex"], res["ref"]
+    what = f"{cfg.name} x{cfg.n_layers} fp32 arrayflex vs ref"
+    return dict(forward=_rel(f"{what}: lm.forward S={S}", fa_, fr, tol),
+                decode=_rel(f"{what}: {FAMILY_PARITY_STEPS} decode steps",
+                            da, dr, tol)), counted
+
+
+def family_phase(arch):
+    """One new cell at full published width, bf16 parameters (seed 0),
+    trees built and freed one at a time (:data:`FAMILY_TREES`): served on
+    each backend (:func:`serving_phase`: every request ``ok``, launches
+    per step from :func:`step_sites`, the decode step profiled, peak
+    memory) with its decode and prefill-chunk sites recorded; the
+    families' ``lm.prefill`` (:func:`family_prefill`); then, the tree
+    freed, every recorded site checked and timed
+    (:func:`family_kernel_phase`), and fp32 parity at
+    :data:`PARITY_LAYERS`.  Returns the cell's results, rows, kernel
+    errors, the runs whose launches count and the counted fp32 runs."""
+    base = dataclasses.replace(get_config(arch), gemm_backend="arrayflex",
+                               compute_dtype="bfloat16",
+                               param_dtype="bfloat16")
+    dense = arch in DENSE_ARCHS
+    prompt_lens, max_seq = ((PROMPT_LENS, MAX_SEQ) if dense
+                            else (MOE_PROMPT_LENS, FAMILY_MAX_SEQ))
+    over = ({"sliding_window": MIXTRAL_SERVE_WINDOW}
+            if arch == MIXTRAL_ARCH else {})
+    out = dict(serving={}, n_layers={})
+    sites, runs, fp32_runs = {}, [], []
+    for L, backends in FAMILY_TREES.get(arch, ((base.n_layers, BACKENDS),)):
+        cfg = dataclasses.replace(base, n_layers=L)
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+        log(f"  {arch} x{L}: {n_bytes / 1e9:.2f} GB of bf16 parameters "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        for backend in backends:
+            bcfg = dataclasses.replace(cfg, gemm_backend=backend, **over)
+            res = serving_phase(bcfg, params, prompt_lens, FAMILY_MAX_NEW,
+                                max_seq, record=True)
+            res["param_bytes"] = n_bytes
+            for phase, s in res.pop("sites").items():
+                # the float sites of a quantizing backend's step (the
+                # attention products, the router) are arrayflex's
+                sites.setdefault(phase, []).extend(
+                    st for st in s
+                    if backend == "arrayflex" or st.form != "float")
+            out["serving"][backend] = res
+            out["n_layers"][backend] = L
+            runs.append(res)
+            _free()
+        if arch in FAMILY_FWD and "arrayflex" in backends:
+            out["prefill"], s = family_prefill(cfg, params)
+            sites[f"prefill S={out['prefill']['S']}"] = s
+            runs.append(out["prefill"])
+        del params
+        _free()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, max_err = family_kernel_phase(sites, gen)
+    out["kernel_totals"] = family_totals(rows)
+    for key, t in out["kernel_totals"].items():
+        lib = t["library_ms"]
+        log(f"  {arch} {key}: kernel {t['ms']:.3f} / plain "
+            f"{t['plain_ms']:.3f} / library "
+            f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    L = PARITY_LAYERS[arch] or base.n_layers
+    cfg = dataclasses.replace(base, n_layers=L)
+    if arch == MIXTRAL_ARCH:
+        cfg = dataclasses.replace(cfg, sliding_window=MIXTRAL_PARITY_WINDOW)
+    params = lm.init_params(cfg, seed=0)
+    if dense:
+        out["parity"] = parity_phase(cfg, params)
+    else:
+        out["parity"], counted = cross_parity(cfg, params)
+        fp32_runs.append(counted)
+    out["parity_layers"] = L
+    del params
+    _free()
+    return out, rows, max_err, runs, fp32_runs
+
+
 def _step_totals(sel):
     """Per-step sums of the site rows ``sel``: each site's per-launch
     time and bound times its launches per step; library_ms is null where
@@ -2977,6 +3433,19 @@ def main() -> int:
     hybrid_parity, hybrid_counted = hybrid_parity_phase()
     fp32_runs.append(hybrid_counted)
 
+    families, family_runs = {}, []
+    for arch in FAMILY_ARCHS:
+        log(f"[7/8] {arch} at full width (bf16 parameters): serving on "
+            f"{', '.join(BACKENDS)}, its sites checked and timed, fp32 "
+            f"parity (card: {card})")
+        fam, rows, errs, fam_runs, fam_fp32 = family_phase(arch)
+        families[arch] = fam
+        results += rows
+        for name, err in errs.items():
+            max_err[name] = max(max_err.get(name, 0.0), err)
+        family_runs += fam_runs
+        fp32_runs += fam_fp32
+
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
     # prefills and the W8 runs, each counted from 0); K3's over its
@@ -2986,7 +3455,7 @@ def main() -> int:
         {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
             + paged_runs + resilience["runs"] + list(prefill.values())
-            + ssm_runs + list(ssm_prefill.values())
+            + ssm_runs + list(ssm_prefill.values()) + family_runs
             + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
@@ -2994,12 +3463,13 @@ def main() -> int:
         launches[tc[:-len("_tc")]] -= launches[tc]
     kernels, cells, chunk = summarize(results, max_err, launches)
     ssm_fwd = f"prefill S={SSM_FWD_SEQ}"
+    ssm_rows = [r for r in results
+                if r["phase"] == ssm_fwd and r["cell"] == SSM_ARCH]
     ssm_prefill_totals = {
-        name: _step_totals([r for r in results if r["phase"] == ssm_fwd
-                            and r["launch_name"] == name])
+        name: _step_totals([r for r in ssm_rows
+                            if r["launch_name"] == name])
         for name in REPLACES
-        if any(r["phase"] == ssm_fwd and r["launch_name"] == name
-               for r in results)}
+        if any(r["launch_name"] == name for r in ssm_rows)}
     kernels += k3_rows(k3, k3_launches)
     elapsed = time.perf_counter() - t_start
     report = dict(card=card, device=kind, torch=torch.__version__,
@@ -3015,7 +3485,8 @@ def main() -> int:
                   ssm_prefill=ssm_prefill,
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
-                  seconds=elapsed)
+                  families=families, site_checks=SITE_CHECKS,
+                  unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3049,6 +3520,11 @@ def main() -> int:
             f"{t['ms']:.3f} / plain {t['plain_ms']:.3f} / library "
             f"{t['library_ms']:.3f} / bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
+    if UNLISTED_FLIPS:
+        raise AssertionError(
+            f"{len(UNLISTED_FLIPS)} bf16 site checks exceed KERNEL_TOL by "
+            f"exactly one bf16 step at a site TC_FLIP_SITES does not name "
+            f"(cell, site, shape, k, err, scale): {UNLISTED_FLIPS}")
     log("kernels: " + ", ".join(k["name"] for k in kernels))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full published config; ``get_shape(name)``
 one of the four assigned input-shape cells; ``reduced(cfg)`` a smoke-test
 sized config of the same family.  All ten of the reference's architectures
-are registered, in its order; ``models.lm.check_supported`` says which of
-them the port runs.
+are registered, in its order, and the port runs every one of them
+(``models.lm.check_supported``).
 """
 from repro_torch.configs.base import (
     ModelConfig, MoEConfig, SSMConfig, ShapeConfig, SHAPES,

@@ -56,8 +56,10 @@ period of eight sub-layers), plus the unembed, and never again once the
 trace is cached — and the serving engine reproduces that: inside
 :func:`chaos_trace_scope` a site label draws on its first dispatch of
 the attempt in each sub-layer position of the period
-(:func:`chaos_sublayer`, which ``lm.decode_step`` sets), and the engine
-runs a step that has completed once with the point inactive.
+(:func:`chaos_sublayer`, which ``lm.decode_step`` sets; a label a
+sub-layer dispatches twice, as a cross-attending one does attn.qk and
+attn.pv, draws at each of its call sites there), and the engine runs a
+step that has completed once with the point inactive.
 
 Sharded dispatch (``ShardCtx``, and so expert parallelism) and the strict
 routing audit are not ported yet.
@@ -257,13 +259,13 @@ def prequantize(w) -> QuantizedTensor:
     :func:`_quantize` the dispatch memo runs, so the codes are the same
     either way.
 
-    A weight with more than three axes (a stacked MoE expert bank,
-    (n_super, E, K, N)) is quantized one leading index at a time into
+    A stacked weight (a layer stack (n_super, K, N), or an MoE expert
+    bank (n_super, E, K, N)) is quantized one leading index at a time into
     preallocated codes and scales, so its fp32 temporaries are one
-    slice's, not the whole stack's (tens of GB for a full-width bank).
-    The codes are the same bit for bit: the amax runs over the
-    contraction axis only."""
-    if w.ndim <= 3:
+    slice's, not the whole stack's (tens of GB for a full-width bank or a
+    48-layer stack of 5120 x 13824 weights).  The codes are the same bit
+    for bit: the amax runs over the contraction axis only."""
+    if w.ndim <= 2:
         return QuantizedTensor(*_quantize(w))
     codes = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty((*w.shape[:-2], w.shape[-1]), dtype=torch.float32,
@@ -574,14 +576,20 @@ _CHAOS_SITES: contextvars.ContextVar[Optional[set]] = \
 # outside the layer stack: the unembed)
 _CHAOS_SUBLAYER: contextvars.ContextVar[Optional[int]] = \
     contextvars.ContextVar("repro_torch_chaos_sublayer", default=None)
+# site label -> its dispatches so far in this sub-layer (a cross-attending
+# sub-layer dispatches attn.qk and attn.pv twice: its self- and its
+# cross-attention, two call sites of the reference's trace)
+_CHAOS_SEEN_HERE: contextvars.ContextVar[Optional[dict]] = \
+    contextvars.ContextVar("repro_torch_chaos_seen_here", default=None)
 
 
 @contextlib.contextmanager
 def chaos_trace_scope():
     """One attempt of a serving step that has not yet completed: each site
-    label draws at its first dispatch in each sub-layer position only, as
-    the reference's trace of one super-block (``lax.scan`` body) and the
-    unembed draws once per dispatch."""
+    label draws at its first dispatch in each sub-layer position only (its
+    n-th dispatch within one sub-layer at the first layer of that
+    position), as the reference's trace of one super-block (``lax.scan``
+    body) and the unembed draws once per dispatch."""
     token = _CHAOS_SITES.set(set())
     try:
         yield
@@ -593,9 +601,11 @@ def chaos_trace_scope():
 def chaos_sublayer(pos: int):
     """The dispatches inside are sub-layer ``pos`` of the period's."""
     token = _CHAOS_SUBLAYER.set(pos)
+    seen = _CHAOS_SEEN_HERE.set({})
     try:
         yield
     finally:
+        _CHAOS_SEEN_HERE.reset(seen)
         _CHAOS_SUBLAYER.reset(token)
 
 
@@ -609,7 +619,12 @@ def _maybe_chaos_fault(site: str) -> None:
         return
     seen = _CHAOS_SITES.get()
     if seen is not None:
-        key = (_CHAOS_SUBLAYER.get(), site)
+        here = _CHAOS_SEEN_HERE.get()
+        nth = 0
+        if here is not None:
+            nth = here.get(site, 0)
+            here[site] = nth + 1
+        key = (_CHAOS_SUBLAYER.get(), site, nth)
         if key in seen:
             return
         seen.add(key)

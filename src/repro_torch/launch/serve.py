@@ -21,8 +21,23 @@ backend, e.g. on the CPU:
 
 and full-width mamba2-370m on the card with ``--no-reduced`` (0.74 GB of
 bf16 parameters); the full hybrid (398B parameters) fits no single card,
-so serve it reduced.  An arch the port does not run yet (the vlm and
-audio families, mixtral's sliding window) fails at once, naming ROADMAP.
+so serve it reduced.  ``--arch mixtral-8x22b`` (MoE with a sliding-window
+K/V ring), ``--arch llama-3.2-vision-90b`` (vlm: every fifth layer
+cross-attends) and ``--arch whisper-base`` (audio: every decoder layer
+cross-attends to the encoder's output) serve in token mode on every
+backend, the cross-attention against the zero context ``init_cache``
+makes (no request carries image embeddings or audio frames), e.g. on
+the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch whisper-base --gemm-backend arrayflex_w8a8
+
+On the card, ``--no-reduced`` serves whisper-base at full width and
+depth (74M parameters) and, with ``--n-layers`` cutting the depth,
+mixtral-8x22b (5.0 GB of bf16 parameters a layer: ``--n-layers 8`` on
+``arrayflex``, 6 on the int8 backends) and llama-3.2-vision-90b (a
+multiple of 5 layers: ``--n-layers 10``); llama3-8b, qwen2.5-14b and
+stablelm-12b fit at full depth (16 / 29.5 / 24 GB in bf16).
 
 Runs on the card unless ``--device cpu``.  ``--reduced`` (the default)
 serves the smoke-test sized config; ``--no-reduced`` serves the full

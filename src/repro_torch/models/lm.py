@@ -1,4 +1,5 @@
-"""Unified LM model family: dense / MoE / hybrid (Jamba) / SSM.
+"""Unified LM model family: dense / MoE / hybrid (Jamba) / SSM / VLM /
+audio.
 
 Port of the reference's ``models/lm.py``.  Layers are grouped into
 *super-blocks* of ``period(cfg)`` sub-layers, and parameter and cache leaves
@@ -42,8 +43,25 @@ again on the same cache and give a clean step's bytes — the reference's
 functional steps behave so.  A sub-layer without an MLP (``d_ff == 0``
 outside the MoE layers, as full-width mamba2-370m) has no ln2.
 
-The VLM and audio families, sliding windows and the pipeline-sharded
-steps are not ported yet (``check_supported``).
+A sliding window (``cfg.sliding_window``) clamps the K/V cache to the
+window (``cache_len``) and makes it a ring: decode writes position ``pos``
+at slot ``pos % cache_len`` and attends the whole ring once it is full
+(``nn.attention.decode_attention(window=)``); ``forward``'s cache keeps
+the last ``cache_len`` rows, rolled so that each sits at its ring slot.
+
+A cross-attending sub-layer (``sublayer_kind(...)["cross"]``: every
+``cross_attn_every``-th layer of the VLM family, every decoder layer of
+the audio family) follows its mixer with the ``lnx`` rmsnorm and
+non-causal, RoPE-free attention to a context: the ``frontend.img``
+projection of ``batch["image_embeds"]``, or the audio encoder's output
+(``_encode_audio``: the ``frontend.audio`` projection of
+``batch["frames"]``, then non-causal RoPE'd self-attention + swiglu
+layers).  ``forward`` caches the context's K/V as the ``xk`` / ``xv``
+leaves; decode reads them and never writes them.  Served from
+``init_cache``, they are zeros, as in the reference's engine, which has
+no request field for a context.
+
+The pipeline-sharded steps are not ported yet.
 """
 from __future__ import annotations
 
@@ -106,6 +124,11 @@ def _pdtype(cfg):
     return _DTYPES[cfg.param_dtype]
 
 
+def cross_len(cfg: ModelConfig) -> int:
+    return (cfg.n_image_tokens if cfg.family == "vlm"
+            else cfg.max_source_positions)
+
+
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
     return min(cfg.sliding_window, max_seq) if cfg.sliding_window else max_seq
 
@@ -114,17 +137,16 @@ def _ssm(cfg: ModelConfig) -> SSMConfig:
     return cfg.ssm or SSMConfig()
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet (ROADMAP Queue 1)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise for a model family the port does not know (every registered
+    arch's family runs)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"Queue 1: other families); 'dense', 'moe', 'ssm' and 'hybrid' "
-            f"run")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            f"(ROADMAP Queue 1: other families)")
+            f"{cfg.name}: unknown model family {cfg.family!r}; the port "
+            f"runs {', '.join(FAMILIES)}")
 
 
 def _layer(tree, l: int):
@@ -151,60 +173,79 @@ def attn_init(gen, cfg: ModelConfig, dtype, device):
     }
 
 
-def _proj_qkv(p, x, cfg, cd, norm_scale=None):
+def _proj_qkv(p, x, kv_src, cfg, cd, norm_scale=None):
+    """q of x (B, S, d) and k, v of ``kv_src`` (B, T, d; None: x itself).
+    Cross-attention (a ``kv_src``) dispatches at ``xattn.wq`` and both of
+    its K/V projections at the one ``xattn.kv`` label, as the reference
+    does."""
     B, S = x.shape[0], x.shape[1]
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     be = cfg.gemm_backend
-    # ``norm_scale`` (the ln1 scale): the sublayer hands rmsnorm_normalize'd
-    # x here and the scale fuses into each projection's kernel prologue
-    q = layers.linear(p["wq"], x, cd, site="attn.wq", backend=be,
-                      norm_scale=norm_scale).reshape(B, S, H, hd)
-    k = layers.linear(p["wk"], x, cd, site="attn.wk", backend=be,
-                      norm_scale=norm_scale).reshape(B, S, KV, hd)
-    v = layers.linear(p["wv"], x, cd, site="attn.wv", backend=be,
-                      norm_scale=norm_scale).reshape(B, S, KV, hd)
+    cross = kv_src is not None
+    # ``norm_scale`` (the ln1 scale, self-attention only): the sublayer
+    # hands rmsnorm_normalize'd x here and the scale fuses into each
+    # projection's kernel prologue
+    q = layers.linear(p["wq"], x, cd, site="xattn.wq" if cross else "attn.wq",
+                      backend=be, norm_scale=norm_scale).reshape(B, S, H, hd)
+    src = x if kv_src is None else kv_src
+    T = src.shape[1]
+    k = layers.linear(p["wk"], src, cd,
+                      site="xattn.kv" if cross else "attn.wk", backend=be,
+                      norm_scale=norm_scale).reshape(B, T, KV, hd)
+    v = layers.linear(p["wv"], src, cd,
+                      site="xattn.kv" if cross else "attn.wv", backend=be,
+                      norm_scale=norm_scale).reshape(B, T, KV, hd)
     return q, k, v
 
 
 def _qkv_at(p, x, cfg: ModelConfig, positions, norm_scale):
     """q, k, v of x (B, S, d), q and k rope'd at ``positions`` (B, S)."""
-    q, k, v = _proj_qkv(p, x, cfg, _cdtype(cfg), norm_scale)
+    q, k, v = _proj_qkv(p, x, None, cfg, _cdtype(cfg), norm_scale)
     return (layers.apply_rope(q, positions, cfg.rope_theta),
             layers.apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _attn_wo(p, cfg: ModelConfig, out):
+def _attn_wo(p, cfg: ModelConfig, out, site="attn.wo"):
     """The output projection of an attention result (B, S, H, hd)."""
     B, S = out.shape[0], out.shape[1]
     return layers.linear(p["wo"], out.reshape(B, S, -1), _cdtype(cfg),
-                         site="attn.wo", backend=cfg.gemm_backend)
+                         site=site, backend=cfg.gemm_backend)
 
 
-def attn_full(p, x, cfg: ModelConfig, positions, *, norm_scale=None):
-    """Full-sequence causal self-attention.  Returns (out, (k, v)) with
-    rope'd keys."""
-    q, k, v = _qkv_at(p, x, cfg, positions, norm_scale)
+def attn_full(p, x, cfg: ModelConfig, positions, *, causal=True,
+              kv_src=None, norm_scale=None):
+    """Full-sequence attention: self-attention (q and k rope'd at
+    ``positions``), or cross-attention to ``kv_src`` (no RoPE).  Returns
+    (out, (k, v))."""
+    if kv_src is None:
+        q, k, v = _qkv_at(p, x, cfg, positions, norm_scale)
+    else:
+        q, k, v = _proj_qkv(p, x, kv_src, cfg, _cdtype(cfg), norm_scale)
     out = attn_lib.attention(
-        q, k, v, causal=True, window=cfg.sliding_window,
+        q, k, v, causal=causal, window=cfg.sliding_window,
         kv_chunk=cfg.attn_kv_chunk, dense_below=cfg.attn_dense_below,
         backend=cfg.gemm_backend)
-    return _attn_wo(p, cfg, out), (k, v)
+    return (_attn_wo(p, cfg, out,
+                     "attn.wo" if kv_src is None else "xattn.wo"), (k, v))
 
 
 def attn_decode(p, x, cfg: ModelConfig, cache, pos, norm_scale=None):
     """Single-token attention.  x: (B,1,d); cache: {'k','v'} (B, T, KV, D).
 
     pos may be a scalar or a (B,) vector (ragged continuous batching).
-    Each row's new K/V is written in place at min(pos, T-1)."""
+    Each row's new K/V is written in place at min(pos, T-1), or in a
+    sliding window's ring at pos % T."""
     B = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(B)
     q, k_new, v_new = _qkv_at(p, x, cfg, pos[:, None], norm_scale)
     k_cache, v_cache = cache["k"], cache["v"]
     rows = torch.arange(B, device=x.device)
-    slot = torch.clamp(pos, max=k_cache.shape[1] - 1)
+    cl = k_cache.shape[1]
+    slot = pos % cl if cfg.sliding_window else torch.clamp(pos, max=cl - 1)
     k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
     out = attn_lib.decode_attention(q, k_cache, v_cache, pos,
+                                    window=cfg.sliding_window,
                                     backend=cfg.gemm_backend)
     return _attn_wo(p, cfg, out), {"k": k_cache, "v": v_cache}
 
@@ -335,13 +376,28 @@ def attn_prefill_paged(p, x, cfg: ModelConfig, cache, pos, lengths,
     return _attn_wo(p, cfg, out), cache
 
 
+def cross_attn_decode(p, x, cfg: ModelConfig, cache):
+    """One token's cross-attention against the cached context K/V
+    (``cache['xk']`` / ``['xv']``, read in the compute dtype)."""
+    cd = _cdtype(cfg)
+    B = x.shape[0]
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    q = layers.linear(p["wq"], x, cd, site="xattn.wq",
+                      backend=cfg.gemm_backend).reshape(B, 1, H, hd)
+    out = attn_lib.dense_attention(q, cache["xk"].to(cd),
+                                   cache["xv"].to(cd), causal=False,
+                                   backend=cfg.gemm_backend)
+    return _attn_wo(p, cfg, out, "xattn.wo")
+
+
 # ---------------------------------------------------------------------------
 # sub-layer (one transformer layer)
 
 def sublayer_init(gen, cfg: ModelConfig, pos: int, device):
     """One sub-layer's leaves, by :func:`sublayer_kind`: ln1, the mixer
-    (``attn`` or ``mamba``), and ln2 with ``mlp`` or ``moe`` only when the
-    sub-layer has an MLP."""
+    (``attn`` or ``mamba``), ``lnx`` and ``xattn`` when it cross-attends,
+    and ln2 with ``mlp`` or ``moe`` only when the sub-layer has an
+    MLP."""
     check_supported(cfg)
     kind = sublayer_kind(cfg, pos)
     dtype = _pdtype(cfg)
@@ -351,6 +407,9 @@ def sublayer_init(gen, cfg: ModelConfig, pos: int, device):
         p["attn"] = attn_init(gen, cfg, dtype, device)
     else:
         p["mamba"] = mamba_lib.mamba_init(gen, d, _ssm(cfg), dtype, device)
+    if kind["cross"]:
+        p["lnx"] = layers.rmsnorm_init(d, dtype, device)
+        p["xattn"] = attn_init(gen, cfg, dtype, device)
     if kind["mlp"] == "dense":
         p["ln2"] = layers.rmsnorm_init(d, dtype, device)
         p["mlp"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype, device)
@@ -394,25 +453,41 @@ def _ffn(p, cfg: ModelConfig, kind, x, aux, groups: int):
     return x, aux
 
 
-def sublayer_full(p, cfg: ModelConfig, pos: int, x, aux, positions):
+def sublayer_full(p, cfg: ModelConfig, pos: int, x, aux, positions,
+                  ctx=None):
     """Full-sequence sub-layer.  Returns (x, aux, cache_entry): for
-    attention the rope'd K/V of every position in bf16, for mamba the
-    final fp32 state and the last d_conv - 1 conv inputs in bf16, as the
-    reference caches them."""
+    attention the rope'd K/V in bf16 (a sliding window's last
+    ``cache_len`` positions, rolled to their ring slots), for mamba the
+    final fp32 state and the last d_conv - 1 conv inputs in bf16, and for
+    a cross-attending sub-layer the context's ``xk`` / ``xv`` in bf16, as
+    the reference caches them."""
     kind = sublayer_kind(cfg, pos)
-    assert not kind["cross"], "check_supported() gates the callers"
     if kind["mixer"] == "attn":
         # ln1 scale fuses into the q/k/v projection prologues
         h = layers.rmsnorm_normalize(x, cfg.rms_eps)
         out, (k, v) = attn_full(p["attn"], h, cfg, positions,
                                 norm_scale=p["ln1"]["scale"])
+        S = k.shape[1]
+        cl = cache_len(cfg, S)
+        k, v = k[:, S - cl:], v[:, S - cl:]
+        if cfg.sliding_window and cl > 1:
+            k = torch.roll(k, S % cl, dims=1)
+            v = torch.roll(v, S % cl, dims=1)
         cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
     else:
         h = layers.rmsnorm(p["ln1"], x, cfg.rms_eps)
         out, state, conv = mamba_lib.mamba_forward(
             p["mamba"], h, _ssm(cfg), _cdtype(cfg), backend=cfg.gemm_backend)
         cache = {"state": state.float(), "conv": conv.to(torch.bfloat16)}
-    x, aux = _ffn(p, cfg, kind, x + out, aux, groups=0)
+    x = x + out
+    if kind["cross"]:
+        h = layers.rmsnorm(p["lnx"], x, cfg.rms_eps)
+        out, (xk, xv) = attn_full(p["xattn"], h, cfg, positions,
+                                  causal=False, kv_src=ctx)
+        cache["xk"] = xk.to(torch.bfloat16)
+        cache["xv"] = xv.to(torch.bfloat16)
+        x = x + out
+    x, aux = _ffn(p, cfg, kind, x, aux, groups=0)
     return x, aux, cache
 
 
@@ -422,9 +497,9 @@ def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
     attention's K/V written in place into ``cache``, or a mamba layer's
     new ``state`` and ``conv`` window (cast to the cache's dtype), written
     into ``dst``'s ``state``/``conv`` tensors when given, else new ones;
-    a mamba layer's ``cache`` is not written."""
+    a mamba layer's ``cache`` is not written, nor are a cross-attending
+    sub-layer's ``xk`` / ``xv``."""
     kind = sublayer_kind(cfg, pos_idx)
-    assert not kind["cross"], "check_supported() gates the callers"
     if kind["mixer"] == "attn":
         # ln1 scale fuses into the q/k/v projection prologues
         h = layers.rmsnorm_normalize(x, cfg.rms_eps)
@@ -438,7 +513,11 @@ def sublayer_decode(p, cfg: ModelConfig, pos_idx: int, x, cache, pos,
             out=None if dst is None else (dst["state"], dst["conv"]))
         out = y[:, None]
         entry = {"state": state, "conv": conv.to(cache["conv"].dtype)}
-    x, _ = _ffn(p, cfg, kind, x + out, 0.0, groups=1)
+    x = x + out
+    if kind["cross"]:
+        h = layers.rmsnorm(p["lnx"], x, cfg.rms_eps)
+        x = x + cross_attn_decode(p["xattn"], h, cfg, cache)
+    x, _ = _ffn(p, cfg, kind, x, 0.0, groups=1)
     return x, entry
 
 
@@ -488,7 +567,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``,
     laid out as the reference's tree: ``blocks`` is a tuple (one entry per
     sub-layer of the period) of stacked dicts with a leading ``n_super``
-    dim.  On the card unless ``device="cpu"``.
+    dim; the VLM family adds ``img_proj``, the audio family
+    ``audio_proj`` and ``enc_blocks``, a one-entry tuple of the encoder
+    layers stacked on a leading ``n_encoder_layers`` dim.  On the card
+    unless ``device="cpu"``.
 
     Each stacked leaf is allocated once, in the parameter dtype, and
     filled layer by layer as the generator draws each layer, so the
@@ -499,14 +581,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = _pdtype(cfg)
 
-    def stacked(i):
-        n = n_super(cfg)
-        layer = sublayer_init(gen, cfg, i, dev)
+    def stacked(n, init):
+        layer = init()
         out = _map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
                                          device=dev), layer)
         for l in range(n):
             if l:
-                layer = sublayer_init(gen, cfg, i, dev)
+                layer = init()
             _put(out, layer, l)
         return out
 
@@ -514,13 +595,74 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
         "embed": layers.embedding_init(gen, cfg.padded_vocab, cfg.d_model,
                                        dtype, dev),
         "final_norm": layers.rmsnorm_init(cfg.d_model, dtype, dev),
-        "blocks": tuple(stacked(i) for i in range(period(cfg))),
+        "blocks": tuple(
+            stacked(n_super(cfg),
+                    lambda i=i: sublayer_init(gen, cfg, i, dev))
+            for i in range(period(cfg))),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.linear_init(gen, cfg.d_model,
                                                cfg.padded_vocab, dtype=dtype,
                                                device=dev)
+    if cfg.family == "vlm":
+        params["img_proj"] = layers.linear_init(gen, cfg.d_frontend,
+                                                cfg.d_model, dtype=dtype,
+                                                device=dev)
+    if cfg.family == "audio":
+        params["audio_proj"] = layers.linear_init(gen, cfg.d_frontend,
+                                                  cfg.d_model, dtype=dtype,
+                                                  device=dev)
+        params["enc_blocks"] = (stacked(
+            cfg.n_encoder_layers, lambda: _enc_layer_init(gen, cfg, dev)),)
     return params
+
+
+def _enc_layer_init(gen, cfg: ModelConfig, device):
+    """One audio encoder layer: ln1, self-attention, ln2, swiglu."""
+    dtype = _pdtype(cfg)
+    return {"ln1": layers.rmsnorm_init(cfg.d_model, dtype, device),
+            "attn": attn_init(gen, cfg, dtype, device),
+            "ln2": layers.rmsnorm_init(cfg.d_model, dtype, device),
+            "mlp": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                                      device)}
+
+
+def encode_audio(cfg: ModelConfig, params, frames):
+    """The audio encoder: ``frames`` (B, F, d_frontend) through the
+    ``frontend.audio`` projection, then each encoder layer's non-causal,
+    RoPE'd self-attention (the ln1 scale fused into the projections'
+    prologues) and swiglu (the ln2 scale in its prologue, the residual in
+    ``mlp.wo``'s store), at the decoder's site labels.  Returns
+    (B, F, d_model) in the compute dtype."""
+    cd = _cdtype(cfg)
+    x = layers.linear(params["audio_proj"], frames, cd,
+                      site="frontend.audio", backend=cfg.gemm_backend)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    enc = params["enc_blocks"][0]
+    for l in range(cfg.n_encoder_layers):
+        p = _layer(enc, l)
+        h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+        out, _ = attn_full(p["attn"], h, cfg, positions, causal=False,
+                           norm_scale=p["ln1"]["scale"])
+        x = x + out
+        h = layers.rmsnorm_normalize(x, cfg.rms_eps)
+        x = layers.swiglu(p["mlp"], h, cd, backend=cfg.gemm_backend,
+                          residual=x, norm_scale=p["ln2"]["scale"])
+    return x
+
+
+def _context(cfg: ModelConfig, params, batch):
+    """What the cross-attending sub-layers attend to: the ``frontend.img``
+    projection of ``batch['image_embeds']`` (VLM), the encoded
+    ``batch['frames']`` (audio), else None."""
+    if cfg.family == "vlm":
+        cd = _cdtype(cfg)
+        return layers.linear(params["img_proj"],
+                             batch["image_embeds"].to(cd), cd,
+                             site="frontend.img", backend=cfg.gemm_backend)
+    if cfg.family == "audio":
+        return encode_audio(cfg, params, batch["frames"])
+    return None
 
 
 def _map(fn, tree):
@@ -621,11 +763,15 @@ def _logits(cfg, params, x, cd):
 
 def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     """Returns (logits (B,S,V) fp32, aux_loss, caches-or-None).
-    batch['tokens']: (B,S).
+    batch['tokens']: (B,S); the VLM family also takes
+    ``batch['image_embeds']`` (B, n_image_tokens, d_frontend) and the
+    audio family ``batch['frames']`` (B, frames, d_frontend).
 
     ``caches`` is laid out as :func:`init_cache`'s with ``max_seq = S``
-    (bf16): each layer's rope'd K/V, or its final fp32 state and bf16
-    conv window, written into its slice as the layer runs.  A mamba
+    (bf16), the cross leaves as long as the context: each layer's rope'd
+    K/V (a sliding window's last ``cache_len`` rows, rolled), or its
+    final fp32 state and bf16 conv window, and the context's ``xk`` /
+    ``xv``, written into its slice as the layer runs.  A mamba
     sub-layer's chunked scan needs S to be a multiple of
     ``min(chunk_size, S)``, as the reference asserts."""
     substrate.check_backend(cfg.gemm_backend)
@@ -637,12 +783,14 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     x = layers.embed(params["embed"], tokens, cd)
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caches = (init_cache(cfg, B, S, device=x.device) if return_cache
-              else None)
+    ctx = _context(cfg, params, batch)
+    caches = (init_cache(cfg, B, S, device=x.device,
+                         n_cross=None if ctx is None else ctx.shape[1])
+              if return_cache else None)
     for l in range(n_super(cfg)):
         for i in range(P):
             x, aux, c = sublayer_full(_layer(params["blocks"][i], l), cfg, i,
-                                      x, aux, positions)
+                                      x, aux, positions, ctx)
             if caches is not None:
                 _put(caches[i], c, l)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
@@ -658,9 +806,11 @@ def prefill(cfg: ModelConfig, params, batch):
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token: (B,) int; pos: scalar or (B,) int.  Returns (logits (B,V),
     cache): a new cache tuple whose K/V leaves are the input's, updated
-    in place, and whose ``state``/``conv`` leaves (mamba sub-layers) are
-    new tensors holding the advanced recurrence — the input's are not
-    written, so use the returned cache."""
+    in place (a sliding window's ring at the step's own slot), whose
+    ``xk``/``xv`` leaves are the input's, untouched, and whose
+    ``state``/``conv`` leaves (mamba sub-layers) are new tensors holding
+    the advanced recurrence — the input's are not written, so use the
+    returned cache."""
     substrate.check_backend(cfg.gemm_backend)
     check_supported(cfg)
     P = period(cfg)
@@ -780,13 +930,15 @@ def _paged_step(cfg, params, cache, tokens, pos, lengths, bt):
 # cache construction
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None, *, n_cross=None):
     """Zero-initialized decode cache, per sub-layer of the period: an
-    attention sub-layer's ``{'k','v'}`` of shape (n_super, B, max_seq, KV,
-    hd) in ``dtype``; a mamba sub-layer's ``{'state','conv'}``: the fp32
-    state (n_super, B, G, hg, P, N) and the conv window (n_super, B,
-    d_conv - 1, conv_ch) in ``dtype``.  On the card unless
-    ``device="cpu"``."""
+    attention sub-layer's ``{'k','v'}`` of shape (n_super, B,
+    cache_len(max_seq), KV, hd) in ``dtype``; a mamba sub-layer's
+    ``{'state','conv'}``: the fp32 state (n_super, B, G, hg, P, N) and
+    the conv window (n_super, B, d_conv - 1, conv_ch) in ``dtype``; and a
+    cross-attending sub-layer's ``{'xk','xv'}`` besides, (n_super, B,
+    n_cross, KV, hd) in ``dtype`` (``n_cross`` None: :func:`cross_len`).
+    On the card unless ``device="cpu"``."""
     check_supported(cfg)
     dev = resolve_device(device)
     NS = n_super(cfg)
@@ -796,18 +948,24 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     G, N = ssm.n_groups, ssm.d_state
     hg = (cfg.d_inner // ssm.head_dim) // G
     conv_ch = cfg.d_inner + 2 * G * N
+    xl = cross_len(cfg) if n_cross is None else n_cross
     out = []
     for i in range(period(cfg)):
-        if sublayer_kind(cfg, i)["mixer"] == "attn":
+        kind = sublayer_kind(cfg, i)
+        if kind["mixer"] == "attn":
             shape = (NS, batch_size, cl, KV, hd)
-            out.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=dtype, device=dev)})
+            c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
         else:
-            out.append({
-                "state": torch.zeros((NS, batch_size, G, hg, ssm.head_dim, N),
-                                     dtype=torch.float32, device=dev),
-                "conv": torch.zeros((NS, batch_size, ssm.d_conv - 1,
-                                     conv_ch), dtype=dtype, device=dev)})
+            c = {"state": torch.zeros((NS, batch_size, G, hg, ssm.head_dim,
+                                       N), dtype=torch.float32, device=dev),
+                 "conv": torch.zeros((NS, batch_size, ssm.d_conv - 1,
+                                      conv_ch), dtype=dtype, device=dev)}
+        if kind["cross"]:
+            shape = (NS, batch_size, xl, KV, hd)
+            c["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
+            c["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
+        out.append(c)
     return tuple(out)
 
 

@@ -15,8 +15,9 @@ Where the reference asks for fp32 products of bf16 operands
 product is exact in fp32 and the sums are fp32.
 
 The paged K/V view (``gather_pages`` / ``scatter_pages``) is plain torch
-indexing, as in the reference (no kernel computes it there).  The
-sliding-window ring buffer of decode is not ported yet.
+indexing, as in the reference (no kernel computes it there).  Decode
+against a sliding-window ring buffer takes ``window``
+(:func:`decode_attention`).
 """
 from __future__ import annotations
 
@@ -173,13 +174,15 @@ def scatter_pages(pool, block_tables, view):
                             view.reshape((B * n_pg,) + pool.shape[1:]))
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, backend="xla"):
-    """Single-token attention against a linear KV cache.
+def decode_attention(q, k_cache, v_cache, pos, *, window=0, backend="xla"):
+    """Single-token attention against a linear or ring-buffered KV cache.
 
     q: (B,1,H,D); caches (B,T,KV,D); pos: per-sequence (B,) int tensor (or
-    a scalar).  Keys at positions <= pos are attended; QK and PV dispatch
-    through the substrate (``attn.qk``/``attn.pv``).  Sliding-window ring
-    buffers are not ported yet.
+    a scalar).  Linear cache (``window`` 0): keys at slots <= pos are
+    attended.  Ring buffer (``window`` > 0, T = the cache length the
+    window clamps to): slots below pos + 1 while the ring fills, every
+    slot once pos + 1 >= T.  QK and PV dispatch through the substrate
+    (``attn.qk``/``attn.pv``).
     """
     B, _, H, D = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
@@ -189,7 +192,11 @@ def decode_attention(q, k_cache, v_cache, pos, *, backend="xla"):
     s = qk_scores(qg, k_cache, backend=backend) * scale
     idx = torch.arange(T, device=q.device)
     pos_v = torch.as_tensor(pos, device=q.device).expand(B)
-    valid = idx[None, :] <= pos_v[:, None]
+    if window:
+        valid = ((idx[None, :] < torch.clamp(pos_v + 1, max=T)[:, None])
+                 | (pos_v + 1 >= T)[:, None])               # ring full
+    else:
+        valid = idx[None, :] <= pos_v[:, None]
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     w = torch.softmax(s.float(), dim=-1).to(v_cache.dtype)
     out = pv_mix(w, v_cache, backend=backend)

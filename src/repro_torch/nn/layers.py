@@ -77,6 +77,20 @@ def rmsnorm_normalize(x, eps=1e-5):
     return (x * torch.rsqrt(var + eps)).to(dt)
 
 
+def layernorm_init(dim, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(dt)
+
+
 # ---------------------------------------------------------------- embed
 def embedding_init(gen, vocab, dim, dtype=torch.float32, device="cpu"):
     return {"table": normal_init(gen, (vocab, dim), 0.02, dtype, device)}
@@ -150,3 +164,24 @@ def swiglu(p, x, compute_dtype=torch.bfloat16, *, backend="xla",
     return linear(p["wo"], h, compute_dtype, site="mlp.wo",
                   backend=backend, residual=residual)
 
+
+def gelu_mlp_init(gen, d_model, d_ff, dtype=torch.float32, device="cpu"):
+    return {"wi": linear_init(gen, d_model, d_ff, bias=True, dtype=dtype,
+                              device=device),
+            "wo": linear_init(gen, d_ff, d_model, bias=True, dtype=dtype,
+                              device=device)}
+
+
+def gelu_mlp(p, x, compute_dtype=torch.bfloat16, *, backend="xla",
+             residual=None):
+    """Biased MLP: the bias and the gelu (tanh approximation, the
+    reference's ``jax.nn.gelu``) ride the ``mlp.wi`` GEMM's epilogue, and
+    ``residual`` fuses the sublayer's join into ``mlp.wo``'s store."""
+    wi = p["wi"]["w"]
+    if compute_dtype is not None:
+        wi = wi.to(compute_dtype)
+        x = x.to(compute_dtype)
+    h = substrate.gemm(x, wi, bias=p["wi"].get("b"), epilogue="gelu",
+                       site="mlp.wi", backend=backend)
+    return linear(p["wo"], h, compute_dtype, site="mlp.wo",
+                  backend=backend, residual=residual)

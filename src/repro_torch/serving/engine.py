@@ -93,6 +93,15 @@ The K/V rows that step writes are overwritten before they are attended;
 a mamba state is not, so a request's stream can depend on what shares
 the batch with it (ROADMAP Queue 3).
 
+A sliding-window model (mixtral-8x22b) also serves in token mode, from a
+dense K/V ring of ``min(window, max_seq)`` rows: each step writes its row
+at ``pos % ring`` in place, so a retried step rewrites the same slot with
+the same bytes.  The VLM and audio families serve in token mode too,
+their cross-attending layers reading the ``xk`` / ``xv`` leaves
+``lm.init_cache`` made: zeros, as in the reference, whose engine takes
+no image embeddings or audio frames with a request; no step writes them.
+``kv_cache_bytes`` counts the ring and the cross leaves.
+
 Fault injection is driven by :mod:`repro_torch.runtime.chaos` (seeded,
 replayable); ``ServeConfig.chaos`` activates it and the engine scopes the
 chaos engine around each tick.  The reference draws ``substrate.dispatch``
@@ -352,8 +361,9 @@ class ServingEngine:
 
     def kv_cache_bytes(self) -> int:
         """Resident cache bytes: the K/V (pool pages in paged mode, the
-        dense (max_batch, max_seq) region otherwise) and, for mamba
-        sub-layers, the recurrent ``state`` and ``conv`` leaves."""
+        dense (max_batch, max_seq) region, or a sliding window's ring,
+        otherwise), the cross-attending layers' ``xk`` / ``xv`` and, for
+        mamba sub-layers, the recurrent ``state`` and ``conv`` leaves."""
         return sum(t.numel() * t.element_size()
                    for layer in self.cache for t in layer.values())
 

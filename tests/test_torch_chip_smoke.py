@@ -471,7 +471,9 @@ def test_ssm_launch_plan_at_full_width(smoke, backend):
 def test_ssm_sites_are_the_mixer_and_unembed_shapes(smoke):
     """Phase 3's mamba2 sites at decode (M = 4) and at the full prefill
     (M = 2048, the unembed of every row): N = 2048, 2304, 32 and 1024 and
-    the padded vocab; the SSM cell's checks take ``step_tol``."""
+    the padded vocab; the SSM cell has no cell-wide exemption: its float
+    checks take KERNEL_TOL (a flip must be named in TC_FLIP_SITES), its
+    int8 forms ``step_tol``."""
     cfg = _cfg("mamba2-370m", "arrayflex", "bfloat16")
     for rows, form in ((smoke.BATCH, "float"), (smoke.SSM_FWD_SEQ, "w8a8")):
         sites = {s.name: s for s in smoke.ssm_sites(cfg, rows, form)}
@@ -485,8 +487,9 @@ def test_ssm_sites_are_the_mixer_and_unembed_shapes(smoke):
         assert sites["unembed"].flags == {"out_f32": True}
         assert all(not s.flags for n, s in sites.items() if n != "unembed")
         for dt in (torch.bfloat16, torch.float32):
-            assert smoke.kernel_tol(sites["mamba.dt"], dt, 3.0) == \
-                smoke.step_tol(dt, 3.0)
+            assert smoke.kernel_tol(sites["mamba.dt"], dt, 3.0) == (
+                smoke.step_tol(dt, 3.0) if form != "float"
+                else smoke.KERNEL_TOL[dt] * 3.0)
     # mamba.dt at decode: 32 columns, 16 a block on the narrow int8 tile
     assert smoke.narrow_int8_cols(smoke.BATCH, 32) == 16
 
@@ -530,3 +533,107 @@ def test_retried_launches_count_partial_attempts_ssm(smoke, case):
         cfg, eng.stats, log, per_dispatch=case == "mamba2")
     assert eng.stats["kernel_fault_retries"] == 1
     assert eng.stats["sample_retries"] == (case == "mamba2")
+
+
+# ------------------------------------- the last families, the dense archs
+FAMILIES = [("mixtral-8x22b", {"sliding_window": 4}),
+            ("llama-3.2-vision-90b", {}), ("whisper-base", {})]
+
+
+def _family_batch(cfg, S, n_ctx):
+    batch = {"tokens": torch.ones(1, S, dtype=torch.int64)}
+    if cfg.family in ("vlm", "audio"):
+        batch["image_embeds" if cfg.family == "vlm" else "frames"] = \
+            torch.randn(1, n_ctx, cfg.d_frontend)
+    return batch
+
+
+@pytest.mark.parametrize("arch,kw", FAMILIES, ids=[a for a, _ in FAMILIES])
+def test_family_step_sites_are_the_dispatch_order(smoke, arch, kw,
+                                                  monkeypatch):
+    """A cross-attending sub-layer adds xattn.wq, attn.qk, attn.pv and
+    xattn.wo at decode, and over a full sequence xattn.wq, xattn.kv
+    twice, attn.qk, attn.pv, xattn.wo; ``forward_seq`` puts the vlm's
+    frontend.img, or whisper's frontend.audio and encoder layers, first."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(_reduced(arch), **kw)
+    order = []
+    real = substrate._record
+
+    def record(site, plan, launches=1):
+        order.append(site)
+        real(site, plan, launches)
+
+    monkeypatch.setattr(substrate, "_record", record)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    zero = torch.zeros(2, dtype=torch.int64)
+    lm.decode_step(cfg, params, lm.init_cache(cfg, 2, 16, device="cpu"),
+                   zero, zero)
+    assert order == smoke.step_sites(cfg)
+    order.clear()
+    lm.prefill(cfg, params, _family_batch(cfg, 6, 10))
+    assert order == [s for s, _ in smoke.forward_seq(cfg, 6, 10)]
+    if cfg.family != "moe":
+        assert "xattn.kv" in order and "xattn.kv" not in smoke.step_sites(cfg)
+
+
+@pytest.mark.parametrize("arch,kw", FAMILIES, ids=[a for a, _ in FAMILIES])
+def test_family_forward_launches_are_the_dispatched_ones(smoke, arch, kw):
+    """``forward_launches`` of a prefill with a context equals the
+    launches its dispatches imply (every site on ``arrayflex``; attn.qk /
+    attn.pv only on the dense attention path)."""
+    from repro_torch.kernels import substrate
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(_reduced(arch), **kw)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    for S, dense_below in ((6, cfg.attn_dense_below), (6, 4)):
+        c = dataclasses.replace(cfg, attn_dense_below=dense_below)
+        substrate.DISPATCH_COUNTS.clear()
+        lm.prefill(c, params, _family_batch(c, S, 10))
+        want = smoke.forward_launches(c, S, 10)
+        assert _dispatched(smoke, c) == {k: v for k, v in want.items()
+                                         if k in ag.LAUNCHES}
+        assert sum(want.values()) > 0
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8",
+                                     "arrayflex_w8a8"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "mixtral-8x22b",
+                                  "stablelm-12b"])
+def test_recorded_sites_are_the_step_launches(smoke, arch, backend,
+                                              monkeypatch):
+    """The sites recorded over one decode step (and a batched prefill
+    chunk) launch what the step's plan says, form by form: their
+    ``per_step`` counts sum to :func:`expected_launches` of one step, each
+    carries the k the substrate planned, and the recording leaves the
+    wrappers as they were."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(_reduced(arch), gemm_backend=backend,
+                              compute_dtype="bfloat16")
+    mm, emm = ops.arrayflex_matmul, ops.arrayflex_expert_matmul
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    eng = ServingEngine(cfg, params, ServeConfig(max_batch=smoke.BATCH,
+                                                 max_seq=32), device="cpu")
+    for name in ("zeros", "full"):       # the script's tensors on the CPU
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, fn=fn, **k: fn(
+            *a, **dict(k, device="cpu")))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    by_phase = smoke.record_step_sites(cfg, eng, 32)
+    assert (ops.arrayflex_matmul, ops.arrayflex_expert_matmul) == (mm, emm)
+    assert set(by_phase) == ({"decode"} if lm.supports_batched_prefill(cfg)
+                             is False else
+                             {"decode", f"prefill chunk {eng.prefill_chunk}"})
+    want = {k: v for k, v in smoke.expected_launches(cfg, 1).items()
+            if v and k not in smoke.TC_COUNTERS}
+    for phase, sites in by_phase.items():
+        got = {}
+        for site in sites:
+            got[site.launch_name] = got.get(site.launch_name, 0) + \
+                site.per_step
+            assert site.k == smoke.planned_k(site), (site.name, site.shape)
+            assert 2 <= site.copies <= 24
+        assert got == want, phase

@@ -4,8 +4,8 @@ by field (the fields both packages declare: the port leaves out the
 reference's Pallas interpret switch and its mesh and pipeline fields,
 which it does not run), ``reduced()`` of each equal too, the same
 ``param_count``, the same shape cells and live cells, and the same
-planner site registry; ``lm.check_supported`` gates what the port does
-not run yet, naming ROADMAP.
+planner site registry; ``lm.check_supported`` accepts every registered
+arch, and ``init_cache`` lays out the reference's cache for each.
 """
 import dataclasses
 
@@ -23,7 +23,6 @@ from repro_torch.core import planner
 from repro_torch.models import convert, lm
 
 ARCHS = list(ref_configs.ARCHS)
-UNPORTED = {"llama-3.2-vision-90b", "whisper-base", "mixtral-8x22b"}
 
 
 def _fields(cfg):
@@ -80,17 +79,24 @@ def test_site_registry_equals_the_reference():
             "moe.router"} <= planner.site_registry()
 
 
+def _leaf_shapes(cache):
+    return [{k: (tuple(t.shape), str(t.dtype).split(".")[-1])
+             for k, t in c.items()} for c in cache]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_check_supported_gates_what_is_not_ported(arch):
+    """Every registered arch runs: ``check_supported`` passes, and the
+    reduced config's ``init_cache`` has the reference's leaves (K/V
+    rings, recurrent state, cross ``xk`` / ``xv``) and shapes."""
     cfg = configs.get_config(arch)
-    if arch in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_cache(configs.reduced(cfg), 1, 8, device="cpu")
-    else:
-        lm.check_supported(cfg)
-        lm.check_supported(configs.reduced(cfg))
+    lm.check_supported(cfg)
+    lm.check_supported(configs.reduced(cfg))
+    rc = ref_configs.reduced(ref_configs.get_config(arch))
+    got = lm.init_cache(configs.reduced(cfg), 1, 8, device="cpu")
+    assert _leaf_shapes(got) == _leaf_shapes(ref_lm.init_cache(rc, 1, 8))
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        lm.check_supported(dataclasses.replace(cfg, family="nope"))
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-14b", "stablelm-12b"])

@@ -1515,3 +1515,57 @@ def test_resilient_serving_matches_clean_run(cuda, backend, case):
         assert {r.outcome for r in reqs} == {"ok", "preempted_retried"}
     else:
         assert all(r.outcome == "ok" for r in reqs)
+
+
+FAMILY_CASES = [("mixtral-8x22b", {"sliding_window": 8}),
+                ("llama-3.2-vision-90b", {}), ("whisper-base", {})]
+FAMILY_PROMPTS = [[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15], [21, 22, 23],
+                  [31, 32, 33, 34, 35]]
+
+
+def _family_streams(cfg, params, device=None):
+    eng = ServingEngine(cfg, params, ServeConfig(max_batch=2, max_seq=32),
+                        device=device)
+    reqs = [Request(prompt=list(p), max_new_tokens=5, rid=i)
+            for i, p in enumerate(FAMILY_PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+    substrate.DISPATCH_COUNTS.clear()
+    ag.reset_launches()
+    eng.run_to_completion()
+    assert all(r.outcome == "ok" and len(r.out_tokens) == 5 for r in reqs)
+    return [r.out_tokens for r in reqs], dict(ag.LAUNCHES), \
+        dict(substrate.DISPATCH_COUNTS)
+
+
+@pytest.mark.parametrize("backend", ["arrayflex", "arrayflex_int8",
+                                     "arrayflex_w8a8"])
+@pytest.mark.parametrize("arch,kw", FAMILY_CASES,
+                         ids=[a for a, _ in FAMILY_CASES])
+def test_family_engine_on_the_kernels(cuda, arch, kw, backend):
+    """Reduced mixtral (its ring of 8 wraps within the prompts), vlm and
+    whisper in fp32, served in token mode on the card: every dispatch one
+    launch of its form's kernel, the cross sites among them; every K1
+    launch on FFMA, and of K2 only the self-attention's attn.pv on the
+    tensor cores (its probabilities meet the bf16 K/V cache in bf16; a
+    cross layer reads its context in fp32); greedy streams equal the CPU
+    engine's on the plain versions (``arrayflex`` and W8), W8A8
+    identical run to run."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), gemm_backend=backend,
+                              compute_dtype="float32", **kw)
+    params = lm.init_params(cfg, seed=0)
+    streams, launches, dispatches = _family_streams(cfg, params)
+    assert sum(v for k, v in launches.items() if not k.endswith("_tc")) == \
+        sum(dispatches.values())
+    cross = dispatches.get("xattn.wq", 0)
+    assert launches["arrayflex_expert_gemm_tc"] == \
+        dispatches["attn.pv"] - cross > 0
+    assert not launches["arrayflex_gemm_tc"] and \
+        not launches["arrayflex_gemm_int8_tc"]
+    if cfg.family != "moe":
+        assert cross == dispatches["xattn.wo"] > 0
+    if backend == "arrayflex_w8a8":
+        assert _family_streams(cfg, params)[0] == streams
+    else:
+        # the engine moves the card's tree to the CPU it serves on
+        assert _family_streams(cfg, params, device="cpu")[0] == streams

@@ -230,9 +230,19 @@ def test_prepare_params_casts_once(port_params):
 @pytest.mark.parametrize("change", [dict(family="audio"),
                                     dict(sliding_window=8)])
 def test_unported_families_raise(change):
-    _, tc = _cfgs("xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_cache(dataclasses.replace(tc, **change), 1, 8, device="cpu")
+    """Formerly refused, now run: the audio family's cache gains the cross
+    ``xk`` / ``xv`` leaves and a sliding window clamps the K/V ring, with
+    the reference's leaf shapes."""
+    rc, tc = _cfgs("xla")
+    rc, tc = (dataclasses.replace(rc, **change),
+              dataclasses.replace(tc, **change))
+    for S in (4, 16):
+        got = lm.init_cache(tc, 1, S, device="cpu")
+        want = ref_lm.init_cache(rc, 1, S)
+        assert [{k: tuple(t.shape) for k, t in c.items()} for c in got] == \
+            [{k: tuple(t.shape) for k, t in c.items()} for c in want]
+    assert ("xk" in got[0]) == (change.get("family") == "audio")
+    assert got[0]["k"].shape[2] == (8 if "sliding_window" in change else 16)
 
 
 def test_entry_points_default_to_the_card():

@@ -390,26 +390,28 @@ def _tile_model(xs, ws, k):
     ``w8a8_code_cols()[p]``, zero past K; the padding's codes are zero, so
     the next step's rows they meet add nothing), an exact integer partial
     (in float64), folded into fp32 as acc + float(iacc) * scale of the
-    row's tile, in step order."""
+    row's tile, in step order.  Every step's partial comes from one
+    batched float64 product: exact, as the partials are integers far
+    below 2^53."""
     *lead, M, K = xs.shape
     lay = ag.w8a8_scratch(M, K, k)
     codes, scales = ag.w8a8_quantize_plain(xs, k)
     S, kk, kk32 = lay["steps"], lay["kk"], lay["kk32"]
-    cols = ag.w8a8_code_cols()
-    rows = torch.tensor([s * kk + p - p % 32 + cols[p % 32]
-                         for s in range(S) for p in range(kk32)])
+    p = torch.arange(kk32)
+    cols = torch.tensor(ag.w8a8_code_cols())[p % 32]
+    rows = (torch.arange(S)[:, None] * kk + p - p % 32 + cols).reshape(-1)
     row_scale = scales[..., torch.arange(M) // lay["bm"], :]   # (.., M, S)
+    steps = codes.double().reshape(*lead, M, S, kk32).movedim(-2, -3)
     accs = []
     for w in ws:
         wx = torch.zeros((*w.shape[:-2], (S - 1) * kk + kk32, w.shape[-1]),
                          dtype=torch.float64)
         wx[..., :K, :] = w
-        wl = wx[..., rows, :]
+        wl = wx[..., rows, :].reshape(*w.shape[:-2], S, kk32, w.shape[-1])
+        iacc = steps @ wl                                  # (.., S, M, N)
         acc = torch.zeros((*lead, M, w.shape[-1]), dtype=torch.float32)
         for s in range(S):
-            sl = slice(s * kk32, (s + 1) * kk32)
-            iacc = codes[..., sl].double() @ wl[..., sl, :]
-            acc = acc + iacc.float() * row_scale[..., s, None]
+            acc = acc + iacc[..., s, :, :].float() * row_scale[..., s, None]
         accs.append(acc)
     return accs
 
