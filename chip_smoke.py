@@ -96,7 +96,22 @@ failure of which exits non-zero:
    the per-step counts times the dispatches that ran in full plus what
    each faulted attempt launched before its faulted site
    (``retried_launches``); then one decode step alone against one retried
-   after a fault, in turns;
+   after a fault, in turns; then disaggregated serving
+   (``disagg_phase``: ``DisaggServingEngine``, 1 + 1 pods, pp = 1): (a)
+   the same requests on each backend with the prefill chunk pinned to
+   the colocated one, streams equal bit for bit, ``kv_transfer_bytes``
+   the handoffs times a row's bytes; (b) ``arrayflex`` with the prefill
+   role's re-picked chunk, its first divergence from colocated printed
+   (phase 7 holds the same run in fp32 to the fp32 colocated streams);
+   (c) paged, against the paged run, the live pages moved; (d) a
+   ``transfer.kv`` drop retried, a persistent drop (``failed``,
+   ``TransferFault``), a ``disagg.pod`` loss (``preempted_retried``,
+   (a)'s streams); (e) one decode step under ``pp_role="decode",
+   pp_stages=2`` (no mesh): attn.wq launched at the role's k, logits equal
+   the colocated step's; every run's launches checked per step; each run
+   prints the role clocks, the makespan against the colocated sum, each
+   request's virtual TTFT against the colocated wall TTFT and its
+   handoff's time and bytes;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
@@ -110,7 +125,8 @@ failure of which exits non-zero:
    ``arrayflex_int8`` against ``ref`` on the dequantized weights (its
    launch counters set to 0 just before and read just after: every W8 K1
    launch on the FFMA kernel), and ``arrayflex_w8a8`` against fp32
-   ``arrayflex``, both in fp32; then the
+   ``arrayflex``, both in fp32; the disaggregated run with the re-picked
+   chunk against a colocated one in fp32 (streams equal); then the
    full-width prefill of phase 6 in fp32 against ``ref`` and against the
    engine's chunked ``prefill_step`` path on the same tokens (the kernels'
    run with its launch counters set to 0 just before and read just after:
@@ -188,8 +204,11 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, ChaosEngine  # noqa: E402
 from repro_torch.runtime import chaos  # noqa: E402
-from repro_torch.serving import (EngineCrash, KernelFault, Request,  # noqa: E402
-                                 ServeConfig, ServingEngine)
+from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.serving import (DisaggServeConfig,  # noqa: E402
+                                 DisaggServingEngine, EngineCrash,
+                                 KernelFault, Request, ServeConfig,
+                                 ServingEngine)
 from repro_torch.serving.engine import PREFILL_CHUNK_CHOICES  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1281,6 +1300,7 @@ def serving_phase(cfg, params, prompt_lens=PROMPT_LENS, max_new=MAX_NEW,
         decode_dispatches=st["decode_dispatches"],
         decode_step_ms=1e3 * st["decode_time_s"] / st["decode_dispatches"],
         mean_ttft_ms=1e3 * sum(ttft) / len(ttft),
+        ttft_ms=[1e3 * t for t in ttft],
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         launches=launches, dispatch_counts=dispatches,
         prefill_chunk=engine.prefill_chunk,
@@ -2033,6 +2053,370 @@ def resilience_phase(cfg, params, serving, paged):
     out["runs"] = runs
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 5, disaggregated: the prefill role's own cache, the K/V handoff,
+# per-role clocks and role-priced plans
+
+# (d): the disagg.pod draw the decode pod is lost at (one draw a tick):
+# tick 5, every request decoding
+POD_LOST_AT = 4
+# (e): the pipeline the decode role prices (no mesh: pricing only)
+ROLE_PP_STAGES = 2
+
+
+def _row_bytes(cache) -> int:
+    """Bytes of one row (dense: a slot; paged: a page) of every leaf."""
+    return sum(t[:, 0].numel() * t.element_size()
+               for layer in cache for t in layer.values())
+
+
+def disagg_run(cfg, params, prompts, max_new: int, sc):
+    """Serve ``prompts`` on a DisaggServingEngine (``sc``), the launch
+    counters set to 0 just before and read just after, each handoff's
+    copy timed on the host clock (the engine's copy ends with a
+    synchronize).  Holds the launches to the per-step counts times the
+    steps dispatched (no chaos here faults a GEMM) and the handoff bytes
+    to the handoffs times a row's (dense) or the pages moved times a
+    page's (paged)."""
+    engine = DisaggServingEngine(cfg, params, sc)
+    handoffs = []
+    copy = engine._copy
+
+    def timed_copy(index):
+        t0 = time.perf_counter()
+        n = copy(index)
+        handoffs.append((1e3 * (time.perf_counter() - t0), n))
+        return n
+
+    engine._copy = timed_copy
+    reqs = [Request(prompt=p, max_new_tokens=max_new, rid=i)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    substrate.DISPATCH_COUNTS.clear()
+    ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    ticks = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ag.LAUNCHES)            # read just after the run
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("disaggregated serving launched flash "
+                             "attention (K3)")
+    st = engine.stats
+    steps = st["prefill_dispatches"] + st["decode_dispatches"]
+    what = (f"disaggregated serving {cfg.name} on {cfg.gemm_backend} "
+            f"({steps} steps of {cfg.n_layers} layers, {sc.chaos})")
+    check_launches(what, launches, engine_launches(cfg, steps))
+    row = _row_bytes(engine.pcache)
+    moved = (st["kv_transfer_pages"] if engine.paged else len(handoffs))
+    if (st["kv_transfer_bytes"] != moved * row
+            or sum(n for _, n in handoffs) != st["kv_transfer_bytes"]):
+        raise AssertionError(
+            f"{what}: kv_transfer_bytes {st['kv_transfer_bytes']}, want "
+            f"{moved} x {row} B ({len(handoffs)} handoffs)")
+    out = dict(
+        streams=[r.out_tokens for r in reqs],
+        outcomes=[r.outcome for r in reqs],
+        errors=[r.error.split(":")[0] for r in reqs],
+        stats={k: st[k] for k in (
+            "prefill_dispatches", "decode_dispatches", "prefill_tokens",
+            "decode_tokens", "kv_transfer_bytes", "kv_transfer_pages",
+            "transfer_retries", "pod_losses", "preemptions",
+            "kernel_fault_retries", "sample_retries")},
+        prefill_chunk=engine.prefill_chunk, ticks=ticks, wall_s=wall,
+        prefill_time_s=st["prefill_time_s"],
+        decode_time_s=st["decode_time_s"],
+        makespan_s=max(st["prefill_time_s"], st["decode_time_s"]),
+        colocated_sum_s=st["prefill_time_s"] + st["decode_time_s"],
+        ttft_virtual_ms=[1e3 * engine.ttft_virtual[r.rid]
+                         if r.rid in engine.ttft_virtual else None
+                         for r in reqs],
+        ttft_wall_ms=[None if r.ttft_s is None else 1e3 * r.ttft_s
+                      for r in reqs],
+        handoff_ms=[ms for ms, _ in handoffs],
+        handoff_bytes=[n for _, n in handoffs], row_bytes=row,
+        launches=launches)
+    return out, engine
+
+
+def engine_launches(cfg, steps: int) -> dict:
+    """:func:`expected_launches` for ``steps`` engine steps.  The engine's
+    K/V cache is bf16 whatever the compute dtype, and attention casts its
+    probabilities to the cache's dtype, so in an fp32-compute run each
+    attn.pv still multiplies bf16 operands and lands on K2's tensor-core
+    kernel (its subset counter); every other fp32 launch is on FFMA."""
+    want = expected_launches(cfg, steps)
+    if cfg.compute_dtype == "float32":
+        want["arrayflex_expert_gemm_tc"] += (
+            step_sites(cfg).count("attn.pv") * steps)
+    return want
+
+
+def _first_divergence(got, want):
+    """(request, token index) of the first token two stream lists differ
+    at, or None."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return (i, j)
+        if len(g) != len(w):
+            return (i, min(len(g), len(w)))
+    return None
+
+
+def _require_disagg(what: str, run, streams=None, outcome="ok", error="",
+                    **stats):
+    """``run`` gave ``streams`` (when given), every request ``outcome``
+    (its error type ``error``) and these stats counters exactly."""
+    bad = {k: (run["stats"][k], v) for k, v in stats.items()
+           if run["stats"][k] != v}
+    if ((streams is not None and run["streams"] != streams) or bad
+            or any(o != outcome for o in run["outcomes"])
+            or any(e != error for e in run["errors"])):
+        raise AssertionError(
+            f"{what}: streams equal "
+            f"{streams is None or run['streams'] == streams}, outcomes "
+            f"{run['outcomes']} {run['errors']}, counters (got, want) {bad}")
+
+
+def _log_disagg(what: str, run, colo, card: str):
+    """The run's role clocks, makespan against the colocated sum, each
+    request's virtual TTFT against the colocated engine's wall TTFT, and
+    its handoff's time and bytes, beside the card line."""
+    log(f"  {what}: role clocks prefill_time_s "
+        f"{run['prefill_time_s']:.6f} / decode_time_s "
+        f"{run['decode_time_s']:.6f}; makespan {run['makespan_s']:.6f} s "
+        f"against the colocated sum {run['colocated_sum_s']:.6f} s "
+        f"(colocated engine: prefill {colo['prefill_time_s']:.6f} + decode "
+        f"{colo['decode_time_s']:.6f} s); chunk {run['prefill_chunk']} "
+        f"(card: {card})")
+    for i, (vt, wt) in enumerate(zip(run["ttft_virtual_ms"],
+                                     colo["ttft_ms"])):
+        hand = (f"handoff {run['handoff_ms'][i]:.3f} ms, "
+                f"{run['handoff_bytes'][i]} B"
+                if i < len(run["handoff_ms"]) else "no handoff")
+        log(f"    request {i}: virtual TTFT "
+            f"{'none' if vt is None else f'{vt:.3f}'} ms against colocated "
+            f"wall TTFT {wt:.3f} ms; {hand} (card: {card})")
+
+
+def disagg_phase(cfg, params, serving, paged, card: str):
+    """Disaggregated serving of full-width ``cfg`` (1 + 1 pods, pp = 1)
+    against phase 5's runs (``serving``: backend -> its dense result;
+    ``paged``: the paged results): (a) on each backend with the prefill
+    chunk pinned to the colocated one, streams equal bit for bit; (b) on
+    ``arrayflex`` with the prefill role's re-picked chunk, its first
+    divergence from colocated printed (another row count may pick another
+    K1 tile form on the card); (c) paged, against the paged run, the
+    live pages moved; (d) a dropped handoff retried, a persistent drop
+    (every prefilled request ``failed`` with ``TransferFault``) and a
+    decode-pod loss (every request ``preempted_retried`` with (a)'s
+    streams); (e) one decode step under the decode role of a
+    two-stage pipeline (no mesh): attn.wq launched at the role's k, the
+    logits equal the colocated step's.  Every run's launches are the
+    per-step counts times its steps."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    base = dict(max_batch=BATCH, max_seq=MAX_SEQ, seed=0, prefill_pods=1,
+                decode_pods=1)
+    out, runs = {}, []
+    handoffs = sum(n > 1 for n in PROMPT_LENS)
+    for backend, colo in serving.items():
+        bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+        run, _ = disagg_run(bcfg, params, prompts, MAX_NEW, DisaggServeConfig(
+            **base, prefill_chunk=colo["prefill_chunk"]))
+        _require_disagg(f"(a) {backend}", run, colo["streams"],
+                        transfer_retries=0, kernel_fault_retries=0,
+                        sample_retries=0)
+        if len(run["handoff_ms"]) != handoffs:
+            raise AssertionError(f"(a) {backend}: {len(run['handoff_ms'])} "
+                                 f"handoffs, want {handoffs}")
+        _log_disagg(f"(a) {backend}, chunk pinned: streams == colocated, "
+                    f"kv_transfer_bytes {run['stats']['kv_transfer_bytes']}"
+                    f" = {handoffs} x {run['row_bytes']} B", run, colo, card)
+        runs.append(run)
+        out[f"pinned_{backend}"] = run
+        _free()
+
+    colo = serving["arrayflex"]
+    run, _ = disagg_run(cfg, params, prompts, MAX_NEW,
+                        DisaggServeConfig(**base))
+    _require_disagg("(b)", run, None, transfer_retries=0,
+                    kernel_fault_retries=0, sample_retries=0)
+    run["first_divergence"] = _first_divergence(run["streams"],
+                                                colo["streams"])
+    _log_disagg(f"(b) arrayflex, the prefill role's re-picked chunk "
+                f"{run['prefill_chunk']} (colocated {colo['prefill_chunk']})"
+                f": first divergence from colocated "
+                f"{run['first_divergence']}", run, colo, card)
+    runs.append(run)
+    out["repicked_arrayflex"] = run
+
+    page = planner.page_plan(MAX_SEQ)
+    live = sum(-(-(n - 1) // page) for n in PROMPT_LENS)
+    run, _ = disagg_run(cfg, params, prompts, MAX_NEW, DisaggServeConfig(
+        **base, prefill_chunk=colo["prefill_chunk"],
+        kv_pages=paged["arrayflex"]["kv_pages"], page_size=page))
+    _require_disagg("(c) paged", run, paged["arrayflex"]["streams"],
+                    kv_transfer_pages=live, transfer_retries=0)
+    _log_disagg(f"(c) arrayflex paged (page {page}): streams == paged "
+                f"colocated, {live} live pages moved "
+                f"({run['stats']['kv_transfer_bytes']} B)", run, colo, card)
+    runs.append(run)
+    out["paged_arrayflex"] = run
+
+    pinned = dict(base, prefill_chunk=colo["prefill_chunk"])
+    want = out["pinned_arrayflex"]["streams"]
+    for key, sc, check in (
+            ("transfer_retry", DisaggServeConfig(
+                **pinned, max_retries=2,
+                chaos=ChaosConfig(kv_transfer_at=0)),
+             dict(streams=want, transfer_retries=1)),
+            ("transfer_persistent", DisaggServeConfig(
+                **pinned, max_retries=0, chaos=ChaosConfig(kv_transfer=1.0)),
+             dict(outcome="failed", error="TransferFault",
+                  kv_transfer_bytes=0, decode_dispatches=0)),
+            ("pod_loss", DisaggServeConfig(
+                **pinned, chaos=ChaosConfig(pod_lost_at=POD_LOST_AT)),
+             dict(streams=want, outcome="preempted_retried", pod_losses=1,
+                  preemptions=len(PROMPT_LENS)))):
+        run, engine = disagg_run(cfg, params, prompts, MAX_NEW, sc)
+        _require_disagg(f"(d) {key}", run, kernel_fault_retries=0,
+                        sample_retries=0, **check)
+        run["chaos_log"] = [tuple(e) for e in engine._chaos.chaos_log]
+        log(f"  (d) {key}: outcomes {sorted(set(run['outcomes']))} "
+            f"{sorted(set(run['errors']))}, transfer retries "
+            f"{run['stats']['transfer_retries']}, pod losses "
+            f"{run['stats']['pod_losses']}, prefill tokens "
+            f"{run['stats']['prefill_tokens']}, chaos log "
+            f"{run['chaos_log']}; {run['wall_s']:.3f} s (card: {card})")
+        runs.append(run)
+        out[key] = run
+        del engine
+        _free()
+
+    out["role_pricing"], role_launches = role_pricing_phase(cfg, params, card)
+    runs += [{"launches": v} for v in role_launches]
+    out["runs"] = runs
+    return out
+
+
+def role_pricing_phase(cfg, params, card: str):
+    """(e): one full-batch decode step of ``cfg`` colocated, then under
+    ``pp_role="decode", pp_stages=ROLE_PP_STAGES`` (no mesh: the decode
+    role's stage-ingress cycles priced into attn.wq's plan), each on a
+    fresh cache, counted from 0 and held to one step's launches, its K1 /
+    K2 launches recorded: attn.wq must launch at the k its plan took under
+    the role's transfer terms, and the logits must equal the colocated
+    step's (plans move k, never values)."""
+    p = lm.prepare_params(cfg, params)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, BATCH),
+                           device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    role = dataclasses.replace(cfg, pp_role="decode",
+                               pp_stages=ROLE_PP_STAGES)
+    ks, logits, planned, launches = {}, {}, {}, []
+    for name, c in (("colocated", cfg), ("decode", role)):
+        cache = lm.init_cache(c, BATCH, MAX_SEQ)
+        torch.cuda.synchronize()
+        ag.reset_launches()                 # counts: 0 just before
+        with recorded_sites(cfg.name) as sites:
+            lg, _ = lm.decode_step(c, p, cache, toks, pos)
+        torch.cuda.synchronize()
+        counted = dict(ag.LAUNCHES)         # read just after
+        check_launches(f"(e) {name} decode step", counted,
+                       expected_launches(c, 1))
+        launches.append(counted)
+        wq = {st.k for st in sites if st.name == sharding.PP_BOUNDARY_SITE}
+        if len(wq) != 1:
+            raise AssertionError(f"(e) {name}: attn.wq launched at k {wq}")
+        ks[name] = wq.pop()
+        planned[name] = substrate.SITE_PLANS[sharding.PP_BOUNDARY_SITE]
+        logits[name] = lg.float()
+        del cache
+    d = cfg.d_model
+    t_ops, t_cyc = sharding.pp_transfer_terms("decode", ROLE_PP_STAGES,
+                                              BATCH, d)
+    sig = planned["decode"].shard
+    if ((sig.transfer_ops, sig.transfer_cycles) != (t_ops, t_cyc)
+            or planned["colocated"].shard != substrate.SHARD_NONE
+            or ks["decode"] != planned["decode"].k
+            or ks["colocated"] != planned["colocated"].k):
+        raise AssertionError(
+            f"(e): attn.wq launched at k {ks}, planned "
+            f"{ {n: (pl.k, pl.shard) for n, pl in planned.items()} }, the "
+            f"role's terms ({t_ops}, {t_cyc})")
+    equal = bool(torch.equal(logits["decode"], logits["colocated"]))
+    log(f"  (e) decode step under pp_role=decode, pp_stages="
+        f"{ROLE_PP_STAGES} (no mesh): attn.wq at k {ks['decode']} (plan "
+        f"with {t_cyc} ingress cycles) against colocated k "
+        f"{ks['colocated']}; logits equal the colocated step's: {equal} "
+        f"(card: {card})")
+    if not equal:
+        raise AssertionError("(e): the role's logits differ from the "
+                             "colocated step's")
+    del p
+    _free()
+    return dict(k=ks, transfer_cycles=t_cyc, logits_equal=equal), launches
+
+
+def disagg_fp32_parity(cfg, params, card: str):
+    """(b) in fp32: phase 5's requests on a colocated engine and on the
+    disaggregated one with the prefill role's re-picked chunk, fp32
+    compute: streams equal.  Each run counted from 0 and held to
+    :func:`engine_launches` (FFMA but attn.pv, which reads the engine's
+    bf16 cache)."""
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    colo = serving_run_fp32(c32, params, prompts)
+    run, _ = disagg_run(c32, params, prompts, MAX_NEW, DisaggServeConfig(
+        max_batch=BATCH, max_seq=MAX_SEQ, seed=0, prefill_pods=1,
+        decode_pods=1))
+    equal = run["streams"] == colo["streams"]
+    log(f"  fp32 disaggregated (re-picked chunk {run['prefill_chunk']}) "
+        f"against fp32 colocated (chunk {colo['prefill_chunk']}): streams "
+        f"equal {equal}; first divergence "
+        f"{_first_divergence(run['streams'], colo['streams'])} "
+        f"(card: {card})")
+    if not equal or any(o != "ok" for o in run["outcomes"]):
+        raise AssertionError(f"fp32 disaggregated: streams equal {equal}, "
+                             f"outcomes {run['outcomes']}")
+    _free()
+    return (dict(streams_equal=equal, prefill_chunk=run["prefill_chunk"],
+                 colocated_chunk=colo["prefill_chunk"]),
+            [colo["launches"], run["launches"]])
+
+
+def serving_run_fp32(cfg, params, prompts):
+    """Phase 5's requests on a colocated engine, counted from 0 and held
+    to the per-step counts."""
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_batch=BATCH, max_seq=MAX_SEQ, seed=0))
+    reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, rid=i)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    ag.reset_launches()                     # counts: 0 just before
+    engine.run_to_completion()
+    torch.cuda.synchronize()
+    launches = dict(ag.LAUNCHES)            # read just after
+    st = engine.stats
+    check_clean(f"fp32 serving {cfg.name}", engine, reqs)
+    check_launches(f"fp32 serving {cfg.name}", launches, engine_launches(
+        cfg, st["prefill_dispatches"] + st["decode_dispatches"]))
+    return dict(streams=[r.out_tokens for r in reqs], launches=launches,
+                prefill_chunk=engine.prefill_chunk)
 
 # ---------------------------------------------------------------------------
 # phase 6: full-sequence prefill
@@ -3389,6 +3773,11 @@ def main() -> int:
     log(f"  resilient serving of full-width {cfg.name} (bf16): (a)-(f) "
         f"against the runs above (card: {card})")
     resilience = resilience_phase(cfg, params, serving, paged)
+    log(f"  disaggregated serving of full-width {cfg.name} (bf16): 1 + 1 "
+        f"pods, pp = 1, (a)-(e) against the runs above (card: {card})")
+    t0 = time.perf_counter()
+    disagg = disagg_phase(cfg, params, serving, paged, card)
+    log(f"  disaggregated phase: {time.perf_counter() - t0:.1f} s")
     log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
@@ -3413,6 +3802,11 @@ def main() -> int:
     quant_parity = quant_parity_phase(cfg, params)
     fp32_runs = list(quant_parity.pop("launches").values())
     parity.update(quant_parity)
+    log("  disaggregated serving (fp32): the prefill role's re-picked chunk "
+        "against the colocated engine")
+    disagg["fp32"], disagg_fp32_launches = disagg_fp32_parity(cfg, params,
+                                                              card)
+    fp32_runs += disagg_fp32_launches
     log(f"  full-sequence prefill (fp32) at S = "
         f"{', '.join(map(str, FWD_SEQS))}")
     forward_parity = forward_parity_phase(cfg, params)
@@ -3454,7 +3848,8 @@ def main() -> int:
     paged_runs = list(paged.values()) + [
         {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
-            + paged_runs + resilience["runs"] + list(prefill.values())
+            + paged_runs + resilience["runs"] + disagg["runs"]
+            + list(prefill.values())
             + ssm_runs + list(ssm_prefill.values()) + family_runs
             + [{"launches": v} for v in fp32_runs])
     launches = {name: sum(run["launches"][name] for run in runs)
@@ -3478,7 +3873,9 @@ def main() -> int:
                   kt_quantize=kt_quant, flash_attention=k3, serving=serving,
                   moe_serving=moe_serving, paged=paged,
                   resilience={k: v for k, v in resilience.items()
-                              if k != "runs"}, prefill=prefill,
+                              if k != "runs"},
+                  disagg={k: v for k, v in disagg.items() if k != "runs"},
+                  prefill=prefill,
                   prefill_sites=prefill_sites_rows,
                   prefill_kernel_totals=prefill_totals, parity=parity,
                   moe_parity=moe_parity, ssm_serving=ssm_serving,

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -101,6 +101,24 @@ class ModelConfig:
     # execution entry points (lm.decode_step / prefill_step, the serving
     # engine, serve.py) so an unknown name fails with the registered list.
     gemm_backend: str = "xla"
+    # --- sharded dispatch and pipeline roles -----------------------------
+    # The reference's fields, with its defaults.  ``mesh_shape`` declares a
+    # (data, model) host mesh or a (pod, data, model) role mesh; ()
+    # dispatches unsharded.  The port has no mesh dispatch yet: the lm
+    # entry points raise for a mesh that would shard a GEMM (a 2-axis one,
+    # or a 3-axis one with a data or model axis > 1) unless
+    # ``gemm_sharding`` is "none" (parallel.sharding.check_mesh).
+    mesh_shape: Tuple[int, ...] = ()
+    gemm_sharding: str = "auto"
+    # The serving role this config plans for: "" (colocated), "prefill"
+    # or "decode".  With ``pp_stages > 1`` the lm entry points price the
+    # pipeline stage boundary into the boundary site's plan under the
+    # role's sign (parallel.sharding.use_pp_pricing): prefill deepens
+    # best_k, decode shallows it.  Inert at pp_stages <= 1.
+    pp_role: str = ""
+    pp_stages: int = 0
+    # First device index of this role's pod window (used by the mesh).
+    pod_offset: int = 0
 
     # ------------------------------------------------------------------
     @property

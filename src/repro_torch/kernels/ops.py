@@ -38,7 +38,7 @@ SA_C = 128
 @functools.lru_cache(maxsize=None)
 def plan_collapse(M: int, K: int, T_rows: int, *, max_k: int = 4,
                   epilogue_ops: int = 0, precision: str = "fp32",
-                  actq_ops: int = 0) -> int:
+                  actq_ops: int = 0, transfer_cycles: int = 0) -> int:
     """ArrayFlex pipeline depth for GEMM X[T,K] @ W[K,M] (Eq. 7 -> discrete).
 
     K is the contraction (the SA's R-tiled dim), M the output columns.
@@ -46,13 +46,16 @@ def plan_collapse(M: int, K: int, T_rows: int, *, max_k: int = 4,
     period (Eq. 5'); ``precision`` selects the datapath's Eq.(5)
     coefficients; ``actq_ops`` prices the W8A8 activation-quantize boundary
     stage (Eq. 5' ``d_actq_ps``), which alone moves (896, 4864, 512) from
-    k=2 to k=4 on the w8a8 datapath.  Identical to the reference's pick.
-    (The reference's pipeline ``transfer_cycles`` term comes with the slice
-    that ports sharded pipelines.)
+    k=2 to k=4 on the w8a8 datapath.  ``transfer_cycles`` serializes a
+    pipeline-stage activation transfer in front of the schedule, paid at
+    the k-collapsed period (Eq. 6''): it pushes the argmin shallower, which
+    is how a decode role plans a shallower k than a prefill role at the
+    same shape.  Identical to the reference's pick.
     """
     k = timing.best_k(M, K, T_rows, SA_R, SA_C,
                       timing.timing_for(precision),
-                      epilogue_ops=epilogue_ops, actq_ops=actq_ops)
+                      epilogue_ops=epilogue_ops, actq_ops=actq_ops,
+                      extra_cycles=transfer_cycles)
     return max(1, min(max_k, k))
 
 

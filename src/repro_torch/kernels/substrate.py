@@ -1,12 +1,12 @@
 """GEMM execution substrate: one dispatch layer for every model GEMM.
 
-Port of the reference's ``kernels/substrate.py`` (unsharded).  Every
+Port of the reference's ``kernels/substrate.py`` (without the mesh).  Every
 dense contraction in nn/ and models/ routes through :func:`gemm` (or
 :func:`batched_gemm` for the attention QK/PV products), which
 
   * resolves the GEMM's :class:`GemmPlan` from a process-wide **plan
-    cache** keyed on ``(M, N, T, backend, epilogue)`` — the Eq.(6') argmin
-    runs once per shape, not once per serving step;
+    cache** keyed on ``(M, N, T, backend, epilogue, shard)`` — the
+    Eq.(6') argmin runs once per shape, not once per serving step;
   * records the plan under the caller's **site label** (``attn.wq``,
     ``mlp.wo``, ``attn.qk``, ...), the names ``core.planner.model_gemms``
     emits, and counts the dispatch in :data:`DISPATCH_COUNTS`;
@@ -61,8 +61,17 @@ sub-layer dispatches twice, as a cross-attending one does attn.qk and
 attn.pv, draws at each of its call sites there), and the engine runs a
 step that has completed once with the point inactive.
 
-Sharded dispatch (``ShardCtx``, and so expert parallelism) and the strict
-routing audit are not ported yet.
+**Shard contexts**: :func:`gemm`, :func:`batched_gemm` and
+:func:`expert_gemm` take ``shard=``.  The plan cache is keyed on
+``(M, N, T, backend, epilogue, shard)``, the :class:`ShardSig` pricing a
+sharded dispatch's per-shard shape, reduce tree and pipeline-stage
+transfer terms; without ``shard`` the key is :data:`SHARD_NONE` and the
+plans are the unsharded ones.  A pricing-only :class:`ShardCtx` (no mesh:
+a disaggregated role's boundary site under
+``parallel.sharding.use_pp_pricing``) plans under its signature and
+dispatches unsharded, as the reference's does.  A context with a mesh —
+sharded dispatch, and so expert parallelism — waits for the mesh slice
+and raises; so does the strict routing audit's port.
 """
 from __future__ import annotations
 
@@ -287,53 +296,166 @@ def clear_quant_cache():
         QUANT_CACHE_STATS[k] = 0
 
 
+# ---------------------------------------------------------------------------
+# shard signature / context
+
+@dataclass(frozen=True)
+class ShardSig:
+    """Post-partition signature of a sharded dispatch (plan-cache key part).
+
+    ``rows``/``contraction``/``cols`` are the shard counts of the logical
+    T / N / M dims; ``reduce_ops`` prices the contraction psum's combine
+    tree (``ceil(log2(shards))`` boundary adds) into Eq.(5').
+
+    ``transfer_ops``/``transfer_cycles`` price a pipeline-stage boundary
+    into the plan: ``transfer_ops`` are boundary ALU stages on the period
+    (k-independent, so they deepen the argmin like epilogue ops), while
+    ``transfer_cycles`` serialize the incoming activation in front of the
+    schedule (Eq. 6'': paid at the k-collapsed period, so they shallow
+    it).  A throughput-bound prefill stage prices the egress tree, a
+    latency-bound decode stage the ingress — which is how ``best_k``
+    differs per serving role at the same (M, N, T).
+    """
+
+    rows: int = 1
+    contraction: int = 1
+    cols: int = 1
+    reduce_ops: int = 0
+    transfer_ops: int = 0
+    transfer_cycles: int = 0
+
+
+SHARD_NONE = ShardSig()
+
+
+def _spec_shards(mesh, entry) -> int:
+    """Total shard count a spec entry (None, an axis name or a tuple of
+    them) induces under ``mesh`` (absent axes, or no mesh, count 1)."""
+    from repro_torch.parallel.sharding import mesh_axis_size
+    if entry is None:
+        return 1
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    n = 1
+    for a in axes:
+        n *= mesh_axis_size(mesh, a)
+    return n
+
+
+@dataclass(frozen=True)
+class ShardCtx:
+    """How one substrate dispatch runs under a mesh.
+
+    ``x_spec``/``w_spec``/``out_spec`` are per-dim spec tuples of the
+    operands as dispatched (x flattened to ``(T, K)`` for :func:`gemm`):
+    each entry None (replicated), a mesh axis name or a tuple of them.
+    ``reduce_axes`` names the mesh axes the contraction is sharded over.
+    ``transfer_ops``/``transfer_cycles`` carry a pipeline-stage boundary
+    price into the :class:`ShardSig`.
+
+    A **pricing-only** context (``mesh is None``, replicated specs — built
+    by ``parallel.sharding.pricing_shard_ctx``) keys and prices the plan
+    with its signature and dispatches unsharded, as the reference's does.
+    A context with a mesh belongs to the mesh slice: the dispatch entries
+    raise for it.
+    """
+
+    mesh: Any
+    x_spec: Any
+    w_spec: Any
+    out_spec: Any
+    reduce_axes: tuple = ()
+    transfer_ops: int = 0
+    transfer_cycles: int = 0
+
+    def axis_shards(self, entry) -> int:
+        return _spec_shards(self.mesh, entry)
+
+    def signature(self) -> ShardSig:
+        """ShardSig for the 2-D :func:`gemm` entry (the plan-cache key)."""
+        r = _spec_shards(self.mesh, tuple(self.reduce_axes) or None)
+        return ShardSig(
+            rows=self.axis_shards(self.x_spec[0]),
+            contraction=self.axis_shards(self.x_spec[1]),
+            cols=self.axis_shards(self.w_spec[1]),
+            reduce_ops=math.ceil(math.log2(r)) if r > 1 else 0,
+            transfer_ops=self.transfer_ops,
+            transfer_cycles=self.transfer_cycles)
+
+    def divides(self, T: int, K: int, N_out: int) -> bool:
+        s = self.signature()
+        return (T % s.rows == 0 and K % s.contraction == 0
+                and N_out % s.cols == 0)
+
+
+def _unsharded(shard: Optional[ShardCtx], site: str):
+    """The dispatch entries run a pricing-only context (or none); a
+    context with a mesh raises until the mesh slice."""
+    if shard is not None and shard.mesh is not None:
+        from repro_torch.parallel.sharding import MESH_SLICE
+        raise NotImplementedError(
+            f"site {site!r}: a ShardCtx with a mesh: {MESH_SLICE}")
+
+
 @dataclass(frozen=True)
 class GemmPlan:
-    """One plan-cache entry: logical shape, epilogue, chosen depth, and the
-    Eq.(6') predictions (ps) on the modelled ArrayFlex array."""
+    """One plan-cache entry: logical shape, epilogue, shard signature,
+    chosen depth, and *per-shard* Eq.(6') predictions (ps) on the
+    modelled ArrayFlex array."""
 
-    M: int              # output columns
-    N: int              # contraction
-    T: int              # streamed rows
+    M: int              # output columns (logical, pre-partition)
+    N: int              # contraction (logical)
+    T: int              # streamed rows (logical)
     backend: str
     k: int              # collapse depth the kernel runs with (1 off-ArrayFlex)
-    t_pred_ps: float    # Eq.(6') model time at k
-    t_conventional_ps: float  # fixed-pipeline SA baseline
+    t_pred_ps: float    # per-shard Eq.(6') model time at k
+    t_conventional_ps: float  # per-shard fixed-pipeline SA baseline
     epilogue: Epilogue = EPILOGUE_NONE
-    cycles: int = 0     # Eq.(4) cycles x fused contractions
+    shard: ShardSig = SHARD_NONE
+    M_shard: int = 0    # post-partition shape each device executes
+    N_shard: int = 0
+    T_shard: int = 0
+    cycles: int = 0     # per-shard Eq.(4) cycles x fused contractions
     precision: str = "fp32"
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_gemm_cached(M: int, N: int, T: int, backend: str,
-                      epilogue: Epilogue) -> GemmPlan:
+                      epilogue: Epilogue, shard: ShardSig) -> GemmPlan:
     info = _BACKEND_INFO.get(backend)
     collapse = info.collapse if info else False
     precision = info.precision if info else "fp32"
     params = timing.timing_for(precision)
+    Ms = -(-M // shard.cols)
+    Ns = -(-N // shard.contraction)
+    Ts = -(-T // shard.rows)
     # a quantizing backend's per-output-channel dequant multiply is one
     # more boundary op per contraction; a W8A8 backend's per-tile
     # activation quantizer one more stage, priced with its own Eq.(5')
     # coefficient (d_actq_ps)
     dequant_ops = epilogue.contractions if (info and info.quantize) else 0
     actq_ops = 1 if (info and info.act_quantize) else 0
-    e_ops = epilogue.ops + dequant_ops
-    k = (ops.plan_collapse(M, N, T, epilogue_ops=e_ops, precision=precision,
-                           actq_ops=actq_ops)
+    # a pipeline-stage boundary prices like the TP psum: its egress tree
+    # is boundary ALU ops on the period, its ingress serializes cycles
+    e_ops = (epilogue.ops + shard.reduce_ops + shard.transfer_ops
+             + dequant_ops)
+    k = (ops.plan_collapse(Ms, Ns, Ts, epilogue_ops=e_ops,
+                           precision=precision, actq_ops=actq_ops,
+                           transfer_cycles=shard.transfer_cycles)
          if collapse else 1)
     return GemmPlan(
-        M=M, N=N, T=T, backend=backend, k=k, epilogue=epilogue,
-        precision=precision,
+        M=M, N=N, T=T, backend=backend, k=k, epilogue=epilogue, shard=shard,
+        M_shard=Ms, N_shard=Ns, T_shard=Ts, precision=precision,
         cycles=epilogue.contractions * timing.total_cycles(
-            M, N, T, ops.SA_R, ops.SA_C, k),
-        t_pred_ps=timing.t_abs_ps(M, N, T, ops.SA_R, ops.SA_C, k,
+            Ms, Ns, Ts, ops.SA_R, ops.SA_C, k),
+        t_pred_ps=timing.t_abs_ps(Ms, Ns, Ts, ops.SA_R, ops.SA_C, k,
                                   params=params, epilogue_ops=e_ops,
                                   contractions=epilogue.contractions,
-                                  actq_ops=actq_ops),
+                                  actq_ops=actq_ops,
+                                  extra_cycles=shard.transfer_cycles),
         t_conventional_ps=timing.t_abs_conventional_ps(
-            M, N, T, ops.SA_R, ops.SA_C, params=params,
+            Ms, Ns, Ts, ops.SA_R, ops.SA_C, params=params,
             contractions=epilogue.contractions, epilogue_ops=e_ops,
-            actq_ops=actq_ops))
+            actq_ops=actq_ops, extra_cycles=shard.transfer_cycles))
 
 
 # backend name -> {"hits": n, "misses": n} of plan_gemm lookups.  Steady-
@@ -342,12 +464,15 @@ PLAN_CACHE_STATS: Dict[str, Dict[str, int]] = {}
 
 
 def plan_gemm(M: int, N: int, T: int, backend: str = "arrayflex",
-              epilogue: Epilogue = EPILOGUE_NONE) -> GemmPlan:
+              epilogue: Epilogue = EPILOGUE_NONE,
+              shard: ShardSig = SHARD_NONE) -> GemmPlan:
     """Plan-cache entry point: Eq.(6') argmin once per
-    (M, N, T, backend, epilogue); lookups are tallied per backend in
-    :data:`PLAN_CACHE_STATS`."""
+    (M, N, T, backend, epilogue, shard).  (M, N, T) are the logical dims;
+    the argmin runs on the per-shard shape ``shard`` gives, with its
+    reduce and transfer terms priced (:class:`ShardSig`).  Lookups are
+    tallied per backend in :data:`PLAN_CACHE_STATS`."""
     before = _plan_gemm_cached.cache_info().misses
-    plan = _plan_gemm_cached(M, N, T, backend, epilogue)
+    plan = _plan_gemm_cached(M, N, T, backend, epilogue, shard)
     st = PLAN_CACHE_STATS.setdefault(backend, {"hits": 0, "misses": 0})
     missed = _plan_gemm_cached.cache_info().misses > before
     st["misses" if missed else "hits"] += 1
@@ -664,7 +789,7 @@ def _epilogue_spec(epilogue: str, w2, bias, bias2, residual=None,
 
 def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
          epilogue: str = "none", w2=None, bias=None, bias2=None,
-         residual=None, norm_scale=None):
+         residual=None, norm_scale=None, shard: Optional[ShardCtx] = None):
     """The substrate entry: x (..., K) @ w (K, N_out) -> (..., N_out).
 
     ``out_dtype=None`` returns the operands' dtype with the backend's
@@ -680,9 +805,16 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     goes through the :func:`quantize_weight` memo, and a site in
     :data:`QUANT_EXEMPT_SITES` keeps its float weight and plans on the
     fp32 base.
+
+    ``shard`` (``parallel.sharding.gemm_shard_ctx``): a pricing-only
+    context plans under its signature — a pipeline role's transfer terms —
+    and dispatches unsharded, as the reference's does; it is dropped when
+    the GEMM is empty or its dims do not divide.  A context with a mesh
+    raises (the mesh slice).
     """
     fn = get_backend(backend)
     _maybe_chaos_fault(site)
+    _unsharded(shard, site)
     info = _BACKEND_INFO[backend]
     if norm_scale is not None and tuple(norm_scale.shape) != (x.shape[-1],):
         raise ValueError(
@@ -715,10 +847,14 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     x2 = x.reshape(math.prod(lead), K)   # explicit rows: K may be 0
     T = x2.shape[0]
     r2 = None if residual is None else residual.reshape(T, N_out)
+    if shard is not None and (T * K * N_out == 0
+                              or not shard.divides(T, K, N_out)):
+        shard = None
     call = GemmCall(out_dtype=out_dtype, w2=w2, bias=bias, bias2=bias2,
                     residual=r2, norm_scale=norm_scale, w_scale=w_scale,
                     w2_scale=w2_scale)
-    plan = plan_gemm(N_out, K, T, plan_backend, ep)
+    plan = plan_gemm(N_out, K, T, plan_backend, ep,
+                     SHARD_NONE if shard is None else shard.signature())
     _record(site, plan)
     return fn(x2, w, plan, call).reshape(*lead, N_out)
 
@@ -748,7 +884,7 @@ def _batched_exec(x, w, plan: GemmPlan, backend: str, out_dtype):
 
 
 def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
-                 out_dtype=None):
+                 out_dtype=None, shard: Optional[ShardCtx] = None):
     """Batched GEMM: x (B, T, K) @ w (B, K, N) -> (B, T, N).
 
     The substrate path for attention QK/PV products (``attn.qk`` /
@@ -762,9 +898,14 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     to its fp32 ArrayFlex base (kernel and plan).  ``arrayflex_w8a8``
     quantizes both operands on :data:`BATCHED_ACTQ_SITES` (``attn.qk``),
     planned on the w8a8 datapath; ``attn.pv`` runs on the fp32 base.
+
+    ``shard`` splits the batch dim over a mesh in the reference, which
+    leaves the per-element plan unchanged; here a context with a mesh
+    raises (the mesh slice) and a pricing-only one dispatches as None.
     """
     check_backend(backend)
     _maybe_chaos_fault(site)
+    _unsharded(shard, site)
     if backend in _QUANT_FP32_BASE and not (
             _BACKEND_INFO[backend].act_quantize and _is_builtin(backend)
             and site in BATCHED_ACTQ_SITES):
@@ -802,7 +943,8 @@ def _expert_exec(x, w, plan: GemmPlan, backend: str, w_scale=None,
     return out.reshape(E, G, C, N_out).transpose(0, 1)
 
 
-def expert_gemm(x, w, *, site: str = "", backend: str = "xla"):
+def expert_gemm(x, w, *, site: str = "", backend: str = "xla",
+                shard: Optional[ShardCtx] = None):
     """Batched expert GEMM: x (G, E, C, K) @ w (E, K, N) -> (G, E, C, N).
 
     Every backend plans ONE (M=N, N=K, T=G*C) shape per site — the
@@ -817,9 +959,14 @@ def expert_gemm(x, w, *, site: str = "", backend: str = "xla"):
     :class:`QuantizedTensor` is unpacked, a float bank goes through the
     :func:`quantize_weight` memo.  Under W8A8 the expert kernel also
     quantizes its activation tiles whenever the bank is quantized.
+
+    ``shard`` runs expert-parallel over a mesh in the reference (the
+    per-expert plan unchanged); here a context with a mesh raises (the
+    mesh slice) and a pricing-only one dispatches as None.
     """
     check_backend(backend)
     _maybe_chaos_fault(site)
+    _unsharded(shard, site)
     G, E, C, K = x.shape
     N_out = w.shape[-1]
     info = _BACKEND_INFO[backend]

@@ -66,6 +66,21 @@ on the CPU, every request ending ``[ok]``:
       --gemm-backend arrayflex --requests 4 --max-new 8 --kv-pages 40 \
       --page-size 16 --chaos "seed=1,crash_at=3"
 
+``--prefill-pods P --decode-pods D`` serves through the disaggregated
+engine (``serving/disagg.py``): the prefill role prefills into a cache of
+its own and hands each request's K/V to the decode role's cache; one
+device runs both roles in turn and keeps a clock for each, e.g. on the
+CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --gemm-backend arrayflex --prefill-pods 1 --decode-pods 1
+
+It prints a ``disagg:`` line with the pods and the prefill role's chunk,
+and, in the report, the mean virtual TTFT (each request's own role time)
+and the role makespan against the colocated sum.  ``--pp`` (pipeline
+stages), ``--tp``, ``--fsdp`` and ``--host-devices`` come with the mesh
+slice.
+
 Prints per-request outputs with their outcome, plus per-phase timing:
 prefill and decode throughput (tokens/s), dispatch counts, and mean
 time-to-first-token.
@@ -81,7 +96,8 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import substrate
 from repro_torch.models import lm
 from repro_torch.runtime import chaos
-from repro_torch.serving import (AdmissionError, EngineCrash, Request,
+from repro_torch.serving import (AdmissionError, DisaggServeConfig,
+                                 DisaggServingEngine, EngineCrash, Request,
                                  ServeConfig, ServingEngine)
 
 
@@ -111,6 +127,27 @@ def phase_report(engine: ServingEngine, reqs) -> str:
                 + (", per-tile int8 activations in-kernel (W8A8 MAC path)"
                    if substrate.backend_act_quantizes(be)
                    else " against fp32 activations"))
+    if isinstance(engine, DisaggServingEngine):
+        sc = engine.sc
+        vt = [engine.ttft_virtual[r.rid] for r in reqs
+              if r.rid in engine.ttft_virtual]
+        vt_ms = 1e3 * sum(vt) / max(len(vt), 1)
+        makespan = max(st["prefill_time_s"], st["decode_time_s"])
+        out += (f"\ndisagg: {sc.prefill_pods} prefill + {sc.decode_pods} "
+                f"decode pod(s), pp={engine.pp}; "
+                f"mean virtual TTFT {vt_ms:.1f} ms "
+                f"(per-role clocks; wall TTFT above pays the colocated "
+                f"interleave)\n"
+                f"disagg: role makespan {makespan:.3f}s "
+                f"(colocated sum "
+                f"{st['prefill_time_s'] + st['decode_time_s']:.3f}s), "
+                f"K/V handoff {st['kv_transfer_bytes'] / 1024:.0f} KiB"
+                + (f" in {st['kv_transfer_pages']} pages"
+                   if engine.paged else "")
+                + (f", {st['transfer_retries']} transfer retries"
+                   if st["transfer_retries"] else "")
+                + (f", {st['pod_losses']} pod losses"
+                   if st["pod_losses"] else ""))
     return out
 
 
@@ -177,6 +214,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-restarts", type=int, default=3,
                     help="restore-from-snapshot attempts after injected "
                          "engine crashes before giving up")
+    ap.add_argument("--prefill-pods", type=int, default=0,
+                    help="disaggregated serving: pods in the prefill role; "
+                         "either pod flag > 0 serves through "
+                         "DisaggServingEngine (one device runs both roles "
+                         "in turn, with per-role clocks)")
+    ap.add_argument("--decode-pods", type=int, default=0,
+                    help="disaggregated serving: pods in the decode role")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the kernels' "
                          "plain PyTorch versions)")
@@ -204,7 +248,7 @@ def main(argv=None):
     if (chaos_cfg is not None and not snapshot_every
             and (chaos_cfg.crash > 0.0 or chaos_cfg.crash_at >= 0)):
         snapshot_every = 1      # crash chaos without snapshots cannot recover
-    sc = ServeConfig(max_batch=args.max_batch, max_seq=128,
+    sc_kwargs = dict(max_batch=args.max_batch, max_seq=128,
                      prefill_mode=args.prefill_mode,
                      prefill_chunk=args.prefill_chunk,
                      kv_pages=args.kv_pages, page_size=args.page_size,
@@ -213,7 +257,19 @@ def main(argv=None):
                      ttft_deadline_ms=args.ttft_deadline_ms,
                      preempt_policy=args.preempt_policy,
                      snapshot_every_ticks=snapshot_every, chaos=chaos_cfg)
-    engine = ServingEngine(cfg, params, sc, device=args.device)
+    if args.prefill_pods > 0 or args.decode_pods > 0:
+        engine_cls = DisaggServingEngine
+        sc = DisaggServeConfig(prefill_pods=max(1, args.prefill_pods),
+                               decode_pods=max(1, args.decode_pods),
+                               **sc_kwargs)
+    else:
+        engine_cls = ServingEngine
+        sc = ServeConfig(**sc_kwargs)
+    engine = engine_cls(cfg, params, sc, device=args.device)
+    if engine_cls is DisaggServingEngine:
+        print(f"disagg: {sc.prefill_pods} prefill + {sc.decode_pods} decode "
+              f"pod(s), pp={sc.pp_stages}, prefill_chunk="
+              f"{engine.prefill_chunk}")
     if chaos_cfg is not None:
         print(f"chaos: {args.chaos} (snapshot every "
               f"{snapshot_every or 'never'} ticks)")
@@ -248,8 +304,8 @@ def main(argv=None):
         # before the restored engine prepares its own
         engine = None
         gc.collect()
-        engine = ServingEngine.restore(cfg, params, sc, snap,
-                                       device=args.device)
+        engine = engine_cls.restore(cfg, params, sc, snap,
+                                    device=args.device)
     dt = time.time() - t0
     # a restored engine rebuilt its Request objects from the snapshot:
     # merge by rid so reporting reflects the final state of every stream

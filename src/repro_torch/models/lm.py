@@ -61,10 +61,19 @@ leaves; decode reads them and never writes them.  Served from
 ``init_cache``, they are zeros, as in the reference's engine, which has
 no request field for a context.
 
-The pipeline-sharded steps are not ported yet.
+The entry points (``forward``, ``decode_step``, ``prefill_step`` and the
+paged steps) run inside ``parallel.sharding.gemm_mesh_scope(cfg)``, as
+the reference's do: a config's ``pp_role`` / ``pp_stages`` price the
+pipeline stage boundary into the boundary site's plan (``attn.wq``
+re-picks k under the role's transfer terms; the values do not change),
+which is how a disaggregated engine's prefill and decode roles plan
+apart on one device.  A ``mesh_shape`` that would shard a GEMM raises
+there.  The mesh, the pipeline-sharded steps (``decode_step_pp`` /
+``prefill_step_pp``) and their GPipe stages wait for the mesh slice.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -76,6 +85,7 @@ from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers
 from repro_torch.nn import mamba as mamba_lib
 from repro_torch.nn import moe as moe_lib
+from repro_torch.parallel import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -147,6 +157,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: unknown model family {cfg.family!r}; the port "
             f"runs {', '.join(FAMILIES)}")
+
+
+def _mesh_scoped(fn):
+    """Run an entry point inside ``sharding.gemm_mesh_scope(cfg)``."""
+    @functools.wraps(fn)
+    def scoped(cfg, *args, **kwargs):
+        with sharding.gemm_mesh_scope(cfg):
+            return fn(cfg, *args, **kwargs)
+    return scoped
 
 
 def _layer(tree, l: int):
@@ -761,6 +780,7 @@ def _logits(cfg, params, x, cd):
                          backend=cfg.gemm_backend).float()
 
 
+@_mesh_scoped
 def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     """Returns (logits (B,S,V) fp32, aux_loss, caches-or-None).
     batch['tokens']: (B,S); the VLM family also takes
@@ -803,6 +823,7 @@ def prefill(cfg: ModelConfig, params, batch):
     return logits[:, -1], caches
 
 
+@_mesh_scoped
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token: (B,) int; pos: scalar or (B,) int.  Returns (logits (B,V),
     cache): a new cache tuple whose K/V leaves are the input's, updated
@@ -842,6 +863,7 @@ def supports_batched_prefill(cfg: ModelConfig) -> bool:
         for k in (sublayer_kind(cfg, i) for i in range(period(cfg))))
 
 
+@_mesh_scoped
 def prefill_step(cfg: ModelConfig, params, cache, tokens, pos, lengths):
     """Batched chunked prefill: one dispatch sequence for a (B,C) chunk.
 
@@ -879,6 +901,7 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
     return supports_batched_prefill(cfg)
 
 
+@_mesh_scoped
 def decode_step_paged(cfg: ModelConfig, params, cache, token, pos,
                       block_tables):
     """Paged twin of :func:`decode_step`: token (B,), pos (B,),
@@ -889,6 +912,7 @@ def decode_step_paged(cfg: ModelConfig, params, cache, token, pos,
                        block_tables)
 
 
+@_mesh_scoped
 def prefill_step_paged(cfg: ModelConfig, params, cache, tokens, pos,
                        lengths, block_tables):
     """Paged twin of :func:`prefill_step`: tokens (B,C) right-padded,

@@ -3,14 +3,19 @@
 Port of the reference's ``nn/layers.py``.  Every ``*_init`` takes an
 explicit ``torch.Generator`` and device and returns a dict of tensors; the
 matching apply function is a plain function of (params, inputs).  Every
-GEMM dispatches through ``kernels.substrate`` under its planner site label.
+GEMM dispatches through ``kernels.substrate`` under its planner site label,
+with the site's shard context (``parallel.sharding.gemm_shard_ctx``) where
+the reference derives one: ``linear``, ``unembed`` and ``swiglu``.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import substrate
+from repro_torch.parallel import sharding
 
 
 def normal_init(gen, shape, scale=0.02, dtype=torch.float32, device="cpu"):
@@ -44,14 +49,18 @@ def linear(p, x, compute_dtype=None, *, site="", backend="xla",
     rides the fused epilogue, ``residual`` fuses the sublayer's
     ``residual + f(x)`` join, and ``norm_scale`` (the preceding rmsnorm's
     scale, with :func:`rmsnorm_normalize` doing the normalize) fuses into
-    the kernel's step prologue."""
+    the kernel's step prologue.  The dispatch takes the site's shard
+    context (a pipeline role's boundary pricing inside the lm entry
+    points' scope)."""
     w = p["w"]
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
+    shard = sharding.gemm_shard_ctx(site, math.prod(x.shape[:-1]),
+                                    w.shape[0], w.shape[-1])
     return substrate.gemm(x, w, site=site, backend=backend,
                           bias=p.get("b"), residual=residual,
-                          norm_scale=norm_scale)
+                          norm_scale=norm_scale, shard=shard)
 
 
 # ---------------------------------------------------------------- norms
@@ -114,8 +123,10 @@ def unembed(p, x, *, backend="xla"):
         w = p.get("table_t")
     if w is None:
         w = p["table"].to(x.dtype).t().contiguous()
+    shard = sharding.gemm_shard_ctx("unembed", math.prod(x.shape[:-1]),
+                                    w.shape[0], w.shape[-1])
     return substrate.gemm(x, w, site="unembed", backend=backend,
-                          out_dtype=torch.float32)
+                          out_dtype=torch.float32, shard=shard)
 
 
 # ---------------------------------------------------------------- rope
@@ -156,11 +167,15 @@ def swiglu(p, x, compute_dtype=torch.bfloat16, *, backend="xla",
         wg = wg.to(compute_dtype)
         wu = wu.to(compute_dtype)
         x = x.to(compute_dtype)
+    shard = sharding.gemm_shard_ctx("mlp.wi_gate+mlp.wi_up",
+                                    math.prod(x.shape[:-1]),
+                                    wg.shape[0], wg.shape[-1])
     h = substrate.gemm(x, wg, w2=wu, epilogue="swiglu",
                        bias=p["wi_gate"].get("b"),
                        bias2=p["wi_up"].get("b"),
                        norm_scale=norm_scale,
-                       site="mlp.wi_gate+mlp.wi_up", backend=backend)
+                       site="mlp.wi_gate+mlp.wi_up", backend=backend,
+                       shard=shard)
     return linear(p["wo"], h, compute_dtype, site="mlp.wo",
                   backend=backend, residual=residual)
 

@@ -109,7 +109,9 @@ while ``jax.jit`` traces a step: a step whose first trace succeeded is
 cached and never draws again, and a step whose first trace raised is
 traced anew at every later call (jax 0.9's jit caches no trace for it).
 So the engine draws in each of its four steps (``decode``, ``prefill``,
-``decode_paged``, ``prefill_paged``) once per site label and sub-layer
+``decode_paged``, ``prefill_paged``; the disaggregated engine adds a
+fifth, ``decode_p``, its prefill role's token-mode step, which the
+reference jits apart) once per site label and sub-layer
 position of the period an attempt (``substrate.chaos_trace_scope``: the
 reference's scan body holds the whole period, eight sub-layers for the
 hybrid) until the step completes a dispatch at
@@ -117,7 +119,12 @@ its first attempt, and from then on runs it with the point inactive; a
 step whose first attempt faulted draws at every dispatch.  A restored
 engine starts with no step traced, as the reference's fresh jit does.
 
-Not ported yet: disaggregated serving and the strict routing audit.
+Disaggregated serving (``serving/disagg.py``) subclasses this engine: its
+prefill role works on a cache of its own, so :meth:`_guarded_dispatch`
+takes the name of the cache attribute a step works on and commits to
+(``target``), and its decode steps run under ``self.dcfg`` (the engine's
+config here, the decode role's there).  Not ported yet: the strict routing
+audit.
 """
 from __future__ import annotations
 
@@ -261,6 +268,9 @@ class ServingEngine:
                 f"unknown preempt_policy {serve_cfg.preempt_policy!r} "
                 f"(known: none, youngest)")
         self.cfg = cfg
+        # the config the decode steps run under (a disaggregated engine's
+        # decode role)
+        self.dcfg = cfg
         self.device = resolve_device(device)
         self.params = lm.prequantize_params(
             cfg, _to_device(lm.prepare_params(cfg, params), self.device))
@@ -498,7 +508,8 @@ class ServingEngine:
         return np.asarray([s.write_pos for s in self.slots], np.int64)
 
     # -------------------------------------------------- guarded dispatch
-    def _guarded_dispatch(self, step: str, dispatch, rows):
+    def _guarded_dispatch(self, step: str, dispatch, rows,
+                          target: str = "cache"):
         """Run one step (``dispatch()`` -> logits, or None for a prefill)
         under the fault guards: retry (at most ``max_retries`` times) on a
         :class:`KernelFault`, and on non-finite logits in the active
@@ -509,15 +520,17 @@ class ServingEngine:
         garbage.  A persistent KernelFault re-raises.
 
         ``dispatch()`` returns ``(logits or None, cache)``; the cache
-        becomes ``self.cache`` only when the attempt is accepted (it
-        completed, and its logits are finite or the retries are spent).
-        Unless ``step`` is cached, each attempt draws the
-        ``substrate.dispatch`` point once per site label and sub-layer
-        position (module docstring).  A retry re-runs the step on
-        ``self.cache``: its K/V tensors as the faulted attempt wrote them
-        in place, which it rewrites with the same bytes, and its
-        recurrent leaves as they were before the attempt; the generator
-        is untouched (sampling happens after validation)."""
+        becomes the engine's attribute ``target`` (``self.cache``, or a
+        disaggregated prefill role's ``self.pcache``) only when the
+        attempt is accepted (it completed, and its logits are finite or
+        the retries are spent).  Unless ``step`` is cached, each attempt
+        draws the ``substrate.dispatch`` point once per site label and
+        sub-layer position (module docstring).  A retry re-runs the step
+        on the cache ``dispatch`` reads, which must be ``target``'s: its
+        K/V tensors as the faulted attempt wrote them in place, which it
+        rewrites with the same bytes, and its recurrent leaves as they
+        were before the attempt; the generator is untouched (sampling
+        happens after validation)."""
         retries = max(0, self.sc.max_retries)
         for attempt in range(retries + 1):
             cached = self._trace.get(step) == "cached"
@@ -533,7 +546,7 @@ class ServingEngine:
                 raise
             self._trace.setdefault(step, "cached")
             if logits is None:           # prefill: nothing to sample
-                self.cache = cache
+                setattr(self, target, cache)
                 return None, ()
             if self._chaos is not None and self._chaos.fire("engine.sample"):
                 # corrupt to NaN on even draws, +Inf on odd (both must be
@@ -546,7 +559,7 @@ class ServingEngine:
             if bad and attempt < retries:
                 self.stats["sample_retries"] += 1
                 continue
-            self.cache = cache
+            setattr(self, target, cache)
             if not finite.all():
                 # no row is sampled from non-finite logits (the bad rows'
                 # tokens are dropped; multinomial refuses NaN rows)
@@ -590,13 +603,16 @@ class ServingEngine:
         for s in pre:
             s.finish_chunk(int(lens[s.index]))
 
-    def _run_prefill(self, step: str, run, lens: np.ndarray):
-        """Run one guarded prefill-chunk dispatch and book its time, tokens
-        and GEMM dispatches (a retried attempt's included)."""
+    def _run_prefill(self, step: str, run, lens: np.ndarray,
+                     target: str = "cache"):
+        """Run one guarded prefill-chunk dispatch on the cache ``target``
+        names and book its time, tokens and GEMM dispatches (a retried
+        attempt's included)."""
         t0 = self.clock()
         d0 = sum(substrate.DISPATCH_COUNTS.values())
         try:
-            self._guarded_dispatch(step, lambda: (None, run()[1]), rows=())
+            self._guarded_dispatch(step, lambda: (None, run()[1]), rows=(),
+                                   target=target)
         finally:
             self.stats["prefill_gemm_dispatches"] += (
                 sum(substrate.DISPATCH_COUNTS.values()) - d0)
@@ -747,7 +763,7 @@ class ServingEngine:
         for s in dec:
             toks[s.index] = s.next_token
         self._decode_rows("decode", lambda: lm.decode_step(
-            self.cfg, self.params, self.cache, self._tensor(toks),
+            self.dcfg, self.params, self.cache, self._tensor(toks),
             self._tensor(self._pos_vector())),
             [(s.index, s) for s in dec], Slot.release)
 
@@ -781,7 +797,7 @@ class ServingEngine:
             pos[r] = s.pos
             bt[r] = s.block_table
         self._decode_rows("decode_paged", lambda: lm.decode_step_paged(
-            self.cfg, self.params, self.cache, self._tensor(toks),
+            self.dcfg, self.params, self.cache, self._tensor(toks),
             self._tensor(pos), self._tensor(bt)),
             list(enumerate(sel)), self._release_paged)
 

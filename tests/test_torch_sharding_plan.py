@@ -76,18 +76,6 @@ def test_pp_transfer_terms_refuse_an_unknown_role():
         sharding.pp_transfer_terms("train", 2, 4, 896)
 
 
-class _Meshed:
-    """A port config seen with a mesh: the port's ModelConfig has no
-    ``mesh_shape`` yet (the sharded dispatch is not ported), and
-    ``model_gemms`` reads it, and ``pp_role``, with ``getattr``."""
-
-    def __init__(self, cfg, mesh_shape, pp_role):
-        self._cfg, self.mesh_shape, self.pp_role = cfg, mesh_shape, pp_role
-
-    def __getattr__(self, name):
-        return getattr(self._cfg, name)
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mesh,role", [((2, 2), ""), ((1, 4), ""),
                                        ((2, 1, 2), "prefill"),
@@ -99,10 +87,10 @@ def test_meshed_model_gemms_match_reference(arch, mesh, role):
     transfer terms) import the port's sharding module and give the
     reference's table."""
     shape = ("decode", 256, 4, "decode")
-    ref_cfg = dataclasses.replace(ref_get_config(arch), mesh_shape=mesh,
-                                  pp_role=role,
-                                  pp_stages=mesh[0] if role else 0)
-    got = planner.model_gemms(_Meshed(get_config(arch), mesh, role),
+    meshed = dict(mesh_shape=mesh, pp_role=role,
+                  pp_stages=mesh[0] if role else 0)
+    ref_cfg = dataclasses.replace(ref_get_config(arch), **meshed)
+    got = planner.model_gemms(dataclasses.replace(get_config(arch), **meshed),
                               ShapeConfig(*shape))
     want = ref_planner.model_gemms(ref_cfg, RefShape(*shape))
     assert _fields(got) == _fields(want)
