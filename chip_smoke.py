@@ -111,7 +111,27 @@ failure of which exits non-zero:
    the colocated step's; every run's launches checked per step; each run
    prints the role clocks, the makespan against the colocated sum, each
    request's virtual TTFT against the colocated wall TTFT and its
-   handoff's time and bytes;
+   handoff's time and bytes; then the mesh (``mesh_phase``, over four
+   logical devices: four views of the one card, each shard of a sharded
+   dispatch its own K1 / K2 launch at the shard's shapes): (a) the
+   engine at ``mesh_shape`` (1, 2) and (2, 2) on the three backends in
+   bf16, launches held to :func:`mesh_launches` (shards x per-site
+   launches x steps, from the shard contexts), streams against the
+   unsharded runs (a moved bf16 stream reported); (b) fp32 on
+   ``arrayflex`` and ``arrayflex_int8``: streams equal the unsharded
+   fp32 engine's and one decode step's logits within the reference's
+   sharded tolerance (rtol 1e-4, atol 1e-3); (c) the weight-block memo's
+   bytes and a decode step with it cold and warm; (d) every K1 / K2
+   launch of a tp 2 decode step held to its plain version at the
+   shard's shape and k (kernel_tol) and timed, the (2, 2) ones held too;
+   (e) one expert-parallel decode step of qwen3-moe-30b-a3b (4 layers)
+   and one mamba2-370m decode step at tp 2, fp32, against their
+   unsharded steps; then the pipeline (``pp_phase``:
+   ``DisaggServingEngine`` with 2 + 2 pods at pp = 2, dense K/V, the
+   three backends and fp32, chunk pinned): launches a step equal the
+   colocated step's, attn.wq at each role's k (the pinned role table),
+   streams equal colocated (W8A8 where a role re-picks k: reported, and
+   two runs equal), handoff bytes and times;
 6. full-sequence prefill: full-width qwen2-0.5b ``lm.prefill`` on
    ``arrayflex``/bf16, B = 1, at S = 2048 (dense attention: attn.qk on K2
    at g * S = 14336 rows) and S = 4096 (the chunked scan), each run's
@@ -200,6 +220,7 @@ from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import build, ops, substrate  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, ChaosEngine  # noqa: E402
@@ -2419,6 +2440,444 @@ def serving_run_fp32(cfg, params, prompts):
                 prefill_chunk=engine.prefill_chunk)
 
 # ---------------------------------------------------------------------------
+# phase 5: the mesh — sharded dispatch over logical devices on the card,
+# and the pipelined disaggregated engine
+
+# the (data, model) meshes the sharded engine serves on, and the tp of the
+# MoE and SSM decode steps
+MESH_SHAPES = ((1, 2), (2, 2))
+MESH_TP = 2
+# the pipelined roles: 2 prefill pods + 2 decode pods, pp = 2
+PP = 2
+# the reference's sharded tolerance for logits (fp32),
+# tests/test_sharded_substrate.py
+SHARDED_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+def mesh_ctx(cfg, site: str, rows: int, mesh):
+    """The shard context ``site``'s dispatch of ``rows`` rows takes on
+    ``cfg`` under ``mesh`` (``parallel.sharding``'s rules at the site's
+    (K, N)), or None: replicated."""
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    if site in ("attn.qk", "attn.pv"):
+        return sharding.batched_shard_ctx(BATCH * KV, mesh)
+    if site in ("moe.wi_gate", "moe.wi_up", "moe.wo"):
+        return sharding.expert_shard_ctx(cfg.moe.num_experts, mesh)
+    ssm = cfg.ssm
+    kn = {"attn.wq": (d, H * hd), "attn.wk": (d, KV * hd),
+          "attn.wv": (d, KV * hd), "attn.wo": (H * hd, d),
+          "mlp.wi_gate+mlp.wi_up": (d, cfg.d_ff), "mlp.wo": (cfg.d_ff, d),
+          "unembed": (d, cfg.padded_vocab)}
+    if cfg.moe is not None:
+        kn["moe.router"] = (d, cfg.moe.num_experts)
+    if ssm is not None:
+        conv = cfg.d_inner + 2 * ssm.n_groups * ssm.d_state
+        kn.update({"mamba.z": (d, cfg.d_inner), "mamba.xbc": (d, conv),
+                   "mamba.dt": (d, cfg.ssm_heads),
+                   "mamba.out": (cfg.d_inner, d)})
+    K, N = kn[site]
+    ctx = sharding.gemm_shard_ctx(site, rows, K, N, mesh)
+    return ctx if ctx is not None and ctx.divides(rows, K, N) else None
+
+
+def mesh_shards(cfg, site: str, rows: int, mesh) -> int:
+    """The launches one dispatch of ``site`` makes for each it makes
+    unsharded: one per distinct shard of its context (1 replicated)."""
+    ctx = mesh_ctx(cfg, site, rows, mesh)
+    if ctx is None:
+        return 1
+    return len(substrate._shard_coords(mesh, ctx.x_spec, ctx.w_spec,
+                                       ctx.out_spec))
+
+
+def mesh_launches(cfg, steps: dict, mesh) -> dict:
+    """Kernel launches of engine steps on ``mesh``: each step dispatches
+    :func:`step_sites`, each dispatch launching :func:`site_launches`
+    once per shard of its context.  ``steps``: rows per dispatch -> steps
+    (a decode step's rows are BATCH, a prefill chunk's BATCH x chunk)."""
+    want = {name: 0 for name in ag.LAUNCHES}
+    for rows, n in steps.items():
+        for site in step_sites(cfg):
+            shards = mesh_shards(cfg, site, rows, mesh)
+            for name, c in site_launches(cfg, site).items():
+                want[name] += c * shards * n
+    if cfg.compute_dtype == "float32":      # attn.pv reads the bf16 cache
+        for rows, n in steps.items():
+            want["arrayflex_expert_gemm_tc"] += n * mesh_shards(
+                cfg, "attn.pv", rows, mesh) * step_sites(cfg).count(
+                    "attn.pv")
+    return want
+
+
+def mesh_serving_run(cfg, params, prompts):
+    """Phase 5's requests on a ServingEngine at ``cfg.mesh_shape`` (its
+    mesh over the active logical devices), counted from 0 just before the
+    run and read just after, held to :func:`mesh_launches` over its
+    prefill-chunk and decode steps; the weight-block memo's size after
+    the run (the column blocks copied contiguous once)."""
+    substrate.clear_shard_cache()
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_batch=BATCH, max_seq=MAX_SEQ, seed=0))
+    reqs = [Request(prompt=p, max_new_tokens=MAX_NEW, rid=i)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    ag.reset_launches()                     # counts: 0 just before
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ag.LAUNCHES)            # read just after
+    if fa.LAUNCHES["flash_attention"]:
+        raise AssertionError("mesh serving launched flash attention (K3)")
+    st = engine.stats
+    what = (f"mesh {cfg.mesh_shape} serving {cfg.name} on "
+            f"{cfg.gemm_backend}/{cfg.compute_dtype}")
+    check_clean(what, engine, reqs)
+    steps = {BATCH: st["decode_dispatches"],
+             BATCH * engine.prefill_chunk: st["prefill_dispatches"]}
+    check_launches(what, launches, mesh_launches(cfg, steps, engine.mesh))
+    return dict(mesh=list(cfg.mesh_shape), backend=cfg.gemm_backend,
+                dtype=cfg.compute_dtype,
+                streams=[r.out_tokens for r in reqs], launches=launches,
+                wall_s=wall, decode_step_ms=1e3 * st["decode_time_s"]
+                / max(st["decode_dispatches"], 1),
+                prefill_time_s=st["prefill_time_s"],
+                prefill_chunk=engine.prefill_chunk,
+                shard_cache=substrate.shard_cache_info()), engine
+
+
+def _decode_logits(cfg, params, seed: int = 3):
+    """One full-batch decode step of ``cfg`` on a fresh fp32 cache at
+    position MAX_SEQ / 2, on the served tree."""
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, BATCH),
+                           device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    cache = lm.init_cache(cfg, BATCH, MAX_SEQ, dtype=torch.float32)
+    logits, _ = lm.decode_step(cfg, params, cache, toks, pos)
+    torch.cuda.synchronize()
+    return logits.float()
+
+
+def _sharded_close(what, got, want, card):
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, **SHARDED_TOL))
+    log(f"  {what}: max |sharded - unsharded| logit {err:.3g} "
+        f"(rtol {SHARDED_TOL['rtol']}, atol {SHARDED_TOL['atol']}): "
+        f"{'ok' if ok else 'FAIL'} (card: {card})")
+    if not ok:
+        raise AssertionError(f"{what}: sharded logits off by {err}")
+    return err
+
+
+def mesh_step_sites(cfg, params, mesh_shape):
+    """The K1 / K2 launches of one decode step of ``cfg`` at
+    ``mesh_shape`` (:func:`recorded_sites`: each shard's shape, flags and
+    k), with their per-step counts."""
+    c = dataclasses.replace(cfg, mesh_shape=mesh_shape)
+    p = lm.prequantize_params(c, lm.prepare_params(c, params))
+    cache = lm.init_cache(c, BATCH, MAX_SEQ)
+    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    with recorded_sites(f"{cfg.name} {mesh_shape}") as sites:
+        lm.decode_step(c, p, cache, toks, pos)
+    torch.cuda.synchronize()
+    return sites
+
+
+def mesh_phase(cfg, params, serving, card: str):
+    """Full-width ``cfg`` served by the ServingEngine over logical meshes
+    of the one card (:data:`MESH_SHAPES`, four logical devices = four
+    views of cuda:0): every shard of a sharded dispatch is its own K1 / K2
+    launch at the shard's shapes, one after another.
+
+    (a) bf16 on the three backends: every request ok, launches held to
+    :func:`mesh_launches` (shards x per-site launches x steps), the streams
+    recorded against phase 5's unsharded ones (a moved bf16 stream is
+    reported, not failed: a row-parallel site adds fp32 partials where
+    the unsharded kernel keeps one accumulator, and bf16 rounds after);
+    (b) fp32 on ``arrayflex`` and ``arrayflex_int8``: streams equal the
+    unsharded fp32 engine's; one decode step's logits within the
+    reference's sharded tolerance of the unsharded step's; (c) the
+    weight-block memo: its bytes, and a decode step's time with the memo
+    cold (the copies) and warm; (d) every K1 / K2 launch of a tp 2 (and
+    a (2, 2)) decode step checked against its plain version at the
+    shard's shape and k with kernel_tol, the tp 2 ones timed (kernel,
+    plain, library, bound); (e) one expert-parallel decode step of
+    qwen3-moe-30b-a3b at tp 2 (4 layers) and one mamba2-370m decode step
+    at tp 2, fp32, against their unsharded steps."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    out, runs, fp32_runs = {"serving": {}}, [], []
+    t_phase = time.perf_counter()
+    with mesh_lib.host_devices(4):
+        for shape in MESH_SHAPES:
+            for backend in BACKENDS:
+                c = dataclasses.replace(cfg, gemm_backend=backend,
+                                        mesh_shape=shape)
+                run, engine = mesh_serving_run(c, params, prompts)
+                colo = serving[backend]["streams"]
+                run["streams_equal_unsharded"] = run["streams"] == colo
+                run["first_divergence"] = _first_divergence(run["streams"],
+                                                            colo)
+                log(f"  (a) mesh {shape} {backend}/bf16: "
+                    f"{run['decode_step_ms']:.2f} ms/decode step (unsharded "
+                    f"{serving[backend]['decode_step_ms']:.2f}), streams "
+                    f"equal unsharded {run['streams_equal_unsharded']} "
+                    f"(first divergence {run['first_divergence']}); weight "
+                    f"blocks {run['shard_cache']['bytes'] / 2**20:.1f} MiB; "
+                    f"launches {({k: v for k, v in run['launches'].items() if v})} "
+                    f"(card: {card})")
+                out["serving"][f"{shape}/{backend}/bf16"] = run
+                runs.append(run)
+                del engine
+                _free()
+        for backend in ("arrayflex", "arrayflex_int8"):
+            c32 = dataclasses.replace(cfg, gemm_backend=backend,
+                                      compute_dtype="float32")
+            colo = serving_run_fp32(c32, params, prompts)
+            fp32_runs.append(colo["launches"])
+            p32 = lm.prequantize_params(c32, lm.prepare_params(c32, params))
+            want = _decode_logits(c32, p32)
+            for shape in MESH_SHAPES:
+                cm = dataclasses.replace(c32, mesh_shape=shape)
+                run, engine = mesh_serving_run(cm, params, prompts)
+                del engine
+                fp32_runs.append(run["launches"])
+                equal = run["streams"] == colo["streams"]
+                run["streams_equal_unsharded"] = equal
+                run["logit_err"] = _sharded_close(
+                    f"(b) mesh {shape} {backend}/fp32 decode step", 
+                    _decode_logits(cm, p32), want, card)
+                log(f"  (b) mesh {shape} {backend}/fp32: streams equal the "
+                    f"unsharded fp32 engine's: {equal} (card: {card})")
+                if not equal:
+                    raise AssertionError(
+                        f"(b) mesh {shape} {backend}/fp32: streams differ "
+                        f"from unsharded, first divergence "
+                        f"{_first_divergence(run['streams'], colo['streams'])}")
+                out["serving"][f"{shape}/{backend}/fp32"] = run
+            del p32
+            _free()
+        out["memo"] = mesh_memo_cost(cfg, params, card)
+        rows, errs = [], {}
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        for backend in BACKENDS:
+            c = dataclasses.replace(cfg, gemm_backend=backend)
+            sites = mesh_step_sites(c, params, (1, MESH_TP))
+            r, e = family_kernel_phase({f"decode tp2 {backend}": sites}, gen)
+            rows += r
+            for name, err in e.items():
+                errs[name] = max(errs.get(name, 0.0), err)
+            for site in mesh_step_sites(c, params, (2, 2)):
+                for dt in (torch.bfloat16, torch.float32):
+                    check_site(site, dt, gen, site.k)
+        out["sites"] = rows
+        out["max_err"] = errs
+        for key, t in family_totals(rows).items():
+            lib = t["library_ms"]
+            log(f"  (d) tp {MESH_TP} decode step {key}: kernel {t['ms']:.3f} "
+                f"/ plain {t['plain_ms']:.3f} / library "
+                f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (card: {card})")
+        out["moe_ssm"] = mesh_moe_ssm(card)
+        fp32_runs += [v.pop("launches") for v in out["moe_ssm"].values()]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  mesh phase: {out['seconds']:.1f} s (card: {card})")
+    out["runs"] = runs + [{"launches": v} for v in fp32_runs]
+    return out
+
+
+def mesh_memo_cost(cfg, params, card: str):
+    """(c): a tp 2 bf16 decode step with the weight-block memo cleared
+    (every column block copied contiguous, then kept) and the next steps
+    with it warm, host clock around a synchronized step; the memo's
+    blocks and bytes."""
+    c = dataclasses.replace(cfg, mesh_shape=(1, MESH_TP))
+    p = lm.prepare_params(c, params)
+    cache = lm.init_cache(c, BATCH, MAX_SEQ)
+    toks = torch.zeros(BATCH, dtype=torch.int64, device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    lm.decode_step(c, p, cache, toks, pos)       # plans, allocator
+    times = []
+    for i in range(6):
+        if i == 0:
+            substrate.clear_shard_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.decode_step(c, p, cache, toks, pos)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    info = substrate.shard_cache_info()
+    warm = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"  (c) weight-block memo at tp {MESH_TP}: {info['blocks']} blocks, "
+        f"{info['bytes'] / 2**20:.1f} MiB held beside the tree; decode step "
+        f"{times[0]:.2f} ms with the memo cold (copies) against "
+        f"{warm:.2f} ms warm (median of 5) (card: {card})")
+    del p, cache
+    substrate.clear_shard_cache()
+    _free()
+    return dict(blocks=info["blocks"], bytes=info["bytes"],
+                cold_step_ms=times[0], warm_step_ms=warm)
+
+
+def mesh_moe_ssm(card: str):
+    """(e): one decode step at tp 2 against the unsharded step, fp32
+    compute on bf16 parameters: qwen3-moe-30b-a3b cut to
+    MOE_PARITY_LAYERS layers (128 experts split 64 + 64: expert
+    parallel) and full-width mamba2-370m (mamba.z / xbc / dt
+    column-parallel, mamba.out row-parallel)."""
+    out = {}
+    for arch, layers in ((MOE_ARCH, MOE_PARITY_LAYERS), (SSM_ARCH, None)):
+        c = dataclasses.replace(get_config(arch), gemm_backend="arrayflex",
+                                compute_dtype="float32",
+                                param_dtype="bfloat16")
+        if layers:
+            c = dataclasses.replace(c, n_layers=layers)
+        p = lm.prepare_params(c, lm.init_params(c, seed=0))
+        want = _decode_logits(c, p)
+        cm = dataclasses.replace(c, mesh_shape=(1, MESH_TP))
+        ag.reset_launches()                 # counts: 0 just before
+        got = _decode_logits(cm, p)
+        launches = dict(ag.LAUNCHES)        # read just after
+        steps = {BATCH: 1}
+        mesh = sharding.mesh_from_config(cm)
+        want_l = mesh_launches(dataclasses.replace(
+            cm, compute_dtype="float32"), steps, mesh)
+        # the fresh fp32 cache: attn.pv multiplies fp32 operands (FFMA)
+        want_l["arrayflex_expert_gemm_tc"] = 0
+        check_launches(f"(e) {arch} tp {MESH_TP} decode step", launches,
+                       want_l)
+        out[arch] = dict(logit_err=_sharded_close(
+            f"(e) {arch} x{c.n_layers} tp {MESH_TP} decode step", got, want,
+            card), launches=launches)
+        del p
+        _free()
+    return out
+
+
+def pp_phase(cfg, params, serving, card: str):
+    """The DisaggServingEngine with 2 + 2 pods at pp = 2, dense K/V, over
+    four logical devices (two role windows of two stages), on the three
+    backends with the prefill chunk pinned to the colocated one, and on
+    ``arrayflex`` in fp32: a step's launches exactly the colocated
+    step's (each stage runs once, no placeholder ticks), handoff bytes =
+    handoffs x a row's, attn.wq launched at each role's k (the pinned
+    role table: (colocated, prefill, decode) = (4, 4, 2) at 128 rows and
+    (2, 2, 1) at 2048 on the 896 x 896 boundary site); streams equal
+    phase 5's colocated streams bit for bit (fp32: the fp32 colocated
+    engine's), but for W8A8 where a role re-picks attn.wq's k (its
+    activation tiles follow k): there the first divergence is reported
+    and two runs must agree."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in PROMPT_LENS]
+    # the reference's table prices one epilogue op; the served attn.wq
+    # also fuses the ln1 scale
+    table_ep = substrate.Epilogue(kind="none", bias=True)
+    wq_ep = substrate.Epilogue(kind="none", bias=cfg.qkv_bias,
+                               norm_scale=True)
+
+    def role_k(role, T, backend="arrayflex", ep=wq_ep):
+        t_ops, t_cyc = sharding.pp_transfer_terms(role, PP, T, cfg.d_model)
+        return substrate.plan_gemm(cfg.d_model, cfg.d_model, T, backend,
+                                   ep, substrate.ShardSig(
+                                       transfer_ops=t_ops,
+                                       transfer_cycles=t_cyc)).k
+
+    table = {T: tuple(role_k(r, T, ep=table_ep)
+                      for r in ("", "prefill", "decode"))
+             for T in (128, 2048)}
+    if table != {128: (4, 4, 2), 2048: (2, 2, 1)}:
+        raise AssertionError(f"the role table moved: {table}")
+    out, runs = {"role_table": table}, []
+    handoffs = sum(n > 1 for n in PROMPT_LENS)
+    t_phase = time.perf_counter()
+
+    def pp_run(bcfg, chunk):
+        with recorded_sites(f"{cfg.name} pp{PP}") as sites:
+            run, engine = disagg_run(bcfg, params, prompts, MAX_NEW,
+                                     DisaggServeConfig(
+                max_batch=BATCH, max_seq=MAX_SEQ, seed=0, prefill_pods=PP,
+                decode_pods=PP, pp_stages=PP, prefill_chunk=chunk))
+        if len(run["handoff_ms"]) != handoffs or engine.pp != PP:
+            raise AssertionError(f"pp {bcfg.gemm_backend}: "
+                                 f"{run['handoff_ms']}, pp {engine.pp}")
+        del engine
+        _free()
+        ks = {}
+        for st in sites:
+            if st.name == sharding.PP_BOUNDARY_SITE:
+                ks.setdefault(st.shape[0], set()).add(st.k)
+        be = bcfg.gemm_backend
+        want = {BATCH: {role_k("decode", BATCH, be)},
+                BATCH * chunk: {role_k("prefill", BATCH * chunk, be)}}
+        if ks != want:
+            raise AssertionError(f"pp {be}: attn.wq launched at k {ks}, "
+                                 f"the roles plan {want}")
+        run["attn_wq_k"] = {str(r): sorted(k) for r, k in ks.items()}
+        run["colocated_k"] = {str(r): role_k("", r, be) for r in ks}
+        return run
+
+    with mesh_lib.host_devices(2 * PP):
+        for backend, colo in serving.items():
+            bcfg = dataclasses.replace(cfg, gemm_backend=backend)
+            run = pp_run(bcfg, colo["prefill_chunk"])
+            _require_disagg(f"pp {backend}", run, None, transfer_retries=0,
+                            kernel_fault_retries=0, sample_retries=0)
+            run["streams_equal_colocated"] = run["streams"] == colo["streams"]
+            run["first_divergence"] = _first_divergence(run["streams"],
+                                                        colo["streams"])
+            moved_k = any(run["attn_wq_k"][r] != [run["colocated_k"][r]]
+                          for r in run["attn_wq_k"])
+            if substrate.backend_act_quantizes(backend) and moved_k:
+                # W8A8: the activation tiles span a k-wide main-loop step,
+                # so a role that re-picks attn.wq's k quantizes other
+                # tiles; the stream must repeat run to run
+                again = pp_run(bcfg, colo["prefill_chunk"])
+                if again["streams"] != run["streams"]:
+                    raise AssertionError(f"pp {backend}: two runs differ")
+                note = (f"streams equal colocated "
+                        f"{run['streams_equal_colocated']} (first divergence "
+                        f"{run['first_divergence']}: the roles re-pick "
+                        f"attn.wq's k, W8A8's tile width), identical run to "
+                        f"run")
+            elif not run["streams_equal_colocated"]:
+                raise AssertionError(
+                    f"pp {backend}: streams differ from colocated, first "
+                    f"divergence {run['first_divergence']}")
+            else:
+                note = "streams == colocated"
+            _log_disagg(f"pp {PP} {backend}: {note}, attn.wq k by rows "
+                        f"{run['attn_wq_k']} (colocated "
+                        f"{run['colocated_k']}), kv_transfer_bytes "
+                        f"{run['stats']['kv_transfer_bytes']} = {handoffs} x "
+                        f"{run['row_bytes']} B", run, colo, card)
+            out[backend] = run
+            runs.append(run)
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        colo = serving_run_fp32(c32, params, prompts)
+        run = pp_run(c32, colo["prefill_chunk"])
+        _require_disagg("pp fp32", run, colo["streams"], transfer_retries=0,
+                        kernel_fault_retries=0, sample_retries=0)
+        log(f"  pp {PP} arrayflex/fp32: streams == the fp32 colocated "
+            f"engine's, attn.wq k by rows {run['attn_wq_k']} (card: {card})")
+        out["fp32"] = run
+        runs += [run, {"launches": colo["launches"]}]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  pp phase: {out['seconds']:.1f} s (card: {card})")
+    out["runs"] = runs
+    return out
+
+# ---------------------------------------------------------------------------
 # phase 6: full-sequence prefill
 
 # prompt lengths of the full-sequence prefill (B = 1): the last one at or
@@ -3778,6 +4237,16 @@ def main() -> int:
     t0 = time.perf_counter()
     disagg = disagg_phase(cfg, params, serving, paged, card)
     log(f"  disaggregated phase: {time.perf_counter() - t0:.1f} s")
+    log(f"  the mesh: full-width {cfg.name} served over (1, 2) and (2, 2) "
+        f"meshes of four logical devices on the one card (each shard its "
+        f"own launch), its shard sites checked and timed, MoE and SSM "
+        f"decode steps at tp {MESH_TP} (card: {card})")
+    mesh = mesh_phase(cfg, params, serving, card)
+    for name, err in mesh.pop("max_err").items():
+        max_err[name] = max(max_err.get(name, 0.0), err)
+    log(f"  the pipeline: DisaggServingEngine, {PP} + {PP} pods at pp = "
+        f"{PP} over four logical devices (card: {card})")
+    pp = pp_phase(cfg, params, serving, card)
     log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
@@ -3849,6 +4318,7 @@ def main() -> int:
         {"launches": paged["arrayflex_w8a8"]["repeat_launches"]}]
     runs = (list(serving.values()) + list(moe_serving.values())
             + paged_runs + resilience["runs"] + disagg["runs"]
+            + mesh.pop("runs") + pp.pop("runs")
             + list(prefill.values())
             + ssm_runs + list(ssm_prefill.values()) + family_runs
             + [{"launches": v} for v in fp32_runs])
@@ -3875,6 +4345,7 @@ def main() -> int:
                   resilience={k: v for k, v in resilience.items()
                               if k != "runs"},
                   disagg={k: v for k, v in disagg.items() if k != "runs"},
+                  mesh=mesh, pp=pp,
                   prefill=prefill,
                   prefill_sites=prefill_sites_rows,
                   prefill_kernel_totals=prefill_totals, parity=parity,

@@ -103,11 +103,9 @@ class ModelConfig:
     gemm_backend: str = "xla"
     # --- sharded dispatch and pipeline roles -----------------------------
     # The reference's fields, with its defaults.  ``mesh_shape`` declares a
-    # (data, model) host mesh or a (pod, data, model) role mesh; ()
-    # dispatches unsharded.  The port has no mesh dispatch yet: the lm
-    # entry points raise for a mesh that would shard a GEMM (a 2-axis one,
-    # or a 3-axis one with a data or model axis > 1) unless
-    # ``gemm_sharding`` is "none" (parallel.sharding.check_mesh).
+    # (data, model) host mesh or a (pod, data, model) role mesh over the
+    # logical devices (launch.mesh); () dispatches unsharded, and so does
+    # ``gemm_sharding="none"`` (parallel.sharding.mesh_from_config).
     mesh_shape: Tuple[int, ...] = ()
     gemm_sharding: str = "auto"
     # The serving role this config plans for: "" (colocated), "prefill"

@@ -27,3 +27,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(t, dev):
+    """``t`` on ``dev``: itself when it lies there (or is not a tensor: a
+    Python scalar, None), else a copy."""
+    if not torch.is_tensor(t) or t.device == dev:
+        return t
+    return t.to(dev)

@@ -1,6 +1,6 @@
 """GEMM execution substrate: one dispatch layer for every model GEMM.
 
-Port of the reference's ``kernels/substrate.py`` (without the mesh).  Every
+Port of the reference's ``kernels/substrate.py``.  Every
 dense contraction in nn/ and models/ routes through :func:`gemm` (or
 :func:`batched_gemm` for the attention QK/PV products), which
 
@@ -61,23 +61,31 @@ sub-layer dispatches twice, as a cross-attending one does attn.qk and
 attn.pv, draws at each of its call sites there), and the engine runs a
 step that has completed once with the point inactive.
 
-**Shard contexts**: :func:`gemm`, :func:`batched_gemm` and
-:func:`expert_gemm` take ``shard=``.  The plan cache is keyed on
-``(M, N, T, backend, epilogue, shard)``, the :class:`ShardSig` pricing a
-sharded dispatch's per-shard shape, reduce tree and pipeline-stage
-transfer terms; without ``shard`` the key is :data:`SHARD_NONE` and the
-plans are the unsharded ones.  A pricing-only :class:`ShardCtx` (no mesh:
-a disaggregated role's boundary site under
+**Sharded dispatch**: :func:`gemm`, :func:`batched_gemm` and
+:func:`expert_gemm` take ``shard=`` (a :class:`ShardCtx`, derived per
+site by ``parallel.sharding.gemm_shard_ctx`` and friends under the mesh
+the lm entry points activate).  The plan cache is keyed on ``(M, N, T,
+backend, epilogue, shard)``: the :class:`ShardSig` prices a sharded
+dispatch's per-shard shape, its reduce tree and pipeline-stage transfer
+terms, so ``best_k`` is picked for the GEMM each shard runs.  Where the
+reference runs the backend inside ``jax.shard_map``, the port is a
+single controller: each distinct shard's GEMM is its own kernel launch at
+the shard's shapes on the shard's device (``DeviceMesh.device``), one
+after another; the psum of a sharded contraction is an fp32 sum in fixed
+shard order, the all-gather a copy of each block into the output on x's
+device.  A strided weight block (a column slice) is copied contiguous
+once per weight and block (:func:`shard_cache_info`).  A pricing-only
+context (no mesh: a disaggregated role's boundary site under
 ``parallel.sharding.use_pp_pricing``) plans under its signature and
-dispatches unsharded, as the reference's does.  A context with a mesh —
-sharded dispatch, and so expert parallelism — waits for the mesh slice
-and raises; so does the strict routing audit's port.
+dispatches unsharded, as the reference's does.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
+import itertools
 import math
 import weakref
 from dataclasses import dataclass, field
@@ -87,6 +95,7 @@ import torch
 
 from repro_torch.core import planner, timing
 from repro_torch.kernels import ops
+from repro_torch.kernels.runtime import to_device
 from repro_torch.kernels.arrayflex_gemm import (INV_127, apply_epilogue,
                                                 prologue_phase)
 from repro_torch.runtime import chaos
@@ -352,11 +361,12 @@ class ShardCtx:
     ``transfer_ops``/``transfer_cycles`` carry a pipeline-stage boundary
     price into the :class:`ShardSig`.
 
-    A **pricing-only** context (``mesh is None``, replicated specs — built
+    A context with a mesh runs each distinct shard's GEMM as its own
+    launch at the shard's shapes on the shard's device
+    (``mesh.device(coord)``) and gathers the blocks on x's device.  A
+    **pricing-only** context (``mesh is None``, replicated specs — built
     by ``parallel.sharding.pricing_shard_ctx``) keys and prices the plan
     with its signature and dispatches unsharded, as the reference's does.
-    A context with a mesh belongs to the mesh slice: the dispatch entries
-    raise for it.
     """
 
     mesh: Any
@@ -387,13 +397,122 @@ class ShardCtx:
                 and N_out % s.cols == 0)
 
 
-def _unsharded(shard: Optional[ShardCtx], site: str):
-    """The dispatch entries run a pricing-only context (or none); a
-    context with a mesh raises until the mesh slice."""
-    if shard is not None and shard.mesh is not None:
-        from repro_torch.parallel.sharding import MESH_SLICE
-        raise NotImplementedError(
-            f"site {site!r}: a ShardCtx with a mesh: {MESH_SLICE}")
+# ---------------------------------------------------------------------------
+# shard execution (single controller: each shard's GEMM is its own launch
+# at the shard's shapes, on the shard's device, one after another)
+
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _shard_coords(mesh, *specs):
+    """One coordinate (mesh axis name -> index) per distinct shard of a
+    dispatch: every combination of the axes ``specs`` name, row-major in
+    the mesh's axis order.  Axes no spec names would only replicate the
+    same block, so they stay at index 0 (one launch a distinct block)."""
+    used = {a for spec in specs for e in spec for a in _spec_axes(e)}
+    names = [a for a in mesh.axis_names if a in used]
+    return [dict(zip(names, idx)) for idx in itertools.product(
+        *(range(mesh.shape[a]) for a in names))]
+
+
+def _block_index(shape, spec, coord, mesh) -> tuple:
+    """The slices of ``coord``'s block of an operand of ``shape`` laid out
+    by ``spec`` (a dim split over several axes: the first axis major)."""
+    from repro_torch.parallel.sharding import mesh_axis_size
+    idx = []
+    for size, entry in zip(shape, spec):
+        n, i = 1, 0
+        for a in _spec_axes(entry):
+            s = mesh_axis_size(mesh, a)
+            i = i * s + coord.get(a, 0)
+            n *= s
+        b = size // n
+        idx.append(slice(i * b, (i + 1) * b))
+    return tuple(idx)
+
+
+def _call_block(t, spec, coord, mesh, dev):
+    """A per-call operand's block on ``dev`` — an activation, a residual,
+    a bias, a scale — contiguous (a column slice of a row-major
+    activation is strided: it is copied each call)."""
+    if t is None:
+        return None
+    return to_device(t[_block_index(t.shape, spec, coord, mesh)].contiguous(),
+                     dev)
+
+
+# id(base tensor) -> (weakref to it, {block key: contiguous block on its
+# device}).  A weight's column block is strided in its row-major storage
+# and a kernel wants it contiguous: it is copied once per (weight, block,
+# device) and reused by every later dispatch.  Keyed on the storage a
+# weight view lies in (the stacked layer tensor a per-layer view slices),
+# so the per-step views of one served tree hit; the weakref's death
+# callback evicts a tree's blocks with it.
+_SHARD_CACHE: Dict[int, tuple] = {}
+SHARD_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def _weight_block(w, spec, coord, mesh, dev):
+    """A weight operand's block on ``dev``: the view itself when it is
+    contiguous there (a row block, an expert slice), else the memoized
+    contiguous copy."""
+    if w is None:
+        return None
+    blk = w[_block_index(w.shape, spec, coord, mesh)]
+    if blk.device == dev and blk.is_contiguous():
+        return blk
+    base = w if w._base is None else w._base
+    ent = _SHARD_CACHE.get(id(base))
+    if ent is None or ent[0]() is not base:
+        ent = (weakref.ref(base, lambda _, k=id(base):
+                           _SHARD_CACHE.pop(k, None)), {})
+        _SHARD_CACHE[id(base)] = ent
+    key = (blk.storage_offset(), tuple(blk.shape), tuple(blk.stride()),
+           str(dev))
+    got = ent[1].get(key)
+    if got is None:
+        SHARD_CACHE_STATS["misses"] += 1
+        got = ent[1][key] = blk.contiguous().to(dev)
+    else:
+        SHARD_CACHE_STATS["hits"] += 1
+    return got
+
+
+def place_weight(w, dev):
+    """``w`` on ``dev``: itself when it lies there, else its memoized copy
+    (a pipeline stage's weights on the stage's device)."""
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(place_weight(w.codes, dev),
+                               place_weight(w.scale, dev))
+    return _weight_block(w, (), {}, None, dev)
+
+
+def shard_cache_info() -> Dict[str, int]:
+    """hits / misses of the weight-block memo, the blocks it holds and
+    their bytes."""
+    blocks = [t for _, d in _SHARD_CACHE.values() for t in d.values()]
+    return dict(SHARD_CACHE_STATS, blocks=len(blocks),
+                bytes=sum(t.numel() * t.element_size() for t in blocks))
+
+
+def clear_shard_cache():
+    _SHARD_CACHE.clear()
+    for k in SHARD_CACHE_STATS:
+        SHARD_CACHE_STATS[k] = 0
+
+
+def _assemble(blocks, shape, home):
+    """The full tensor of ``blocks`` ((slices, block) pairs covering
+    ``shape``) on ``home``: the all-gather."""
+    out = None
+    for idx, blk in blocks:
+        if out is None:
+            out = torch.empty(shape, dtype=blk.dtype, device=home)
+        out[idx] = blk
+    return out
 
 
 @dataclass(frozen=True)
@@ -787,6 +906,77 @@ def _epilogue_spec(epilogue: str, w2, bias, bias2, residual=None,
 # ---------------------------------------------------------------------------
 # dispatch
 
+def _sharded_gemm(fn, x2, w, plan: GemmPlan, ctx: ShardCtx, call: GemmCall):
+    """Run one planned 2-D GEMM over ``ctx``'s mesh: each distinct shard
+    launches the per-shard GEMM through ``fn`` at the plan's k on its
+    device, and the blocks gather on x's device.
+
+    The (N_out,) operands — dequant scales and fused biases — follow the
+    output-column axis: sliced on a column-parallel weight, whole on a
+    row-parallel one; the residual is output-shaped and follows the
+    output; the (K,) rmsnorm scale follows x's contraction axis, so each
+    shard scales exactly the x columns it contracts.
+
+    A sharded contraction (``ctx.reduce_axes``) runs the contraction(s)
+    only on each shard, at the SAME k the reduce-priced plan picked, into
+    fp32 partials that each shard dequantizes itself (per-column scales
+    distribute over the K sum) — under W8A8 each shard quantizes its own
+    x slice's tiles, as the reference's per-shard quantizer does.  The
+    partials add in fp32 in fixed shard order (the psum); then bias,
+    activation and gate, then the residual, then one cast — a bias or
+    residual added per shard would count it once per shard.  The fused
+    swiglu's second contraction reduces apart, before the gate."""
+    mesh = ctx.mesh
+    reduce = bool(ctx.reduce_axes)
+    col = (ctx.w_spec[1],)
+    home = x2.device
+    shape = (x2.shape[0], w.shape[-1])
+    exec_plan = (dataclasses.replace(plan, epilogue=EPILOGUE_NONE)
+                 if reduce else plan)
+    blocks, partials = [], {}
+    for c in _shard_coords(mesh, ctx.x_spec, ctx.w_spec, ctx.out_spec):
+        dev = mesh.device(c)
+        xs = _call_block(x2, ctx.x_spec, c, mesh, dev)
+        ws = _weight_block(w, ctx.w_spec, c, mesh, dev)
+        w2s = _weight_block(call.w2, ctx.w_spec, c, mesh, dev)
+        ss = _call_block(call.w_scale, col, c, mesh, dev)
+        s2s = _call_block(call.w2_scale, col, c, mesh, dev)
+        gs = _call_block(call.norm_scale, (ctx.x_spec[1],), c, mesh, dev)
+        oi = _block_index(shape, ctx.out_spec, c, mesh)
+        if not reduce:
+            y = fn(xs, ws, plan, GemmCall(
+                out_dtype=call.out_dtype, w2=w2s,
+                bias=_call_block(call.bias, col, c, mesh, dev),
+                bias2=_call_block(call.bias2, col, c, mesh, dev),
+                residual=_call_block(call.residual, ctx.out_spec, c, mesh,
+                                    dev),
+                norm_scale=gs, w_scale=ss, w2_scale=s2s))
+            blocks.append((oi, to_device(y, home)))
+            continue
+        pc = GemmCall(out_dtype=torch.float32, w_scale=ss, norm_scale=gs)
+        y = to_device(fn(xs, ws, exec_plan, pc), home)
+        y2 = (None if w2s is None else to_device(fn(
+            xs, w2s, exec_plan, dataclasses.replace(pc, w_scale=s2s)), home))
+        key = tuple((sl.start, sl.stop) for sl in oi)
+        if key in partials:                 # the psum, in shard order
+            _, acc, acc2 = partials[key]
+            y = acc + y
+            y2 = None if y2 is None else acc2 + y2
+        partials[key] = (oi, y, y2)
+    if not reduce:
+        return _assemble(blocks, shape, home)
+    y = _assemble([(oi, a) for oi, a, _ in partials.values()], shape, home)
+    y2 = (None if plan.epilogue.contractions == 1 else _assemble(
+        [(oi, a2) for oi, _, a2 in partials.values()], shape, home))
+    out = apply_epilogue(
+        y, y2, None if call.bias is None else call.bias.float(),
+        None if call.bias2 is None else call.bias2.float(),
+        plan.epilogue.activation)
+    if call.residual is not None:    # the residual joins after the epilogue
+        out = call.residual.float() + out
+    return out.to(call.out_dtype or x2.dtype)
+
+
 def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
          epilogue: str = "none", w2=None, bias=None, bias2=None,
          residual=None, norm_scale=None, shard: Optional[ShardCtx] = None):
@@ -806,15 +996,18 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     :data:`QUANT_EXEMPT_SITES` keeps its float weight and plans on the
     fp32 base.
 
-    ``shard`` (``parallel.sharding.gemm_shard_ctx``): a pricing-only
-    context plans under its signature — a pipeline role's transfer terms —
-    and dispatches unsharded, as the reference's does; it is dropped when
-    the GEMM is empty or its dims do not divide.  A context with a mesh
-    raises (the mesh slice).
+    ``shard`` (``parallel.sharding.gemm_shard_ctx``) plans on the
+    post-partition per-shard (M, N, T), keyed in the plan cache by the
+    shard signature, and runs each shard's GEMM as its own launch
+    (:func:`_sharded_gemm`); the dispatch counts once in
+    :data:`DISPATCH_COUNTS`, as the reference's traced shard_map does.  A
+    pricing-only context plans under its signature — a pipeline role's
+    transfer terms — and dispatches unsharded.  A context is dropped
+    (replicated dispatch) when the GEMM is empty or its dims do not
+    divide.
     """
     fn = get_backend(backend)
     _maybe_chaos_fault(site)
-    _unsharded(shard, site)
     info = _BACKEND_INFO[backend]
     if norm_scale is not None and tuple(norm_scale.shape) != (x.shape[-1],):
         raise ValueError(
@@ -856,7 +1049,11 @@ def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
     plan = plan_gemm(N_out, K, T, plan_backend, ep,
                      SHARD_NONE if shard is None else shard.signature())
     _record(site, plan)
-    return fn(x2, w, plan, call).reshape(*lead, N_out)
+    if shard is not None and shard.mesh is not None:
+        out = _sharded_gemm(fn, x2, w, plan, shard, call)
+    else:
+        out = fn(x2, w, plan, call)
+    return out.reshape(*lead, N_out)
 
 
 def _batched_exec(x, w, plan: GemmPlan, backend: str, out_dtype):
@@ -899,13 +1096,14 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     quantizes both operands on :data:`BATCHED_ACTQ_SITES` (``attn.qk``),
     planned on the w8a8 datapath; ``attn.pv`` runs on the fp32 base.
 
-    ``shard`` splits the batch dim over a mesh in the reference, which
-    leaves the per-element plan unchanged; here a context with a mesh
-    raises (the mesh slice) and a pricing-only one dispatches as None.
+    ``shard`` (``parallel.sharding.batched_shard_ctx``) splits the batch
+    dim over the mesh: each shard runs ONE launch over its batch slice on
+    its device.  Batch sharding leaves the per-element (M, N, T), and so
+    the plan, unchanged.  Custom backends, indivisible batches and a
+    pricing-only context dispatch replicated.
     """
     check_backend(backend)
     _maybe_chaos_fault(site)
-    _unsharded(shard, site)
     if backend in _QUANT_FP32_BASE and not (
             _BACKEND_INFO[backend].act_quantize and _is_builtin(backend)
             and site in BATCHED_ACTQ_SITES):
@@ -913,6 +1111,21 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
     B, T, K = x.shape
     N_out = w.shape[-1]
     plan = plan_gemm(N_out, K, T, backend)
+    if shard is not None and (shard.mesh is None or not _is_builtin(backend)
+                              or B % shard.axis_shards(shard.x_spec[0])):
+        shard = None
+    if shard is not None:
+        _record(site, plan)
+        mesh, blocks = shard.mesh, []
+        for c in _shard_coords(mesh, shard.x_spec, shard.w_spec,
+                               shard.out_spec):
+            dev = mesh.device(c)
+            y = _batched_exec(_call_block(x, shard.x_spec, c, mesh, dev),
+                              _call_block(w, shard.w_spec, c, mesh, dev),
+                              plan, backend, out_dtype)
+            blocks.append((_block_index((B, T, N_out), shard.out_spec, c,
+                                        mesh), to_device(y, x.device)))
+        return _assemble(blocks, (B, T, N_out), x.device)
     if _is_builtin(backend):
         _record(site, plan)
         return _batched_exec(x, w, plan, backend, out_dtype)
@@ -960,13 +1173,15 @@ def expert_gemm(x, w, *, site: str = "", backend: str = "xla",
     :func:`quantize_weight` memo.  Under W8A8 the expert kernel also
     quantizes its activation tiles whenever the bank is quantized.
 
-    ``shard`` runs expert-parallel over a mesh in the reference (the
-    per-expert plan unchanged); here a context with a mesh raises (the
-    mesh slice) and a pricing-only one dispatches as None.
+    ``shard`` (``parallel.sharding.expert_shard_ctx``) runs
+    expert-parallel: the expert axis splits over the mesh and each shard
+    launches once over its experts on its device (the per-expert shape,
+    and so the plan, unchanged); a quantized bank's (E, N) scales split
+    with it.  Custom backends, indivisible expert counts and a
+    pricing-only context dispatch replicated.
     """
     check_backend(backend)
     _maybe_chaos_fault(site)
-    _unsharded(shard, site)
     G, E, C, K = x.shape
     N_out = w.shape[-1]
     info = _BACKEND_INFO[backend]
@@ -981,6 +1196,22 @@ def expert_gemm(x, w, *, site: str = "", backend: str = "xla",
         w, w_scale = quantize_weight(w)
     actq = bool(info.act_quantize and w_scale is not None)
     plan = plan_gemm(N_out, K, G * C, backend)
+    if shard is not None and (shard.mesh is None or not _is_builtin(backend)
+                              or E % shard.axis_shards(shard.x_spec[1])):
+        shard = None
+    if shard is not None:
+        _record(site, plan)
+        mesh, blocks = shard.mesh, []
+        for c in _shard_coords(mesh, shard.x_spec, shard.w_spec,
+                               shard.out_spec):
+            dev = mesh.device(c)
+            y = _expert_exec(
+                _call_block(x, shard.x_spec, c, mesh, dev),
+                _weight_block(w, shard.w_spec, c, mesh, dev), plan, backend,
+                _call_block(w_scale, shard.w_spec[:1], c, mesh, dev), actq)
+            blocks.append((_block_index((G, E, C, N_out), shard.out_spec, c,
+                                        mesh), to_device(y, x.device)))
+        return _assemble(blocks, (G, E, C, N_out), x.device)
     if _is_builtin(backend):
         _record(site, plan)
         return _expert_exec(x, w, plan, backend, w_scale, actq)

@@ -77,9 +77,27 @@ CPU:
 
 It prints a ``disagg:`` line with the pods and the prefill role's chunk,
 and, in the report, the mean virtual TTFT (each request's own role time)
-and the role makespan against the colocated sum.  ``--pp`` (pipeline
-stages), ``--tp``, ``--fsdp`` and ``--host-devices`` come with the mesh
-slice.
+and the role makespan against the colocated sum.
+
+The mesh flags: ``--tp T`` / ``--fsdp F`` shard every GEMM dispatch over
+an (F, T) ("data", "model") mesh — column-parallel sites split their
+output columns, row-parallel ones their contraction, each shard its own
+kernel launch at the shard's shapes — and print a ``mesh:`` line;
+``--pp P`` with ``--prefill-pods P --decode-pods P`` pipelines each role's
+layers over P stages (dense K/V, batched prefill).  ``--host-devices N``
+fans the process out to N logical devices laid round-robin over the
+physical devices of ``--device``'s type (N x cpu on the CPU, N x cuda:0 on
+one card); a mesh that needs more devices than exist raises.  E.g. on
+the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --gemm-backend arrayflex --tp 2 --fsdp 2 --host-devices 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --gemm-backend arrayflex --pp 2 --prefill-pods 2 --decode-pods 2 \
+      --host-devices 4
+
+On one card the shards and stages run one after another on it: the mesh
+shows the sharded launch structure and its results, not a speed-up.
 
 Prints per-request outputs with their outcome, plus per-phase timing:
 prefill and decode throughput (tokens/s), dispatch counts, and mean
@@ -88,12 +106,14 @@ time-to-first-token.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import time
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import substrate
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.runtime import chaos
 from repro_torch.serving import (AdmissionError, DisaggServeConfig,
@@ -221,6 +241,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "in turn, with per-role clocks)")
     ap.add_argument("--decode-pods", type=int, default=0,
                     help="disaggregated serving: pods in the decode role")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages over the 'pod' axis within each "
+                         "role; requires --prefill-pods == --decode-pods "
+                         "== PP and dense K/V")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (mesh 'model' axis); "
+                         "GEMMs plan and launch per shard")
+    ap.add_argument("--fsdp", type=int, default=1,
+                    help="FSDP/data-parallel degree (mesh 'data' axis)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="fan the process out to N logical devices over "
+                         "the physical devices of --device's type (the "
+                         "meshes are built over them)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the kernels' "
                          "plain PyTorch versions)")
@@ -232,6 +265,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prefix_cache and not args.kv_pages:
         ap.error("--prefix-cache requires --kv-pages (paged mode)")
+    disagg = args.prefill_pods > 0 or args.decode_pods > 0
+    if args.pp > 1 and not disagg:
+        ap.error("--pp requires disaggregated serving "
+                 "(--prefill-pods/--decode-pods)")
+    with (mesh_lib.host_devices(args.host_devices, args.device)
+          if args.host_devices else contextlib.nullcontext()):
+        return _serve(args, disagg)
+
+
+def _serve(args, disagg: bool):
 
     cfg = get_config(args.arch)
     lm.check_supported(cfg)
@@ -242,6 +285,10 @@ def main(argv=None):
         cfg, gemm_backend=args.gemm_backend,
         param_dtype=cfg.param_dtype if args.reduced else "bfloat16",
         n_layers=args.n_layers or cfg.n_layers)
+    if args.tp > 1 or args.fsdp > 1:
+        cfg = dataclasses.replace(cfg, mesh_shape=(args.fsdp, args.tp))
+        print(f"mesh: data={args.fsdp} x model={args.tp} over "
+              f"{len(mesh_lib.devices())} host devices")
     params = lm.init_params(cfg, seed=0, device=args.device)
     chaos_cfg = chaos.parse_spec(args.chaos) if args.chaos else None
     snapshot_every = args.snapshot_every
@@ -257,11 +304,11 @@ def main(argv=None):
                      ttft_deadline_ms=args.ttft_deadline_ms,
                      preempt_policy=args.preempt_policy,
                      snapshot_every_ticks=snapshot_every, chaos=chaos_cfg)
-    if args.prefill_pods > 0 or args.decode_pods > 0:
+    if disagg:
         engine_cls = DisaggServingEngine
         sc = DisaggServeConfig(prefill_pods=max(1, args.prefill_pods),
                                decode_pods=max(1, args.decode_pods),
-                               **sc_kwargs)
+                               pp_stages=max(1, args.pp), **sc_kwargs)
     else:
         engine_cls = ServingEngine
         sc = ServeConfig(**sc_kwargs)

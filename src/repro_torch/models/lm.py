@@ -61,15 +61,16 @@ leaves; decode reads them and never writes them.  Served from
 ``init_cache``, they are zeros, as in the reference's engine, which has
 no request field for a context.
 
-The entry points (``forward``, ``decode_step``, ``prefill_step`` and the
-paged steps) run inside ``parallel.sharding.gemm_mesh_scope(cfg)``, as
-the reference's do: a config's ``pp_role`` / ``pp_stages`` price the
-pipeline stage boundary into the boundary site's plan (``attn.wq``
-re-picks k under the role's transfer terms; the values do not change),
-which is how a disaggregated engine's prefill and decode roles plan
-apart on one device.  A ``mesh_shape`` that would shard a GEMM raises
-there.  The mesh, the pipeline-sharded steps (``decode_step_pp`` /
-``prefill_step_pp``) and their GPipe stages wait for the mesh slice.
+The entry points (``forward``, ``decode_step``, ``prefill_step``, the
+paged steps and the pipelined ones) run inside
+``parallel.sharding.gemm_mesh_scope(cfg)``, as the reference's do: a
+``mesh_shape`` activates the sharded GEMM dispatch (every site derives
+its shard context, and the substrate plans and launches per shard), and
+a config's ``pp_role`` / ``pp_stages`` price the pipeline stage boundary
+into the boundary site's plan (``attn.wq`` re-picks k under the role's
+transfer terms; the values do not change).  ``decode_step_pp`` /
+``prefill_step_pp`` run the dense stack as GPipe stages over a role
+mesh's "pod" axis (``parallel.pipeline.staged_step``).
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import substrate
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.runtime import resolve_device, to_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers
 from repro_torch.nn import mamba as mamba_lib
@@ -890,6 +891,111 @@ def _last_logits(cfg, params, x, lengths):
     last = torch.clamp(lengths - 1, 0, x.shape[1] - 1)
     x = torch.take_along_dim(x, last[:, None, None], dim=1)           # (B,1,d)
     return _logits(cfg, params, x, _cdtype(cfg))[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# pipeline-sharded serving steps (GPipe stages over the "pod" mesh axis)
+
+def supports_pipeline(cfg: ModelConfig) -> bool:
+    """True when the pp step functions reproduce the dense path bit for
+    bit: plain causal-attention + dense-MLP stack (the batched-prefill
+    gate) whose ``n_super`` super-blocks split evenly over the stages."""
+    pp = cfg.pp_stages
+    return (pp > 1 and len(cfg.mesh_shape) == 3
+            and cfg.mesh_shape[0] == pp and n_super(cfg) % pp == 0
+            and supports_batched_prefill(cfg))
+
+
+def _check_pp(cfg: ModelConfig):
+    if not supports_pipeline(cfg):
+        raise ValueError(
+            "pipeline step needs pp_stages > 1, a 3-axis mesh_shape whose "
+            "'pod' axis equals pp_stages, n_super %% pp == 0 and a "
+            "batched-prefill-capable (dense causal) architecture; got "
+            f"pp_stages={cfg.pp_stages} mesh_shape={cfg.mesh_shape} "
+            f"n_super={n_super(cfg)} family={cfg.family}")
+
+
+def _placed(tree, dev):
+    """A parameter subtree on ``dev`` (the substrate's weight memo: each
+    leaf copied once per device, itself where it already lies)."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, dev) for k, v in tree.items()}
+    return substrate.place_weight(tree, dev)
+
+
+def _pp_step(cfg: ModelConfig, params, cache, tokens, pos, lengths):
+    """The pipeline-sharded decode / prefill step both entries share.
+
+    Stage ``s`` of cfg's (pod, data, model) role mesh owns the contiguous
+    super-blocks ``[s*NS/pp, (s+1)*NS/pp)`` and their cache slice and runs
+    them on its device (``parallel.pipeline.staged_step``: once each, in
+    order, the activation hopping to the next stage's device).  Each
+    stage runs the SAME sub-layer functions as the colocated path, so the
+    values are the colocated step's; only the ``attn.wq`` boundary GEMM
+    plans under the role's transfer pricing (``sharding.use_pp_pricing``).
+    The final norm and the logits run on the last stage (the only one
+    that holds the model's output) and come back to the caller's device.
+
+    The caches stay on the caller's device: a stage on another device
+    works on a copy of its slice and writes it back (on one card every
+    logical device is the same one, and nothing moves)."""
+    from repro_torch.parallel import pipeline
+    mesh = sharding.mesh_from_config(cfg)
+    devices = pipeline.stage_devices(mesh)
+    Pd, cd = period(cfg), _cdtype(cfg)
+    per = n_super(cfg) // cfg.pp_stages
+    decode = lengths is None
+    x0 = layers.embed(params["embed"], tokens, cd)
+    home = x0.device
+
+    def stage_fn(s, x, _state):
+        dev = x.device
+        p_pos, p_len = to_device(pos, dev), to_device(lengths, dev)
+        for l in range(s * per, (s + 1) * per):
+            for i in range(Pd):
+                p = _placed(_layer(params["blocks"][i], l), dev)
+                c = _layer(cache[i], l)
+                cs = {k: to_device(t, dev) for k, t in c.items()}
+                if decode:
+                    with substrate.chaos_sublayer(i):
+                        x, _ = sublayer_decode(p, cfg, i, x, cs, p_pos)
+                else:
+                    x, _ = sublayer_prefill(p, cfg, i, x, cs, p_pos, p_len)
+                for k, t in cs.items():
+                    if t is not c[k]:
+                        c[k].copy_(t)
+        return x, None
+
+    y, _ = pipeline.staged_step(stage_fn, x0, [None] * len(devices),
+                                devices)
+    last = _placed({k: v for k, v in params.items() if k != "blocks"},
+                   y.device)
+    if decode:
+        x = layers.rmsnorm(last["final_norm"], y, cfg.rms_eps)
+        logits = _logits(cfg, last, x, cd)[:, 0]
+    else:
+        logits = _last_logits(cfg, last, y, to_device(lengths, y.device))
+    return to_device(logits, home), cache
+
+
+def decode_step_pp(cfg: ModelConfig, params, cache, token, pos):
+    """Pipeline-sharded twin of :func:`decode_step` (dense cache only).
+
+    token: (B,) int; pos: scalar or (B,) int.  Returns (logits (B,V),
+    cache) equal to :func:`decode_step`'s, the K/V updated in place."""
+    substrate.check_backend(cfg.gemm_backend)
+    _check_pp(cfg)
+    with sharding.gemm_mesh_scope(cfg):
+        return _pp_step(cfg, params, cache, token[:, None], pos, None)
+
+
+def prefill_step_pp(cfg: ModelConfig, params, cache, tokens, pos, lengths):
+    """Pipeline-sharded twin of :func:`prefill_step` (dense cache only)."""
+    substrate.check_backend(cfg.gemm_backend)
+    _check_pp(cfg)
+    with sharding.gemm_mesh_scope(cfg):
+        return _pp_step(cfg, params, cache, tokens, pos, lengths)
 
 
 def supports_paged_kv(cfg: ModelConfig) -> bool:

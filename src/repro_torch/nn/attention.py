@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels import substrate
+from repro_torch.parallel import sharding
 
 NEG_INF = -1e30
 
@@ -45,7 +46,8 @@ def qk_scores(qg, k, *, backend="xla"):
     qb = qg.permute(0, 2, 3, 1, 4).reshape(B * KV, g * S, D).contiguous()
     kb = k.permute(0, 2, 3, 1).reshape(B * KV, D, T).contiguous()
     s = substrate.batched_gemm(qb, kb, site="attn.qk", backend=backend,
-                               out_dtype=torch.float32)
+                               out_dtype=torch.float32,
+                               shard=sharding.batched_shard_ctx(B * KV))
     return s.reshape(B, KV, g, S, T)
 
 
@@ -59,7 +61,8 @@ def pv_mix(w, v, *, backend="xla"):
     D = v.shape[-1]
     pb = w.reshape(B * KV, g * S, T).contiguous()
     vb = v.permute(0, 2, 1, 3).reshape(B * KV, T, D).contiguous()
-    o = substrate.batched_gemm(pb, vb, site="attn.pv", backend=backend)
+    o = substrate.batched_gemm(pb, vb, site="attn.pv", backend=backend,
+                               shard=sharding.batched_shard_ctx(B * KV))
     return o.reshape(B, KV, g, S, D).permute(0, 3, 1, 2, 4)
 
 

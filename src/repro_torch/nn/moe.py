@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import substrate
 from repro_torch.nn import layers
+from repro_torch.parallel import sharding
 
 # a list while :func:`record_routing` is active: each moe_apply call
 # appends its (top-k expert ids, kept) pair
@@ -100,7 +101,9 @@ def moe_apply(p, x, *, top_k, capacity_factor=1.25, groups=0,
     xf = x.reshape(G, Tg, d)
 
     logits = substrate.gemm(xf.float(), p["router"], site="moe.router",
-                            backend=backend)
+                            backend=backend,
+                            shard=sharding.gemm_shard_ctx(
+                                "moe.router", G * Tg, d, E))
     probs, top_vals, top_idx = _route(logits, top_k)      # (G,Tg,k)
 
     flat_e = top_idx.reshape(G, TK)
@@ -141,14 +144,20 @@ def moe_apply(p, x, *, top_k, capacity_factor=1.25, groups=0,
     he = he.reshape(G, E, cap, d) * slot_valid[..., None].to(cd)
 
     # ---- expert GEMMs: every expert of a site in one dispatch (a
-    # QuantizedTensor bank's dtype cast is a no-op)
+    # QuantizedTensor bank's dtype cast is a no-op); under a mesh the
+    # expert axis shards over "model" when E % tp == 0, else the dispatch
+    # stays replicated
+    esh = sharding.expert_shard_ctx(E)
     wg = p["wi_gate"].to(cd)
     wu = p["wi_up"].to(cd)
     wo = p["wo"].to(cd)
-    hg = substrate.expert_gemm(he, wg, site="moe.wi_gate", backend=backend)
-    hu = substrate.expert_gemm(he, wu, site="moe.wi_up", backend=backend)
+    hg = substrate.expert_gemm(he, wg, site="moe.wi_gate", backend=backend,
+                               shard=esh)
+    hu = substrate.expert_gemm(he, wu, site="moe.wi_up", backend=backend,
+                               shard=esh)
     h = F.silu(hg) * hu
-    hout = substrate.expert_gemm(h, wo, site="moe.wo", backend=backend)
+    hout = substrate.expert_gemm(h, wo, site="moe.wo", backend=backend,
+                                 shard=esh)
 
     # ---- combine back (gather token slots, weight, sum over k)
     dst = torch.where(keep, flat_e * cap + rank, 0)          # (G,TK)

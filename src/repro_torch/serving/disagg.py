@@ -23,12 +23,20 @@ reference's prefill and decode pods), each under its own objective:
 
 At ``pp_stages = 1`` the reference's pods are counts: it places no cache
 on a device window, and its measurement model is one process that runs
-both roles in turn.  So this engine is the reference's semantics on one
-card.  The role configs carry ``pp_role``; with ``pp_stages <= 1`` the
-pricing scope the lm entry points enter is inert and each role's plans
-are the colocated ones.  ``pp_stages > 1`` (GPipe stages over each role's
-pods) waits for the mesh slice: the constructor raises once the
-reference's validations pass.
+both roles in turn.  The role configs carry ``pp_role``; with
+``pp_stages <= 1`` the pricing scope the lm entry points enter is inert
+and each role's plans are the colocated ones.
+
+``pp_stages > 1`` pipelines each role's layers over its pods: the role
+configs take a (pp, 1, 1) role mesh (the prefill pods' device window
+``[0, pp)``, the decode pods' after it, strict: a host with fewer
+devices raises at construction) and the steps run through
+``lm.prefill_step_pp`` / ``lm.decode_step_pp``, each stage once on its
+device; the handoff moves a row onto the decode cache's device.  The
+reference's checks hold: dense K/V, ``prefill_pods == decode_pods ==
+pp_stages`` and the batched prefill.  On one card every logical device
+is the same one: the stages run one after another there and the caches
+stay where the engine made them.
 
 **Equivalence.**  Greedy streams equal the colocated engine's: K/V writes
 are per-position projections (chunking never changes them), the handoff
@@ -93,8 +101,8 @@ class DisaggServeConfig(ServeConfig):
 
     ``prefill_pods`` / ``decode_pods`` size the two roles; ``pp_stages``
     pipelines layers over each role's pods (``1`` = no pipeline; ``> 1``
-    requires ``prefill_pods == decode_pods == pp_stages`` and dense K/V,
-    and the mesh slice)."""
+    requires ``prefill_pods == decode_pods == pp_stages``, dense K/V and
+    the two role windows' devices)."""
 
     prefill_pods: int = 1
     decode_pods: int = 1
@@ -145,21 +153,34 @@ class DisaggServingEngine(ServingEngine):
             raise ValueError("pp_stages > 1 requires the batched prefill "
                              "path (prefill_mode='batched' or 'auto' on a "
                              "supporting family)")
-        if pp > 1:
-            raise NotImplementedError(
-                f"pp_stages={pp}: the pipeline is not ported yet (GPipe "
-                f"stages over each role's pods, lm.decode_step_pp / "
-                f"prefill_step_pp) — it comes with the mesh slice "
-                f"(torch.distributed meshes and the sharded GEMM "
-                f"dispatch); serve with pp_stages=1")
-
         # Role configs: same model, opposite plan objectives.  pp_role
         # engages the pricing scope inside the lm entry points; with
         # pp_stages <= 1 it is inert and the role plans are the colocated
-        # ones bit for bit.
+        # ones bit for bit.  At pp_stages > 1 each role pipelines its
+        # layers over a (pp, 1, 1) role mesh: the prefill pods' device
+        # window first, the decode pods' after it.
         self.pp = pp
-        self.pcfg = dataclasses.replace(cfg, pp_role="prefill")
-        self.dcfg = dataclasses.replace(cfg, pp_role="decode")
+        self._prefill_fn = lm.prefill_step
+        if pp > 1:
+            self.pcfg = dataclasses.replace(
+                cfg, pp_role="prefill", pp_stages=pp, mesh_shape=(pp, 1, 1),
+                pod_offset=0)
+            self.dcfg = dataclasses.replace(
+                cfg, pp_role="decode", pp_stages=pp, mesh_shape=(pp, 1, 1),
+                pod_offset=serve_cfg.prefill_pods)
+            # fail at construction, not mid-serve: the role windows need
+            # prefill_pods + decode_pods devices, and the model must
+            # support the pipeline (stage-divisible layers, batched
+            # prefill)
+            lm._check_pp(self.pcfg)
+            lm._check_pp(self.dcfg)
+            self._pmesh = self._resolve_mesh(self.pcfg)
+            self._dmesh = self._resolve_mesh(self.dcfg)
+            self._decode_fn = lm.decode_step_pp
+            self._prefill_fn = lm.prefill_step_pp
+        else:
+            self.pcfg = dataclasses.replace(cfg, pp_role="prefill")
+            self.dcfg = dataclasses.replace(cfg, pp_role="decode")
 
         # Prefill-role chunk re-pick (PREFILL_STEP_OVERHEAD).  An explicit
         # serve_cfg.prefill_chunk wins, and a W8A8 backend keeps the
@@ -227,7 +248,8 @@ class DisaggServingEngine(ServingEngine):
         for src, dst in zip(self.pcache, self.cache):
             for key, p in src.items():
                 part = p[:, index]
-                dst[key][:, index] = part
+                # the cross-window move, onto the decode cache's device
+                dst[key][:, index] = part.to(dst[key].device)
                 moved += part.numel() * part.element_size()
         self._sync()
         self.stats["prefill_time_s"] += self.clock() - t0
@@ -291,7 +313,7 @@ class DisaggServingEngine(ServingEngine):
             toks[s.index, :c] = s.tokens[s.prefill_done:s.prefill_done + c]
             lens[s.index] = c
         try:
-            self._run_prefill("prefill", lambda: lm.prefill_step(
+            self._run_prefill("prefill", lambda: self._prefill_fn(
                 self.pcfg, self.params, self.pcache, self._tensor(toks),
                 self._tensor(pos), self._tensor(lens)), lens,
                 target="pcache")

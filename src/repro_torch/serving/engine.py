@@ -142,6 +142,7 @@ from repro_torch.core import planner
 from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import lm
+from repro_torch.parallel import sharding
 from repro_torch.runtime import chaos as chaos_mod
 from repro_torch.runtime.fault import HeartbeatMonitor
 from repro_torch.serving.errors import (AdmissionError, DeadlineExceeded,
@@ -271,7 +272,14 @@ class ServingEngine:
         # the config the decode steps run under (a disaggregated engine's
         # decode role)
         self.dcfg = cfg
+        # the step the decode ticks run (a pipelined role's decode_step_pp)
+        self._decode_fn = lm.decode_step
         self.device = resolve_device(device)
+        # Sharded serving: cfg.mesh_shape activates the sharded GEMM
+        # dispatch inside the lm steps (they scope the mesh themselves).
+        # Resolve it now, so a config that needs more devices than exist
+        # fails here with the --host-devices hint, not mid-serve.
+        self.mesh = self._resolve_mesh(cfg)
         self.params = lm.prequantize_params(
             cfg, _to_device(lm.prepare_params(cfg, params), self.device))
         self.sc = serve_cfg
@@ -368,6 +376,21 @@ class ServingEngine:
                           preemptions=0, watchdog_fired=0,
                           snapshots_taken=0,
                           **{f"outcome_{o.value}": 0 for o in Outcome})
+
+    def _resolve_mesh(self, cfg):
+        """``cfg``'s mesh (strict), which must lie on the engine's device
+        type: the caches and the served tree live on the engine's
+        device."""
+        mesh = sharding.mesh_from_config(cfg)
+        if mesh is not None:
+            kinds = {d.type for d in mesh.devices.flat}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"mesh {mesh} lies on {sorted(kinds)} but the engine "
+                    f"runs on {self.device}: fan the host out on the "
+                    f"engine's device type (launch.mesh.host_devices(N, "
+                    f"{self.device.type!r}))")
+        return mesh
 
     def kv_cache_bytes(self) -> int:
         """Resident cache bytes: the K/V (pool pages in paged mode, the
@@ -762,7 +785,7 @@ class ServingEngine:
         toks = np.zeros(self.sc.max_batch, np.int64)
         for s in dec:
             toks[s.index] = s.next_token
-        self._decode_rows("decode", lambda: lm.decode_step(
+        self._decode_rows("decode", lambda: self._decode_fn(
             self.dcfg, self.params, self.cache, self._tensor(toks),
             self._tensor(self._pos_vector())),
             [(s.index, s) for s in dec], Slot.release)

@@ -637,3 +637,44 @@ def test_recorded_sites_are_the_step_launches(smoke, arch, backend,
             assert site.k == smoke.planned_k(site), (site.name, site.shape)
             assert 2 <= site.copies <= 24
         assert got == want, phase
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-0.5b", (1, 2)), ("qwen2-0.5b", (2, 2)),
+    ("qwen3-moe-30b-a3b", (1, 2)), ("mamba2-370m", (1, 2))])
+def test_mesh_launches_are_the_sharded_step_launches(smoke, arch, shape):
+    """:func:`mesh_launches` — the launches the mesh phase holds its runs
+    to, derived from the shard contexts — is what a decode step (and a
+    batched prefill chunk) under the mesh launches, form by form: each
+    dispatch once per distinct shard."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    cfg = dataclasses.replace(_reduced(arch), compute_dtype="bfloat16",
+                              mesh_shape=shape)
+    B, C = smoke.BATCH, 8
+    params = lm.prepare_params(cfg, lm.init_params(cfg, seed=0,
+                                                   device="cpu"))
+    zero = torch.zeros(B, dtype=torch.int64)
+    steps = {B: lambda c: lm.decode_step(cfg, params, c, zero, zero)}
+    if lm.supports_batched_prefill(cfg):
+        steps[B * C] = lambda c: lm.prefill_step(
+            cfg, params, c, torch.ones(B, C, dtype=torch.int64), zero,
+            torch.full((B,), C))
+    with mesh_lib.host_devices(4, "cpu"):
+        mesh = sharding.mesh_from_config(cfg)
+        for rows, step in steps.items():
+            with smoke.recorded_sites("mesh") as sites:
+                step(lm.init_cache(cfg, B, 32, device="cpu"))
+            got = {}
+            for site in sites:
+                got[site.launch_name] = got.get(site.launch_name, 0) + \
+                    site.per_step
+            want = {k: v for k, v in smoke.mesh_launches(
+                cfg, {rows: 1}, mesh).items()
+                if v and k not in smoke.TC_COUNTERS}
+            assert got == want, rows
+            unsharded = smoke.expected_launches(cfg, 1)
+            assert sum(want.values()) > sum(
+                v for k, v in unsharded.items()
+                if k not in smoke.TC_COUNTERS)

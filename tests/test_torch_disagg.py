@@ -42,6 +42,7 @@ from repro_torch.core import planner
 from repro_torch.kernels import arrayflex_gemm as ag
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import substrate
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert, lm
 from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.serving import (DisaggServeConfig, DisaggServingEngine,
@@ -129,8 +130,8 @@ def run(pkg, arch="llama3-8b", backend="arrayflex", disagg=True,
     if chaos is not None:
         sc_kw["chaos"] = P["chaos"](**chaos)
     if disagg:
-        cls, sc = P["disagg"], P["dsc"](prefill_pods=1, decode_pods=1,
-                                        **sc_kw)
+        cls, sc = P["disagg"], P["dsc"](**{"prefill_pods": 1,
+                                           "decode_pods": 1, **sc_kw})
     else:
         cls, sc = P["colo"], P["sc"](**sc_kw)
     eng = cls(cfg, params, sc, **P["kw"])
@@ -376,7 +377,7 @@ def test_prefill_retry_leaves_the_decode_cache():
 # --------------------------------------------------------- validations
 def test_construction_validations_match_reference():
     """The reference's checks, in its order, with its types and messages;
-    pp_stages > 1 then raises the port's not-yet-ported error."""
+    a pp_stages > 1 engine then needs its role windows' devices."""
     cases = [
         ("colocated config", None),
         ("zero pods", dict(prefill_pods=0)),
@@ -397,11 +398,24 @@ def test_construction_validations_match_reference():
                 P["disagg"](cfg, params, sc, **P["kw"])
             errs.append((type(exc.value).__name__, str(exc.value)))
         assert errs[0] == errs[1], what
-    cfg, params = models()[1]
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        DisaggServingEngine(cfg, params, DisaggServeConfig(
-            **KW, pp_stages=2, prefill_pods=2, decode_pods=2),
-            device="cpu")
+    # pp = 2 needs 2 + 2 devices: both packages refuse it with one device,
+    # and the port serves it over four logical ones (the reference's own
+    # pp = 2 acceptance, streams equal to its colocated engine's)
+    errs = []
+    for pkg in ("ref", "port"):
+        P = PACKAGES[pkg]
+        cfg, params = models()[0 if pkg == "ref" else 1]
+        with pytest.raises(ValueError, match="devices") as exc:
+            P["disagg"](cfg, params, P["dsc"](
+                **KW, pp_stages=2, prefill_pods=2, decode_pods=2),
+                **P["kw"])
+        errs.append(str(exc.value).split(";")[0])
+    assert errs[0] == errs[1]
+    with mesh_lib.host_devices(4, "cpu"):
+        got, eng, _ = run("port", reqs=SHORT, pp_stages=2, prefill_pods=2,
+                          decode_pods=2)
+    want, _, _ = run("ref", disagg=False, reqs=SHORT)
+    assert eng.pp == 2 and got["tokens"] == want["tokens"]
 
 
 def test_role_configs():

@@ -15,6 +15,7 @@ values).  Plans are integers and exact; the predictions are
 compared with ``pytest.approx``, as in ``tests/test_torch_kernels.py``.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import arrayflex_gemm as ag
 from repro_torch.kernels import ops, substrate
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import convert, lm
 from repro_torch.parallel import sharding
 
@@ -172,43 +174,87 @@ def test_pricing_scope_targets_boundary_site():
 
 
 def test_mesh_scope_refuses_a_sharding_mesh():
-    """A mesh that would shard a GEMM raises, naming the mesh slice; a
-    (pod, 1, 1) role mesh, ``gemm_sharding="none"`` and no mesh plan on
-    one device; an unknown mode is the reference's ValueError."""
+    """A mesh that needs more devices than exist raises the reference's
+    ValueError (strict meshes, never clamped); fanned out, the scope
+    activates the mesh ``mesh_shape`` declares.  A (pod, 1, 1) role mesh,
+    ``gemm_sharding="none"`` and no mesh keep the pricing scope; an
+    unknown shape or mode is the reference's ValueError, and
+    ``gemm_shard_ctx`` with a mesh gives the reference's context."""
     cfg = reduced(get_config("qwen2-0.5b"))
+    rcfg = ref_reduced(ARCHS["qwen2-0.5b"])
     for shape in ((2, 2), (1, 1), (1, 4), (2, 2, 1), (2, 1, 2)):
-        with pytest.raises(NotImplementedError, match="mesh slice"):
+        n = int(np.prod(shape))
+        if n > len(jax.devices()):
+            with pytest.raises(ValueError, match="devices") as want:
+                ref_sharding.mesh_from_config(
+                    dataclasses.replace(rcfg, mesh_shape=shape))
+            with pytest.raises(ValueError, match="devices") as got:
+                with sharding.gemm_mesh_scope(
+                        dataclasses.replace(cfg, mesh_shape=shape)):
+                    pass
+            assert str(got.value).split(";")[0] == \
+                str(want.value).split(";")[0]
+        with mesh_lib.host_devices(n, "cpu"):
             with sharding.gemm_mesh_scope(
                     dataclasses.replace(cfg, mesh_shape=shape)):
-                pass
-    with pytest.raises(ValueError, match="mesh_shape must be"):
-        sharding.check_mesh(dataclasses.replace(cfg, mesh_shape=(2,)))
-    with pytest.raises(ValueError, match="gemm_sharding"):
-        sharding.check_mesh(dataclasses.replace(cfg, gemm_sharding="tp"))
-    for kw in (dict(mesh_shape=(2, 1, 1), pp_role="decode", pp_stages=2),
-               dict(mesh_shape=(2, 2), gemm_sharding="none"), dict()):
-        with sharding.gemm_mesh_scope(dataclasses.replace(cfg, **kw)):
-            want = ("decode", 2) if kw.get("pp_role") else None
-            assert sharding.active_pp_pricing() == want
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        sharding.gemm_shard_ctx("attn.wo", 4, 896, 896, mesh=object())
+                mesh = sharding.active_gemm_mesh()
+                assert tuple(mesh.shape.values()) == shape
+                assert mesh.axis_names == (("data", "model") if len(shape)
+                                           == 2 else ("pod", "data",
+                                                      "model"))
+    for bad, match in ((dict(mesh_shape=(2,)), "mesh_shape must be"),
+                       (dict(gemm_sharding="tp"), "gemm_sharding")):
+        for mod, c in ((sharding, cfg), (ref_sharding, rcfg)):
+            with pytest.raises(ValueError, match=match):
+                mod.mesh_from_config(dataclasses.replace(
+                    c, mesh_shape=bad.get("mesh_shape", (2, 2)),
+                    gemm_sharding=bad.get("gemm_sharding", "auto")))
+    with mesh_lib.host_devices(2, "cpu"):
+        for kw in (dict(mesh_shape=(2, 1, 1), pp_role="decode",
+                        pp_stages=2),
+                   dict(mesh_shape=(2, 2), gemm_sharding="none"), dict()):
+            with sharding.gemm_mesh_scope(dataclasses.replace(cfg, **kw)):
+                want = ("decode", 2) if kw.get("pp_role") else None
+                assert sharding.active_pp_pricing() == want
+                assert (sharding.active_gemm_mesh() is None) == \
+                    (kw.get("mesh_shape") in (None, (2, 2)))
+    stub = SimpleNamespace(shape={"data": 2, "model": 4},
+                           axis_names=("data", "model"))
+    got = sharding.gemm_shard_ctx("attn.wo", 4, 896, 896, mesh=stub)
+    want = ref_sharding.gemm_shard_ctx("attn.wo", 4, 896, 896, mesh=stub)
+    assert (got.x_spec, got.w_spec, got.out_spec, got.reduce_axes) == \
+        (tuple(want.x_spec), tuple(want.w_spec), tuple(want.out_spec),
+         tuple(want.reduce_axes))
+    assert got.signature() == substrate.ShardSig(**dataclasses.asdict(
+        want.signature()))
 
 
 def test_dispatch_refuses_a_mesh_context():
-    """A ShardCtx with a mesh raises at every dispatch entry; a pricing-
-    only one plans under its signature and runs unsharded."""
+    """A ShardCtx with a mesh runs each shard's GEMM at every dispatch
+    entry and equals the unsharded dispatch; a pricing-only one plans
+    under its signature and runs unsharded."""
     x, w = torch.randn(4, 16), torch.randn(16, 8)
-    meshed = substrate.ShardCtx(object(), (None, None), (None, None),
-                                (None, None))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    with mesh_lib.host_devices(2, "cpu"):
+        mesh = mesh_lib.make_host_mesh(1, 2, strict=True)
+    rows = substrate.ShardCtx(mesh, ("model", None), (None, None),
+                              ("model", None))
+    torch.testing.assert_close(
         substrate.gemm(x, w, site="attn.wo", backend="arrayflex",
-                       shard=meshed)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        substrate.batched_gemm(x[None], w[None], site="attn.qk",
-                               backend="arrayflex", shard=meshed)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        substrate.expert_gemm(x[None, None], w[None], site="moe.wo",
-                              backend="arrayflex", shard=meshed)
+                       shard=rows),
+        substrate.gemm(x, w, site="attn.wo", backend="arrayflex"))
+    s3 = ("model", None, None)
+    torch.testing.assert_close(
+        substrate.batched_gemm(torch.stack([x, x]), torch.stack([w, w]),
+                               site="attn.qk", backend="arrayflex",
+                               shard=substrate.ShardCtx(mesh, s3, s3, s3)),
+        torch.stack([x @ w, x @ w]))
+    ec = substrate.ShardCtx(mesh, (None, "model", None, None),
+                            ("model", None, None), (None, "model", None, None))
+    xe, we = torch.randn(1, 2, 4, 16), torch.randn(2, 16, 8)
+    torch.testing.assert_close(
+        substrate.expert_gemm(xe, we, site="moe.wo", backend="arrayflex",
+                              shard=ec),
+        substrate.expert_gemm(xe, we, site="moe.wo", backend="arrayflex"))
     ctx = sharding.pricing_shard_ctx(transfer_cycles=28)
     out = substrate.gemm(x, w, site="attn.wq", backend="arrayflex",
                          shard=ctx)
