@@ -186,6 +186,26 @@ failure of which exits non-zero:
    (:data:`PARITY_LAYERS`: the families' ``lm.forward`` with its context
    and six decode steps, mixtral through a ring of 4, counted; the dense
    archs' ``prefill_step`` + ``decode_step``);
+   Then training (``train_phase``; the ``xla`` backend, so no kernel
+   and no launch: the collapse backends have no backward pass): (a)
+   full-width qwen2-0.5b (fp32 parameters, bf16 compute) takes 10 AdamW
+   steps at B = 8, S = 256 on ``SyntheticLM`` (seed 0,
+   ``OptConfig(warmup_steps=2)``): every loss and gradient norm finite,
+   every parameter leaf changed, the last loss below the first; its step
+   time (host clock), tokens/s, peak memory and one step's device busy
+   and idle share (torch.profiler), then one ``n_microbatches=2`` step
+   against the single step on one state and batch (loss within 0.05);
+   (b) full-width mamba2-370m (the SSD backward) for 4 steps and
+   qwen3-moe-30b-a3b at 2 of 48 layers for 3 (the experts' moments
+   nonzero, the aux loss positive), the same checks; (c) 2 layers of
+   full-width qwen2-0.5b in fp32 (B = 2, S = 64, TF32 off): the loss and
+   every gradient leaf on the card against the port's CPU run on the same
+   tree and tokens (1e-5; 1e-4 of each leaf's max |g|); (d) that model 8
+   steps under ``FaultToleranceManager`` (checkpoints every 3 steps in a
+   temporary directory, a failure before step 5) under deterministic
+   algorithms (``CUBLAS_WORKSPACE_CONFIG`` set at import): the steps run
+   follow :func:`restart_schedule` and the final parameters and optimizer
+   state equal an uninterrupted run's bit for bit;
 8. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
@@ -203,10 +223,16 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+# the training phase's restart check runs under deterministic algorithms,
+# which need cuBLAS's fixed workspace from its first call on
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -215,16 +241,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import build, ops, substrate  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import api, lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, ChaosEngine  # noqa: E402
+from repro_torch.optim import OptConfig, adamw_init  # noqa: E402
 from repro_torch.runtime import chaos  # noqa: E402
+from repro_torch.runtime import (FaultToleranceManager,  # noqa: E402
+                                 HeartbeatMonitor)
 from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.serving import (DisaggServeConfig,  # noqa: E402
                                  DisaggServingEngine, EngineCrash,
@@ -4170,6 +4202,277 @@ def tc_report(cfg, moe_cfg, chunk: int) -> None:
                      for D in (32, 64, 128)) + " B")
 
 
+# ---------------------------------------------------------------------------
+# phase 7, training: lm.loss_fn + AdamW on the xla backend (no kernel)
+
+# (a)-(b): full-width models at the trainer's defaults (B = 8, S = 256),
+# SyntheticLM seed 0, OptConfig(warmup_steps=2): (arch, layers or None
+# for full depth, steps, peak learning rate).  The MoE's d_model 2048
+# takes a smaller rate: Adam's first steps move every weight by about lr,
+# and at the default 3e-4 its loss rose over 3 steps (12.47, 12.49, 15.02)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP = 8, 256, 2
+TRAIN_CELLS = (("qwen2-0.5b", None, 10, 3e-4),
+               ("mamba2-370m", None, 4, 3e-4),
+               ("qwen3-moe-30b-a3b", 2, 3, 5e-5))
+# the microbatched step against the single step: the reference's
+# tests/test_models_smoke.py bound on the loss
+MICRO_N, MICRO_LOSS_TOL = 2, 0.05
+# (c)-(d): 2 layers of full-width qwen2-0.5b in fp32, B = 2, S = 64; the
+# CPU tolerances of tests/test_torch_train.py
+PARITY_TRAIN_LAYERS, PARITY_TRAIN_B, PARITY_TRAIN_S = 2, 2, 64
+TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+# (d): steps, checkpoint cadence and the step that fails once
+RESTART_STEPS, RESTART_CKPT_EVERY, RESTART_FAIL_AT = 8, 3, 5
+
+
+def train_cfg(arch: str, layers=None, **kw):
+    """The training config: the arch's published widths, its default fp32
+    parameters and bf16 compute, the ``xla`` backend (the reference's
+    training backend; the collapse backends have no backward pass)."""
+    cfg = dataclasses.replace(get_config(arch), gemm_backend="xla", **kw)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def restart_schedule(n_steps: int, ckpt_every: int, fail_at: int):
+    """(steps run in order, checkpoint steps written) of
+    ``FaultToleranceManager.run`` with one failure injected before step
+    ``fail_at``: the run restores the last checkpoint at or below
+    ``fail_at`` and replays from there."""
+    ran, saved, step, failed = [], [], 0, False
+    while step < n_steps:
+        if step == fail_at and not failed:
+            failed = True
+            step = max((s for s in saved if s <= fail_at), default=0)
+            continue
+        ran.append(step)
+        step += 1
+        if step % ckpt_every == 0:
+            saved.append(step)
+    return ran, saved
+
+
+def _train_batch(data, step: int, dev="cuda"):
+    return {k: torch.as_tensor(v).to(dev, torch.int64)
+            for k, v in data.batch_at(step).items()}
+
+
+def _fingerprint(params):
+    """A strided sample of every leaf (a change anywhere in a leaf almost
+    surely shows in it: AdamW moves every element it updates)."""
+    return [t.detach().flatten()[::997].float().clone()
+            for t in tree_lib.leaves(params)]
+
+
+def train_run(arch: str, layers, steps: int, lr: float, card: str,
+              profile=False, micro=False):
+    """``steps`` AdamW steps of ``arch`` on the card: every loss and
+    gradient norm finite, every parameter leaf changed, the last loss
+    below the first; the host-clock time of each step, tokens/s and peak
+    memory; with ``profile`` one more step under torch.profiler; with
+    ``micro`` the n = 2 microbatched step against the single step on one
+    state and batch."""
+    cfg = train_cfg(arch, layers)
+    oc = OptConfig(lr=lr, warmup_steps=TRAIN_WARMUP)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0)
+    opt = adamw_init(params, oc)
+    step_fn = api.make_train_step(cfg, oc)
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    before = _fingerprint(params)
+    losses, gnorms, aux, step_ms = [], [], [], []
+    for s in range(steps):
+        batch = _train_batch(data, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        aux.append(float(met["aux"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    changed = [not torch.equal(a, b)
+               for a, b in zip(before, _fingerprint(params))]
+    steady = step_ms[1:] or step_ms
+    ms = float(np.median(steady))
+    out = dict(arch=arch, layers=cfg.n_layers, lr=lr, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=steps, losses=losses, grad_norms=gnorms,
+               aux=aux, step_ms=step_ms, median_step_ms=ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               peak_gib=peak, leaves_changed=sum(changed),
+               leaves=len(changed))
+    log(f"  {arch} x{cfg.n_layers} (B {TRAIN_BATCH}, S {TRAIN_SEQ}, "
+        f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, lr {lr}): "
+        f"loss "
+        f"{' '.join(f'{l:.4f}' for l in losses)}")
+    log(f"    grad norm {' '.join(f'{g:.3f}' for g in gnorms)}; aux "
+        f"{aux[-1]:.6f}; step {ms:.2f} ms (median of steps 1-{steps - 1}, "
+        f"host clock; first {step_ms[0]:.1f}), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak:.2f} GiB ({card})")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"{arch} training: non-finite loss or gradient "
+                             f"norm: {losses} {gnorms}")
+    if not all(changed):
+        raise AssertionError(f"{arch} training: {len(changed) - sum(changed)}"
+                             f" parameter leaves did not change")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training: loss did not fall: "
+                             f"{losses}")
+    if cfg.moe is not None:
+        banks = [float(opt["m"]["blocks"][0]["moe"][k].float().abs().sum())
+                 for k in ("wi_gate", "wi_up", "wo")]
+        out["expert_moment_abs_sum"] = banks
+        log(f"    expert banks' first moments (|m| sums: gradients reached "
+            f"the experts): {banks}")
+        if not (all(b > 0 for b in banks) and all(a > 0 for a in aux)):
+            raise AssertionError(f"{arch}: no expert gradient or aux loss: "
+                                 f"{banks} {aux}")
+    batch = _train_batch(data, steps)
+    if profile:
+        out["profile"] = profile_device(
+            lambda: step_fn(params, opt, batch), ms,
+            f"{arch} train step")
+    if micro:
+        one = float(step_fn(params, opt, batch)[2]["loss"])
+        two = float(api.make_train_step(cfg, oc, MICRO_N)(
+            params, opt, batch)[2]["loss"])
+        out["micro"] = dict(loss_1=one, loss_n=two, n=MICRO_N,
+                            tol=MICRO_LOSS_TOL)
+        log(f"    n_microbatches={MICRO_N}: loss {two:.5f} against the "
+            f"single step's {one:.5f} (tol {MICRO_LOSS_TOL})")
+        if not abs(one - two) < MICRO_LOSS_TOL:
+            raise AssertionError(f"microbatched loss {two} vs {one}")
+    del params, opt
+    _free()
+    return out
+
+
+def train_parity(card: str):
+    """(c): the loss and every gradient leaf of 2 layers of full-width
+    qwen2-0.5b in fp32 on the card against the port's CPU run on the same
+    tree and tokens (TF32 off)."""
+    cfg = train_cfg("qwen2-0.5b", PARITY_TRAIN_LAYERS,
+                    compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    data = SyntheticLM(DataConfig(seq_len=PARITY_TRAIN_S,
+                                  global_batch=PARITY_TRAIN_B,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    (cpu_loss, _), cpu_grads = api.value_and_grad(
+        cfg, params, _train_batch(data, 0, "cpu"))
+    (loss, _), grads = api.value_and_grad(
+        cfg, tree_lib.tree_map(lambda t: t.cuda(), params),
+        _train_batch(data, 0))
+    loss_err = abs(float(loss) - float(cpu_loss))
+    worst = 0.0
+    for (path, g), w in zip(tree_lib.leaves_with_path(grads),
+                            tree_lib.leaves(cpu_grads)):
+        scale = float(w.abs().max())
+        err = float((g.cpu() - w).abs().max())
+        worst = max(worst, err / scale if scale else err)
+        if not err <= TRAIN_GRAD_RTOL * scale:
+            raise AssertionError(f"fp32 gradient {tree_lib.path_key(path)}:"
+                                 f" {err} > {TRAIN_GRAD_RTOL} x {scale}")
+    log(f"  (c) fp32 parity, {PARITY_TRAIN_LAYERS} layers, B "
+        f"{PARITY_TRAIN_B}, S {PARITY_TRAIN_S}: loss {float(loss):.6f} "
+        f"(CPU {float(cpu_loss):.6f}, |diff| {loss_err:.3g}, tol "
+        f"{TRAIN_LOSS_ATOL}); worst gradient leaf error / its max |g| "
+        f"{worst:.3g} (tol {TRAIN_GRAD_RTOL}) ({card})")
+    if not loss_err <= TRAIN_LOSS_ATOL:
+        raise AssertionError(f"fp32 loss {float(loss)} vs CPU "
+                             f"{float(cpu_loss)}")
+    return dict(loss=float(loss), cpu_loss=float(cpu_loss),
+                loss_err=loss_err, worst_grad_rel_err=worst)
+
+
+def train_restart(card: str):
+    """(d): the same 2-layer model, 8 steps under FaultToleranceManager
+    with checkpoints every 3 steps and one failure before step 5, against
+    an uninterrupted run: final parameters and optimizer state equal bit
+    for bit, deterministic algorithms on."""
+    cfg = train_cfg("qwen2-0.5b", PARITY_TRAIN_LAYERS,
+                    compute_dtype="float32")
+    oc = OptConfig(warmup_steps=TRAIN_WARMUP)
+    step = api.make_train_step(cfg, oc)
+    data = SyntheticLM(DataConfig(seq_len=PARITY_TRAIN_S,
+                                  global_batch=PARITY_TRAIN_B,
+                                  vocab_size=cfg.vocab_size, seed=0))
+
+    def run(directory, fail):
+        ran = []
+
+        def step_fn(state, batch):
+            b = {k: torch.as_tensor(v).to("cuda", torch.int64)
+                 for k, v in batch.items()}
+            ran.append(int(state["opt"]["step"]))
+            p, o, _ = step(state["params"], state["opt"], b)
+            return {"params": p, "opt": o}
+
+        fired = []
+
+        def inject(s):
+            if fail and s == RESTART_FAIL_AT and not fired:
+                fired.append(s)
+                raise RuntimeError("injected failure")
+
+        params = lm.init_params(cfg, seed=0)
+        ft = FaultToleranceManager(
+            CheckpointManager(directory, keep=3), HeartbeatMonitor(1),
+            ckpt_every=RESTART_CKPT_EVERY, max_restarts=1)
+        t0 = time.perf_counter()
+        state, steps, restarts = ft.run(
+            {"params": params, "opt": adamw_init(params, oc)}, step_fn,
+            data, RESTART_STEPS, inject_failure=inject)
+        torch.cuda.synchronize()
+        return state, steps, restarts, ran, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            clean = run(os.path.join(d, "clean"), False)
+            faulted = run(os.path.join(d, "faulted"), True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_ran, _ = restart_schedule(RESTART_STEPS, RESTART_CKPT_EVERY,
+                                   RESTART_FAIL_AT)
+    a, b = tree_lib.leaves(faulted[0]), tree_lib.leaves(clean[0])
+    equal = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  (d) restart: {faulted[2]} restart, steps run {faulted[3]} "
+        f"(want {want_ran}), final state equal to the uninterrupted run's "
+        f"bit for bit: {equal} ({len(a)} leaves; {faulted[4]:.1f} s against"
+        f" {clean[4]:.1f} s; deterministic algorithms, "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')}"
+        f") ({card})")
+    if not (clean[1:3] == (RESTART_STEPS, 0) and faulted[1:3] ==
+            (RESTART_STEPS, 1) and faulted[3] == want_ran and equal):
+        raise AssertionError(f"restart: clean {clean[1:4]}, faulted "
+                             f"{faulted[1:4]}, want {want_ran}, equal "
+                             f"{equal}")
+    return dict(steps_run=faulted[3], want=want_ran, bit_equal=equal,
+                seconds=faulted[4], clean_seconds=clean[4])
+
+
+def train_phase(card: str):
+    """Phase 7's training runs: (a) full-width qwen2-0.5b, profiled, and
+    its microbatched step; (b) mamba2-370m and qwen3-moe-30b-a3b at 2
+    layers; (c) fp32 parity against the CPU; (d) the bit-exact restart."""
+    t0 = time.perf_counter()
+    out = {}
+    for i, (arch, layers, steps, lr) in enumerate(TRAIN_CELLS):
+        out[arch] = train_run(arch, layers, steps, lr, card, profile=i == 0,
+                              micro=i == 0)
+    out["parity"] = train_parity(card)
+    out["restart"] = train_restart(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  training phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4309,6 +4612,11 @@ def main() -> int:
         family_runs += fam_runs
         fp32_runs += fam_fp32
 
+    log(f"[7/8] training on the xla backend (no kernel): full-width "
+        f"qwen2-0.5b, mamba2-370m and qwen3-moe-30b-a3b at 2 layers, fp32 "
+        f"parity against the CPU, the bit-exact restart (card: {card})")
+    training = train_phase(card)
+
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
     # prefills and the W8 runs, each counted from 0); K3's over its
@@ -4353,7 +4661,8 @@ def main() -> int:
                   ssm_prefill=ssm_prefill,
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
-                  families=families, site_checks=SITE_CHECKS,
+                  families=families, train=training,
+                  site_checks=SITE_CHECKS,
                   unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -74,6 +74,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.runtime import check_no_grad
+
 # Epilogue activations applicable at the carry-propagate boundary.
 ACTIVATIONS = ("none", "silu", "gelu")
 
@@ -368,6 +370,7 @@ def w8a8_quantize(x, *, norm_scale=None, k_collapse: int = 1):
     version.  The main path never calls it (the W8A8 GEMM launches the same
     pass itself), so it counts no launch: it times and checks the pass on
     its own."""
+    check_no_grad("w8a8_quantize", x, norm_scale)
     lead, (M, K) = x.shape[:-2], x.shape[-2:]
     if x.device.type == "cpu":
         return w8a8_quantize_plain(prologue_phase(x, norm_scale), k_collapse)
@@ -554,6 +557,8 @@ def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
     bf16 out, unit stride along each operand's last axis — or raise; CPU
     tensors run :func:`arrayflex_gemm_plain`.
     """
+    check_no_grad("arrayflex_gemm", x, w, w2, bias, bias2, residual,
+                  norm_scale)
     M, K = x.shape
     K2, N = w.shape
     if K != K2:
@@ -691,6 +696,7 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
     the int8 tensor-core tile, both of whose outputs are the same bits at
     every E) — fp32 or bf16 out — or raise; CPU tensors run
     :func:`arrayflex_expert_gemm_plain`."""
+    check_no_grad("arrayflex_expert_gemm", x, w)
     E, T, K = x.shape
     E2, K2, N = w.shape
     if E != E2 or K != K2:

@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.runtime import check_no_grad
+
 NEG_INF = -1e30
 
 # kernel launches in this process (plain-version calls launch nothing)
@@ -214,6 +216,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     their type (q, k, v of one dtype, fp32 or bf16, contiguous, D <= 128;
     bf16 at the :func:`kv_splits` split of this card's SMs) or raise; CPU
     tensors run :func:`flash_attention_plain`."""
+    check_no_grad("flash_attention", q, k, v)
     kv_chunk = _check(q, k, v, bq, kv_chunk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

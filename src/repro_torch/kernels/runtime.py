@@ -35,3 +35,16 @@ def to_device(t, dev):
     if not torch.is_tensor(t) or t.device == dev:
         return t
     return t.to(dev)
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and a kernel wrapper's operand requires
+    a gradient: a hand-written kernel records no autograd graph, so its
+    output would carry no ``grad_fn`` (a silent zero gradient).  Training
+    runs on the ``xla`` / ``ref`` backends (``models.lm.check_trainable``)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires a gradient, and the kernel has no "
+            f"backward pass; run it under torch.no_grad() or train on the "
+            f"'xla' or 'ref' gemm backend")

@@ -767,6 +767,14 @@ def backend_act_quantizes(name: str) -> bool:
     return _BACKEND_INFO[name].act_quantize
 
 
+def backend_collapses(name: str) -> bool:
+    """Whether the registered backend runs the ArrayFlex kernels (plans a
+    collapse depth): their CUDA launches record no autograd graph, so no
+    training step may run on such a backend."""
+    check_backend(name)
+    return _BACKEND_INFO[name].collapse
+
+
 register_backend("xla", _xla_backend)
 register_backend("arrayflex", _arrayflex_backend, collapse=True)
 register_backend("arrayflex_int8", _arrayflex_backend, collapse=True,

@@ -1,2 +1,3 @@
-# Model families: the unified LM (dense family ported so far) and the
-# converter from the reference package's parameter tree.
+# Model families: the unified LM (every registered family), the step
+# functions (training, prefill, serving) and the converter from the
+# reference package's parameter and optimizer trees.

@@ -10,6 +10,10 @@ that the reference's ``lm.prequantize_params`` built holds quantized
 leaves (``codes`` and ``scale`` attributes, still numpy arrays after the
 ``tree_map``): each becomes the port's ``substrate.QuantizedTensor`` with
 int8 codes and fp32 scales.
+
+``opt_state_from_reference`` does the same for the reference's AdamW
+state (``m``, ``v``, ``step`` and, with master weights, ``master``), so a
+reference train step and the port's start from one state.
 """
 from __future__ import annotations
 
@@ -47,3 +51,15 @@ def params_from_reference(cfg: ModelConfig, np_tree, device=None):
         return _to_tensor(node, dev)
 
     return walk(np_tree)
+
+
+def opt_state_from_reference(cfg: ModelConfig, np_state, device=None):
+    """The port's AdamW state holding the reference state's values: ``m``,
+    ``v`` (and ``master``) trees as :func:`params_from_reference` converts
+    a parameter tree, ``step`` an int32 0-d tensor."""
+    dev = resolve_device(device)
+    out = {k: params_from_reference(cfg, np_state[k], dev)
+           for k in ("m", "v", "master") if k in np_state}
+    out["step"] = torch.tensor(int(np.asarray(np_state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

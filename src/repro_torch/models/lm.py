@@ -61,6 +61,10 @@ leaves; decode reads them and never writes them.  Served from
 ``init_cache``, they are zeros, as in the reference's engine, which has
 no request field for a context.
 
+``loss_fn`` (training) differentiates ``forward`` on the raw parameter
+tree on the ``xla`` and ``ref`` backends; the collapse backends raise
+(:func:`check_trainable`).
+
 The entry points (``forward``, ``decode_step``, ``prefill_step``, the
 paged steps and the pipelined ones) run inside
 ``parallel.sharding.gemm_mesh_scope(cfg)``, as the reference's do: a
@@ -79,6 +83,7 @@ import math
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import substrate
 from repro_torch.kernels.runtime import resolve_device, to_device
@@ -174,6 +179,20 @@ def _layer(tree, l: int):
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
     return tree[l]
+
+
+def _unstack(tree, n: int) -> list:
+    """Every layer's view of a stacked tree, as :func:`_layer` gives them,
+    from one ``unbind`` per tensor leaf: under autograd its backward is one
+    ``stack`` of the layers' gradients, where indexing layer by layer
+    scatters each layer's gradient into a zeroed copy of the whole stack
+    (n times the stack's bytes, written and added)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][l] for k in tree} for l in range(n)]
+    if torch.is_tensor(tree):
+        return list(tree.unbind(0))
+    return [tree[l] for l in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -658,9 +677,7 @@ def encode_audio(cfg: ModelConfig, params, frames):
     x = layers.linear(params["audio_proj"], frames, cd,
                       site="frontend.audio", backend=cfg.gemm_backend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    enc = params["enc_blocks"][0]
-    for l in range(cfg.n_encoder_layers):
-        p = _layer(enc, l)
+    for p in _unstack(params["enc_blocks"][0], cfg.n_encoder_layers):
         h = layers.rmsnorm_normalize(x, cfg.rms_eps)
         out, _ = attn_full(p["attn"], h, cfg, positions, causal=False,
                            norm_scale=p["ln1"]["scale"])
@@ -808,14 +825,49 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     caches = (init_cache(cfg, B, S, device=x.device,
                          n_cross=None if ctx is None else ctx.shape[1])
               if return_cache else None)
+    blocks = [_unstack(params["blocks"][i], n_super(cfg)) for i in range(P)]
     for l in range(n_super(cfg)):
         for i in range(P):
-            x, aux, c = sublayer_full(_layer(params["blocks"][i], l), cfg, i,
-                                      x, aux, positions, ctx)
+            x, aux, c = sublayer_full(blocks[i][l], cfg, i, x, aux,
+                                      positions, ctx)
             if caches is not None:
                 _put(caches[i], c, l)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     return _logits(cfg, params, x, cd), aux, caches
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a backend that cannot train: the
+    collapse backends' CUDA kernels record no autograd graph (their
+    outputs would carry no ``grad_fn``: a silent zero gradient), and the
+    weight memos they key by tensor identity would go stale as the
+    weights change.  The reference cannot differentiate its Pallas
+    kernels either; it trains on ``xla``."""
+    substrate.check_backend(cfg.gemm_backend)
+    if substrate.backend_collapses(cfg.gemm_backend):
+        raise NotImplementedError(
+            f"{cfg.name}: gemm_backend={cfg.gemm_backend!r} has no backward "
+            f"pass; train on 'xla' or 'ref'")
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Token cross-entropy of :func:`forward`'s logits against
+    ``batch['labels']`` (masked by ``batch['loss_mask']`` when given) plus
+    the MoE aux loss.  Returns (loss + aux, {'xent', 'aux'}).  Under
+    autograd (grad mode on, some leaf of ``params`` requiring a gradient)
+    the backend must be able to train (:func:`check_trainable`).
+
+    Differentiate it on the raw parameter tree, never on
+    :func:`prepare_params`' served tree: its casts and ``table_t`` are
+    copies, and gradients would land on them."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad
+            for t in tree_lib.leaves(params)):
+        check_trainable(cfg)
+    logits, aux, _ = forward(cfg, params, batch)
+    loss = layers.softmax_xent(logits, batch["labels"],
+                               batch.get("loss_mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, batch):

@@ -200,3 +200,19 @@ def gelu_mlp(p, x, compute_dtype=torch.bfloat16, *, backend="xla",
                        site="mlp.wi", backend=backend)
     return linear(p["wo"], h, compute_dtype, site="mlp.wo",
                   backend=backend, residual=residual)
+
+
+# ---------------------------------------------------------------- loss
+def softmax_xent(logits, labels, mask=None):
+    """Mean token cross-entropy: fp32 logsumexp minus the gold logit.
+    logits (..., V); labels int (...,); ``mask`` (...,) weights each token
+    and the sum divides by the mask's total, floored at 1."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -14,7 +14,8 @@ At 1000+ nodes, MTBF is minutes-to-hours; the framework's contract is:
 On a single-process CPU container the monitor runs in-process (hosts are
 simulated), but the logic is the same one a GCS/etcd-backed deployment uses;
 tests/test_torch_resilience.py drives the monitor's dead-host and straggler
-scenarios.
+scenarios, and tests/test_torch_runtime_restart.py the restart loop against
+the port's ``checkpoint.CheckpointManager``.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ import importlib.util
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -678,3 +679,71 @@ def test_mesh_launches_are_the_sharded_step_launches(smoke, arch, shape):
             assert sum(want.values()) > sum(
                 v for k, v in unsharded.items()
                 if k not in smoke.TC_COUNTERS)
+
+
+def test_train_cells_are_the_trainers_defaults_at_full_width(smoke):
+    """The training phase's cells: published widths on the xla backend,
+    fp32 parameters and bf16 compute, at the trainer's default batch and
+    sequence (``launch/train.py``), the depth cut only where stated."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    ap = train.build_argparser()
+    assert (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ) == (
+        ap.get_default("batch"), ap.get_default("seq"))
+    for arch, layers, steps, lr in smoke.TRAIN_CELLS:
+        cfg = smoke.train_cfg(arch, layers)
+        full = get_config(arch)
+        assert cfg.gemm_backend == "xla"
+        assert (cfg.param_dtype, cfg.compute_dtype) == ("float32",
+                                                        "bfloat16")
+        assert (cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
+            full.d_model, full.d_ff, full.vocab_size)
+        assert cfg.n_layers == (layers or full.n_layers) and steps >= 3
+        assert 0 < lr <= 3e-4
+        b = SyntheticLM(DataConfig(seq_len=smoke.TRAIN_SEQ,
+                                   global_batch=smoke.TRAIN_BATCH,
+                                   vocab_size=cfg.vocab_size)).batch_at(0)
+        assert b["tokens"].shape == b["labels"].shape == (8, 256)
+    assert [c[0] for c in smoke.TRAIN_CELLS] == [
+        "qwen2-0.5b", "mamba2-370m", "qwen3-moe-30b-a3b"]
+    parity = smoke.train_cfg("qwen2-0.5b", smoke.PARITY_TRAIN_LAYERS,
+                             compute_dtype="float32")
+    assert parity.n_layers == 2 and parity.compute_dtype == "float32"
+
+
+@pytest.mark.parametrize("n,every,fail", [(8, 3, 5), (8, 3, 6), (8, 3, 2),
+                                          (10, 4, 9), (6, 2, 0)])
+def test_restart_schedule_follows_the_fault_manager(smoke, tmp_path, n,
+                                                    every, fail):
+    """``restart_schedule`` predicts the steps ``FaultToleranceManager``
+    runs (a failure with no checkpoint yet replays from 0: a cold
+    restart) and the checkpoints it writes."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import FaultToleranceManager, HeartbeatMonitor
+    ran, fired = [], []
+
+    class Steps:
+        def batch_at(self, step):
+            return step
+
+    def step_fn(state, batch):
+        ran.append(batch)
+        return {"n": state["n"] + 1}
+
+    def inject(step):
+        if step == fail and not fired:
+            fired.append(step)
+            raise RuntimeError("injected")
+
+    mgr = CheckpointManager(str(tmp_path), keep=100)
+    ft = FaultToleranceManager(mgr, HeartbeatMonitor(1), ckpt_every=every)
+    state, steps, restarts = ft.run({"n": np.int64(0)}, step_fn, Steps(), n,
+                                    inject_failure=inject,
+                                    cold_restart="restart")
+    want_ran, want_saved = smoke.restart_schedule(n, every, fail)
+    assert ran == want_ran and mgr.all_steps() == want_saved
+    assert steps == n and restarts == 1 and int(state["n"]) == n
+    assert smoke.restart_schedule(smoke.RESTART_STEPS,
+                                  smoke.RESTART_CKPT_EVERY,
+                                  smoke.RESTART_FAIL_AT) == (
+        [0, 1, 2, 3, 4, 3, 4, 5, 6, 7], [3, 6])
