@@ -194,7 +194,8 @@ failure of which exits non-zero:
    every parameter leaf changed, the last loss below the first; its step
    time (host clock), tokens/s, peak memory and one step's device busy
    and idle share (torch.profiler), then one ``n_microbatches=2`` step
-   against the single step on one state and batch (loss within 0.05);
+   against the single step on one state and batch (loss within 1e-3,
+   every new parameter within 2 x lr);
    (b) full-width mamba2-370m (the SSD backward) for 4 steps and
    qwen3-moe-30b-a3b at 2 of 48 layers for 3 (the experts' moments
    nonzero, the aux loss positive), the same checks; (c) 2 layers of
@@ -205,7 +206,22 @@ failure of which exits non-zero:
    temporary directory, a failure before step 5) under deterministic
    algorithms (``CUBLAS_WORKSPACE_CONFIG`` set at import): the steps run
    follow :func:`restart_schedule` and the final parameters and optimizer
-   state equal an uninterrupted run's bit for bit;
+   state equal an uninterrupted run's bit for bit; then
+   (``mesh_train_phase``) (e) full-width qwen2-0.5b through
+   ``launch.train.main`` at its defaults for 4 steps under
+   ``host_devices(4)``, unsharded and at ``--mesh-data 2 --mesh-model
+   2`` and (1, 2): every step's loss within 5e-3 of the unsharded run's,
+   the median step (host clock), peak memory, the weight-block memo's
+   bytes (0: a weight requiring a gradient bypasses it) and the
+   constrained activations a step; (f) the fp32 cell of (c) sharded at
+   (2, 2) against unsharded on the card: the loss (1e-5), every gradient
+   leaf (1e-4 of its max), and one step at n = 1 and n = 2: the loss,
+   every first moment (1e-4), every parameter (within 2 x lr); (g) remat
+   "full" against "none" at the defaults: loss and gradients bit for bit
+   under deterministic algorithms, the forward + backward's peak and a
+   step's time and peak for each; (h) ``compress`` /
+   ``compressed_allreduce`` over four shards on the card against the
+   CPU, bit for bit;
 8. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
@@ -4214,15 +4230,44 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP = 8, 256, 2
 TRAIN_CELLS = (("qwen2-0.5b", None, 10, 3e-4),
                ("mamba2-370m", None, 4, 3e-4),
                ("qwen3-moe-30b-a3b", 2, 3, 5e-5))
-# the microbatched step against the single step: the reference's
-# tests/test_models_smoke.py bound on the loss
-MICRO_N, MICRO_LOSS_TOL = 2, 0.05
+# the n = 2 microbatched step against the single step on one state and
+# batch: a full-width card run measured the two losses equal to 5 places
+# (was 0.05, the reference's tests/test_models_smoke.py bound).  The
+# gradient each step applied, (m_new - b1 m) / (1 - b1) from its first
+# moments, is held leaf by leaf within MICRO_GRAD_RTOL of the leaf's max
+# (bf16 compute: each half's weight gradient leaves its GEMM rounded to
+# bf16, 2^-9 of itself, and the whole batch's once, so about 1.5 x 2^-8
+# of a leaf's max can part two right steps; a microbatch dropped, counted
+# twice or not divided by n moves a leaf by half its max or more).  The
+# new parameters are held within MICRO_PARAM_LR x the step's learning
+# rate: the card measured 0.25 x lr here and 0.055 x lr in (f), whose
+# steps start from a fresh state, where an update lost or of the other
+# sign moves an element by lr or 2 x lr
+MICRO_N, MICRO_LOSS_TOL, MICRO_GRAD_RTOL, MICRO_PARAM_LR = 2, 1e-3, 2**-6, 0.5
 # (c)-(d): 2 layers of full-width qwen2-0.5b in fp32, B = 2, S = 64; the
 # CPU tolerances of tests/test_torch_train.py
 PARITY_TRAIN_LAYERS, PARITY_TRAIN_B, PARITY_TRAIN_S = 2, 2, 64
 TRAIN_LOSS_ATOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 # (d): steps, checkpoint cadence and the step that fails once
 RESTART_STEPS, RESTART_CKPT_EVERY, RESTART_FAIL_AT = 8, 3, 5
+# (e): sharded training of full-width qwen2-0.5b through launch.train.main
+# at the trainer's defaults (B = 8, S = 256, bf16 compute, remat "full"),
+# over meshes of four logical devices on the one card, against the
+# unsharded run.  The loss tolerance: a column-parallel or data-split
+# shard runs each output element's whole K-sum at another GEMM shape
+# (cuBLAS may block it otherwise: a bf16 output one rounding step apart),
+# a row-parallel shard adds fp32 partials and rounds once as the
+# unsharded product does; such one-step flips on a fraction of the bf16
+# activations move the mean cross-entropy of 2048 tokens by ~1e-4 (the
+# n = 2 microbatched step, whose GEMMs change shape alike, moved it by
+# < 1e-5 on the card), and 4 warmup steps at lr <= 1.2e-5 carry it on
+# little: 5e-3 holds every step's loss with margin
+SHARDED_TRAIN_MESHES = ((2, 2), (1, 2))
+SHARDED_TRAIN_STEPS, SHARDED_TRAIN_LOSS_TOL = 4, 5e-3
+# (f): the fp32 parity cell (c) sharded at (2, 2), n = 1 and 2
+SHARDED_PARITY_MESH = (2, 2)
+# (g): remat "full" against "none" at the defaults, steps timed each
+REMAT_STEPS = 3
 
 
 def train_cfg(arch: str, layers=None, **kw):
@@ -4262,6 +4307,26 @@ def _fingerprint(params):
     surely shows in it: AdamW moves every element it updates)."""
     return [t.detach().flatten()[::997].float().clone()
             for t in tree_lib.leaves(params)]
+
+
+def _worst_rel(got, want):
+    """(worst leaf error / its max |want|, that leaf's path)."""
+    worst = (0.0, "")
+    for (path, g), w in zip(tree_lib.leaves_with_path(got),
+                            tree_lib.leaves(want)):
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        rel = err / scale if scale else err
+        worst = max(worst, (rel, tree_lib.path_key(path)))
+    return worst
+
+
+def _abs_diffs(got, want):
+    """(max |got - want|, path) of every leaf."""
+    return [(float((g.float() - w.float()).abs().max()),
+             tree_lib.path_key(path))
+            for (path, g), w in zip(tree_lib.leaves_with_path(got),
+                                    tree_lib.leaves(want))]
 
 
 def train_run(arch: str, layers, steps: int, lr: float, card: str,
@@ -4337,15 +4402,37 @@ def train_run(arch: str, layers, steps: int, lr: float, card: str,
             lambda: step_fn(params, opt, batch), ms,
             f"{arch} train step")
     if micro:
-        one = float(step_fn(params, opt, batch)[2]["loss"])
-        two = float(api.make_train_step(cfg, oc, MICRO_N)(
-            params, opt, batch)[2]["loss"])
+        p1, o1, m1 = step_fn(params, opt, batch)
+        p2, o2, m2 = api.make_train_step(cfg, oc, MICRO_N)(params, opt, batch)
+        one, two, lr_step = float(m1["loss"]), float(m2["loss"]), \
+            float(m1["lr"])
+        applied = lambda o: tree_lib.tree_map(
+            lambda new, m: (new - oc.b1 * m.float()) / (1 - oc.b1), o["m"],
+            opt["m"])
+        grad_rel, grad_key = _worst_rel(applied(o2), applied(o1))
+        worst, worst_key = max(_abs_diffs(p2, p1))
+        tol = MICRO_PARAM_LR * lr_step
         out["micro"] = dict(loss_1=one, loss_n=two, n=MICRO_N,
-                            tol=MICRO_LOSS_TOL)
-        log(f"    n_microbatches={MICRO_N}: loss {two:.5f} against the "
-            f"single step's {one:.5f} (tol {MICRO_LOSS_TOL})")
+                            tol=MICRO_LOSS_TOL, lr=lr_step,
+                            grad_rel_err=grad_rel, grad_worst=grad_key,
+                            grad_rtol=MICRO_GRAD_RTOL,
+                            param_max_abs_diff=worst, param_worst=worst_key,
+                            param_tol=tol)
+        log(f"    n_microbatches={MICRO_N}: loss {two:.6f} against the "
+            f"single step's {one:.6f} (|diff| {abs(one - two):.3g}, tol "
+            f"{MICRO_LOSS_TOL}); applied gradient within {grad_rel:.3g} of "
+            f"its leaf's max ({grad_key}; tol {MICRO_GRAD_RTOL:.3g}); new "
+            f"parameters within {worst:.3g} ({worst_key}; tol "
+            f"{MICRO_PARAM_LR} x lr = {tol:.3g})")
         if not abs(one - two) < MICRO_LOSS_TOL:
             raise AssertionError(f"microbatched loss {two} vs {one}")
+        if not grad_rel <= MICRO_GRAD_RTOL:
+            raise AssertionError(f"microbatched gradient: {grad_key} off by "
+                                 f"{grad_rel} of its max")
+        if not worst <= tol:
+            raise AssertionError(f"microbatched parameters: {worst_key} "
+                                 f"moved {worst} > {tol}")
+        del p1, p2, o1, o2
     del params, opt
     _free()
     return out
@@ -4457,10 +4544,309 @@ def train_restart(card: str):
                 seconds=faulted[4], clean_seconds=clean[4])
 
 
+def _timed_train_steps(times: list):
+    """``api.make_train_step`` wrapped so that each step's host-clock ms
+    (synchronized on both ends) goes to ``times``: the trainer CLI's own
+    steps, timed from outside."""
+    make = api.make_train_step
+
+    def make_timed(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(*state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    return make_timed
+
+
+def sharded_train_run(mesh_shape, card: str):
+    """One ``launch.train.main`` run of full-width qwen2-0.5b at the
+    trainer's defaults for SHARDED_TRAIN_STEPS steps under
+    ``host_devices(4)`` (four views of the card), sharded at
+    ``mesh_shape`` (None: unsharded): each step's loss, the median step
+    ms, peak memory, the weight-block memo's bytes and the constrained
+    activations a step."""
+    from repro_torch.launch import train as train_cli
+    argv = ["--steps", str(SHARDED_TRAIN_STEPS), "--log-every",
+            str(SHARDED_TRAIN_STEPS)]
+    if mesh_shape:
+        argv += ["--mesh-data", str(mesh_shape[0]), "--mesh-model",
+                 str(mesh_shape[1])]
+    times = []
+    _free()
+    substrate.clear_shard_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen = []
+    real, real_constrain = api.make_train_step, sharding.constrain
+
+    def counted(x, name):
+        if sharding.constraint_spec(name, x.ndim) is not None:
+            seen.append(name)
+        return real_constrain(x, name)
+
+    api.make_train_step = _timed_train_steps(times)
+    sharding.constrain = counted
+    try:
+        with mesh_lib.host_devices(4):
+            losses = train_cli.main(argv)
+    finally:
+        api.make_train_step, sharding.constrain = real, real_constrain
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    memo = substrate.shard_cache_info()
+    site = substrate.SITE_PLANS["attn.wq"].shard
+    out = dict(mesh=mesh_shape, losses=losses, step_ms=times,
+               median_step_ms=float(np.median(times[1:] or times)),
+               peak_gib=peak, memo_bytes=memo["bytes"],
+               memo_blocks=memo["blocks"],
+               constrained_per_step=len(seen) / len(times),
+               attn_wq_shards=(site.rows, site.cols))
+    log(f"  (e) mesh {mesh_shape or 'none'}: loss "
+        f"{' '.join(f'{l:.5f}' for l in losses)}; step "
+        f"{out['median_step_ms']:.2f} ms (median of steps 1-"
+        f"{len(times) - 1}, host clock; first {times[0]:.1f}), peak "
+        f"{peak:.2f} GiB, memo {memo['bytes']} B in {memo['blocks']} "
+        f"blocks, {out['constrained_per_step']:.0f} constrained "
+        f"activations a step, attn.wq shards (rows, cols) "
+        f"{out['attn_wq_shards']} ({card})")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"sharded training {mesh_shape}: {losses}")
+    return out
+
+
+def sharded_train_phase(card: str):
+    """(e): full-width qwen2-0.5b trained through ``launch.train.main``
+    unsharded and over each of SHARDED_TRAIN_MESHES, every step's loss
+    within SHARDED_TRAIN_LOSS_TOL of the unsharded run's."""
+    base = sharded_train_run(None, card)
+    out = {"unsharded": base}
+    for shape in SHARDED_TRAIN_MESHES:
+        run = sharded_train_run(shape, card)
+        diff = float(np.max(np.abs(np.subtract(run["losses"],
+                                               base["losses"]))))
+        run["max_loss_diff"] = diff
+        out["x".join(map(str, shape))] = run
+        log(f"    mesh {shape}: losses within {diff:.3g} of the unsharded "
+            f"run's (tol {SHARDED_TRAIN_LOSS_TOL}); step "
+            f"{run['median_step_ms'] / base['median_step_ms']:.2f}x")
+        if not (diff <= SHARDED_TRAIN_LOSS_TOL and run["memo_bytes"] == 0
+                and run["attn_wq_shards"][1] == shape[1]
+                and run["constrained_per_step"] > 0):
+            raise AssertionError(f"sharded training {shape}: {run}")
+    return out
+
+
+def sharded_parity(card: str):
+    """(f): the fp32 parity cell (2 layers of full-width qwen2-0.5b, B = 2,
+    S = 64, TF32 off) sharded at SHARDED_PARITY_MESH against the
+    unsharded run on the card: the loss and every gradient leaf, then one
+    AdamW step at n = 1 and n = 2: its loss, every new first moment
+    (TRAIN_GRAD_RTOL of the leaf's max) and every new parameter (within
+    MICRO_PARAM_LR x lr); and the same three of the unsharded n = 2 step
+    against the n = 1 step."""
+    cfg = train_cfg("qwen2-0.5b", PARITY_TRAIN_LAYERS,
+                    compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sh = dataclasses.replace(cfg, mesh_shape=SHARDED_PARITY_MESH)
+    oc = OptConfig(warmup_steps=TRAIN_WARMUP)
+    params = lm.init_params(cfg, seed=0)
+    data = SyntheticLM(DataConfig(seq_len=PARITY_TRAIN_S,
+                                  global_batch=PARITY_TRAIN_B,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    batch = _train_batch(data, 0)
+    (want_loss, _), want = api.value_and_grad(cfg, params, batch)
+    with mesh_lib.host_devices(4):
+        (loss, _), grads = api.value_and_grad(sh, params, batch)
+    loss_err = abs(float(loss) - float(want_loss))
+    grad_rel, grad_key = _worst_rel(grads, want)
+    out = dict(mesh=SHARDED_PARITY_MESH, loss=float(loss),
+               unsharded_loss=float(want_loss), loss_err=loss_err,
+               worst_grad_rel_err=grad_rel, worst_grad_leaf=grad_key)
+    ok = loss_err <= TRAIN_LOSS_ATOL and grad_rel <= TRAIN_GRAD_RTOL
+    del grads, want
+    single = None
+    for n in (1, 2):
+        p0, o0, m0 = api.make_train_step(cfg, oc, n)(
+            params, adamw_init(params, oc), batch)
+        with mesh_lib.host_devices(4):
+            p1, o1, m1 = api.make_train_step(sh, oc, n)(
+                params, adamw_init(params, oc), batch)
+        lr_step = float(m0["lr"])
+        m_rel, m_key = _worst_rel(o1["m"], o0["m"])
+        step = dict(loss_err=abs(float(m1["loss"]) - float(m0["loss"])),
+                    worst_m_rel_err=m_rel, worst_m_leaf=m_key,
+                    param_max_abs_diff=max(_abs_diffs(p1, p0))[0],
+                    lr=lr_step)
+        if single is None:
+            single = (p0, o0, float(m0["loss"]))
+        else:
+            # the unsharded n = 2 step against the n = 1 step: from a
+            # fresh state the first moment is (1 - b1) x the clipped
+            # gradient, so a microbatch lost shows at half a leaf's max
+            step.update(
+                micro_loss_err=abs(float(m0["loss"]) - single[2]),
+                micro_m_rel_err=_worst_rel(o0["m"], single[1]["m"])[0],
+                micro_param_max_abs_diff=max(_abs_diffs(p0, single[0]))[0])
+            ok = ok and (step["micro_loss_err"] <= TRAIN_LOSS_ATOL
+                         and step["micro_m_rel_err"] <= TRAIN_GRAD_RTOL
+                         and step["micro_param_max_abs_diff"]
+                         <= MICRO_PARAM_LR * lr_step)
+        out[f"n{n}"] = step
+        ok = ok and (step["loss_err"] <= TRAIN_LOSS_ATOL
+                     and m_rel <= TRAIN_GRAD_RTOL
+                     and step["param_max_abs_diff"]
+                     <= MICRO_PARAM_LR * lr_step)
+        del p0, o0, p1, o1
+    del single
+    n2 = out["n2"]
+    log(f"  (f) fp32 parity sharded at {SHARDED_PARITY_MESH}, "
+        f"{PARITY_TRAIN_LAYERS} layers, B {PARITY_TRAIN_B}, S "
+        f"{PARITY_TRAIN_S}: loss |diff| {loss_err:.3g} (tol "
+        f"{TRAIN_LOSS_ATOL}); worst gradient leaf {grad_rel:.3g} of its max "
+        f"({grad_key}; tol {TRAIN_GRAD_RTOL}); steps n = 1 / 2: loss "
+        f"|diff| {out['n1']['loss_err']:.3g} / {n2['loss_err']:.3g},"
+        f" first moments {out['n1']['worst_m_rel_err']:.3g} / "
+        f"{n2['worst_m_rel_err']:.3g} of their max, parameters "
+        f"within {out['n1']['param_max_abs_diff']:.3g} / "
+        f"{n2['param_max_abs_diff']:.3g} (tol {MICRO_PARAM_LR} x lr "
+        f"= {MICRO_PARAM_LR * out['n1']['lr']:.3g}); unsharded n = 2 "
+        f"against n = 1: loss |diff| {n2['micro_loss_err']:.3g}, first "
+        f"moments {n2['micro_m_rel_err']:.3g} of their max, parameters "
+        f"within {n2['micro_param_max_abs_diff']:.3g} ({card})")
+    if not ok:
+        raise AssertionError(f"sharded fp32 parity: {out}")
+    del params
+    _free()
+    return out
+
+
+def remat_phase(card: str):
+    """(g): full-width qwen2-0.5b at the trainer's defaults, remat "full"
+    against "none": the loss and every gradient leaf bit for bit under
+    deterministic algorithms (a leaf that is not is named and held to
+    TRAIN_GRAD_RTOL), then REMAT_STEPS AdamW steps of each, timed (host
+    clock), with their peak memory."""
+    base = train_cfg("qwen2-0.5b")
+    oc = OptConfig(warmup_steps=TRAIN_WARMUP)
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  vocab_size=base.vocab_size, seed=0))
+    batch = _train_batch(data, 0)
+    params = lm.init_params(base, seed=0)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("none", "full"):
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            runs[remat] = api.value_and_grad(
+                dataclasses.replace(base, remat=remat), params, batch)
+            torch.cuda.synchronize()
+            runs[remat + "_peak"] = (torch.cuda.max_memory_allocated()
+                                     - before) / 2**30
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l0, _), g0 = runs["none"]
+    (l1, _), g1 = runs["full"]
+    moved = [(tree_lib.path_key(path), float((a - b).abs().max())
+              / max(float(b.abs().max()), 1e-30))
+             for (path, a), b in zip(tree_lib.leaves_with_path(g1),
+                                     tree_lib.leaves(g0))
+             if not torch.equal(a, b)]
+    loss_equal = torch.equal(l0, l1)
+    out = dict(loss_none=float(l0), loss_full=float(l1),
+               loss_bit_equal=loss_equal, moved_leaves=moved,
+               grad_peak_gib={"none": runs["none_peak"],
+                              "full": runs["full_peak"]})
+    del runs, g0, g1
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(base, remat=remat)
+        step = api.make_train_step(cfg, oc)
+        p, o = params, adamw_init(params, oc)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for s in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, _ = step(p, o, _train_batch(data, s))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = dict(step_ms=times,
+                          median_step_ms=float(np.median(times[1:])),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del p, o
+    log(f"  (g) remat on full-width qwen2-0.5b (B {TRAIN_BATCH}, S "
+        f"{TRAIN_SEQ}): loss bit-equal {loss_equal} ({float(l1):.6f}); "
+        f"gradient leaves not bit-equal: {len(moved)} "
+        f"{moved[:4]}; a forward + backward's peak above what was resident "
+        f"{out['grad_peak_gib']['none']:.2f} GiB (none) / "
+        f"{out['grad_peak_gib']['full']:.2f} GiB (full); a train step "
+        f"{out['none']['median_step_ms']:.2f} / "
+        f"{out['full']['median_step_ms']:.2f} ms (host clock, median of "
+        f"steps 1-{REMAT_STEPS - 1}), peak {out['none']['peak_gib']:.2f} / "
+        f"{out['full']['peak_gib']:.2f} GiB (deterministic algorithms "
+        f"for the gradients only) ({card})")
+    bad = [kv for kv in moved if kv[1] > TRAIN_GRAD_RTOL]
+    if bad or abs(float(l0) - float(l1)) > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"remat moved the loss or gradients: "
+                             f"{float(l0)} {float(l1)} {bad}")
+    del params
+    _free()
+    return out
+
+
+def compression_phase(card: str):
+    """(h): ``compress`` and ``compressed_allreduce`` over four shards of
+    one full-width qwen2-0.5b layer's weight shapes (shard 2's gradients
+    10x the others': the shards' own scales differ), on the card against
+    the CPU, bit for bit; the all-reduce's time on the card."""
+    from repro_torch.parallel import compression
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"attn.wq": (896, 896), "mlp.wi_gate": (896, 4864),
+              "mlp.wo": (4864, 896), "ln": (896,)}
+    grads = [{k: torch.randn(s, generator=gen) * (10.0 if i == 2 else 1.0)
+              for k, s in shapes.items()} for i in range(4)]
+    errs = [{k: (torch.randn(s, generator=gen) * 1e-2).to(torch.bfloat16)
+             for k, s in shapes.items()} for i in range(4)]
+    cuda = lambda trees: [tree_lib.tree_map(lambda t: t.cuda(), t)
+                          for t in trees]
+    want = (compression.compress(grads[0], errs[0]),
+            compression.compressed_allreduce(grads, errs))
+    gg, ge = cuda(grads), cuda(errs)
+    got = (compression.compress(gg[0], ge[0]),
+           compression.compressed_allreduce(gg, ge))
+    torch.cuda.synchronize()
+    pairs = list(zip(tree_lib.leaves(got), tree_lib.leaves(want)))
+    equal = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                for a, b in pairs)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        compression.compressed_allreduce(gg, ge)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    n = sum(t.numel() for t in grads[0].values())
+    log(f"  (h) compress / compressed_allreduce, 4 shards of {n} elements: "
+        f"{len(pairs)} leaves on the card bit-equal to the CPU's: {equal}; "
+        f"the all-reduce {ms:.2f} ms (host clock) ({card})")
+    if not equal:
+        raise AssertionError("compression on the card differs from the CPU")
+    return dict(leaves=len(pairs), bit_equal=equal, elements=n,
+                allreduce_ms=ms)
+
+
 def train_phase(card: str):
     """Phase 7's training runs: (a) full-width qwen2-0.5b, profiled, and
     its microbatched step; (b) mamba2-370m and qwen3-moe-30b-a3b at 2
-    layers; (c) fp32 parity against the CPU; (d) the bit-exact restart."""
+    layers; (c) fp32 parity against the CPU; (d) the bit-exact restart;
+    then :func:`mesh_train_phase`."""
     t0 = time.perf_counter()
     out = {}
     for i, (arch, layers, steps, lr) in enumerate(TRAIN_CELLS):
@@ -4468,8 +4854,25 @@ def train_phase(card: str):
                               micro=i == 0)
     out["parity"] = train_parity(card)
     out["restart"] = train_restart(card)
+    out.update(mesh_train_phase(card))
     out["seconds"] = time.perf_counter() - t0
     log(f"  training phase: {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_train_phase(card: str):
+    """Phase 7's sharded-training parts: (e) full-width qwen2-0.5b through
+    ``launch.train.main`` over meshes of logical devices, (f) the fp32
+    parity cell sharded, (g) remat "full" against "none", (h) the int8
+    gradient compression on the card against the CPU."""
+    t0 = time.perf_counter()
+    out = dict(sharded=sharded_train_phase(card),
+               sharded_parity=sharded_parity(card),
+               remat=remat_phase(card),
+               compression=compression_phase(card))
+    out["mesh_seconds"] = time.perf_counter() - t0
+    log(f"  sharded training, remat and compression (e)-(h): "
+        f"{out['mesh_seconds']:.1f} s")
     return out
 
 
@@ -4614,7 +5017,9 @@ def main() -> int:
 
     log(f"[7/8] training on the xla backend (no kernel): full-width "
         f"qwen2-0.5b, mamba2-370m and qwen3-moe-30b-a3b at 2 layers, fp32 "
-        f"parity against the CPU, the bit-exact restart (card: {card})")
+        f"parity against the CPU, the bit-exact restart, sharded training "
+        f"over meshes of logical devices, remat, int8 gradient compression "
+        f"(card: {card})")
     training = train_phase(card)
 
     # each GEMM form's launches over every serving run, the bf16 prefill

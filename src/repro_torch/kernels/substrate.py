@@ -458,12 +458,21 @@ SHARD_CACHE_STATS = {"hits": 0, "misses": 0}
 def _weight_block(w, spec, coord, mesh, dev):
     """A weight operand's block on ``dev``: the view itself when it is
     contiguous there (a row block, an expert slice), else the memoized
-    contiguous copy."""
+    contiguous copy.
+
+    A weight that requires a gradient under grad mode (training) bypasses
+    the memo: its copy is made anew at each dispatch.  A memoized copy
+    would carry the autograd graph of the pass that made it, and serving
+    it again — to a second microbatch, to remat's recomputation, or after
+    ``models.api.value_and_grad`` made fresh leaves on the same storage —
+    would send that gradient to a pass long done."""
     if w is None:
         return None
     blk = w[_block_index(w.shape, spec, coord, mesh)]
     if blk.device == dev and blk.is_contiguous():
         return blk
+    if torch.is_grad_enabled() and w.requires_grad:
+        return blk.contiguous().to(dev)
     base = w if w._base is None else w._base
     ent = _SHARD_CACHE.get(id(base))
     if ent is None or ent[0]() is not base:

@@ -3,19 +3,37 @@
 Port of the reference's ``launch/train.py``: the same CLI and loop —
 ``lm.init_params``, AdamW, the deterministic data pipeline, async
 checkpoints every ``--ckpt-every`` steps and resume from ``--ckpt-dir`` —
-on one device.  It runs on the card unless given ``--device cpu`` (and
-raises without one); the step is ``models.api.make_train_step`` in eager
-PyTorch on the config's ``gemm_backend`` (``xla``, as the reference
-trains: the collapse backends raise).
+under the (data, model) mesh of ``--mesh-data`` / ``--mesh-model``.  It
+runs on the card unless given ``--device cpu`` (and raises without one);
+the step is ``models.api.make_train_step`` in eager PyTorch on the
+config's ``gemm_backend`` (``xla``, as the reference trains: the collapse
+backends raise), each super-block under the config's ``remat``.
 
-``--mesh-data`` / ``--mesh-model`` clamp to the devices of ``--device``'s
-type, as the reference's ``make_host_mesh`` does; a mesh of more than one
-device would need sharded training (ROADMAP Queue 1 item 7b) and raises
-rather than train unsharded.
+The mesh clamps over ``launch.mesh.devices()`` of ``--device``'s type,
+as the reference's ``make_host_mesh`` clamps over ``jax.devices()``: an
+outer ``launch.mesh.host_devices(N)`` scope (the counterpart of
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``) gives it N
+logical devices.  A mesh of more than one device trains sharded: it
+becomes the config's ``mesh_shape``, so every GEMM of ``lm.loss_fn``
+dispatches per shard (``kernels.substrate``'s sharded dispatch: columns
+or the contraction over "model", rows over "data"; expert-parallel MoE
+banks), and the loop runs under ``parallel.sharding.activation_rules``,
+as the reference's does.  The reference trains that mesh through XLA's
+partitioner (GSPMD, steered by the activation rules under ``jax.jit``);
+the port reaches the same partitioning through its sharded dispatch.
+Both of the reference's routes — this one, and a ``mesh_shape`` config
+whose ``lm.loss_fn`` dispatches under ``shard_map`` — give the unsharded
+gradients to about 1e-7 in fp32 on reduced qwen2-0.5b over four host
+devices; ``tests/test_torch_sharded_train.py`` holds the port's sharded
+step to the reference's.
 
-Example (the CPU smoke run):
+Examples (the CPU smoke run, and a (2, 2) mesh of four logical CPU
+devices from Python):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --steps 20 --batch 4 --seq 64
+  with repro_torch.launch.mesh.host_devices(4, "cpu"):
+      train.main(["--device", "cpu", "--reduced", "--mesh-data", "2",
+                  "--mesh-model", "2"])
 and full-width qwen2-0.5b on the card:
   PYTHONPATH=src python -m repro_torch.launch.train --steps 100
 """
@@ -34,6 +52,7 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api, lm
 from repro_torch.optim import OptConfig, adamw_init
+from repro_torch.parallel import sharding
 
 
 def build_argparser():
@@ -98,17 +117,13 @@ def arrayflex_report(cfg, seq: int, batch: int) -> list:
 
 
 def host_mesh(data: int, model: int, device) -> mesh_lib.DeviceMesh:
-    """The reference's clamped ``make_host_mesh(data, model)`` over the
-    physical devices of ``device``'s type; more than one device raises."""
-    n = len(mesh_lib.physical_devices(device.type))
-    with mesh_lib.host_devices(n, device):
-        mesh = mesh_lib.make_host_mesh(data, model)
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"--mesh-data {data} --mesh-model {model} clamps to a "
-            f"{dict(mesh.shape)} mesh: sharded training is not ported yet "
-            f"(ROADMAP Queue 1 item 7b); train on one device")
-    return mesh
+    """The reference's clamped ``make_host_mesh(data, model)`` over
+    ``launch.mesh.devices()`` of ``device``'s type (an outer
+    ``host_devices`` scope's logical devices; the physical ones of that
+    type when the scope holds none)."""
+    n = sum(d.type == device.type for d in mesh_lib.devices())
+    with mesh_lib.host_devices(max(n, 1), device.type):
+        return mesh_lib.make_host_mesh(data, model)
 
 
 def main(argv=None):
@@ -122,7 +137,12 @@ def main(argv=None):
         for line in arrayflex_report(cfg, args.seq, args.batch):
             print(line)
 
-    host_mesh(args.mesh_data, args.mesh_model, dev)
+    mesh = host_mesh(args.mesh_data, args.mesh_model, dev)
+    if mesh.size > 1:
+        cfg = dataclasses.replace(
+            cfg, mesh_shape=(mesh.shape["data"], mesh.shape["model"]))
+        print(f"mesh: data={mesh.shape['data']} x "
+              f"model={mesh.shape['model']} over {mesh.size} devices")
     opt_cfg = OptConfig(lr=args.lr, total_steps=max(args.steps, 10))
     params = lm.init_params(cfg, seed=args.seed, device=dev)
     opt_state = adamw_init(params, opt_cfg)
@@ -142,25 +162,28 @@ def main(argv=None):
             print(f"resumed from step {start_step}")
     pipe = make_pipeline(dc, start_step=start_step)
 
+    act_rules = sharding.activation_rules(mesh, args.batch, cfg)
     losses = []
     t0 = time.time()
     try:
-        for step in range(start_step, args.steps):
-            _, batch = next(pipe)
-            batch = {k: torch.as_tensor(v).to(dev, torch.int64)
-                     for k, v in batch.items()}
-            params, opt_state, metrics = train_step(params, opt_state, batch)
-            losses.append(float(metrics["loss"]))
-            if step % args.log_every == 0 or step == args.steps - 1:
-                dt = time.time() - t0
-                toks = args.batch * args.seq * (step - start_step + 1)
-                print(f"step {step:5d} loss {losses[-1]:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"tok/s {toks/max(dt,1e-9):,.0f}")
-            if ckpt and (step + 1) % args.ckpt_every == 0:
-                ckpt.save_async(step + 1,
-                                {"params": params, "opt": opt_state})
+        with sharding.use_activation_rules(act_rules):
+            for step in range(start_step, args.steps):
+                _, batch = next(pipe)
+                batch = {k: torch.as_tensor(v).to(dev, torch.int64)
+                         for k, v in batch.items()}
+                params, opt_state, metrics = train_step(params, opt_state,
+                                                        batch)
+                losses.append(float(metrics["loss"]))
+                if step % args.log_every == 0 or step == args.steps - 1:
+                    dt = time.time() - t0
+                    toks = args.batch * args.seq * (step - start_step + 1)
+                    print(f"step {step:5d} loss {losses[-1]:.4f} "
+                          f"gnorm {float(metrics['grad_norm']):.3f} "
+                          f"lr {float(metrics['lr']):.2e} "
+                          f"tok/s {toks/max(dt,1e-9):,.0f}")
+                if ckpt and (step + 1) % args.ckpt_every == 0:
+                    ckpt.save_async(step + 1,
+                                    {"params": params, "opt": opt_state})
         if ckpt:
             ckpt.wait()
     finally:

@@ -1,11 +1,14 @@
-"""Public model API: the ``make_*_step`` functions.
+"""Public model API: the step functions, abstract input specs and their
+mesh specs.
 
-Port of the ``make_*_step`` functions of the reference's
-``models/api.py``: a fused forward + backward + AdamW training step
-(optionally accumulating gradients over microbatches), and the prefill
-and serving steps.  The
-reference's abstract input specs and PartitionSpec trees serve its
-sharded dry run and are not ported here.
+Port of the reference's ``models/api.py``: a fused forward + backward +
+AdamW training step (optionally accumulating gradients over
+microbatches), the prefill and serving steps, and the dry run's tables.
+``batch_specs`` / ``decode_specs`` / ``abstract_params`` /
+``abstract_opt_state`` give every model input and state as tensors on
+the ``meta`` device — shapes and dtypes (the reference's), no storage —
+and ``*_pspecs`` the matching spec trees for a mesh
+(``parallel.sharding``'s tuple specs).
 
 A training step differentiates ``lm.loss_fn`` with ``torch.autograd`` on
 detached, gradient-requiring views of the parameters (no copy), then
@@ -19,9 +22,122 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as tree_lib
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, SSMConfig
 from repro_torch.models import lm
-from repro_torch.optim import OptConfig, adamw_update
+from repro_torch.optim import OptConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding
+
+
+def dec_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Decoder-token length for enc-dec (audio) models."""
+    return max(shape.seq_len // 8, 16)
+
+
+# ---------------------------------------------------------------------------
+# abstract specs (meta tensors: a shape and a dtype, no storage)
+
+def _sds(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, *, with_labels=True):
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "audio":
+        DL = dec_len(cfg, shape)
+        out = {"frames": _sds((B, S, cfg.d_frontend), torch.bfloat16),
+               "tokens": _sds((B, DL), torch.int32)}
+        if with_labels:
+            out["labels"] = _sds((B, DL), torch.int32)
+        return out
+    out = {"tokens": _sds((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        out["image_embeds"] = _sds((B, cfg.n_image_tokens, cfg.d_frontend),
+                                   torch.bfloat16)
+    if with_labels:
+        out["labels"] = _sds((B, S), torch.int32)
+    return out
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(cache, token, pos) meta tensors for ``make_serve_step``."""
+    B = shape.global_batch
+    cache = lm.init_cache(cfg, B, shape.seq_len, device="meta")
+    return cache, _sds((B,), torch.int32), _sds((), torch.int32)
+
+
+def abstract_params(cfg: ModelConfig):
+    """``lm.init_params``' tree on the ``meta`` device: every leaf's shape
+    and dtype, no storage allocated."""
+    return lm.init_params(cfg, seed=0, device="meta")
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: OptConfig):
+    return adamw_init(abstract_params(cfg), opt_cfg)
+
+
+# ---------------------------------------------------------------------------
+# mesh specs
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                 with_labels=True):
+    B = shape.global_batch
+    tok = sharding.token_pspec(mesh, B)
+    act = sharding.activation_pspec(mesh, B)
+    if cfg.family == "audio":
+        out = {"frames": act, "tokens": tok}
+        if with_labels:
+            out["labels"] = tok
+        return out
+    out = {"tokens": tok}
+    if cfg.family == "vlm":
+        out["image_embeds"] = act
+    if with_labels:
+        out["labels"] = tok
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    B = shape.global_batch
+    ssm = cfg.ssm or SSMConfig()
+    hg = (cfg.d_inner // ssm.head_dim) // ssm.n_groups
+    conv_ch = cfg.d_inner + 2 * ssm.n_groups * ssm.d_state
+    cache = lm.init_cache(cfg, B, shape.seq_len, device="meta")
+
+    def spec(path, leaf):
+        name = str(path[-1])
+        if name in ("k", "v", "xk", "xv"):
+            return sharding.kv_cache_pspec(mesh, B, leaf.shape[2])
+        if name == "state":
+            return sharding.ssm_state_pspec(mesh, B, hg)
+        if name == "conv":
+            return sharding.conv_state_pspec(mesh, B, conv_ch)
+        return ()
+
+    return tree_lib.map_with_path(spec, cache)
+
+
+def decode_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    B = shape.global_batch
+    tok = sharding._P(sharding._maybe(B, mesh, sharding.batch_axes(mesh)))
+    return cache_pspecs(cfg, shape, mesh), tok, ()
+
+
+def param_pspecs(cfg: ModelConfig, mesh):
+    return sharding.param_pspec_tree(
+        abstract_params(cfg), mesh,
+        moe_experts=cfg.moe.num_experts if cfg.moe else 0)
+
+
+def opt_pspecs(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
+    pp = param_pspecs(cfg, mesh)
+    out = {"m": pp, "v": pp, "step": ()}
+    if opt_cfg.master_weights:
+        out["master"] = pp
+    return out
+
+
+# ---------------------------------------------------------------------------
+# step functions
 
 
 def value_and_grad(cfg: ModelConfig, params, batch):
@@ -44,10 +160,12 @@ def value_and_grad(cfg: ModelConfig, params, batch):
 def _micro(batch, n: int, m: int):
     """Microbatch ``m`` of ``n``: rows m, m + n, m + 2n, ... of every batch
     leaf (the reference's stride split, so each microbatch spans every
-    data shard evenly)."""
+    data shard evenly), from the (n, B/n, ...) view the "micro_batch"
+    activation rule constrains."""
     def split(x):
         b = x.shape[0] // n
-        return x.reshape((b, n) + tuple(x.shape[1:]))[:, m]
+        xr = x.reshape((b, n) + tuple(x.shape[1:])).movedim(1, 0)
+        return sharding.constrain(xr, "micro_batch")[m]
     return {k: split(v) for k, v in batch.items()}
 
 

@@ -63,7 +63,10 @@ no request field for a context.
 
 ``loss_fn`` (training) differentiates ``forward`` on the raw parameter
 tree on the ``xla`` and ``ref`` backends; the collapse backends raise
-(:func:`check_trainable`).
+(:func:`check_trainable`).  Under autograd each super-block of
+``forward`` and each encoder layer of ``encode_audio`` runs under
+``cfg.remat`` (:func:`_remat`), and the hidden states and logits pass
+``parallel.sharding.constrain`` at the reference's points.
 
 The entry points (``forward``, ``decode_step``, ``prefill_step``, the
 paged steps and the pipelined ones) run inside
@@ -163,6 +166,28 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: unknown model family {cfg.family!r}; the port "
             f"runs {', '.join(FAMILIES)}")
+
+
+def _device(device) -> torch.device:
+    """``kernels.runtime.resolve_device``, and ``"meta"``: tensors with a
+    shape and a dtype and no storage (``models.api``'s abstract trees)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``, as the reference's ``_remat``: "none"
+    runs it as is; "dots" checkpoints it saving the outputs of the dots
+    without batch dims (``layers.dots_saveable``); anything else ("full")
+    checkpoints it whole, keeping only its inputs for the backward pass.
+    A checkpoint acts only under autograd (``layers.checkpointed``):
+    serving, ``prefill`` and a forward without gradients run ``fn`` as
+    is."""
+    if cfg.remat == "none":
+        return fn
+    policy = layers.dots_saveable if cfg.remat == "dots" else None
+    return functools.partial(layers.checkpointed, fn, context_fn=policy)
 
 
 def _mesh_scoped(fn):
@@ -609,15 +634,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     dim; the VLM family adds ``img_proj``, the audio family
     ``audio_proj`` and ``enc_blocks``, a one-entry tuple of the encoder
     layers stacked on a leading ``n_encoder_layers`` dim.  On the card
-    unless ``device="cpu"``.
+    unless ``device="cpu"``; ``device="meta"`` gives the tree's shapes and
+    dtypes and allocates nothing (the draws go to meta tensors, which
+    keep none; the generator stays on the CPU, as none lives on meta).
 
     Each stacked leaf is allocated once, in the parameter dtype, and
     filled layer by layer as the generator draws each layer, so the
     transient memory is one layer's tree (a full-width MoE model's
     stacked expert banks are 19 GB each in bf16)."""
     check_supported(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    dev = _device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
     dtype = _pdtype(cfg)
 
     def stacked(n, init):
@@ -677,14 +705,19 @@ def encode_audio(cfg: ModelConfig, params, frames):
     x = layers.linear(params["audio_proj"], frames, cd,
                       site="frontend.audio", backend=cfg.gemm_backend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for p in _unstack(params["enc_blocks"][0], cfg.n_encoder_layers):
+
+    def body(x, p):
         h = layers.rmsnorm_normalize(x, cfg.rms_eps)
         out, _ = attn_full(p["attn"], h, cfg, positions, causal=False,
                            norm_scale=p["ln1"]["scale"])
         x = x + out
         h = layers.rmsnorm_normalize(x, cfg.rms_eps)
-        x = layers.swiglu(p["mlp"], h, cd, backend=cfg.gemm_backend,
-                          residual=x, norm_scale=p["ln2"]["scale"])
+        return layers.swiglu(p["mlp"], h, cd, backend=cfg.gemm_backend,
+                             residual=x, norm_scale=p["ln2"]["scale"])
+
+    body = _remat(cfg, body)
+    for p in _unstack(params["enc_blocks"][0], cfg.n_encoder_layers):
+        x = body(x, p)
     return x
 
 
@@ -818,7 +851,8 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
     cd = _cdtype(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = layers.embed(params["embed"], tokens, cd)
+    x = sharding.constrain(layers.embed(params["embed"], tokens, cd),
+                           "hidden")
     positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ctx = _context(cfg, params, batch)
@@ -826,14 +860,25 @@ def forward(cfg: ModelConfig, params, batch, *, return_cache=False):
                          n_cross=None if ctx is None else ctx.shape[1])
               if return_cache else None)
     blocks = [_unstack(params["blocks"][i], n_super(cfg)) for i in range(P)]
-    for l in range(n_super(cfg)):
+
+    def body(x, aux, p_block):
+        block_caches = []
         for i in range(P):
-            x, aux, c = sublayer_full(blocks[i][l], cfg, i, x, aux,
-                                      positions, ctx)
-            if caches is not None:
+            x, aux, c = sublayer_full(p_block[i], cfg, i, x, aux, positions,
+                                      ctx)
+            x = sharding.constrain(x, "hidden")
+            block_caches.append(c)
+        return x, aux, block_caches
+
+    body = _remat(cfg, body)
+    for l in range(n_super(cfg)):
+        x, aux, block_caches = body(x, aux, [blocks[i][l] for i in range(P)])
+        if caches is not None:
+            for i, c in enumerate(block_caches):
                 _put(caches[i], c, l)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    return _logits(cfg, params, x, cd), aux, caches
+    return (sharding.constrain(_logits(cfg, params, x, cd), "logits"), aux,
+            caches)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -902,7 +947,8 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
                     _layer(cache[i], l), pos,
                     dst=_layer(new[i], l) if "state" in new[i] else None)
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-    return _logits(cfg, params, x, cd)[:, 0], new
+    logits = sharding.constrain(_logits(cfg, params, x, cd), "logits")
+    return logits[:, 0], new
 
 
 def supports_batched_prefill(cfg: ModelConfig) -> bool:
@@ -933,16 +979,17 @@ def prefill_step(cfg: ModelConfig, params, cache, tokens, pos, lengths):
         for i in range(P):
             x, _ = sublayer_prefill(_layer(params["blocks"][i], l), cfg, i,
                                     x, _layer(cache[i], l), pos, lengths)
-    return _last_logits(cfg, params, x, lengths), cache
+    return sharding.constrain(_last_logits(cfg, params, x, lengths),
+                              "logits")[:, 0], cache
 
 
 def _last_logits(cfg, params, x, lengths):
-    """Logits (B,V) at each row's last valid chunk token of x (B,C,d)."""
+    """Logits (B,1,V) at each row's last valid chunk token of x (B,C,d)."""
     x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
     lengths = torch.as_tensor(lengths, dtype=torch.int64, device=x.device)
     last = torch.clamp(lengths - 1, 0, x.shape[1] - 1)
     x = torch.take_along_dim(x, last[:, None, None], dim=1)           # (B,1,d)
-    return _logits(cfg, params, x, _cdtype(cfg))[:, 0]
+    return _logits(cfg, params, x, _cdtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -1027,7 +1074,8 @@ def _pp_step(cfg: ModelConfig, params, cache, tokens, pos, lengths):
         x = layers.rmsnorm(last["final_norm"], y, cfg.rms_eps)
         logits = _logits(cfg, last, x, cd)[:, 0]
     else:
-        logits = _last_logits(cfg, last, y, to_device(lengths, y.device))
+        logits = _last_logits(cfg, last, y,
+                              to_device(lengths, y.device))[:, 0]
     return to_device(logits, home), cache
 
 
@@ -1104,8 +1152,10 @@ def _paged_step(cfg, params, cache, tokens, pos, lengths, bt):
                                                lengths, bt)
     if lengths is None:
         x = layers.rmsnorm(params["final_norm"], x, cfg.rms_eps)
-        return _logits(cfg, params, x, _cdtype(cfg))[:, 0], cache
-    return _last_logits(cfg, params, x, lengths), cache
+        logits = _logits(cfg, params, x, _cdtype(cfg))
+    else:
+        logits = _last_logits(cfg, params, x, lengths)
+    return sharding.constrain(logits, "logits")[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -1120,9 +1170,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     the conv window (n_super, B, d_conv - 1, conv_ch) in ``dtype``; and a
     cross-attending sub-layer's ``{'xk','xv'}`` besides, (n_super, B,
     n_cross, KV, hd) in ``dtype`` (``n_cross`` None: :func:`cross_len`).
-    On the card unless ``device="cpu"``."""
+    On the card unless ``device="cpu"`` (``"meta"``: shapes only)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = _device(device)
     NS = n_super(cfg)
     ssm = _ssm(cfg)
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads

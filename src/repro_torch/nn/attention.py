@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels import substrate
+from repro_torch.nn import layers
 from repro_torch.parallel import sharding
 
 NEG_INF = -1e30
@@ -75,9 +76,12 @@ def dense_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
-    qg = q.reshape(B, S, KV, g, D)
+    qg = sharding.constrain(q.reshape(B, S, KV, g, D), "attn_q_seq")
+    k = sharding.constrain(k, "attn_qkv")
+    v = sharding.constrain(v, "attn_qkv")
     scale = 1.0 / math.sqrt(D)
     scores = qk_scores(qg, k, backend=backend) * scale
+    scores = sharding.constrain(scores, "attn_scores_seq")
     r = q_offset + torch.arange(S, device=q.device)[:, None]
     c = torch.arange(T, device=q.device)[None, :]
     ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -102,21 +106,31 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
 
     T need not divide ``kv_chunk``: the last chunk is shorter, which equals
     the reference's zero-pad-and-mask (a masked column contributes an
-    exact 0), so a prime KV length runs in ``ceil(T/kc)`` steps."""
+    exact 0), so a prime KV length runs in ``ceil(T/kc)`` steps.
+
+    Each KV step is checkpointed under autograd, as the reference remats
+    it: the backward pass recomputes the step's (S x kc) score block
+    instead of keeping every step's intermediates; only the (o, m, l)
+    carries persist."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
     kv_chunk = min(kv_chunk, T)
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    qg = q.reshape(B, S, KV, g, D).float()
+    qg = sharding.constrain(q.reshape(B, S, KV, g, D), "attn_q_seq").float()
+    k = sharding.constrain(k, "attn_qkv")
+    v = sharding.constrain(v, "attn_qkv")
     rows = q_offset + torch.arange(S, device=dev)[:, None]    # global row ids
-    o = torch.zeros((B, S, KV, g, D), dtype=torch.float32, device=dev)
-    m = torch.full((B, S, KV, g), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, S, KV, g), dtype=torch.float32, device=dev)
-    for col0 in range(0, T, kv_chunk):
-        ks = k[:, col0:col0 + kv_chunk]
-        vs = v[:, col0:col0 + kv_chunk]
+    o = sharding.constrain(torch.zeros((B, S, KV, g, D), dtype=torch.float32,
+                                       device=dev), "attn_q_seq")
+    m = sharding.constrain(torch.full((B, S, KV, g), NEG_INF,
+                                      dtype=torch.float32, device=dev),
+                           "attn_stat_seq")
+    l = sharding.constrain(torch.zeros((B, S, KV, g), dtype=torch.float32,
+                                       device=dev), "attn_stat_seq")
+
+    def step(o, m, l, qg, ks, vs, col0):
         s = torch.einsum("bskgd,btkd->bkgst", qg, ks.float()) * scale
         cols = col0 + torch.arange(ks.shape[1], device=dev)[None, :]
         ok = torch.ones((S, ks.shape[1]), dtype=torch.bool, device=dev)
@@ -132,8 +146,12 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         l = l * corr + p.sum(dim=-1).permute(0, 3, 1, 2)
         pv = torch.einsum("bkgst,btkd->bskgd", p.to(vs.dtype).float(),
                           vs.float())
-        o = o * corr[..., None] + pv
-        m = m_new
+        return o * corr[..., None] + pv, m_new, l
+
+    for col0 in range(0, T, kv_chunk):
+        o, m, l = layers.checkpointed(step, o, m, l, qg,
+                                      k[:, col0:col0 + kv_chunk],
+                                      v[:, col0:col0 + kv_chunk], col0)
     out = o / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, S, H, D).to(q.dtype)
 

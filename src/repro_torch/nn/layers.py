@@ -6,16 +6,65 @@ matching apply function is a plain function of (params, inputs).  Every
 GEMM dispatches through ``kernels.substrate`` under its planner site label,
 with the site's shard context (``parallel.sharding.gemm_shard_ctx``) where
 the reference derives one: ``linear``, ``unembed`` and ``swiglu``.
+
+:func:`checkpointed` is the port's ``jax.checkpoint``: the model's remat
+(``models.lm._remat``), each KV step of the chunked attention scan and
+each SSD chunk run through it, and it checkpoints only under autograd.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import substrate
 from repro_torch.parallel import sharding
+
+
+# ---------------------------------------------------------------- remat
+def checkpointed(fn, *args, context_fn=None):
+    """``fn(*args)``, checkpointed when autograd records it (grad mode on
+    and a tensor among ``args`` requiring a gradient): the forward keeps
+    only the inputs, and the backward pass runs ``fn`` again for the rest
+    (``torch.utils.checkpoint``, non-reentrant: any nesting of arguments
+    and outputs, tensors ``fn`` closes over included).  ``context_fn``:
+    a selective policy (:func:`dots_saveable`).  Outside autograd it is
+    ``fn(*args)`` itself, so serving and gradient-free forwards run
+    unchanged.
+
+    The recomputation runs in a copy of the context variables of the
+    forward call (the GEMM-dispatch mesh, the activation rules, the
+    pipeline pricing): the backward pass runs after the entry point has
+    left its scopes, and recomputing outside them would dispatch other
+    GEMMs than the forward did."""
+    if not (torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad
+            for t in tree_lib.leaves(list(args)))):
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    scope = contextvars.copy_context()
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(lambda *a: scope.run(fn, *a), *args,
+                      use_reentrant=False, **kw)
+
+
+def dots_saveable():
+    """Selective-checkpoint contexts that save the outputs of the dots
+    without batch dims (``mm`` / ``addmm``: the substrate's 2-D GEMMs) and
+    recompute everything else, as the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def normal_init(gen, shape, scale=0.02, dtype=torch.float32, device="cpu"):

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn import layers
+from repro_torch.parallel import sharding
 
 
 def _inv_softplus(x):
@@ -46,14 +47,18 @@ def mamba_init(gen, d_model, ssm, dtype=torch.float32, device="cpu"):
     def lin(i, o):
         return layers.linear_init(gen, i, o, dtype=dtype, device=device)
 
+    def const(a):
+        # on the meta device (shapes only) no host tensor is made
+        if torch.device(device).type == "meta":
+            return torch.empty(a.shape, dtype=torch.float32, device=device)
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
     p = {"z_proj": lin(d_model, d_inner),
          "xbc_proj": lin(d_model, conv_ch),
          "dt_proj": lin(d_model, H)}
     p.update({
-        "dt_bias": torch.as_tensor(_inv_softplus(dt), dtype=torch.float32,
-                                   device=device),
-        "a_log": torch.log(torch.as_tensor(a, dtype=torch.float32,
-                                           device=device)),
+        "dt_bias": const(_inv_softplus(dt)),
+        "a_log": torch.log(const(a)),
         "D": torch.ones((H,), dtype=torch.float32, device=device),
         "conv_w": layers.normal_init(gen, (K, conv_ch), 0.1, dtype, device),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
@@ -92,7 +97,10 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
 
     The chunks run in order, each reading and then advancing the carried
     state, and the intra-chunk contraction is staged so no (c, c, P)
-    tensor is ever built: the peak is O(B*H*c^2) for one chunk."""
+    tensor is ever built: the peak is O(B*H*c^2) for one chunk.  Each
+    chunk is checkpointed under autograd, as the reference remats it: the
+    backward pass recomputes a chunk's intermediates from its inputs and
+    the carried state."""
     Bsz, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     hg = H // G
@@ -108,10 +116,8 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
     dts = cmajor(dt, (G, hg))
     Bs = cmajor(B_, (G, N))
     Cs = cmajor(C_, (G, N))
-    state = torch.zeros((Bsz, G, hg, P, N), dtype=f32, device=x.device)
-    ys = []
-    for i in range(nc):
-        xc, dtc, Bc, Cc = xs[:, i], dts[:, i], Bs[:, i], Cs[:, i]
+
+    def body(state, xc, dtc, Bc, Cc, A2):
         dA = dtc * A2                                  # (B,c,G,hg)
         cs = torch.cumsum(dA, dim=1)
         cs_last = cs[:, -1]                            # (B,G,hg)
@@ -128,8 +134,15 @@ def ssd_chunked(x, dt, A, B_, C_, chunk):
         # inter-chunk: read incoming state, then update it
         y_off = torch.einsum("bcgs,bghps,bcgh->bcghp",
                              Cc, state, torch.exp(cs))
-        state = state * torch.exp(cs_last)[..., None, None] + st_chunk
-        ys.append(y_diag + y_off)
+        return (state * torch.exp(cs_last)[..., None, None] + st_chunk,
+                y_diag + y_off)
+
+    state = torch.zeros((Bsz, G, hg, P, N), dtype=f32, device=x.device)
+    ys = []
+    for i in range(nc):
+        state, y = layers.checkpointed(body, state, xs[:, i], dts[:, i],
+                                       Bs[:, i], Cs[:, i], A2)
+        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
     return y.to(x.dtype), state
 
@@ -149,7 +162,8 @@ def mamba_forward(p, x, ssm, compute_dtype=torch.bfloat16, backend="xla"):
         conv_state = xbc_raw[:, S - (K - 1):]
     else:
         conv_state = F.pad(xbc_raw, (0, 0, K - 1 - S, 0))
-    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+    xbc = F.silu(_causal_conv(sharding.constrain(xbc_raw, "mamba_xbc"),
+                              p["conv_w"], p["conv_b"]))
     xs = xbc[..., :d_inner]
     Bmat = xbc[..., d_inner:d_inner + G * N].reshape(B, S, G, N)
     Cmat = xbc[..., d_inner + G * N:].reshape(B, S, G, N)
@@ -158,8 +172,9 @@ def mamba_forward(p, x, ssm, compute_dtype=torch.bfloat16, backend="xla"):
                       backend=backend).float() + p["dt_bias"])
     A = -torch.exp(p["a_log"])
     chunk = min(ssm.chunk_size, S)
-    y, final_state = ssd_chunked(xs.reshape(B, S, H, ssm.head_dim),
-                                 dt, A, Bmat, Cmat, chunk)
+    y, final_state = ssd_chunked(
+        sharding.constrain(xs.reshape(B, S, H, ssm.head_dim), "ssm_x"),
+        dt, A, Bmat, Cmat, chunk)
     y = y + (p["D"].reshape(H, 1) * xs.reshape(B, S, H, ssm.head_dim)
              .float()).to(y.dtype)
     y = y.reshape(B, S, d_inner)

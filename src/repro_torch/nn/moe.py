@@ -142,6 +142,7 @@ def moe_apply(p, x, *, top_k, capacity_factor=1.25, groups=0,
     he = torch.take_along_dim(xf.to(cd),
                               slot_tok.reshape(G, E * cap)[:, :, None], dim=1)
     he = he.reshape(G, E, cap, d) * slot_valid[..., None].to(cd)
+    he = sharding.constrain(he, "moe_buf4")
 
     # ---- expert GEMMs: every expert of a site in one dispatch (a
     # QuantizedTensor bank's dtype cast is a no-op); under a mesh the
@@ -151,13 +152,13 @@ def moe_apply(p, x, *, top_k, capacity_factor=1.25, groups=0,
     wg = p["wi_gate"].to(cd)
     wu = p["wi_up"].to(cd)
     wo = p["wo"].to(cd)
-    hg = substrate.expert_gemm(he, wg, site="moe.wi_gate", backend=backend,
-                               shard=esh)
-    hu = substrate.expert_gemm(he, wu, site="moe.wi_up", backend=backend,
-                               shard=esh)
+    hg = sharding.constrain(substrate.expert_gemm(
+        he, wg, site="moe.wi_gate", backend=backend, shard=esh), "moe_h4")
+    hu = sharding.constrain(substrate.expert_gemm(
+        he, wu, site="moe.wi_up", backend=backend, shard=esh), "moe_h4")
     h = F.silu(hg) * hu
-    hout = substrate.expert_gemm(h, wo, site="moe.wo", backend=backend,
-                                 shard=esh)
+    hout = sharding.constrain(substrate.expert_gemm(
+        h, wo, site="moe.wo", backend=backend, shard=esh), "moe_buf4")
 
     # ---- combine back (gather token slots, weight, sum over k)
     dst = torch.where(keep, flat_e * cap + rank, 0)          # (G,TK)

@@ -1,16 +1,28 @@
-"""Sharding rules the planner and the substrate share, the GEMM-dispatch
-mesh scope and the pipeline pricing scope.
+"""Sharding rules: logical parameter / activation axes -> mesh specs, the
+GEMM-dispatch mesh scope and the pipeline pricing scope.
 
-Port of the reference's ``parallel/sharding.py`` (the parameter
-PartitionSpec trees and activation constraints, which only steer XLA's
-partitioner, have no counterpart: the port's dispatch slices operands
-itself):
+Port of the reference's ``parallel/sharding.py``.  Mesh axes: ``pod``
+(inter-pod; the pipeline dim in ``parallel.pipeline``), ``data`` (FSDP /
+batch) and ``model`` (tensor parallel).  It holds:
 
 * the mesh helpers (:func:`batch_axes`, :func:`all_axes`,
-  :func:`_divisible`, :func:`_maybe`), the GEMM mesh scope
-  (:class:`use_gemm_mesh`, :func:`mesh_from_config` over
-  ``launch.mesh``'s :class:`~repro_torch.launch.mesh.DeviceMesh`) and
-  :func:`gemm_mesh_scope`, which the lm entry points enter;
+  :func:`_divisible`, :func:`_maybe`);
+* the spec tables, with the reference's names and rules: the parameter
+  specs (:func:`param_pspec_tree` over ``_IN_OUT`` / ``_OUT_IN`` / the
+  ``_MOE_EP`` toggle, :func:`named`), the input and cache specs
+  (:func:`token_pspec`, :func:`activation_pspec`, :func:`kv_cache_pspec`,
+  :func:`ssm_state_pspec`, :func:`conv_state_pspec`) and the activation
+  rules (:func:`activation_rules`, :class:`use_activation_rules`,
+  :func:`constrain`).  In the reference they steer XLA's partitioner; on
+  the port's single controller every tensor is held whole on the mesh's
+  home device and the dispatch slices each GEMM's operands itself, so a
+  spec says where a shard *would* live (``runtime.elastic.reshard``
+  checks the specs against the shapes, ``models.api``'s ``*_pspecs`` give
+  the dry run's tables) and :func:`constrain` resolves its rule and
+  returns the tensor unchanged;
+* the GEMM mesh scope (:class:`use_gemm_mesh`, :func:`mesh_from_config`
+  over ``launch.mesh``'s :class:`~repro_torch.launch.mesh.DeviceMesh`)
+  and :func:`gemm_mesh_scope`, which the lm entry points enter;
 * the shard-context derivation the dispatch runs under a mesh:
   :func:`gemm_shard_ctx` (column-parallel sites shard their output
   columns over "model", row-parallel ones their contraction, every site
@@ -33,6 +45,9 @@ import contextlib
 import contextvars
 import functools
 import math
+from dataclasses import dataclass
+
+from repro_torch import tree as tree_lib
 
 # The first GEMM a pipeline stage runs per layer: the one site per block
 # that carries the role's stage-transfer terms, so the transfer is priced
@@ -77,6 +92,264 @@ def _divisible(dim: int, mesh, axes) -> bool:
 def _maybe(dim: int, mesh, axes):
     """Use `axes` for this dim only if it divides evenly, else replicate."""
     return axes if _divisible(dim, mesh, axes) else None
+
+
+# ---------------------------------------------------------------------------
+# parameter rules, keyed by (parent, leaf) path suffix
+
+# (in, out) 2D GEMM weights: in->data (FSDP), out->model (TP)
+_IN_OUT = {"wq", "wk", "wv", "wi_gate", "wi_up", "wi", "z_proj", "xbc_proj",
+           "img_proj", "audio_proj"}
+# (in, out) with in->model (TP reduce), out->data
+_OUT_IN = {"wo", "out_proj"}
+# module-level toggle set by param_pspec_tree per call (E % tp == 0)
+_MOE_EP = False
+
+
+def _param_spec_parts(path_names, leaf) -> tuple:
+    """Spec entries for the *trailing* (un-stacked) dims of a leaf."""
+    names = [str(n) for n in path_names]
+    parent = names[-2] if len(names) >= 2 else ""
+    name = names[-1]
+    nd = leaf.ndim
+    if name == "table":                        # embedding (vocab, d)
+        return ("model", "data")
+    if name == "b":
+        return (_spec_bias(parent),)
+    if parent in _IN_OUT and name == "w":
+        return ("data", "model")
+    if parent in _OUT_IN and name == "w":
+        return ("model", "data")
+    if parent == "dt_proj" and name == "w":
+        return ("data", "model")
+    if parent == "lm_head" and name == "w":
+        return ("data", "model")
+    if name == "router":
+        return ("data", None)
+    # MoE expert banks: trailing dims (E, d, ff) / (E, ff, d); expert
+    # parallel (E over "model") when E divides the TP degree, else the
+    # tensor-parallel ff entry survives as the fallback
+    if name in ("wi_gate", "wi_up") and parent == "moe":
+        return ("model", "data", None) if _MOE_EP else (None, "data", "model")
+    if name == "wo" and parent == "moe":
+        return ("model", None, "data") if _MOE_EP else (None, "model", "data")
+    if name == "conv_w":
+        return (None, "model")
+    if name == "conv_b":
+        return ("model",)
+    return (None,) * nd
+
+
+def _spec_bias(parent: str):
+    if parent in _IN_OUT or parent == "dt_proj" or parent == "lm_head":
+        return "model"
+    return None
+
+
+def param_pspec_tree(params, mesh, stacked_prefixes=("blocks", "enc_blocks"),
+                     moe_experts: int = 0):
+    """Spec tree for a parameter tree (leaves: anything with ``shape`` /
+    ``ndim``, e.g. ``models.api.abstract_params``' meta tensors).
+
+    Leading dims beyond a rule's trailing entries (the ``n_super`` stack
+    of the leaves under ``stacked_prefixes``) get None.  An axis that does
+    not divide its dim falls back to replication.  ``moe_experts`` (when
+    the model has MoE layers) selects expert-parallel against
+    tensor-parallel expert specs."""
+    global _MOE_EP
+    _MOE_EP = bool(moe_experts) and _divisible(moe_experts, mesh, "model")
+
+    def spec_for(path, leaf):
+        parts = list(_param_spec_parts(path, leaf))
+        offset = leaf.ndim - len(parts)
+        if offset < 0:
+            parts = parts[-leaf.ndim:] if leaf.ndim else []
+            offset = 0
+        full = [None] * offset + parts
+        for i, ax in enumerate(full):
+            if ax is not None and not _divisible(leaf.shape[i], mesh, ax):
+                full[i] = None
+        return tuple(full)
+
+    return tree_lib.map_with_path(spec_for, params)
+
+
+def _P(*entries) -> tuple:
+    """A spec from its entries, normalized as a ``PartitionSpec`` is: a
+    one-axis tuple entry is that axis's name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def _spec_axes(entry) -> tuple:
+    """The mesh axes one spec entry names (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def is_spec(x) -> bool:
+    """True for a spec leaf of a spec tree: a tuple of None, axis names and
+    tuples of axis names (a parameter tree's tuples hold dicts)."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def map_specs(fn, tree):
+    """``fn(spec)`` over every spec leaf of ``tree``."""
+    if is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return type(tree)(map_specs(fn, v) for v in tree)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec bound to a mesh (the reference's ``jax.sharding.NamedSharding``;
+    ``runtime.elastic.reshard`` checks a leaf against it)."""
+    mesh: object
+    spec: tuple
+
+
+def named(tree_of_pspecs, mesh):
+    return map_specs(lambda s: NamedSharding(mesh, s), tree_of_pspecs)
+
+
+# ---------------------------------------------------------------------------
+# activation / input / cache specs
+
+def token_pspec(mesh, global_batch: int):
+    ax = batch_axes(mesh)
+    return _P(_maybe(global_batch, mesh, ax), None)
+
+
+def activation_pspec(mesh, global_batch: int):
+    ax = batch_axes(mesh)
+    return _P(_maybe(global_batch, mesh, ax), None, None)
+
+
+def kv_cache_pspec(mesh, global_batch: int, cache_len: int, *,
+                   stacked: bool = True):
+    """(n_super, B, S, KV, hd).  Batch over the data axes when divisible,
+    else the sequence dim over everything (long-context decode)."""
+    bax = _maybe(global_batch, mesh, batch_axes(mesh))
+    if bax is not None and global_batch >= math.prod(
+            mesh.shape[a] for a in batch_axes(mesh)):
+        seq = _maybe(cache_len, mesh, "model")
+        spec = (bax, seq, None, None)
+    else:
+        seq = _maybe(cache_len, mesh, all_axes(mesh))
+        spec = (None, seq, None, None)
+    return _P(*((None,) + spec if stacked else spec))
+
+
+def ssm_state_pspec(mesh, global_batch: int, heads_per_group: int, *,
+                    stacked: bool = True):
+    """(n_super, B, G, hg, P, N)."""
+    bax = _maybe(global_batch, mesh, batch_axes(mesh))
+    hax = _maybe(heads_per_group, mesh, "model")
+    spec = (bax, None, hax, None, None)
+    return _P(*((None,) + spec if stacked else spec))
+
+
+def conv_state_pspec(mesh, global_batch: int, channels: int, *,
+                     stacked: bool = True):
+    """(n_super, B, K-1, ch)."""
+    bax = _maybe(global_batch, mesh, batch_axes(mesh))
+    cax = _maybe(channels, mesh, "model")
+    spec = (bax, None, cax)
+    return _P(*((None,) + spec if stacked else spec))
+
+
+# ---------------------------------------------------------------------------
+# activation constraints (scoped through a context variable so model code
+# stays mesh-agnostic; inert outside the trainer's scope)
+
+_ACT_RULES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_activation_rules", default=None)
+
+
+def activation_rules(mesh, global_batch: int, cfg=None, kind: str = "train"):
+    """The activation constraint set for a (mesh, batch[, model cfg]).
+
+    Full-sequence passes (train / prefill) shard hidden states over
+    "model" along the sequence between blocks (Megatron-SP); decode
+    (S = 1) keeps them replicated over "model"."""
+    bax = _maybe(global_batch, mesh, batch_axes(mesh))
+    seq = "model" if kind != "decode" else None
+    rules = {
+        "hidden": _P(bax, seq, None),            # (B, S, d)
+        "logits": _P(bax, None, "model"),        # (B, S, vocab)
+        "micro_batch": _P(None, bax, None),      # (n_micro, B/n, S)
+        # sequence-sharded attention: q rows over "model", KV replicated
+        "attn_qkv": _P(bax, None, None, None),         # (B, T, KV, hd) k/v
+        "attn_q_seq": _P(bax, "model", None, None, None),  # (B,S,KV,g,d)
+        "attn_stat_seq": _P(bax, "model", None, None),     # (B,S,KV,g)
+        "attn_scores_seq": _P(bax, None, None, "model", None),
+        # (B,KV,g,S,T)
+    }
+    if cfg is not None:
+        mdl = "model"
+        ssm = getattr(cfg, "ssm", None)
+        if ssm is not None:
+            H = cfg.ssm_heads
+            conv_ch = cfg.d_inner + 2 * ssm.n_groups * ssm.d_state
+            rules["mamba_xbc"] = _P(bax, None, _maybe(conv_ch, mesh, mdl))
+            rules["ssm_x"] = _P(bax, None, _maybe(H, mesh, mdl), None)
+        if getattr(cfg, "moe", None) is not None:
+            E = cfg.moe.num_experts
+            if _divisible(E, mesh, mdl):
+                # expert parallel: E over "model"
+                rules["moe_buf4"] = _P(bax, mdl, None, None)
+                rules["moe_h4"] = _P(bax, mdl, None, None)
+            else:
+                # TP fallback: (G, E, cap, ff) splits ff over "model"
+                rules["moe_buf4"] = _P(bax, None, None, None)
+                rules["moe_h4"] = _P(bax, None, None, "model")
+    return rules
+
+
+class use_activation_rules:
+    def __init__(self, rules):
+        self.rules = rules
+        self._token = None
+
+    def __enter__(self):
+        self._token = _ACT_RULES.set(self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        _ACT_RULES.reset(self._token)
+        return False
+
+
+def constraint_spec(name: str, ndim: int):
+    """The spec :func:`constrain` resolves for a rank-``ndim`` tensor under
+    the active rules (the rule padded with None, or cut, to ``ndim``), or
+    None when no rule applies."""
+    rules = _ACT_RULES.get()
+    if not rules or name not in rules:
+        return None
+    spec = rules[name]
+    if spec is None:
+        return None
+    parts = list(spec) + [None] * (ndim - len(spec))
+    return tuple(parts[:ndim])
+
+
+def constrain(x, name: str):
+    """Apply a named activation constraint if rules are active.
+
+    The reference pins ``x``'s layout for XLA's partitioner here.  A
+    single controller holds every tensor whole (the sharded dispatch
+    slices each GEMM's operands at launch), so the port resolves the rule
+    as the reference does (:func:`constraint_spec`) and returns ``x``
+    itself."""
+    constraint_spec(name, x.ndim)
+    return x
 
 
 # ---------------------------------------------------------------------------

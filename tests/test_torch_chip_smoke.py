@@ -711,6 +711,38 @@ def test_train_cells_are_the_trainers_defaults_at_full_width(smoke):
     assert parity.n_layers == 2 and parity.compute_dtype == "float32"
 
 
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2)])
+def test_sharded_train_meshes_are_built_exactly(smoke, shape):
+    """Phase 7 (e)'s meshes fit the four logical devices it opens, so
+    ``train.host_mesh`` builds each exactly (a clamped mesh would train
+    another sharding than the one reported), and every GEMM's rows (B x S
+    at the trainer's defaults) divide the data axis; the card run's
+    tolerances are no looser than stated."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    assert shape in smoke.SHARDED_TRAIN_MESHES
+    with mesh_lib.host_devices(4, "cpu"):
+        got = train.host_mesh(*shape, torch.device("cpu"))
+    assert got.shape == {"data": shape[0], "model": shape[1]}
+    assert (smoke.TRAIN_BATCH * smoke.TRAIN_SEQ) % shape[0] == 0
+    assert smoke.SHARDED_TRAIN_LOSS_TOL <= 5e-3
+    assert smoke.MICRO_LOSS_TOL <= 1e-3 and smoke.MICRO_PARAM_LR <= 0.5
+    assert smoke.MICRO_GRAD_RTOL <= 2**-6
+
+
+def test_timed_train_steps_time_each_step(smoke, monkeypatch):
+    """The wrapper phase 7 (e) puts around ``api.make_train_step`` returns
+    the step's own result and appends one time per step."""
+    from repro_torch.models import api
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(api, "make_train_step",
+                        lambda *a, **k: (lambda *s: ("out", s)))
+    times = []
+    step = smoke._timed_train_steps(times)("cfg", "oc")
+    assert step(1, 2) == ("out", (1, 2)) and step(3) == ("out", (3,))
+    assert len(times) == 2 and all(t >= 0 for t in times)
+
+
 @pytest.mark.parametrize("n,every,fail", [(8, 3, 5), (8, 3, 6), (8, 3, 2),
                                           (10, 4, 9), (6, 2, 0)])
 def test_restart_schedule_follows_the_fault_manager(smoke, tmp_path, n,

@@ -292,10 +292,29 @@ def test_arrayflex_report_equals_reference(capsys):
     assert len(want) == 9 and got == want
 
 
-def test_a_mesh_of_several_devices_is_refused(monkeypatch):
+def test_a_mesh_of_several_devices_is_refused(monkeypatch, capsys):
+    """Once refused, now trained (sharded training, ROADMAP Queue 1 item
+    7b): the mesh clamps over ``launch.mesh.devices()`` of the device's
+    type — one CPU alone, an outer ``host_devices`` scope's logical
+    devices when one is active, several physical devices when they exist
+    — and a (2, 1) mesh over two logical CPU devices trains through
+    ``train.main``, equal to the unsharded run (fp32 compute)."""
     dev = torch.device("cpu")
     assert train.host_mesh(4, 2, dev).size == 1      # clamps to one CPU
+    with mesh_lib.host_devices(4, "cpu"):             # the outer scope
+        assert train.host_mesh(4, 2, dev).shape == {"data": 4, "model": 1}
+        assert train.host_mesh(2, 2, dev).shape == {"data": 2, "model": 2}
+    build = train.build_config
+    monkeypatch.setattr(train, "build_config", lambda a: dataclasses.replace(
+        build(a), compute_dtype="float32"))
+    argv = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "4",
+            "--seq", "16", "--log-every", "1"]
+    want = train.main(argv)
+    assert "mesh:" not in capsys.readouterr().out
+    with mesh_lib.host_devices(2, "cpu"):
+        got = train.main(argv + ["--mesh-data", "2"])
+    assert "mesh: data=2 x model=1 over 2 devices" in capsys.readouterr().out
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
     monkeypatch.setattr(mesh_lib, "physical_devices",
                         lambda kind=None: [dev, dev])
-    with pytest.raises(NotImplementedError, match="7b"):
-        train.host_mesh(2, 1, dev)
+    assert train.host_mesh(2, 1, dev).shape == {"data": 2, "model": 1}
