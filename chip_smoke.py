@@ -222,7 +222,22 @@ failure of which exits non-zero:
    step's time and peak for each; (h) ``compress`` /
    ``compressed_allreduce`` over four shards on the card against the
    CPU, bit for bit;
-8. summary: each form's totals per decode step of each model, per
+8. the dry run and the roofline (``roofline_phase``): (a) the dry runs of
+   qwen2-0.5b's train_4k, prefill_32k and decode_32k cells on the
+   single-pod (16, 16) mesh of 256 logical ``meta`` devices
+   (``repro_torch.launch.dryrun_all`` in one background process started
+   with the run, CPU only), each row's status, GiB on the busiest device,
+   dominant term, useful-FLOPs ratio and seconds; (b) one train step of
+   phase 7's full-width qwen2-0.5b cell on the card under
+   ``roofline.trace``: its FLOPs equal the meta run's of the same step,
+   its tracked peak live bytes within 10% of ``max_memory_allocated``,
+   and untraced steps' host clock and profiled busy time beside the
+   roofline's bound, with the model FLOPs' share of the bf16 peak on
+   each clock; (c) one decode step of full-width qwen2-0.5b under the
+   tracer on ``arrayflex`` (K1 / K2 launched) and on ``xla``: equal
+   FLOPs, site by site; (d) a bf16 matmul at 8192^3 and a 4 GiB
+   device-to-device copy against the datasheet's peak and bandwidth;
+9. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.  Each site check's error, the plain
@@ -234,6 +249,7 @@ Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -260,6 +276,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import arrayflex_gemm as ag  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
@@ -274,6 +291,8 @@ from repro_torch.runtime import chaos  # noqa: E402
 from repro_torch.runtime import (FaultToleranceManager,  # noqa: E402
                                  HeartbeatMonitor)
 from repro_torch.parallel import sharding  # noqa: E402
+from repro_torch.roofline import model as roof  # noqa: E402
+from repro_torch.roofline import trace  # noqa: E402
 from repro_torch.serving import (DisaggServeConfig,  # noqa: E402
                                  DisaggServingEngine, EngineCrash,
                                  KernelFault, Request, ServeConfig,
@@ -4875,6 +4894,271 @@ def mesh_train_phase(card: str):
         f"{out['mesh_seconds']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 8: the dry run and the roofline
+
+ROOFLINE_ARCH = "qwen2-0.5b"
+ROOFLINE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_WAIT_S = 900          # the dry runs start with the run: seconds left
+ROOFLINE_STEPS = 4           # timed train steps after one warm-up
+TRACKED_PEAK_RTOL = 0.10     # tracked peak live bytes vs the allocator's
+MATMUL_N = 8192              # the bf16 matmul of (d), N x N x N
+COPY_BYTES = 4 * 2**30       # the device-to-device copy of (d)
+
+
+def start_dryrun():
+    """Phase 8 (a)'s dry runs, started when the run starts: one background
+    ``repro_torch.launch.dryrun_all`` over ROOFLINE_ARCH's cells at the
+    single-pod mesh (CPU only, on meta tensors; each cell its own
+    subprocess, one at a time, at the lowest CPU priority), so they cost
+    the card's run no wall time.
+    Returns (process, log file, results directory); an exit handler stops
+    the process if the run ends before :func:`roofline_phase` collects
+    it."""
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               DRYRUN_RESULTS=str(out), CUDA_VISIBLE_DEVICES="")
+    logf = open(out / "sweep.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_all",
+         "--single-pod-only", "--arch", ROOFLINE_ARCH, "--force"],
+        stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    atexit.register(_stop, proc)
+    # the lowest priority, inherited by each cell's subprocess: the
+    # phases' host clocks keep the cores they had
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    return proc, logf, out
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_rows(dry, card: str) -> dict:
+    """(a): the dry-run rows of ROOFLINE_ARCH's live shapes (status ok
+    each), waiting for the background sweep at most DRYRUN_WAIT_S."""
+    proc, logf, out = dry
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_WAIT_S)
+    finally:
+        _stop(proc)
+        logf.close()
+    waited = time.perf_counter() - t0
+    rows = {}
+    for shape in ROOFLINE_SHAPES:
+        path = out / f"{ROOFLINE_ARCH}_{shape}_1pod.json"
+        r = json.loads(path.read_text()) if path.exists() else {
+            "status": "missing", "error": (out / "sweep.log").read_text()}
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run {ROOFLINE_ARCH} {shape}: "
+                                 f"{r['status']} {str(r.get('error'))[-800:]}")
+        t, m = r["roofline"], r["memory"]
+        rows[shape] = dict(
+            per_device_gib=m["per_device_gib"], fits_80g=m["fits_80g_hbm"],
+            dominant=t["dominant"], bound_s=t["bound_s"],
+            useful=t["useful_flops_ratio"],
+            useful_with_attn=t["useful_flops_ratio_with_attn"],
+            flops_per_device=r["hlo"]["flops_per_device"],
+            seconds=r["compile_s"] + r["lower_s"])
+        log(f"  (a) dry run {ROOFLINE_ARCH} {shape}, (16, 16) mesh of 256 "
+            f"logical meta devices: {r['status']}, "
+            f"{m['per_device_gib']:.2f} GiB on the busiest device, dominant "
+            f"{t['dominant']} (bound {t['bound_s']:.4g} s priced at the "
+            f"datasheet), useful {t['useful_flops_ratio']:.4f}, "
+            f"{rows[shape]['seconds']:.1f} s ({card})")
+    log(f"  (a) waited {waited:.1f} s for the background dry runs")
+    return dict(rows=rows, waited_s=waited)
+
+
+def roofline_train(params, card: str) -> dict:
+    """(b): one train step of full-width qwen2-0.5b (phase 7's config, B =
+    TRAIN_BATCH, S = TRAIN_SEQ, remat "full") on the card under the
+    tracer: its FLOPs equal the meta run's of the same step, its tracked
+    peak live bytes within TRACKED_PEAK_RTOL of the allocator's peak; then
+    ROOFLINE_STEPS untraced steps on the host clock and one profiled for
+    the busy time, each beside the roofline's bound and the model FLOPs'
+    share of the bf16 peak."""
+    cfg = train_cfg(ROOFLINE_ARCH)
+    oc = OptConfig(warmup_steps=TRAIN_WARMUP)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step = api.make_train_step(cfg, oc)
+    meta = trace.analyze(step, api.abstract_params(cfg),
+                         api.abstract_opt_state(cfg, oc),
+                         api.batch_specs(cfg, shape))
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size, seed=0))
+    _free()
+    opt = adamw_init(params, oc)
+    batch = _train_batch(data, 0)
+    step(params, opt, batch)                    # warm-up
+    torch.cuda.synchronize()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    got = trace.analyze(step, params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tracked = got["memory"]["peak_bytes"]
+    times = []
+    for _ in range(ROOFLINE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    host_ms = float(np.median(times))
+    prof = profile_device(lambda: step(params, opt, batch), host_ms,
+                          "train step (untraced)")
+    busy_ms = prof["device_busy_ms"]
+    del opt, batch
+    _free()
+    terms = roof.terms_from_analysis(meta)
+    mf = roof.model_flops(cfg, shape)["model_flops"]
+    out = dict(flops=got["flops_per_device"],
+               meta_flops=meta["flops_per_device"],
+               hbm_bytes=got["hbm_bytes_per_device"],
+               model_flops=mf, tracked_peak_bytes=tracked,
+               argument_bytes=got["memory"]["argument_bytes"],
+               resident_bytes=resident, max_allocated_bytes=peak,
+               peak_rel_err=abs(tracked - peak) / peak,
+               host_ms=host_ms, step_ms=times, busy_ms=busy_ms,
+               bound_ms=terms.bound_s * 1e3, dominant=terms.dominant,
+               compute_ms=terms.compute_s * 1e3,
+               memory_ms=terms.memory_s * 1e3,
+               mfu_busy=(mf / (busy_ms / 1e3 * roof.PEAK_FLOPS_BF16)
+                         if busy_ms else None),
+               mfu_host=mf / (host_ms / 1e3 * roof.PEAK_FLOPS_BF16),
+               top_flops=got["top_flops"][:8], top_mem=got["top_mem"][:8])
+    log(f"  (b) a train step of full-width {ROOFLINE_ARCH} (B "
+        f"{TRAIN_BATCH}, S {TRAIN_SEQ}, remat {cfg.remat}) on the card "
+        f"under the tracer: {out['flops']:.6g} FLOPs (meta run "
+        f"{out['meta_flops']:.6g}; model 6ND {mf:.6g}), "
+        f"{out['hbm_bytes']:.6g} HBM bytes; tracked peak "
+        f"{tracked / 2**30:.3f} GiB against max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({out['peak_rel_err']:.4f}; resident "
+        f"before {resident / 2**30:.3f}, tracked arguments "
+        f"{out['argument_bytes'] / 2**30:.3f}) ({card})")
+    log(f"  (b) roofline bound {out['bound_ms']:.3f} ms ({terms.dominant}; "
+        f"compute {out['compute_ms']:.3f}, memory {out['memory_ms']:.3f}, "
+        f"priced at the datasheet) against busy "
+        f"{busy_ms:.3f} ms and host clock {host_ms:.3f} ms (median of "
+        f"{ROOFLINE_STEPS}): model FLOPs / (t x bf16 peak) = "
+        f"{out['mfu_busy'] if out['mfu_busy'] is None else round(out['mfu_busy'], 5)} "
+        f"(busy) / {out['mfu_host']:.5f} (host clock) ({card})")
+    if out["flops"] != out["meta_flops"]:
+        raise AssertionError(f"(b) the card's step counted {out['flops']} "
+                             f"FLOPs, the meta run {out['meta_flops']}")
+    if out["peak_rel_err"] > TRACKED_PEAK_RTOL:
+        raise AssertionError(f"(b) tracked peak {tracked} bytes against "
+                             f"max_memory_allocated {peak}")
+    return out
+
+
+def roofline_decode(params, card: str) -> dict:
+    """(c): one decode step of full-width qwen2-0.5b (bf16 compute, batch
+    BATCH at MAX_SEQ / 2) on ``arrayflex`` (K1 / K2 launched: the wrappers
+    book their logical FLOPs) and on ``xla``, both on the card under the
+    tracer: equal FLOPs, site by site."""
+    base = dataclasses.replace(get_config(ROOFLINE_ARCH),
+                               compute_dtype="bfloat16")
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, base.vocab_size, BATCH),
+                           device="cuda")
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device="cuda")
+    out = {}
+    for backend in ("arrayflex", "xla"):
+        cfg = dataclasses.replace(base, gemm_backend=backend)
+        cache = lm.init_cache(cfg, BATCH, MAX_SEQ)
+        ag.reset_launches()
+        with torch.no_grad():
+            got = trace.analyze(
+                lambda p, c, t, q: lm.decode_step(cfg, p, c, t, q)[0],
+                params, cache, toks, pos)
+        torch.cuda.synchronize()
+        out[backend] = dict(flops=got["flops_per_device"],
+                            hbm_bytes=got["hbm_bytes_per_device"],
+                            launches=dict(ag.LAUNCHES),
+                            by_site=dict(got["top_flops"]))
+        del cache
+    _free()
+    a, x = out["arrayflex"], out["xla"]
+    log(f"  (c) a decode step of full-width {ROOFLINE_ARCH} (batch {BATCH}) "
+        f"under the tracer: arrayflex {a['flops']:.6g} FLOPs over "
+        f"{a['launches']['arrayflex_gemm']} K1 + "
+        f"{a['launches']['arrayflex_expert_gemm']} K2 launches, xla "
+        f"{x['flops']:.6g} ({card})")
+    if not (a["launches"]["arrayflex_gemm"]
+            and a["launches"]["arrayflex_expert_gemm"]):
+        raise AssertionError(f"(c) the arrayflex step launched no K1 or K2: "
+                             f"{a['launches']}")
+    if a["flops"] != x["flops"] or a["by_site"] != x["by_site"]:
+        raise AssertionError(f"(c) arrayflex counted {a['by_site']}, xla "
+                             f"{x['by_site']}")
+    return out
+
+
+def card_vs_datasheet(card: str) -> dict:
+    """(d): a bf16 ``torch.matmul`` at MATMUL_N^3 (TFLOP/s) and a
+    COPY_BYTES device-to-device copy (GB/s: the bytes read plus the bytes
+    written), each timed with CUDA events and printed beside the datasheet
+    constant of ``roofline.model`` as a ratio.  A measurement of the card,
+    not of a ported kernel."""
+    n = MATMUL_N
+    a = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+    mm_ms = _time_ms([lambda: torch.matmul(a, b)], 20)[0]
+    del a, b
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = _time_ms([lambda: dst.copy_(src)], 10)[0]
+    del src, dst
+    _free()
+    tflops = 2 * n ** 3 / (mm_ms / 1e3) / 1e12
+    gbs = 2 * COPY_BYTES / (cp_ms / 1e3) / 1e9
+    out = dict(matmul_ms=mm_ms, matmul_tflops=tflops,
+               matmul_ratio=tflops * 1e12 / roof.PEAK_FLOPS_BF16,
+               copy_ms=cp_ms, copy_gbs=gbs,
+               copy_ratio=gbs * 1e9 / roof.HBM_BW)
+    log(f"  (d) bf16 matmul {n}^3: {mm_ms:.3f} ms, {tflops:.1f} TFLOP/s = "
+        f"{out['matmul_ratio']:.3f} of the datasheet's "
+        f"{roof.PEAK_FLOPS_BF16 / 1e12:.1f}; a {COPY_BYTES / 2**30:.0f} GiB "
+        f"device-to-device copy: {cp_ms:.3f} ms, {gbs:.1f} GB/s (read + "
+        f"write) = {out['copy_ratio']:.3f} of the datasheet's "
+        f"{roof.HBM_BW / 1e9:.0f} ({card})")
+    return out
+
+
+def roofline_phase(dry, card: str) -> dict:
+    """Phase 8: (a) the dry-run rows, (b) the traced train step and its
+    roofline share, (c) the decode step on the kernels and on xla (one
+    full-width tree for both), (d) the card against the datasheet."""
+    t0 = time.perf_counter()
+    out = dict(dryrun=dryrun_rows(dry, card))
+    marks = [("(a)", time.perf_counter())]
+    params = lm.init_params(train_cfg(ROOFLINE_ARCH), seed=0)
+    marks.append(("init", time.perf_counter()))
+    out["train"] = roofline_train(params, card)
+    marks.append(("(b)", time.perf_counter()))
+    out["decode"] = roofline_decode(params, card)
+    marks.append(("(c)", time.perf_counter()))
+    del params
+    _free()
+    out["card"] = card_vs_datasheet(card)
+    marks.append(("(d)", time.perf_counter()))
+    out["part_seconds"] = {name: t - prev for (name, t), prev
+                           in zip(marks, [t0] + [t for _, t in marks])}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  the dry run and the roofline: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["part_seconds"].items())
+        + ")")
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -4885,12 +5169,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    log(f"[1/8] device: {card}; torch {torch.__version__} cuda "
+    dry = start_dryrun()
+    log(f"[1/9] device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {kind} x {count}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2/8] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/9] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for stem, text in build.PTXAS_INFO.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line \
@@ -4910,7 +5195,7 @@ def main() -> int:
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
     tc_report(cfg, moe_cfg, chunk)
-    log(f"[3/8] GEMM kernel checks and times (bf16, the MoE router fp32; "
+    log(f"[3/9] GEMM kernel checks and times (bf16, the MoE router fp32; "
         f"per call: device time from a CUDA-graph replay, eager time with "
         f"host launches; card: {card})")
     results, max_err = kernel_phase(cfg, moe_cfg, chunk, ssm_cfg=ssm_cfg)
@@ -4921,11 +5206,11 @@ def main() -> int:
     kt_quant = kt_quantize_time(cfg)
     _free()
 
-    log(f"[4/8] flash attention (K3) through ops.attention, against its "
+    log(f"[4/9] flash attention (K3) through ops.attention, against its "
         f"plain version and scaled_dot_product_attention (card: {card})")
     k3, k3_launches = k3_phase()
 
-    log(f"[5/8] serving full-width {cfg.name} on arrayflex/bf16")
+    log(f"[5/9] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
     serving = {"arrayflex": serving_phase(cfg, params)}
     for backend in ("arrayflex_int8", "arrayflex_w8a8"):
@@ -4962,7 +5247,7 @@ def main() -> int:
         f"one resilient run (card: {card})")
     ssm_serving, ssm_runs, ssm_params = ssm_serving_phase(ssm_cfg)
 
-    log(f"[6/8] full-sequence lm.prefill of full-width {cfg.name} on "
+    log(f"[6/9] full-sequence lm.prefill of full-width {cfg.name} on "
         f"arrayflex/bf16 at S = {', '.join(map(str, FWD_SEQS))}")
     prefill = forward_phase(cfg, params)
     log(f"  K1/K2 at the prefill's site shapes (bf16 timed; card: {card})")
@@ -4971,7 +5256,7 @@ def main() -> int:
         f"arrayflex/bf16 at S = {SSM_FWD_SEQ}")
     ssm_prefill = forward_phase(ssm_cfg, ssm_params, (SSM_FWD_SEQ,))
 
-    log("[7/8] model parity: arrayflex vs ref on the card")
+    log("[7/9] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
     quant_parity = quant_parity_phase(cfg, params)
@@ -5004,7 +5289,7 @@ def main() -> int:
 
     families, family_runs = {}, []
     for arch in FAMILY_ARCHS:
-        log(f"[7/8] {arch} at full width (bf16 parameters): serving on "
+        log(f"[7/9] {arch} at full width (bf16 parameters): serving on "
             f"{', '.join(BACKENDS)}, its sites checked and timed, fp32 "
             f"parity (card: {card})")
         fam, rows, errs, fam_runs, fam_fp32 = family_phase(arch)
@@ -5015,12 +5300,17 @@ def main() -> int:
         family_runs += fam_runs
         fp32_runs += fam_fp32
 
-    log(f"[7/8] training on the xla backend (no kernel): full-width "
+    log(f"[7/9] training on the xla backend (no kernel): full-width "
         f"qwen2-0.5b, mamba2-370m and qwen3-moe-30b-a3b at 2 layers, fp32 "
         f"parity against the CPU, the bit-exact restart, sharded training "
         f"over meshes of logical devices, remat, int8 gradient compression "
         f"(card: {card})")
     training = train_phase(card)
+
+    log(f"[8/9] the dry run and the roofline: {ROOFLINE_ARCH} on 256 logical "
+        f"meta devices, a traced train step and decode step on the card, "
+        f"the card against its datasheet (card: {card})")
+    roofline = roofline_phase(dry, card)
 
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
@@ -5066,13 +5356,13 @@ def main() -> int:
                   ssm_prefill=ssm_prefill,
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
-                  families=families, train=training,
+                  families=families, train=training, roofline=roofline,
                   site_checks=SITE_CHECKS,
                   unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"[8/8] summary ({elapsed:.1f} s)")
+    log(f"[9/9] summary ({elapsed:.1f} s)")
     for cell, forms in cells.items():
         for name, t in forms.items():
             lib = t["library_ms"]

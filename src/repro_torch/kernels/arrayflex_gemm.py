@@ -75,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.runtime import check_no_grad
+from repro_torch.roofline import trace as _trace
 
 # Epilogue activations applicable at the carry-propagate boundary.
 ACTIVATIONS = ("none", "silu", "gelu")
@@ -525,6 +526,16 @@ def arrayflex_gemm_plain(x, w, *, w2=None, bias=None, bias2=None,
     return out.to(out_dtype or x.dtype)
 
 
+def _gemm_cost(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
+               w2_scale=None, residual=None, norm_scale=None, **_):
+    """(logical FLOPs, operand bytes) of one :func:`arrayflex_gemm` call,
+    for ``roofline.trace``: 2·M·N·K per contraction."""
+    flops = 2 * x.shape[0] * x.shape[1] * w.shape[1] * (1 + (w2 is not None))
+    return flops, _trace.nbytes(x, w, w2, bias, bias2, w_scale, w2_scale,
+                                residual, norm_scale)
+
+
+@_trace.kernel(_gemm_cost)
 def arrayflex_gemm(x, w, *, w2=None, bias=None, bias2=None, w_scale=None,
                    w2_scale=None, act_quant: bool = False, residual=None,
                    norm_scale=None, activation: str = "none",
@@ -677,6 +688,14 @@ def arrayflex_expert_gemm_plain(x, w, *, w_scale=None, act_quant: bool = False,
     return out.to(out_dtype or x.dtype)
 
 
+def _expert_gemm_cost(x, w, *, w_scale=None, **_):
+    """(logical FLOPs, operand bytes) of one :func:`arrayflex_expert_gemm`
+    call, for ``roofline.trace``: 2·T·N·K per expert."""
+    flops = 2 * x.shape[0] * x.shape[1] * x.shape[2] * w.shape[-1]
+    return flops, _trace.nbytes(x, w, w_scale)
+
+
+@_trace.kernel(_expert_gemm_cost)
 def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
                           k_collapse: int = 1, out_dtype=None):
     """Batched per-expert GEMM in ONE launch: X[E,T,K] @ W[E,K,N] ->

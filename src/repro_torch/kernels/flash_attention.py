@@ -33,6 +33,7 @@ import math
 import torch
 
 from repro_torch.kernels.runtime import check_no_grad
+from repro_torch.roofline import trace as _trace
 
 NEG_INF = -1e30
 
@@ -203,6 +204,15 @@ def _launch(q, k, v, causal: bool, window: int, kv_chunk: int,
     return out
 
 
+def _attention_cost(q, k, v, **_):
+    """(logical FLOPs, operand bytes) of one :func:`flash_attention` call,
+    for ``roofline.trace``: the QK and PV products over every (query,
+    key) pair, 4·BH·S·T·D (masks not subtracted)."""
+    BH, S, D = q.shape
+    return 4 * BH * S * k.shape[1] * D, _trace.nbytes(q, k, v)
+
+
+@_trace.kernel(_attention_cost)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int = 128, kv_chunk: int = 128):
     """q: (BH, S, D); k/v: (BH, T, D).  Returns (BH, S, D) in q's dtype.

@@ -98,6 +98,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.runtime import to_device
 from repro_torch.kernels.arrayflex_gemm import (INV_127, apply_epilogue,
                                                 prologue_phase)
+from repro_torch.roofline import trace as _trace
 from repro_torch.runtime import chaos
 
 
@@ -515,12 +516,14 @@ def clear_shard_cache():
 
 def _assemble(blocks, shape, home):
     """The full tensor of ``blocks`` ((slices, block) pairs covering
-    ``shape``) on ``home``: the all-gather."""
+    ``shape``) on ``home``: the all-gather (booked as one over the blocks,
+    ``roofline.trace.collective``)."""
     out = None
     for idx, blk in blocks:
         if out is None:
             out = torch.empty(shape, dtype=blk.dtype, device=home)
         out[idx] = blk
+    _trace.collective("all-gather", out, len(blocks))
     return out
 
 
@@ -942,7 +945,11 @@ def _sharded_gemm(fn, x2, w, plan: GemmPlan, ctx: ShardCtx, call: GemmCall):
     partials add in fp32 in fixed shard order (the psum); then bias,
     activation and gate, then the residual, then one cast — a bias or
     residual added per shard would count it once per shard.  The fused
-    swiglu's second contraction reduces apart, before the gate."""
+    swiglu's second contraction reduces apart, before the gate.
+
+    Each shard's slices and GEMM run on its logical device
+    (``roofline.trace.shard``); the psum, the epilogue and the gather on
+    the home device."""
     mesh = ctx.mesh
     reduce = bool(ctx.reduce_axes)
     col = (ctx.w_spec[1],)
@@ -951,29 +958,36 @@ def _sharded_gemm(fn, x2, w, plan: GemmPlan, ctx: ShardCtx, call: GemmCall):
     exec_plan = (dataclasses.replace(plan, epilogue=EPILOGUE_NONE)
                  if reduce else plan)
     blocks, partials = [], {}
-    for c in _shard_coords(mesh, ctx.x_spec, ctx.w_spec, ctx.out_spec):
+    coords = _shard_coords(mesh, ctx.x_spec, ctx.w_spec, ctx.out_spec)
+    for c in coords:
         dev = mesh.device(c)
-        xs = _call_block(x2, ctx.x_spec, c, mesh, dev)
-        ws = _weight_block(w, ctx.w_spec, c, mesh, dev)
-        w2s = _weight_block(call.w2, ctx.w_spec, c, mesh, dev)
-        ss = _call_block(call.w_scale, col, c, mesh, dev)
-        s2s = _call_block(call.w2_scale, col, c, mesh, dev)
-        gs = _call_block(call.norm_scale, (ctx.x_spec[1],), c, mesh, dev)
         oi = _block_index(shape, ctx.out_spec, c, mesh)
+        with _trace.shard(mesh, c):
+            xs = _call_block(x2, ctx.x_spec, c, mesh, dev)
+            ws = _weight_block(w, ctx.w_spec, c, mesh, dev)
+            w2s = _weight_block(call.w2, ctx.w_spec, c, mesh, dev)
+            ss = _call_block(call.w_scale, col, c, mesh, dev)
+            s2s = _call_block(call.w2_scale, col, c, mesh, dev)
+            gs = _call_block(call.norm_scale, (ctx.x_spec[1],), c, mesh, dev)
+            if not reduce:
+                y = fn(xs, ws, plan, GemmCall(
+                    out_dtype=call.out_dtype, w2=w2s,
+                    bias=_call_block(call.bias, col, c, mesh, dev),
+                    bias2=_call_block(call.bias2, col, c, mesh, dev),
+                    residual=_call_block(call.residual, ctx.out_spec, c,
+                                         mesh, dev),
+                    norm_scale=gs, w_scale=ss, w2_scale=s2s))
+            else:
+                pc = GemmCall(out_dtype=torch.float32, w_scale=ss,
+                              norm_scale=gs)
+                y = fn(xs, ws, exec_plan, pc)
+                y2 = (None if w2s is None else fn(
+                    xs, w2s, exec_plan, dataclasses.replace(pc, w_scale=s2s)))
         if not reduce:
-            y = fn(xs, ws, plan, GemmCall(
-                out_dtype=call.out_dtype, w2=w2s,
-                bias=_call_block(call.bias, col, c, mesh, dev),
-                bias2=_call_block(call.bias2, col, c, mesh, dev),
-                residual=_call_block(call.residual, ctx.out_spec, c, mesh,
-                                    dev),
-                norm_scale=gs, w_scale=ss, w2_scale=s2s))
             blocks.append((oi, to_device(y, home)))
             continue
-        pc = GemmCall(out_dtype=torch.float32, w_scale=ss, norm_scale=gs)
-        y = to_device(fn(xs, ws, exec_plan, pc), home)
-        y2 = (None if w2s is None else to_device(fn(
-            xs, w2s, exec_plan, dataclasses.replace(pc, w_scale=s2s)), home))
+        y = to_device(y, home)
+        y2 = None if y2 is None else to_device(y2, home)
         key = tuple((sl.start, sl.stop) for sl in oi)
         if key in partials:                 # the psum, in shard order
             _, acc, acc2 = partials[key]
@@ -982,6 +996,8 @@ def _sharded_gemm(fn, x2, w, plan: GemmPlan, ctx: ShardCtx, call: GemmCall):
         partials[key] = (oi, y, y2)
     if not reduce:
         return _assemble(blocks, shape, home)
+    for _, y, y2 in partials.values():      # the psum of each block
+        _trace.collective("all-reduce", y, len(coords) // len(partials), y2)
     y = _assemble([(oi, a) for oi, a, _ in partials.values()], shape, home)
     y2 = (None if plan.epilogue.contractions == 1 else _assemble(
         [(oi, a2) for oi, _, a2 in partials.values()], shape, home))
@@ -994,6 +1010,7 @@ def _sharded_gemm(fn, x2, w, plan: GemmPlan, ctx: ShardCtx, call: GemmCall):
     return out.to(call.out_dtype or x2.dtype)
 
 
+@_trace.sited
 def gemm(x, w, *, site: str = "", backend: str = "xla", out_dtype=None,
          epilogue: str = "none", w2=None, bias=None, bias2=None,
          residual=None, norm_scale=None, shard: Optional[ShardCtx] = None):
@@ -1097,6 +1114,7 @@ def _batched_exec(x, w, plan: GemmPlan, backend: str, out_dtype):
     return torch.matmul(x.float(), w.float()).to(out_dtype)
 
 
+@_trace.sited
 def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
                  out_dtype=None, shard: Optional[ShardCtx] = None):
     """Batched GEMM: x (B, T, K) @ w (B, K, N) -> (B, T, N).
@@ -1137,9 +1155,11 @@ def batched_gemm(x, w, *, site: str = "", backend: str = "xla",
         for c in _shard_coords(mesh, shard.x_spec, shard.w_spec,
                                shard.out_spec):
             dev = mesh.device(c)
-            y = _batched_exec(_call_block(x, shard.x_spec, c, mesh, dev),
-                              _call_block(w, shard.w_spec, c, mesh, dev),
-                              plan, backend, out_dtype)
+            with _trace.shard(mesh, c):
+                y = _batched_exec(
+                    _call_block(x, shard.x_spec, c, mesh, dev),
+                    _call_block(w, shard.w_spec, c, mesh, dev),
+                    plan, backend, out_dtype)
             blocks.append((_block_index((B, T, N_out), shard.out_spec, c,
                                         mesh), to_device(y, x.device)))
         return _assemble(blocks, (B, T, N_out), x.device)
@@ -1173,6 +1193,7 @@ def _expert_exec(x, w, plan: GemmPlan, backend: str, w_scale=None,
     return out.reshape(E, G, C, N_out).transpose(0, 1)
 
 
+@_trace.sited
 def expert_gemm(x, w, *, site: str = "", backend: str = "xla",
                 shard: Optional[ShardCtx] = None):
     """Batched expert GEMM: x (G, E, C, K) @ w (E, K, N) -> (G, E, C, N).
@@ -1222,10 +1243,13 @@ def expert_gemm(x, w, *, site: str = "", backend: str = "xla",
         for c in _shard_coords(mesh, shard.x_spec, shard.w_spec,
                                shard.out_spec):
             dev = mesh.device(c)
-            y = _expert_exec(
-                _call_block(x, shard.x_spec, c, mesh, dev),
-                _weight_block(w, shard.w_spec, c, mesh, dev), plan, backend,
-                _call_block(w_scale, shard.w_spec[:1], c, mesh, dev), actq)
+            with _trace.shard(mesh, c):
+                y = _expert_exec(
+                    _call_block(x, shard.x_spec, c, mesh, dev),
+                    _weight_block(w, shard.w_spec, c, mesh, dev), plan,
+                    backend,
+                    _call_block(w_scale, shard.w_spec[:1], c, mesh, dev),
+                    actq)
             blocks.append((_block_index((G, E, C, N_out), shard.out_spec, c,
                                         mesh), to_device(y, x.device)))
         return _assemble(blocks, (G, E, C, N_out), x.device)

@@ -15,6 +15,14 @@ type — ``N`` x ``cpu`` on the CPU, ``N`` x ``cuda:0`` on one card,
 ``cuda:i`` on a host with more cards.  It is the counterpart of the
 reference's ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (the
 serve CLI's ``--host-devices``), scoped to a ``with`` block.
+
+**Meta devices** (dry runs only): ``host_devices(512, "meta")`` gives 512
+logical ``meta`` devices, the counterpart of the reference dry run's 512
+host devices.  A step driven over them allocates nothing and computes
+nothing; ``roofline.trace`` counts what it dispatches.  No card is needed
+and none is replaced: the serving and training entry points still
+resolve their device through ``kernels.runtime.resolve_device``, which
+refuses ``meta``.
 """
 from __future__ import annotations
 
@@ -37,10 +45,15 @@ class DeviceMesh:
     ``torch.device`` shaped by the axes, ``axis_names`` their names and
     ``shape`` the axis name -> size map (``dict(mesh.shape)`` reads it, as
     of a JAX mesh).  The same device may appear at several coordinates
-    (logical devices on one card)."""
+    (logical devices on one card).  ``ids`` holds each coordinate's
+    logical device number (its index in :func:`devices`; default the
+    row-major order from 0), which tells logical devices apart where they
+    share a ``torch.device``."""
 
-    def __init__(self, devices: np.ndarray, axis_names):
+    def __init__(self, devices: np.ndarray, axis_names, ids=None):
         self.devices = devices
+        self.ids = (np.arange(devices.size).reshape(devices.shape)
+                    if ids is None else ids)
         self.axis_names = tuple(axis_names)
         if devices.ndim != len(self.axis_names):
             raise ValueError(f"{devices.ndim}-d device grid for axes "
@@ -56,17 +69,23 @@ class DeviceMesh:
         """The device at ``coord`` (axis name -> index; absent axes 0)."""
         return self.devices[tuple(coord.get(a, 0) for a in self.axis_names)]
 
+    def device_id(self, coord: Dict[str, int]) -> int:
+        """The logical device number at ``coord`` (absent axes 0)."""
+        return int(self.ids[tuple(coord.get(a, 0) for a in self.axis_names)])
+
     def __repr__(self):
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
         return f"DeviceMesh({axes}; {sorted({str(d) for d in self.devices.flat})})"
 
 
 def physical_devices(kind: Optional[str] = None):
-    """The physical devices of ``kind`` ("cuda" or "cpu"; None: every card
-    when one is present, else the CPU).  Asking for "cuda" without a card
-    raises (``kernels.runtime.resolve_device``)."""
+    """The physical devices of ``kind`` ("cuda", "cpu" or "meta"; None:
+    every card when one is present, else the CPU).  Asking for "cuda"
+    without a card raises (``kernels.runtime.resolve_device``)."""
     if kind is None:
         kind = "cuda" if torch.cuda.is_available() else "cpu"
+    if kind == "meta":
+        return [torch.device("meta")]
     if resolve_device(kind).type == "cpu":
         return [torch.device("cpu")]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -74,10 +93,12 @@ def physical_devices(kind: Optional[str] = None):
 
 def fan_out(n: int, device=None) -> Tuple[torch.device, ...]:
     """``n`` logical devices laid round-robin over the physical devices of
-    ``device``'s type (None: the card)."""
+    ``device``'s type (None: the card; "meta": the dry run's)."""
     if n < 1:
         raise ValueError(f"host devices must be >= 1, got {n}")
-    phys = physical_devices(resolve_device(device).type)
+    kind = ("meta" if torch.device(device or "cuda").type == "meta"
+            else resolve_device(device).type)
+    phys = physical_devices(kind)
     return tuple(phys[i % len(phys)] for i in range(n))
 
 
@@ -164,5 +185,7 @@ def pod_mesh(pod: int, data: int, model: int, offset: int) -> DeviceMesh:
             f"pod_offset={offset} needs {need} devices, host has "
             f"{len(devs)}; fan the host out with repro_torch.launch.mesh."
             f"host_devices({need}) (--host-devices {need})")
-    return DeviceMesh(_grid(devs[offset:need], (pod, data, model)),
-                      ("pod", "data", "model"))
+    shape = (pod, data, model)
+    return DeviceMesh(_grid(devs[offset:need], shape),
+                      ("pod", "data", "model"),
+                      ids=np.arange(offset, need).reshape(shape))

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.kernels.arrayflex_gemm import INV_127
+from repro_torch.roofline import trace as _trace
 
 
 def init_error(params):
@@ -88,6 +89,7 @@ def compressed_allreduce(grads, errors):
         raise ValueError(f"{n} gradient trees against {len(errors)} error "
                          f"trees: give one of each per shard")
     packed = [compress(g, e, compiled=True) for g, e in zip(grads, errors)]
+    _trace.collective("all-reduce", packed[0][0], n)
     summed = tree_lib.tree_map(lambda q: q.to(torch.int32), packed[0][0])
     for q, _, _ in packed[1:]:
         summed = tree_lib.tree_map(lambda a, b: a + b.to(torch.int32),

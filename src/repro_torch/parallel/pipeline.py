@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.runtime import to_device
+from repro_torch.roofline import trace as _trace
 
 
 def stage_devices(mesh, axis_name: str = "pod"):
@@ -44,10 +45,13 @@ def staged_step(fn, x0, states, devices):
     it, and commits its own state.  Returns ``(y_last, states)``: the
     last stage's output, on its device, and the committed states — the
     reference's ``staged_step`` with its placeholder ticks left out (they
-    commit nothing and their outputs are masked away)."""
+    commit nothing and their outputs are masked away).  Each hand-off to
+    the next stage is a collective-permute (``roofline.trace``)."""
     states = list(states)
     x = x0
     for s, dev in enumerate(devices):
+        if s:
+            _trace.collective("collective-permute", x, 2)
         x, states[s] = fn(s, to_device(x, dev), states[s])
     return x, states
 
@@ -77,6 +81,7 @@ def gpipe(fn, stage_params, x_micro, devices):
             if s == P - 1:
                 outputs[m] = to_device(y, home)
             else:
+                _trace.collective("collective-permute", y, 2)
                 inflight[s + 1] = to_device(y, devices[s + 1])
     return torch.stack(outputs)
 
