@@ -237,7 +237,25 @@ failure of which exits non-zero:
    tracer on ``arrayflex`` (K1 / K2 launched) and on ``xla``: equal
    FLOPs, site by site; (d) a bf16 matmul at 8192^3 and a 4 GiB
    device-to-device copy against the datasheet's peak and bandwidth;
-9. summary: each form's totals per decode step of each model, per
+9. the substrate-contract audit (``audit_phase``): (a)
+   ``analysis.dispatch_audit.audit_model`` on full-width qwen2-0.5b
+   (bf16) on ``xla``, ``arrayflex``, ``arrayflex_int8`` and
+   ``arrayflex_w8a8``, the int8 backends on the raw and the pre-quantized
+   serving tree: no error, AF008 only on the raw trees, in every entry on
+   the kernels K1 + K2 launches equal to the substrate's dispatches (each
+   cell's counters set to 0 just before it and read just after, added to
+   the kernels line), no plain-version fallback; (b) the TP2 cell (a (1,
+   2) mesh of two logical devices on the card) on ``arrayflex_int8``'s
+   serving tree, two launches a dispatch, and ``audit_pipeline`` on the
+   pp = 2 role configs of the three kernel backends over four logical
+   devices, all clean; (c) ``launch.serve.main`` with ``--strict-audit``
+   and without, 3 requests of 8 tokens on ``arrayflex``: every request
+   ``ok``, equal streams; (d) ``gemm`` / ``batched_gemm`` /
+   ``expert_gemm`` at an unknown site inside ``strict_audit_scope``:
+   ``[AF007]`` and no launch; (e) ``ast_lint.run()`` and
+   ``kernel_check.run()`` find nothing; (f) the phase's seconds and one
+   decode step's host clock audited against unaudited;
+10. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.  Each site check's error, the plain
@@ -274,6 +292,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import tree as tree_lib  # noqa: E402
+from repro_torch.analysis import (ast_lint, dispatch_audit,  # noqa: E402
+                                  kernel_check)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
@@ -283,6 +303,7 @@ from repro_torch.core import planner  # noqa: E402
 from repro_torch.kernels import build, ops, substrate  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import api, lm  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.runtime.chaos import ChaosConfig, ChaosEngine  # noqa: E402
@@ -5160,6 +5181,211 @@ def roofline_phase(dry, card: str) -> dict:
     return out
 
 
+AUDIT_ARCH = "qwen2-0.5b"
+AUDIT_BACKENDS = ("xla", "arrayflex", "arrayflex_int8", "arrayflex_w8a8")
+AUDIT_STEP_PAIRS = 5         # audited / unaudited decode steps, in turns
+AUDIT_SERVE = ("--requests", "3", "--max-new", "8", "--gemm-backend",
+               "arrayflex")
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def audit_cell(cfg, what: str, device, *, prequantize: bool = False,
+               shards: int = 1, pipeline: bool = False) -> dict:
+    """One audited cell (``dispatch_audit.audit_model``, or
+    ``audit_pipeline``), its launch counters set to 0 just before it and
+    read just after: no error; AF008 exactly on a raw tree of a quantizing
+    backend (its weights quantized inside the step) and nothing else; in
+    every entry on the kernels, ``shards`` K1 / K2 wrapper calls per
+    substrate dispatch, no K3 and no plain-version fallback; on the card
+    every wrapper call one counted launch."""
+    meta = {}
+    ag.reset_launches()                     # counts: 0 just before the run
+    fa.reset_launches()
+    if pipeline:
+        found = dispatch_audit.audit_pipeline(cfg, label=what, device=device,
+                                              meta=meta)
+    else:
+        found = dispatch_audit.audit_model(cfg, label=what, device=device,
+                                           prequantize=prequantize, meta=meta)
+    _sync(device)
+    launches = dict(ag.LAUNCHES)            # read just after the run
+    raw = (substrate.backend_quantizes(cfg.gemm_backend)
+           and not (prequantize or pipeline))
+    got = sorted({f.code for f in found})
+    if [f for f in found if f.severity == "error"] or \
+            got != (["AF008"] if raw else []):
+        raise AssertionError(f"(audit) {what}: findings {got}, want "
+                             f"{['AF008'] if raw else []}:\n"
+                             + "\n".join(map(str, found[:20])))
+    calls = 0
+    for entry, m in meta.items():
+        k = m["launches"].get("arrayflex_gemm", 0) \
+            + m["launches"].get("arrayflex_expert_gemm", 0)
+        want = 0 if cfg.gemm_backend == "xla" else shards * m["dispatches"]
+        if k != want or m["fallbacks"] or \
+                m["launches"].get("flash_attention", 0):
+            raise AssertionError(
+                f"(audit) {what}/{entry}: {m['launches']} wrapper calls for "
+                f"{m['dispatches']} dispatches (want {want} K1 + K2, no K3), "
+                f"fallbacks {m['fallbacks']}")
+        calls += k
+    launched = sum(v for name, v in launches.items()
+                   if name not in TC_COUNTERS)
+    if torch.device(device).type == "cuda" and (
+            launched != calls or fa.LAUNCHES["flash_attention"]):
+        raise AssertionError(f"(audit) {what}: {launched} K1 / K2 launches "
+                             f"counted for {calls} wrapper calls "
+                             f"({launches})")
+    return dict(cell=what, codes=got, findings=len(found), entries=meta,
+                launches=launches)
+
+
+def audit_step_ms(cfg, device, pairs: int = AUDIT_STEP_PAIRS) -> dict:
+    """(f): one decode step of ``cfg`` (batch BATCH at MAX_SEQ / 2) on the
+    host clock, unaudited and under the recorder, in turns after a warm-up
+    of each; medians."""
+    params = lm.init_params(cfg, seed=0, device=device)
+    cache = lm.init_cache(cfg, BATCH, MAX_SEQ, device=device)
+    toks = torch.zeros((BATCH,), dtype=torch.int64, device=device)
+    pos = torch.full((BATCH,), MAX_SEQ // 2, dtype=torch.int64,
+                     device=device)
+
+    def plain():
+        lm.decode_step(cfg, params, cache, toks, pos)
+
+    def audited():
+        dispatch_audit.record(lm.decode_step, cfg, params, cache, toks, pos)
+
+    times = {"plain": [], "audited": []}
+    with torch.no_grad():
+        for i in range(pairs + 1):
+            for name, fn in (("plain", plain), ("audited", audited)):
+                _sync(device)
+                t0 = time.perf_counter()
+                fn()
+                _sync(device)
+                if i:                       # the first pair warms up
+                    times[name].append(1e3 * (time.perf_counter() - t0))
+    del params, cache
+    return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+
+
+def audit_phase(card: str, cfg=None, device="cuda") -> dict:
+    """Phase 9, the substrate-contract audit on the card (``cfg``: full
+    width qwen2-0.5b in bf16 unless given; the CPU tests pass a reduced
+    one and ``device="cpu"``): (a) ``dispatch_audit.audit_model`` on the
+    four backends, the int8 ones on the raw and the pre-quantized tree
+    (:func:`audit_cell`); (b) the TP2 cell (a (1, 2) mesh of two logical
+    devices) on ``arrayflex_int8``'s serving tree, and ``audit_pipeline``
+    on the pp = 2 role configs over four logical devices, all clean; (c)
+    ``launch.serve.main`` with ``--strict-audit`` and without: every
+    request ``ok``, equal streams; (d) a dispatch under an unknown label
+    in ``strict_audit_scope`` raises [AF007] and launches nothing; (e)
+    the AST lint and the kernel checks find nothing; (f) the host clock
+    of an audited decode step against an unaudited one."""
+    t0 = time.perf_counter()
+    full = cfg is None
+    if full:
+        cfg = dataclasses.replace(get_config(AUDIT_ARCH),
+                                  compute_dtype="bfloat16")
+    out = dict(cells=[], runs=[])
+    for backend in AUDIT_BACKENDS:
+        c = dataclasses.replace(cfg, gemm_backend=backend)
+        trees = ((False, True) if substrate.backend_quantizes(backend)
+                 else (False,))
+        for pq in trees:
+            tag = f"{cfg.name}/{backend}/" + ("served" if pq else "raw")
+            out["cells"].append(audit_cell(c, tag, device, prequantize=pq))
+    c = dataclasses.replace(cfg, gemm_backend="arrayflex_int8",
+                            mesh_shape=(1, MESH_TP))
+    with mesh_lib.host_devices(MESH_TP, device):
+        out["cells"].append(audit_cell(c, f"{cfg.name}/arrayflex_int8/tp2",
+                                       device, prequantize=True,
+                                       shards=MESH_TP))
+    with mesh_lib.host_devices(2 * PP, device):
+        for backend in BACKENDS:
+            for role, off in (("prefill", 0), ("decode", PP)):
+                c = dataclasses.replace(cfg, gemm_backend=backend,
+                                        pp_role=role, pp_stages=PP,
+                                        mesh_shape=(PP, 1, 1), pod_offset=off)
+                out["cells"].append(audit_cell(
+                    c, f"{cfg.name}/{backend}/{role}-pp{PP}", device,
+                    pipeline=True))
+    n_calls = sum(sum(m["launches"].values()) for cell in out["cells"]
+                  for m in cell["entries"].values())
+    log(f"  (a)-(b) {len(out['cells'])} audited cells of {cfg.name}: no "
+        f"error, AF008 only on the raw int8 / W8A8 trees, {n_calls} K1 / K2 "
+        f"wrapper calls, one a dispatch (two at tp {MESH_TP}) and on the "
+        f"card each a counted launch, no fallback ({card})")
+    out["runs"] += [{"launches": cell["launches"]} for cell in out["cells"]]
+
+    argv = list(AUDIT_SERVE) + ["--arch", cfg.name] + (
+        ["--no-reduced"] if full else ["--device", "cpu"])
+    serve_runs = {}
+    for name, extra in (("plain", []), ("strict", ["--strict-audit"])):
+        ag.reset_launches()                 # counts: 0 just before the run
+        with contextlib.redirect_stdout(sys.stderr):
+            reqs = serve_cli.main(argv + extra)
+        _sync(device)
+        serve_runs[name] = dict(streams=[list(r.out_tokens) for r in reqs],
+                                outcomes=[r.outcome for r in reqs],
+                                launches=dict(ag.LAUNCHES))
+        if any(o != "ok" for o in serve_runs[name]["outcomes"]):
+            raise AssertionError(f"(c) serve {name}: outcomes "
+                                 f"{serve_runs[name]['outcomes']}")
+    if serve_runs["strict"]["streams"] != serve_runs["plain"]["streams"]:
+        raise AssertionError(f"(c) --strict-audit streams "
+                             f"{serve_runs['strict']['streams']} != "
+                             f"{serve_runs['plain']['streams']}")
+    out["serve"] = serve_runs
+    out["runs"] += [{"launches": r["launches"]} for r in serve_runs.values()]
+    log(f"  (c) serve.py --strict-audit on arrayflex: 3 requests ok, streams "
+        f"equal the plain run's ({serve_runs['strict']['streams'][0][:4]}...)")
+
+    x = torch.ones((4, 64), device=device)
+    w = torch.ones((64, 32), device=device)
+    ag.reset_launches()
+    with substrate.strict_audit_scope():
+        for entry, args in (("gemm", (x, w)),
+                            ("batched_gemm", (x[None], w[None])),
+                            ("expert_gemm", (x[None, None], w[None]))):
+            try:
+                getattr(substrate, entry)(*args, site="bogus.site",
+                                          backend="arrayflex")
+            except RuntimeError as exc:
+                if "[AF007]" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"(d) {entry} under an unknown label "
+                                     f"did not raise [AF007]")
+    if any(ag.LAUNCHES.values()):
+        raise AssertionError(f"(d) a refused dispatch launched: "
+                             f"{ag.LAUNCHES}")
+    substrate.clear_plan_cache()
+    log("  (d) gemm / batched_gemm / expert_gemm at site 'bogus.site' under "
+        "strict audit: [AF007] raised, no launch")
+
+    static = ast_lint.run() + kernel_check.run()
+    if static:
+        raise AssertionError("(e) " + "\n".join(map(str, static)))
+    log("  (e) ast_lint.run() and kernel_check.run(): no finding")
+
+    out["decode_step_ms"] = audit_step_ms(
+        dataclasses.replace(cfg, gemm_backend="arrayflex"), device)
+    _free()
+    out["seconds"] = time.perf_counter() - t0
+    step = out["decode_step_ms"]
+    log(f"  (f) a decode step of {cfg.name} (batch {BATCH}) on arrayflex, "
+        f"host clock (median of {AUDIT_STEP_PAIRS}): unaudited "
+        f"{step['plain']:.2f} ms, audited {step['audited']:.2f} ms; the "
+        f"phase took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5170,12 +5396,12 @@ def main() -> int:
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     dry = start_dryrun()
-    log(f"[1/9] device: {card}; torch {torch.__version__} cuda "
+    log(f"[1/10] device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {kind} x {count}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2/9] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/10] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for stem, text in build.PTXAS_INFO.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line \
@@ -5195,7 +5421,7 @@ def main() -> int:
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
     tc_report(cfg, moe_cfg, chunk)
-    log(f"[3/9] GEMM kernel checks and times (bf16, the MoE router fp32; "
+    log(f"[3/10] GEMM kernel checks and times (bf16, the MoE router fp32; "
         f"per call: device time from a CUDA-graph replay, eager time with "
         f"host launches; card: {card})")
     results, max_err = kernel_phase(cfg, moe_cfg, chunk, ssm_cfg=ssm_cfg)
@@ -5206,11 +5432,11 @@ def main() -> int:
     kt_quant = kt_quantize_time(cfg)
     _free()
 
-    log(f"[4/9] flash attention (K3) through ops.attention, against its "
+    log(f"[4/10] flash attention (K3) through ops.attention, against its "
         f"plain version and scaled_dot_product_attention (card: {card})")
     k3, k3_launches = k3_phase()
 
-    log(f"[5/9] serving full-width {cfg.name} on arrayflex/bf16")
+    log(f"[5/10] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
     serving = {"arrayflex": serving_phase(cfg, params)}
     for backend in ("arrayflex_int8", "arrayflex_w8a8"):
@@ -5247,7 +5473,7 @@ def main() -> int:
         f"one resilient run (card: {card})")
     ssm_serving, ssm_runs, ssm_params = ssm_serving_phase(ssm_cfg)
 
-    log(f"[6/9] full-sequence lm.prefill of full-width {cfg.name} on "
+    log(f"[6/10] full-sequence lm.prefill of full-width {cfg.name} on "
         f"arrayflex/bf16 at S = {', '.join(map(str, FWD_SEQS))}")
     prefill = forward_phase(cfg, params)
     log(f"  K1/K2 at the prefill's site shapes (bf16 timed; card: {card})")
@@ -5256,7 +5482,7 @@ def main() -> int:
         f"arrayflex/bf16 at S = {SSM_FWD_SEQ}")
     ssm_prefill = forward_phase(ssm_cfg, ssm_params, (SSM_FWD_SEQ,))
 
-    log("[7/9] model parity: arrayflex vs ref on the card")
+    log("[7/10] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
     quant_parity = quant_parity_phase(cfg, params)
@@ -5289,7 +5515,7 @@ def main() -> int:
 
     families, family_runs = {}, []
     for arch in FAMILY_ARCHS:
-        log(f"[7/9] {arch} at full width (bf16 parameters): serving on "
+        log(f"[7/10] {arch} at full width (bf16 parameters): serving on "
             f"{', '.join(BACKENDS)}, its sites checked and timed, fp32 "
             f"parity (card: {card})")
         fam, rows, errs, fam_runs, fam_fp32 = family_phase(arch)
@@ -5300,17 +5526,22 @@ def main() -> int:
         family_runs += fam_runs
         fp32_runs += fam_fp32
 
-    log(f"[7/9] training on the xla backend (no kernel): full-width "
+    log(f"[7/10] training on the xla backend (no kernel): full-width "
         f"qwen2-0.5b, mamba2-370m and qwen3-moe-30b-a3b at 2 layers, fp32 "
         f"parity against the CPU, the bit-exact restart, sharded training "
         f"over meshes of logical devices, remat, int8 gradient compression "
         f"(card: {card})")
     training = train_phase(card)
 
-    log(f"[8/9] the dry run and the roofline: {ROOFLINE_ARCH} on 256 logical "
+    log(f"[8/10] the dry run and the roofline: {ROOFLINE_ARCH} on 256 logical "
         f"meta devices, a traced train step and decode step on the card, "
         f"the card against its datasheet (card: {card})")
     roofline = roofline_phase(dry, card)
+
+    log(f"[9/10] the substrate-contract audit: full-width {AUDIT_ARCH} on "
+        f"the card under the dispatch audit, TP2 and pp = 2 cells, "
+        f"serve.py --strict-audit, the static checks (card: {card})")
+    audit = audit_phase(card)
 
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
@@ -5324,7 +5555,7 @@ def main() -> int:
             + mesh.pop("runs") + pp.pop("runs")
             + list(prefill.values())
             + ssm_runs + list(ssm_prefill.values()) + family_runs
-            + [{"launches": v} for v in fp32_runs])
+            + [{"launches": v} for v in fp32_runs] + audit.pop("runs"))
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     for tc in TC_COUNTERS:
@@ -5357,12 +5588,13 @@ def main() -> int:
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
                   families=families, train=training, roofline=roofline,
+                  audit=audit,
                   site_checks=SITE_CHECKS,
                   unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"[9/9] summary ({elapsed:.1f} s)")
+    log(f"[10/10] summary ({elapsed:.1f} s)")
     for cell, forms in cells.items():
         for name, t in forms.items():
             lib = t["library_ms"]

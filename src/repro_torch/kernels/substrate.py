@@ -78,6 +78,14 @@ once per weight and block (:func:`shard_cache_info`).  A pricing-only
 context (no mesh: a disaggregated role's boundary site under
 ``parallel.sharding.use_pp_pricing``) plans under its signature and
 dispatches unsharded, as the reference's does.
+
+**Audit hooks** (``repro_torch.analysis``): :data:`PLAN_KEY_PARAMS`,
+:data:`CALL_FIELD_KEYING` and :data:`BACKEND_FIELD_KEYING` declare how the
+plan key covers every ``GemmCall`` / ``BackendInfo`` field (AF006); under
+strict audit (:class:`strict_audit_scope` or ``REPRO_STRICT_AUDIT=1``) a
+dispatch whose site label is empty or unknown to ``planner.model_gemms``
+raises ``[AF007]`` before its backend runs, and
+:func:`check_dispatch_sites` checks the recorded labels after the fact.
 """
 from __future__ import annotations
 
@@ -87,6 +95,7 @@ import dataclasses
 import functools
 import itertools
 import math
+import os
 import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
@@ -158,6 +167,111 @@ class GemmCall:
     norm_scale: Any = None      # (K,) rmsnorm gain fused as the x prologue
     w_scale: Any = None         # (N_out,) dequant of int8 w (quantizing backends)
     w2_scale: Any = None        # (N_out,) dequant of int8 w2
+
+
+# ---------------------------------------------------------------------------
+# plan-key introspection metadata (audited by analysis.kernel_check)
+#
+# The Eq.(6') plan cache keys on exactly these _plan_gemm_cached params;
+# every GemmCall / BackendInfo field must either be covered by that key or
+# be declared plan-irrelevant below.  analysis.kernel_check fails (AF006)
+# on any dataclass field missing from its declaration table — adding a
+# field to GemmCall/BackendInfo without deciding its keying story here is
+# a build error, not silent plan-cache aliasing.
+
+PLAN_KEY_PARAMS = ("M", "N", "T", "backend", "epilogue", "shard")
+
+# GemmCall field -> keying declaration.  "epilogue:<attr>" means the field's
+# presence is forced by that Epilogue attribute (which IS in the key);
+# "backend:<attr>" likewise via BackendInfo (the backend name is in the
+# key and re-registration evicts cached plans); "operand:" means the field
+# is pure per-call runtime data that cannot change the planned k.
+CALL_FIELD_KEYING = {
+    "out_dtype": "operand: output cast only — the planned k is blind to the "
+                 "store dtype (datapath precision rides the backend name)",
+    "w2": "epilogue:dual — w2 present iff kind=='swiglu' (_epilogue_spec "
+          "enforces the iff)",
+    "bias": "epilogue:bias",
+    "bias2": "epilogue:bias2",
+    "w_scale": "backend:quantize — scales present iff the keyed backend "
+               "quantizes (dequant_ops priced from BackendInfo.quantize)",
+    "w2_scale": "backend:quantize",
+    "residual": "epilogue:residual — residual present iff the keyed "
+                "Epilogue spec carries the fused residual add",
+    "norm_scale": "epilogue:norm_scale — the prologue rmsnorm gain is "
+                  "present iff the keyed Epilogue spec prices it",
+}
+
+# BackendInfo field -> how the plan key covers it.  All metadata is carried
+# by the backend *name* in the key: register_backend evicts cached plans on
+# (re-)registration, so a name whose metadata changed cannot serve stale k.
+BACKEND_FIELD_KEYING = {
+    "fn": "identity: the name resolves fn at dispatch; plans never embed it",
+    "collapse": "keyed-by-name: read inside _plan_gemm_cached",
+    "precision": "keyed-by-name: read inside _plan_gemm_cached",
+    "quantize": "keyed-by-name: read inside _plan_gemm_cached (dequant_ops)",
+    "act_quantize": "keyed-by-name: read inside _plan_gemm_cached "
+                    "(actq_ops — the Eq.(5') quantize boundary term)",
+}
+
+
+# ---------------------------------------------------------------------------
+# strict-audit mode: routing violations become runtime errors
+#
+# REPRO_STRICT_AUDIT=1 (env) or the strict_audit_scope context manager turns
+# an unknown/empty dispatch site label into a RuntimeError at dispatch time
+# ([AF007], the finding code analysis.dispatch_audit reports for the same
+# violation), raised before the dispatch launches anything — instead of a
+# silent new DISPATCH_COUNTS key.
+
+_STRICT_AUDIT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_strict_audit", default=None)
+
+
+def strict_audit_enabled() -> bool:
+    """Contextvar wins when set; else the REPRO_STRICT_AUDIT env var."""
+    v = _STRICT_AUDIT.get()
+    if v is not None:
+        return bool(v)
+    return os.environ.get("REPRO_STRICT_AUDIT", "") not in ("", "0")
+
+
+class strict_audit_scope:
+    """``with strict_audit_scope(): ...`` — site-label violations raise."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self._token = None
+
+    def __enter__(self):
+        self._token = _STRICT_AUDIT.set(self.enabled)
+        return self
+
+    def __exit__(self, *exc):
+        _STRICT_AUDIT.reset(self._token)
+        return False
+
+
+def _known_sites() -> frozenset:
+    return planner.site_registry()
+
+
+def check_dispatch_sites(counts: Optional[Dict[str, int]] = None) -> None:
+    """Assert every recorded dispatch label is planner-known.
+
+    The cheap DISPATCH_COUNTS <-> planner.model_gemms drift check: a
+    dispatch under a site the planner does not know is an error, not a
+    silent new dict key.  The serving engine runs it after a run under
+    strict audit."""
+    known = _known_sites()
+    unknown = sorted(
+        label
+        for site in (counts if counts is not None else DISPATCH_COUNTS)
+        for label in site.split("+") if label not in known)
+    if unknown:
+        raise RuntimeError(
+            f"[AF007] dispatch site labels unknown to planner.model_gemms: "
+            f"{unknown}; known sites: {sorted(known)}")
 
 
 # ---------------------------------------------------------------------------
@@ -900,8 +1014,21 @@ def _maybe_chaos_fault(site: str) -> None:
 
 
 def _record(site: str, plan: GemmPlan, launches: int = 1) -> None:
+    """Log ``plan`` under ``site`` (every caller records before its
+    backend runs, so a strict-audit violation launches nothing)."""
     if not site:
+        if strict_audit_enabled():
+            raise RuntimeError(
+                "[AF007] unlabeled substrate dispatch under strict audit: "
+                "every model GEMM must carry a planner site label")
         return
+    if strict_audit_enabled():
+        known = _known_sites()
+        bad = [label for label in site.split("+") if label not in known]
+        if bad:
+            raise RuntimeError(
+                f"[AF007] dispatch site {site!r} carries labels unknown to "
+                f"planner.model_gemms: {bad}")
     for label in site.split("+"):
         SITE_PLANS[label] = plan
     DISPATCH_COUNTS[site] = DISPATCH_COUNTS.get(site, 0) + launches

@@ -99,6 +99,11 @@ the CPU:
 On one card the shards and stages run one after another on it: the mesh
 shows the sharded launch structure and its results, not a speed-up.
 
+``--strict-audit`` serves under ``substrate.strict_audit_scope``: a GEMM
+dispatched under an unknown or empty site label raises ``[AF007]`` before
+it launches, and the engine checks every recorded label at the end of the
+run.  The streams are those of the same run without it.
+
 Prints per-request outputs with their outcome, plus per-phase timing:
 prefill and decode throughput (tokens/s), dispatch counts, and mean
 time-to-first-token.
@@ -257,6 +262,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the kernels' "
                          "plain PyTorch versions)")
+    ap.add_argument("--strict-audit", action="store_true",
+                    help="routing violations (unknown/missing site= labels) "
+                         "raise [AF007] RuntimeErrors at dispatch time, and "
+                         "run_to_completion cross-checks every recorded "
+                         "site against planner.model_gemms")
     return ap
 
 
@@ -270,7 +280,9 @@ def main(argv=None):
         ap.error("--pp requires disaggregated serving "
                  "(--prefill-pods/--decode-pods)")
     with (mesh_lib.host_devices(args.host_devices, args.device)
-          if args.host_devices else contextlib.nullcontext()):
+          if args.host_devices else contextlib.nullcontext()), \
+         (substrate.strict_audit_scope() if args.strict_audit
+          else contextlib.nullcontext()):
         return _serve(args, disagg)
 
 

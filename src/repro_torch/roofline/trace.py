@@ -62,11 +62,15 @@ adds the home device's and the mean non-home device's figures.
 (``attn.wq``, ``mlp.wo``, ...) when an op runs inside a dispatch
 (:func:`sited`), else to the aten op's name.
 
-Every hook is one read of a module global when no tracer is active
-(:func:`kernel` and :func:`sited` add one call frame).
+**Listeners.**  The hooks report to the one :class:`Listener` now
+active (:func:`listening`): the tracer :func:`analyze` runs, or
+``analysis.dispatch_audit``'s routing audit.  Every hook is one read of a
+module global when none is active (:func:`kernel` and :func:`sited` add
+one call frame).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import weakref
@@ -82,7 +86,7 @@ aten = torch.ops.aten
 HOME = 0                        # the single controller's device
 _TAG = "repro_torch.roofline"   # autograd-node metadata key: (device, site)
 
-# the tracer of the analyze() call now running (None: every hook is inert)
+# the Listener the hooks report to (None: every hook is inert)
 _ACTIVE = None
 
 _current_node = getattr(torch._C, "_current_autograd_node", lambda: None)
@@ -240,11 +244,42 @@ class _Scope:
         return False
 
 
+class Listener:
+    """What the hooks report to while it is active (:func:`listening`).
+    The defaults change nothing: a listener overrides what it watches."""
+
+    def scope(self, dev, site):
+        """A context the ops inside run in: a shard loop's logical device
+        ``dev`` (None: unchanged), a dispatch's ``site`` label (None:
+        unchanged)."""
+        return _NULL
+
+    def kernel(self, name: str, cost, fn, args, kwargs):
+        """One call of the kernel wrapper ``name``: runs it."""
+        return fn(*args, **kwargs)
+
+    def collective(self, kind: str, t, n: int, t2=None) -> None:
+        """One collective of ``kind`` over ``n`` shards (:func:`collective`)."""
+
+
+@contextlib.contextmanager
+def listening(listener: Listener):
+    """Make ``listener`` the one the hooks report to (they do not nest)."""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError(f"a hook listener is already active: {_ACTIVE!r}")
+    _ACTIVE = listener
+    try:
+        yield listener
+    finally:
+        _ACTIVE = None
+
+
 def shard(mesh, coord):
     """The substrate's shard loops: inside, ops run on ``mesh``'s logical
     device at ``coord`` (axis name -> index)."""
     tr = _ACTIVE
-    return _NULL if tr is None else _Scope(tr, mesh.device_id(coord), None)
+    return _NULL if tr is None else tr.scope(mesh.device_id(coord), None)
 
 
 def sited(fn):
@@ -255,15 +290,15 @@ def sited(fn):
         tr = _ACTIVE
         if tr is None:
             return fn(*args, **kwargs)
-        with _Scope(tr, None, kwargs.get("site") or None):
+        with tr.scope(None, kwargs.get("site") or None):
             return fn(*args, **kwargs)
     return wrapper
 
 
 def kernel(cost):
-    """Decorator of a kernel wrapper: books ``cost(*args, **kwargs)`` —
-    (logical FLOPs, operand bytes) — plus the result's bytes for the call,
-    and silences the aten ops the wrapper runs inside."""
+    """Decorator of a kernel wrapper: the tracer books ``cost(*args,
+    **kwargs)`` — (logical FLOPs, operand bytes) — plus the result's bytes
+    for the call, and silences the aten ops the wrapper runs inside."""
     def deco(fn):
         name = fn.__name__
 
@@ -272,28 +307,19 @@ def kernel(cost):
             tr = _ACTIVE
             if tr is None:
                 return fn(*args, **kwargs)
-            return tr._kernel(name, cost, fn, args, kwargs)
+            return tr.kernel(name, cost, fn, args, kwargs)
         return wrapper
     return deco
 
 
 def collective(kind: str, t, n: int, t2=None) -> None:
-    """Book one collective of ``kind`` over a group of ``n`` shards whose
+    """One collective of ``kind`` over a group of ``n`` shards whose
     per-device buffer is ``t`` (and ``t2``, a second buffer moved with it):
     the gathered result of an all-gather, the operand of an all-reduce,
-    the result of a collective-permute (a tensor or a tree of them).
-    ``hlo.py``'s formulas."""
+    the result of a collective-permute (a tensor or a tree of them)."""
     tr = _ACTIVE
-    if tr is None or n <= 1:
-        return
-    b = float(nbytes(t, t2))
-    if kind == "all-gather":
-        moved = b * (n - 1) / n
-    elif kind == "all-reduce":
-        moved = b * 2.0 * (n - 1) / n
-    else:                               # collective-permute
-        moved = b
-    tr._collective(kind, moved)
+    if tr is not None:
+        tr.collective(kind, t, n, t2)
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +342,7 @@ class _Device:
         self.outs = 0
 
 
-class _Tracer(TorchDispatchMode):
+class _Tracer(TorchDispatchMode, Listener):
     """The mode :func:`analyze` runs a step under (one per call)."""
 
     def __init__(self):
@@ -372,7 +398,20 @@ class _Tracer(TorchDispatchMode):
             d.mem += mem
             d.attr_mem[label] += mem
 
-    def _collective(self, kind, moved):
+    def scope(self, dev, site):
+        return _Scope(self, dev, site)
+
+    def collective(self, kind, t, n, t2=None):
+        """Book the bytes ``hlo.py``'s formulas move (none for one shard)."""
+        if n <= 1:
+            return
+        b = float(nbytes(t, t2))
+        if kind == "all-gather":
+            moved = b * (n - 1) / n
+        elif kind == "all-reduce":
+            moved = b * 2.0 * (n - 1) / n
+        else:                               # collective-permute
+            moved = b
         dev, site = self._where()
         d = self.devs[dev]
         d.coll[kind] += moved
@@ -407,7 +446,7 @@ class _Tracer(TorchDispatchMode):
             self._arg_storages.append(st)
             self.devs[HOME].args += st.nbytes()
 
-    def _kernel(self, name, cost, fn, args, kwargs):
+    def kernel(self, name, cost, fn, args, kwargs):
         if self._quiet:
             return fn(*args, **kwargs)
         self._flush()
@@ -546,17 +585,10 @@ def analyze(fn, *args, top_k: int = 25, n_devices: int = 0,
     collective bytes by kind (``per_device``).  The inputs are
     counted as the home device's arguments: the single controller holds
     them whole."""
-    global _ACTIVE
-    if _ACTIVE is not None:
-        raise RuntimeError("roofline.trace.analyze does not nest")
     tr = _Tracer()
     tr._note_args(_tensors(args, []))
-    _ACTIVE = tr
-    try:
-        with tr:
-            out = fn(*args)
+    with listening(tr), tr:
+        out = fn(*args)
         tr._finish(_tensors(out, []))
-    finally:
-        _ACTIVE = None
     del out
     return tr.result(top_k, n_devices, per_device)

@@ -123,8 +123,15 @@ Disaggregated serving (``serving/disagg.py``) subclasses this engine: its
 prefill role works on a cache of its own, so :meth:`_guarded_dispatch`
 takes the name of the cache attribute a step works on and commits to
 (``target``), and its decode steps run under ``self.dcfg`` (the engine's
-config here, the decode role's there).  Not ported yet: the strict routing
-audit.
+config here, the decode role's there).
+
+Strict routing audit (``substrate.strict_audit_scope`` or
+``REPRO_STRICT_AUDIT=1``; ``serve.py --strict-audit``): a dispatch under an
+unknown or empty site label raises ``RuntimeError("[AF007] ...")`` before
+it launches, and :meth:`run_to_completion` checks every recorded label
+against ``planner.model_gemms`` when the run ends.  The error propagates:
+:meth:`_guarded_dispatch` retries only a ``KernelFault``, so a routing
+violation is never retried and never becomes a typed outcome.
 """
 from __future__ import annotations
 
@@ -990,6 +997,12 @@ class ServingEngine:
                 if (self.sc.watchdog_ticks
                         and self._no_progress >= self.sc.watchdog_ticks):
                     self._watchdog_fire()
+        if substrate.strict_audit_enabled():
+            # post-run routing cross-check: every site label the steps
+            # recorded must be known to planner.model_gemms ([AF007]
+            # RuntimeError otherwise) — the runtime twin of the
+            # analysis.dispatch_audit pass
+            substrate.check_dispatch_sites()
         return ticks
 
     # ------------------------------------------------- snapshot / restore

@@ -30,6 +30,17 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref, substrate
 from repro_torch.nn import attention as att
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ref_fa = importlib.import_module("repro.kernels.flash_attention")
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -779,3 +779,31 @@ def test_restart_schedule_follows_the_fault_manager(smoke, tmp_path, n,
                                   smoke.RESTART_CKPT_EVERY,
                                   smoke.RESTART_FAIL_AT) == (
         [0, 1, 2, 3, 4, 3, 4, 5, 6, 7], [3, 6])
+
+
+def test_audit_phase_rehearsed_on_the_cpu(smoke):
+    """Phase 9 end to end at reduced size on the CPU (the wrappers' plain
+    versions): every cell as phase 9 wants it, the strict serve equal to
+    the plain one, the refused dispatch, the static checks."""
+    from repro_torch.configs import reduced
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.audit_phase("cpu", reduced(get_config("qwen2-0.5b")),
+                                device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    codes = {c["cell"]: c["codes"] for c in out["cells"]}
+    assert codes == {
+        **{f"qwen2-0.5b/{b}/raw": (["AF008"] if b in ("arrayflex_int8",
+                                                       "arrayflex_w8a8")
+                                    else [])
+           for b in smoke.AUDIT_BACKENDS},
+        "qwen2-0.5b/arrayflex_int8/served": [],
+        "qwen2-0.5b/arrayflex_w8a8/served": [],
+        "qwen2-0.5b/arrayflex_int8/tp2": [],
+        **{f"qwen2-0.5b/{b}/{r}-pp2": [] for b in smoke.BACKENDS
+           for r in ("prefill", "decode")}}
+    assert out["serve"]["strict"]["streams"] == out["serve"]["plain"]["streams"]
+    assert len(out["runs"]) == len(out["cells"]) + 2
+    assert set(out["decode_step_ms"]) == {"plain", "audited"}

@@ -35,6 +35,17 @@ from test_torch_quant import _leaves
 from test_torch_ssm_model import assert_cache, assert_logits, tree_shapes
 from test_torch_window import build, cfgs, ref_decode, served
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32_ATOL = 1e-4
 VLM, AUDIO = "llama-3.2-vision-90b", "whisper-base"
 N_FRAMES = 24           # encoder frames in the forward checks

@@ -50,6 +50,17 @@ from repro_torch.serving import (DisaggServeConfig, DisaggServingEngine,
 from repro_torch.serving.disagg import PREFILL_STEP_OVERHEAD
 from repro_torch.serving.engine import PREFILL_CHUNK_CHOICES, Request
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's _reqs(): several tokens, two, one (no prefill and no

@@ -20,9 +20,21 @@ token prefill: the only mode these families have).
   attempt draw (the reference's jit retraces after a failed first trace).
 """
 import pytest
+import torch
 
 from test_torch_resilience_parity import assert_parity
 from test_torch_window import build, cfgs, serve_streams
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 VLM, AUDIO = "llama-3.2-vision-90b", "whisper-base"
 PROMPTS = [[5, 6, 7, 8], [11, 12, 13, 14, 15, 16], [21, 22]]

@@ -41,6 +41,17 @@ from repro_torch.kernels import substrate
 from repro_torch.models import convert, lm
 from repro_torch.nn import moe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DENSE, MOE = "qwen2-0.5b", "qwen3-moe-30b-a3b"
 FP32_ATOL = 1e-4
 W8A8_ATOL = {DENSE: 0.12, MOE: 2.5}

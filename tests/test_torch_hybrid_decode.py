@@ -5,8 +5,19 @@ in fp32 on every backend and in bf16 on ``xla`` and ``arrayflex``:
 tolerances (its module docstring).
 """
 import pytest
+import torch
 
 from test_torch_ssm_model import DECODE_CASES, build, check_decode
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -8,10 +8,21 @@ decode steps are in ``tests/test_torch_hybrid_decode.py``.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.models import lm
 from test_torch_ssm_model import (BACKENDS, build, cfgs, check_dispatches,
                                   check_forward, check_layout)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

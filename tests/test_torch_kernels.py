@@ -25,6 +25,17 @@ from repro_torch.kernels import arrayflex_gemm as ag
 from repro_torch.kernels import build, ops, substrate
 from repro_torch.kernels.runtime import resolve_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

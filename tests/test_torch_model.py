@@ -29,6 +29,17 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import substrate
 from repro_torch.models import convert, lm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32_ATOL = 1e-4
 BF16_RTOL = 2.0 ** -5
 BACKENDS = ["xla", "ref", "arrayflex"]

@@ -50,6 +50,17 @@ from repro_torch.models import convert, lm
 from repro_torch.nn import layers, moe
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ref_moe = importlib.import_module("repro.nn.moe")
 
 ARCH = "qwen3-moe-30b-a3b"

@@ -40,6 +40,17 @@ from repro_torch.nn import attention as attn
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from repro_torch.serving import paged
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32_ATOL = 1e-4
 # the reference's tests/test_serving_prefill.py prompts: several chunks,
 # a one-token prompt (no prefill at all), ragged lengths

@@ -37,6 +37,17 @@ from repro_torch.parallel import pipeline
 from repro_torch.serving import DisaggServeConfig, DisaggServingEngine
 from repro_torch.serving.engine import Request
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "llama3-8b"
 REQS = [([5, 7, 11, 13, 17, 19, 23], 4, 1), ([2, 3], 3, 2), ([31], 3, 3),
         (list(range(40, 52)), 3, 4)]

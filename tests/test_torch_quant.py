@@ -45,6 +45,17 @@ from repro_torch.launch import serve
 from repro_torch.models import convert, lm
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ref_ag = importlib.import_module("repro.kernels.arrayflex_gemm")
 
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

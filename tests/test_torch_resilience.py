@@ -38,6 +38,17 @@ from repro_torch.serving import (AdmissionError, EngineCrash, KernelFault,
 from repro_torch.serving.engine import Request
 from repro_torch.serving.paged import PagePool, RadixCache
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -18,8 +18,20 @@ reference's run short; the draws do not depend on the backend.
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from test_torch_resilience_parity import assert_parity, models
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 QWEN_DRAWS = 2 * (8 + 1)          # first prefill + first decode trace
 

@@ -3,9 +3,20 @@ paged engine: ``gemm_fault_at = n`` for every n from 0 to one past the
 reference's draws in its first paged prefill and decode traces, as
 ``tests/test_torch_resilience_draws.py`` does on the dense engine."""
 import pytest
+import torch
 
 from test_torch_resilience_draws import QWEN_DRAWS, check_gemm_fault_at
 from test_torch_resilience_parity import models
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

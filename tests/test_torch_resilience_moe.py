@@ -13,8 +13,20 @@ makes the reference trace at every later call, so the requests are
 short.
 """
 import pytest
+import torch
 
 from test_torch_resilience_parity import assert_parity, models
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 MOE_DRAWS = 6 + 4 + 1             # one decode trace: attention, MoE, unembed
 MOE_PROMPTS = [[5, 6, 7], [21]]

@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import ARCHS, reduced as ref_reduced
 from repro.models import lm as ref_lm
@@ -31,6 +32,17 @@ from repro_torch.runtime.chaos import ChaosConfig
 from repro_torch.serving import (AdmissionError, EngineCrash, ServeConfig,
                                  ServingEngine)
 from repro_torch.serving.engine import Request
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 STATS = ("outcome_ok", "outcome_rejected_overload",
          "outcome_deadline_expired", "outcome_preempted_retried",

@@ -51,6 +51,17 @@ from repro_torch.serving import (DisaggServeConfig, DisaggServingEngine,
                                  ServeConfig, ServingEngine)
 from repro_torch.serving.engine import Request
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"tp2": (1, 2), "tp4": (1, 4), "fsdp2_tp2": (2, 2)}
 TOL = dict(rtol=1e-5, atol=1e-4)          # sharded vs unsharded dispatch

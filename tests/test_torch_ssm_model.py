@@ -53,6 +53,17 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import substrate
 from repro_torch.models import convert, lm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BACKENDS = ["xla", "arrayflex", "arrayflex_int8", "arrayflex_w8a8"]
 # (backend, conv window dtype) of the decode checks (module docstring)
 DECODE_CASES = ([(b, "float32") for b in BACKENDS]

@@ -45,6 +45,17 @@ from repro_torch.serving import (EngineCrash, KernelFault, ServeConfig,
 from repro_torch.serving.engine import Request
 from test_torch_ssm_model import _ref_decode, build, cfgs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PROMPTS = [[5, 6, 7], [11, 12, 13, 14], [21, 22]]
 ANCHOR_TOL = 4e-3
 

@@ -40,6 +40,17 @@ from repro_torch.launch import train
 from repro_torch.models import api, convert, lm
 from repro_torch.optim import OptConfig, adamw_init
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH_LIST = sorted(REF_ARCHS)
 LOSS_ATOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -38,6 +38,17 @@ from repro_torch.serving import ServeConfig, ServingEngine
 from repro_torch.serving.engine import Request
 from test_torch_ssm_model import assert_cache, assert_logits
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs several workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32_ATOL = 1e-4
 WINDOW = 8
 
