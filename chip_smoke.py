@@ -255,7 +255,21 @@ failure of which exits non-zero:
    ``[AF007]`` and no launch; (e) ``ast_lint.run()`` and
    ``kernel_check.run()`` find nothing; (f) the phase's seconds and one
    decode step's host clock audited against unaudited;
-10. summary: each form's totals per decode step of each model, per
+10. the examples (``examples_phase``): (a) each ``examples/torch/*.py``
+   example's ``run`` in process on the card, its launch counters set to 0
+   just before and read just after and added to the kernels line; the
+   quickstart's lines equal its CPU run's but the device's
+   (``EXAMPLE_DEVICE_LINES``), its three stream identities true, its
+   logit differences within the reference's tolerances, K1's bf16,
+   fp32, W8 and W8A8 forms and K2 launched, one launch a substrate
+   dispatch, no plain version called; (b) serve_lm's ``serve.main`` also
+   at full width, every request ``ok``; (c) train_lm at ~100M for 200
+   steps, the loss decreasing, each step's host clock and the peak
+   memory; (d) fault_tolerant_training, 40 steps with a failure before
+   step 25, bit-equal to an uninterrupted run; (e) ``python
+   examples/torch/quickstart.py`` in a subprocess, exit 0, its lines the
+   in-process run's; (f) the phase's seconds;
+11. summary: each form's totals per decode step of each model, per
    prefill-chunk step of qwen2-0.5b and per mamba2-370m prefill, one
    JSON line of kernel numbers, the card's name and power limit, and the
    ``{"ok": true, ...}`` line last.  Each site check's error, the plain
@@ -5386,6 +5400,280 @@ def audit_phase(card: str, cfg=None, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the examples (examples/torch/*.py) as a user runs them
+
+EXAMPLES_DIR = ROOT / "examples" / "torch"
+EXAMPLE_TRAIN = dict(steps=200, small=False)   # train_lm: ~100M, its default
+EXAMPLE_FT = dict(steps=40, fail_at=25, ckpt_every=10)
+# quickstart lines that depend on the device by design: the kernel's name
+# and error, the float logit differences, a clock
+EXAMPLE_DEVICE_LINES = ("=== CUDA kernel", "  planned k=",
+                        "  xla vs arrayflex logits",
+                        "  fp32-arrayflex vs int8", "  fp32-arrayflex vs w8a8",
+                        "  mean virtual TTFT")
+# the reference's documented tolerances (arrayflex: of the logit scale)
+EXAMPLE_LOGIT_TOL = {"arrayflex": 1e-5, "arrayflex_int8": 0.06,
+                     "arrayflex_w8a8": 0.12}
+# the kernel forms the quickstart must launch on the card (the FFMA rows
+# are the form's launches off the tensor-core kernel)
+EXAMPLE_FORMS = ("arrayflex_gemm_tc", "arrayflex_gemm", "arrayflex_gemm_int8",
+                 "arrayflex_gemm_w8a8", "arrayflex_expert_gemm",
+                 "arrayflex_expert_gemm_w8a8")
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Inside, every call of a kernel's plain version is counted (name ->
+    calls): a wrapper takes it only for CPU tensors, so on the card the
+    count must stay 0."""
+    targets = ((ag, "arrayflex_gemm_plain"),
+               (ag, "arrayflex_expert_gemm_plain"),
+               (fa, "flash_attention_plain"))
+    counts = {name: 0 for _, name in targets}
+    saved = [getattr(mod, name) for mod, name in targets]
+    for (mod, name), real in zip(targets, saved):
+        def counted(*args, _real=real, _name=name, **kwargs):
+            counts[_name] += 1
+            return _real(*args, **kwargs)
+
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for (mod, name), real in zip(targets, saved):
+            setattr(mod, name, real)
+
+
+def _example_run(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its stdout sent to stderr, the launch
+    counters set to 0 just before and read just after."""
+    ag.reset_launches()
+    fa.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = fn(*args, **kwargs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {"launches": {**ag.LAUNCHES, **fa.LAUNCHES}}
+
+
+def check_quickstart(got: dict, want_lines: list, device) -> None:
+    """The quickstart's run on ``device`` against its CPU run: every line
+    but :data:`EXAMPLE_DEVICE_LINES` equal (the planned k too), the
+    identities ``True``, the logit differences and the GEMM's error
+    within their tolerances, the audit clean with [AF001] and [AF007]
+    seeded; on the card every kernel step launching one K1 / K2 kernel a
+    substrate dispatch, every form of :data:`EXAMPLE_FORMS` launched."""
+    got_lines = "\n".join(got["lines"]).splitlines()
+    want_lines = "\n".join(want_lines).splitlines()
+    bad = [(w, g) for w, g in zip(want_lines, got_lines)
+           if w != g and not w.startswith(EXAMPLE_DEVICE_LINES)]
+    if len(got_lines) != len(want_lines) or bad:
+        raise AssertionError(f"(a) quickstart on {device}: lines differ from "
+                             f"the CPU run's: {bad or got_lines}")
+    k_cpu = [l.split(";")[0] for l in want_lines if l.startswith("  planned")]
+    k_dev = [l.split(";")[0] for l in got_lines if l.startswith("  planned")]
+    d = got["logits_diff"]
+    if not (k_cpu == k_dev
+            and got["paged"]["identical"] and got["disagg"]["identical"]
+            and all(s["exact"] for s in got["simulator"].values())
+            and d["arrayflex"] <= EXAMPLE_LOGIT_TOL["arrayflex"] * d["scale"]
+            and d["arrayflex_int8"] <= EXAMPLE_LOGIT_TOL["arrayflex_int8"]
+            and d["arrayflex_w8a8"] <= EXAMPLE_LOGIT_TOL["arrayflex_w8a8"]
+            and got["gemm"]["err"] <= 2 ** -8 * got["gemm"]["scale"]
+            and got["audit"] == dict(errors=0, warnings=0, fallbacks=0)
+            and got["bypass"] == ["AF001"]
+            and got["strict"].startswith("[AF007]")):
+        raise AssertionError(f"(a) quickstart on {device}: planned {k_dev} "
+                             f"(CPU {k_cpu}), paged / disagg identical "
+                             f"{got['paged']['identical']} / "
+                             f"{got['disagg']['identical']}, logits {d}, "
+                             f"gemm {got['gemm']}, audit {got['audit']}, "
+                             f"{got['bypass']}, {got['strict']!r}")
+    if torch.device(device).type != "cuda":
+        return
+    steps = got["steps"]
+    for name in ("arrayflex", "arrayflex_int8", "arrayflex_w8a8", "audit"):
+        s = steps[name]
+        if s["kernel_launches"] != s["dispatches"] or not s["dispatches"]:
+            raise AssertionError(f"(a) quickstart {name}: {s['launches']} "
+                                 f"for {s['dispatches']} dispatches (want "
+                                 f"one K1 / K2 launch a dispatch)")
+    if steps["gemm"]["launches"] != {"arrayflex_gemm": 1,
+                                     "arrayflex_gemm_tc": 1}:
+        raise AssertionError(f"(a) quickstart's bf16 GEMM launched "
+                             f"{steps['gemm']['launches']}")
+
+
+def examples_phase(card: str, device="cuda", train=None, ft=None,
+                   full_serve: bool = True) -> dict:
+    """Phase 10, the five examples of ``examples/torch/`` on ``device``
+    (the CPU tests pass ``device="cpu"`` with a small ``train`` / ``ft``
+    and ``full_serve=False``): (a) each example's ``run`` in process, its
+    launch counters set to 0 just before and read just after (the
+    quickstart held to its CPU run by :func:`check_quickstart`, no plain
+    version called on the card, every form of :data:`EXAMPLE_FORMS`
+    launched); (b) serve_lm's ``serve.main`` again at full width
+    (``--no-reduced``), every request ``ok`` with 16 tokens; (c) train_lm
+    at ``train`` (default ~100M, 200 steps), the loss decreasing, each
+    step's host clock and the peak memory; (d) fault_tolerant_training at
+    ``ft`` (40 steps, a failure before step 25) against an uninterrupted
+    run under deterministic algorithms: one restart, the final state
+    bit-equal; (e) ``python examples/torch/quickstart.py`` as a user runs
+    it, exit 0 and its lines the in-process run's; (f) the seconds."""
+    t0 = time.perf_counter()
+    train = train or EXAMPLE_TRAIN
+    ft = ft or EXAMPLE_FT
+    on_card = torch.device(device).type == "cuda"
+    out = dict(runs=[])
+
+    qs = load_example("quickstart")
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu_qs = qs.run("cpu", log=lambda line: None)
+    with plain_calls() as plain:
+        got, counted = _example_run(qs.run, device)
+    check_quickstart(got, cpu_qs["lines"], device)
+    launches = counted["launches"]
+    forms = {name: launches[name] - launches.get(name + "_tc", 0)
+             for name in EXAMPLE_FORMS}
+    if on_card and (any(plain.values()) or not all(forms.values())):
+        raise AssertionError(f"(a) quickstart on the card: plain versions "
+                             f"called {plain}, forms launched {forms}")
+    out["runs"].append(counted)
+    out["quickstart"] = dict(
+        launches=launches, steps=got["steps"], logits_diff=got["logits_diff"],
+        gemm=got["gemm"], plain_calls=dict(plain), lines=got["lines"])
+    log(f"  (a) quickstart on {device}: its lines equal the CPU run's but "
+        f"the device's {len(EXAMPLE_DEVICE_LINES)}; streams identical "
+        f"(paged, disagg); logits vs xla {got['logits_diff']['arrayflex']:.3e}"
+        f", int8 {got['logits_diff']['arrayflex_int8']:.3e}, W8A8 "
+        f"{got['logits_diff']['arrayflex_w8a8']:.3e}; bf16 GEMM err "
+        f"{got['gemm']['err']:.3e}; launches per form {forms}, one a "
+        f"dispatch, plain versions called {sum(plain.values())} ({card})")
+
+    pp, counted = _example_run(load_example("pipeline_parallel").run, device)
+    out["runs"].append(counted)
+    out["pipeline_parallel"] = dict(err=pp["err"], rows=pp["rows"])
+    serve_lm = load_example("serve_lm")
+    served = {}
+    for reduced_ in (True, False) if full_serve else (True,):
+        res, counted = _example_run(serve_lm.run, device, reduced=reduced_)
+        out["runs"].append(counted)
+        served["reduced" if reduced_ else "full"] = res
+        if res["outcomes"] != ["ok"] * 6 or \
+                any(len(s) != 16 for s in res["streams"]):
+            raise AssertionError(f"(b) serve_lm reduced={reduced_}: "
+                                 f"{res['outcomes']}")
+    out["serve_lm"] = {k: dict(streams=v["streams"], outcomes=v["outcomes"])
+                       for k, v in served.items()}
+    log(f"  (a)-(b) pipeline_parallel: max err {pp['err']:.2e}; serve_lm: 6 "
+        f"requests x 16 tokens ok, {' and '.join(served)} qwen2-0.5b")
+
+    times = []
+    real = api.make_train_step
+    if on_card:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        api.make_train_step = _timed_train_steps(times)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res, counted = _example_run(load_example("train_lm").run, device,
+                                        ckpt_dir=os.path.join(d, "ckpt"),
+                                        **train)
+    finally:
+        api.make_train_step = real
+    out["runs"].append(counted)
+    losses = res["losses"]
+    out["train_lm"] = dict(losses=losses, report=res["report"],
+                           step_ms=times, **train)
+    if on_card:
+        tokens = 8 * (512 if not train["small"] else 256)
+        med = float(np.median(times[1:] or times))
+        out["train_lm"].update(
+            median_step_ms=med, first_step_ms=times[0],
+            tokens_per_s=tokens / med * 1e3,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  (c) train_lm ({'small' if train['small'] else '~100M'}, "
+            f"{train['steps']} steps): loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; step {med:.2f} ms (median of steps 1-"
+            f"{len(times) - 1}, host clock; first {times[0]:.1f}), "
+            f"{out['train_lm']['tokens_per_s']:.0f} tokens/s, peak "
+            f"{out['train_lm']['peak_gib']:.2f} GiB ({card})")
+    if not (losses[-1] < losses[0] and np.isfinite(losses).all()):
+        raise AssertionError(f"(c) train_lm: losses {losses}")
+
+    ft_mod = load_example("fault_tolerant_training")
+    if on_card:
+        torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t1 = time.perf_counter()
+            faulted, counted = _example_run(
+                ft_mod.run, device, ckpt_dir=os.path.join(d, "f"),
+                **ft)
+            t2 = time.perf_counter()
+            clean, _ = _example_run(
+                ft_mod.run, device, ckpt_dir=os.path.join(d, "c"),
+                **dict(ft, fail_at=None))
+            t3 = time.perf_counter()
+    finally:
+        if on_card:
+            torch.use_deterministic_algorithms(False)
+    out["runs"].append(counted)
+    a, b = tree_lib.leaves(faulted["state"]), tree_lib.leaves(clean["state"])
+    equal = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    out["fault_tolerant"] = dict(steps=faulted["steps"],
+                                 restarts=faulted["restarts"],
+                                 bit_equal=equal, seconds=t2 - t1,
+                                 clean_seconds=t3 - t2, loss=faulted["loss"])
+    log(f"  (d) fault_tolerant_training: step {faulted['steps']} with "
+        f"{faulted['restarts']} restart (failure before step "
+        f"{ft['fail_at']}), final state bit-equal to an uninterrupted run's: "
+        f"{equal} ({len(a)} leaves; {t2 - t1:.1f} s against {t3 - t2:.1f} "
+        f"s)")
+    if not (equal and faulted["restarts"] == 1 and clean["restarts"] == 0):
+        raise AssertionError(f"(d) fault_tolerant_training: "
+                             f"{out['fault_tolerant']}")
+
+    t1 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(EXAMPLES_DIR / "quickstart.py")]
+        + ([] if on_card else ["--device", "cpu"]),
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    printed = proc.stdout.splitlines()
+    want = "\n".join(got["lines"]).splitlines()
+    same = [w == p for w, p in zip(want, printed)
+            if not w.startswith(EXAMPLE_DEVICE_LINES)]
+    out["subprocess"] = dict(rc=proc.returncode,
+                             seconds=time.perf_counter() - t1,
+                             lines=len(printed))
+    log(f"  (e) python examples/torch/quickstart.py"
+        f"{'' if on_card else ' --device cpu'}: exit {proc.returncode} in "
+        f"{out['subprocess']['seconds']:.1f} s, {len(printed)} lines, "
+        f"{sum(same)} of {len(same)} deterministic lines equal to the "
+        f"in-process run's")
+    if proc.returncode or len(printed) != len(want) or not all(same) or (
+            on_card and "=== CUDA kernel with planned collapse ==="
+            not in printed):
+        raise AssertionError(f"(e) quickstart.py: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  (f) the examples phase took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5396,12 +5684,12 @@ def main() -> int:
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     dry = start_dryrun()
-    log(f"[1/10] device: {card}; torch {torch.__version__} cuda "
+    log(f"[1/11] device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {kind} x {count}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    log(f"[2/10] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/11] build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for stem, text in build.PTXAS_INFO.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line \
@@ -5421,7 +5709,7 @@ def main() -> int:
     chunk = min(MAX_SEQ, planner.attention_plan(
         MAX_SEQ, MAX_SEQ, choices=PREFILL_CHUNK_CHOICES))
     tc_report(cfg, moe_cfg, chunk)
-    log(f"[3/10] GEMM kernel checks and times (bf16, the MoE router fp32; "
+    log(f"[3/11] GEMM kernel checks and times (bf16, the MoE router fp32; "
         f"per call: device time from a CUDA-graph replay, eager time with "
         f"host launches; card: {card})")
     results, max_err = kernel_phase(cfg, moe_cfg, chunk, ssm_cfg=ssm_cfg)
@@ -5432,11 +5720,11 @@ def main() -> int:
     kt_quant = kt_quantize_time(cfg)
     _free()
 
-    log(f"[4/10] flash attention (K3) through ops.attention, against its "
+    log(f"[4/11] flash attention (K3) through ops.attention, against its "
         f"plain version and scaled_dot_product_attention (card: {card})")
     k3, k3_launches = k3_phase()
 
-    log(f"[5/10] serving full-width {cfg.name} on arrayflex/bf16")
+    log(f"[5/11] serving full-width {cfg.name} on arrayflex/bf16")
     params = lm.init_params(cfg, seed=0)
     serving = {"arrayflex": serving_phase(cfg, params)}
     for backend in ("arrayflex_int8", "arrayflex_w8a8"):
@@ -5473,7 +5761,7 @@ def main() -> int:
         f"one resilient run (card: {card})")
     ssm_serving, ssm_runs, ssm_params = ssm_serving_phase(ssm_cfg)
 
-    log(f"[6/10] full-sequence lm.prefill of full-width {cfg.name} on "
+    log(f"[6/11] full-sequence lm.prefill of full-width {cfg.name} on "
         f"arrayflex/bf16 at S = {', '.join(map(str, FWD_SEQS))}")
     prefill = forward_phase(cfg, params)
     log(f"  K1/K2 at the prefill's site shapes (bf16 timed; card: {card})")
@@ -5482,7 +5770,7 @@ def main() -> int:
         f"arrayflex/bf16 at S = {SSM_FWD_SEQ}")
     ssm_prefill = forward_phase(ssm_cfg, ssm_params, (SSM_FWD_SEQ,))
 
-    log("[7/10] model parity: arrayflex vs ref on the card")
+    log("[7/11] model parity: arrayflex vs ref on the card")
     parity = parity_phase(cfg, params)
     log("  quantized backends (fp32)")
     quant_parity = quant_parity_phase(cfg, params)
@@ -5515,7 +5803,7 @@ def main() -> int:
 
     families, family_runs = {}, []
     for arch in FAMILY_ARCHS:
-        log(f"[7/10] {arch} at full width (bf16 parameters): serving on "
+        log(f"[7/11] {arch} at full width (bf16 parameters): serving on "
             f"{', '.join(BACKENDS)}, its sites checked and timed, fp32 "
             f"parity (card: {card})")
         fam, rows, errs, fam_runs, fam_fp32 = family_phase(arch)
@@ -5526,22 +5814,29 @@ def main() -> int:
         family_runs += fam_runs
         fp32_runs += fam_fp32
 
-    log(f"[7/10] training on the xla backend (no kernel): full-width "
+    log(f"[7/11] training on the xla backend (no kernel): full-width "
         f"qwen2-0.5b, mamba2-370m and qwen3-moe-30b-a3b at 2 layers, fp32 "
         f"parity against the CPU, the bit-exact restart, sharded training "
         f"over meshes of logical devices, remat, int8 gradient compression "
         f"(card: {card})")
     training = train_phase(card)
 
-    log(f"[8/10] the dry run and the roofline: {ROOFLINE_ARCH} on 256 logical "
+    log(f"[8/11] the dry run and the roofline: {ROOFLINE_ARCH} on 256 logical "
         f"meta devices, a traced train step and decode step on the card, "
         f"the card against its datasheet (card: {card})")
     roofline = roofline_phase(dry, card)
 
-    log(f"[9/10] the substrate-contract audit: full-width {AUDIT_ARCH} on "
+    log(f"[9/11] the substrate-contract audit: full-width {AUDIT_ARCH} on "
         f"the card under the dispatch audit, TP2 and pp = 2 cells, "
         f"serve.py --strict-audit, the static checks (card: {card})")
     audit = audit_phase(card)
+
+    log(f"[10/11] the examples: examples/torch/*.py on the card as a user "
+        f"runs them — the quickstart against its CPU run, serve_lm at full "
+        f"width, train_lm at ~100M for {EXAMPLE_TRAIN['steps']} steps, "
+        f"fault_tolerant_training against an uninterrupted run, the "
+        f"quickstart as a script (card: {card})")
+    examples = examples_phase(card)
 
     # each GEMM form's launches over every serving run, the bf16 prefill
     # runs and the fp32 runs of phase 7 that are counted (the full-sequence
@@ -5555,7 +5850,8 @@ def main() -> int:
             + mesh.pop("runs") + pp.pop("runs")
             + list(prefill.values())
             + ssm_runs + list(ssm_prefill.values()) + family_runs
-            + [{"launches": v} for v in fp32_runs] + audit.pop("runs"))
+            + [{"launches": v} for v in fp32_runs] + audit.pop("runs")
+            + examples.pop("runs"))
     launches = {name: sum(run["launches"][name] for run in runs)
                 for name in REPLACES}
     for tc in TC_COUNTERS:
@@ -5588,13 +5884,13 @@ def main() -> int:
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
                   families=families, train=training, roofline=roofline,
-                  audit=audit,
+                  audit=audit, examples=examples,
                   site_checks=SITE_CHECKS,
                   unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"[10/10] summary ({elapsed:.1f} s)")
+    log(f"[11/11] summary ({elapsed:.1f} s)")
     for cell, forms in cells.items():
         for name, t in forms.items():
             lib = t["library_ms"]

@@ -662,6 +662,10 @@ class GemmPlan:
     cycles: int = 0     # per-shard Eq.(4) cycles x fused contractions
     precision: str = "fp32"
 
+    @property
+    def saving(self) -> float:
+        return 1.0 - self.t_pred_ps / self.t_conventional_ps
+
 
 @functools.lru_cache(maxsize=None)
 def _plan_gemm_cached(M: int, N: int, T: int, backend: str,

@@ -807,3 +807,28 @@ def test_audit_phase_rehearsed_on_the_cpu(smoke):
     assert out["serve"]["strict"]["streams"] == out["serve"]["plain"]["streams"]
     assert len(out["runs"]) == len(out["cells"]) + 2
     assert set(out["decode_step_ms"]) == {"plain", "audited"}
+
+
+def test_examples_phase_rehearsed_on_the_cpu(smoke):
+    """Phase 10 end to end on the CPU at a small size (train_lm --small
+    for 3 steps, fault_tolerant_training 12 steps with the failure at 5,
+    serve_lm reduced only): the quickstart equal to its own CPU run, the
+    plain versions taken (a CPU tensor's path), the restart bit-equal,
+    the quickstart script's lines the in-process run's."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.examples_phase(
+            "cpu", device="cpu", train=dict(steps=3, small=True),
+            ft=dict(steps=12, fail_at=5, ckpt_every=4), full_serve=False)
+    finally:
+        torch.set_num_threads(n)
+    assert len(out["runs"]) == 5
+    assert all(not any(r["launches"].values()) for r in out["runs"])
+    assert out["quickstart"]["plain_calls"]["arrayflex_gemm_plain"] > 0
+    assert out["fault_tolerant"]["bit_equal"]
+    assert out["fault_tolerant"]["restarts"] == 1
+    assert out["subprocess"]["rc"] == 0
+    assert out["serve_lm"]["reduced"]["outcomes"] == ["ok"] * 6
+    assert len(out["train_lm"]["losses"]) == 3
+    assert set(smoke.EXAMPLE_FORMS) <= set(smoke.REPLACES)
