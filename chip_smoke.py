@@ -54,7 +54,12 @@ failure of which exits non-zero:
    qwen3-moe-30b-a3b (bf16 parameters, token-by-token prefill) on
    ``arrayflex`` at all 48 layers and on the two int8 backends at 24 (a
    48-layer bf16 tree and its int8 copy do not fit one 80 GB card
-   together), and full-width mamba2-370m (bf16 parameters, token-by-token
+   together; on the 24-layer int8 tree, ``int8_moe_prefill``: its
+   ``lm.prefill`` at S = 2048 on ``arrayflex_int8``, every expert-bank
+   dispatch at its 160 capacity rows one launch of the tensor-core tile,
+   no plain version, the logits against the plain versions' with the
+   routing pinned, every site it launched checked and timed; mixtral's
+   at S = 4608 in phase 7), and full-width mamba2-370m (bf16 parameters, token-by-token
    prefill, 193 K1 launches a step and no K2) on the three backends:
    every request must finish with its tokens and finite
    logits, and each run's kernel launch counters (set to 0 just before
@@ -150,7 +155,12 @@ failure of which exits non-zero:
    full-width prefill of phase 6 in fp32 against ``ref`` and against the
    engine's chunked ``prefill_step`` path on the same tokens (the kernels'
    run with its launch counters set to 0 just before and read just after:
-   every launch on the FFMA kernels); then the
+   every launch on the FFMA kernels); then the FFMA wide tile
+   (``wide_fp32_phase``): the same prefill in fp32 on ``arrayflex`` and
+   ``arrayflex_int8`` (counted: every launch on the FFMA kernels; the W8
+   run against ``ref`` on the dequantized weights), every site it
+   launched checked, its bits equal at k = 1 and the planned k, and timed
+   against ``matmul`` with TF32 off; then the
    same three decode pairs on qwen3-moe-30b-a3b in fp32 at full width and
    4 layers, and its ``lm.prefill`` at S = 256 on the kernels against
    ``ref``, each reporting whether both runs routed every token to the
@@ -386,14 +396,28 @@ TC_FLIP_SITES = {
     ("stablelm-12b", "attn.wq", (1024, 5120, 5120)),
     ("stablelm-12b", "mlp.wi_gate+mlp.wi_up", (1024, 5120, 13824)),
     ("stablelm-12b", "mlp.wo", (1024, 13824, 5120)),
+    # K2's int8-only MoE banks above 16 rows on the tensor-core tile, at
+    # mixtral's int8 prefill's 1440 capacity rows (WIDE_MOE); qwen3-moe's
+    # banks at 160 rows stay within KERNEL_TOL
+    ("mixtral-8x22b", "moe.wi_gate", (8, 1440, 6144, 16384)),
+    ("mixtral-8x22b", "moe.wi_up", (8, 1440, 6144, 16384)),
+    ("mixtral-8x22b", "moe.wo", (8, 1440, 16384, 6144)),
 }
+
+
+def tc_bank(site, dt) -> bool:
+    """Whether ``site`` runs K2's int8-only banks on the tensor-core tile
+    in ``dt`` (bf16 x above 16 rows): held to KERNEL_TOL like the float
+    tensor-core sites, a flip only where TC_FLIP_SITES names it."""
+    return site.kernel_key(dt) == "arrayflex_expert_gemm_int8_tc"
 
 
 def kernel_tol(site, dt, scale: float) -> float:
     """Absolute tolerance of a decode / prefill-chunk site's check: the
-    int8 forms and TC_FLIP_SITES take :func:`step_tol`; the other float
-    sites keep KERNEL_TOL."""
-    if (site.form != "float"
+    int8 forms (but the tensor-core banks) and TC_FLIP_SITES take
+    :func:`step_tol`; the other float sites and the tensor-core banks keep
+    KERNEL_TOL."""
+    if ((site.form != "float" and not tc_bank(site, dt))
             or (site.cell, site.name, tuple(site.shape)) in TC_FLIP_SITES):
         return step_tol(dt, scale)
     return KERNEL_TOL[dt] * max(scale, 1.0)
@@ -490,13 +514,18 @@ class Site:
 
     def kernel_key(self, dt) -> str:
         """The kernel that runs this site on operands of ``dt``: the
-        float-form K1 and K2 and the W8 K1 on bf16 are the tensor-core
-        kernels (``gemm_kernel`` / ``expert_gemm_kernel`` /
-        ``gemm_q_kernel``; K2's fp32 query meets a bf16 cache on the FFMA
-        kernel); every other form has one kernel."""
+        float-form K1 and K2, the W8 K1 and, above 16 rows, K2's int8-only
+        banks on bf16 are the tensor-core kernels (``gemm_kernel`` /
+        ``expert_gemm_kernel`` / ``gemm_q_kernel`` /
+        ``expert_gemm_q_kernel``; K2's fp32 query meets a bf16 cache on
+        the FFMA kernel); every other form has one kernel."""
         if (self.form == "int8" and self.kernel == "arrayflex_gemm"
                 and ag.gemm_q_kernel(dt, False) == "af_gemm_q_tc"):
             return "arrayflex_gemm_int8_tc"
+        if (self.form == "int8" and self.kernel == "arrayflex_expert_gemm"
+                and ag.expert_gemm_q_kernel(dt, False, self.shape[1])
+                == "af_expert_gemm_q_tc"):
+            return "arrayflex_expert_gemm_int8_tc"
         if self.form == "float" and dt == torch.bfloat16:
             if (self.kernel == "arrayflex_gemm"
                     and ag.gemm_kernel(dt) == "af_gemm_tc"):
@@ -632,9 +661,11 @@ def _operands(site: Site, dt, gen, copies: int):
                   for _ in range(copies)]
             return x, [dict(w=q, w_scale=s, act_quant=True, out_dtype=out)
                        for q, s in qs]
+        # attn.qk in fp32 reads K^T from the bf16 cache (a full-sequence
+        # prefill's fp32 keys: the f32_keys flag)
         ws = [rnd(E, K, N, dtype=torch.bfloat16) if dt == torch.float32
-              and site.name == "attn.qk" else rnd(E, K, N)
-              for _ in range(copies)]
+              and site.name == "attn.qk" and not f.get("f32_keys")
+              else rnd(E, K, N) for _ in range(copies)]
         return x, [dict(w=w, out_dtype=out) for w in ws]
     M, K, N = site.shape
     x = rnd(M, K, scale=1.0)
@@ -783,7 +814,8 @@ def check_site(site: Site, dt, gen, k: int, tol_fn=None) -> float:
                             shape=list(site.shape), form=site.form,
                             dtype=str(dt).split(".")[-1], k=k,
                             max_abs_err=err, scale=scale, tol=tol))
-    flip = (dt == torch.bfloat16 and site.form == "float"
+    flip = (dt == torch.bfloat16 and (site.form == "float"
+                                      or tc_bank(site, dt))
             and err == step_tol(dt, scale) and got.shape == want.shape)
     if not (err <= tol) and flip:
         UNLISTED_FLIPS.append((site.cell, site.name, tuple(site.shape), k,
@@ -1245,15 +1277,17 @@ def step_sites(cfg, full: bool = False):
     return seq + ["unembed"]
 
 
-def site_launches(cfg, site: str) -> dict:
+def site_launches(cfg, site: str, rows: int = 1) -> dict:
     """The kernel launches one dispatch of ``site`` makes on ``cfg``'s
     backend, by counter: the attention projections, the mamba mixer's
     GEMMs, a dense MLP's GEMMs and the unembed on the backend's K1 form,
     an MoE router on the float
     K1, the expert banks on the backend's K2 form, attn.qk on K2 (its
     W8A8 form under W8A8) and attn.pv on the float K2.  Every bf16 K1
-    launch, float or W8, and every float K2 launch in bf16 also counts on
-    its tensor-core kernel (the fp32 router stays on the FFMA kernel)."""
+    launch, float or W8, every float K2 launch in bf16 and, above 16
+    ``rows`` (an expert's capacity rows), every int8-only bank launch in
+    bf16 also counts on its tensor-core kernel (the fp32 router stays on
+    the FFMA kernel)."""
     be = cfg.gemm_backend
     suffix = {"arrayflex": "", "arrayflex_int8": "_int8",
               "arrayflex_w8a8": "_w8a8"}[be]
@@ -1265,7 +1299,10 @@ def site_launches(cfg, site: str) -> dict:
                 if site == "attn.qk" and be == "arrayflex_w8a8"
                 else "arrayflex_expert_gemm" + suffix
                 if site in MOE_SITES else "arrayflex_expert_gemm")
-        tc = bf16 and name == "arrayflex_expert_gemm"
+        tc = bf16 and (name == "arrayflex_expert_gemm" or (
+            name == "arrayflex_expert_gemm_int8"
+            and ag.expert_gemm_q_kernel(torch.bfloat16, False, rows)
+            == "af_expert_gemm_q_tc"))
     else:
         name = "arrayflex_gemm" + suffix
         tc = bf16 and be != "arrayflex_w8a8"
@@ -1316,7 +1353,7 @@ def retried_launches(cfg, stats: dict, chaos_log,
 # the tensor-core kernels' launch counters, each a subset of the form's
 # counter named without "_tc"
 TC_COUNTERS = ("arrayflex_gemm_tc", "arrayflex_gemm_int8_tc",
-               "arrayflex_expert_gemm_tc")
+               "arrayflex_expert_gemm_tc", "arrayflex_expert_gemm_int8_tc")
 
 
 def check_fp32_w8_launches(what: str, launches: dict) -> None:
@@ -1541,8 +1578,11 @@ def moe_serving_phase(moe_cfg):
     """Full-width qwen3-moe-30b-a3b in bf16 parameters (never an fp32
     master): all 48 layers on arrayflex, then, with that tree freed, 24
     layers on the two int8 backends (each engine holds the bf16 tree and
-    its int8 copy)."""
-    out = {}
+    its int8 copy), and on that tree the int8 ``lm.prefill`` of
+    :data:`WIDE_MOE` (:func:`int8_moe_prefill`, its result under
+    ``int8_prefill``).  Returns the results and the prefill's recorded
+    sites."""
+    out, sites = {}, []
     for L, backends in ((moe_cfg.n_layers, ("arrayflex",)),
                         (MOE_QUANT_LAYERS, ("arrayflex_int8",
                                             "arrayflex_w8a8"))):
@@ -1560,9 +1600,12 @@ def moe_serving_phase(moe_cfg):
                 MOE_PROMPT_LENS, MOE_MAX_NEW, MOE_MAX_SEQ)
             out[backend]["param_bytes"] = n_bytes
             _free()
+        if L == MOE_QUANT_LAYERS:
+            out["int8_prefill"], sites = int8_moe_prefill(
+                cfg, params, WIDE_MOE[cfg.name][1])
         del params
         _free()
-    return out
+    return out, sites
 
 
 def _tensors(tree):
@@ -3005,17 +3048,20 @@ def forward_seq(cfg, S: int, n_ctx: int = 0):
 
 
 def forward_launches(cfg, S: int, n_ctx: int = 0):
-    """Kernel launches of one ``lm.prefill`` of ``cfg`` on ``arrayflex``
+    """Kernel launches of one ``lm.prefill`` of ``cfg`` on its backend
     (:func:`forward_seq`): every weight GEMM on K1, the MoE router on the
-    fp32 K1 and the expert banks on K2, and attn.qk / attn.pv on K2 where
-    their query rows take the dense attention path (the chunked scan above
+    fp32 K1 and the expert banks on K2 at each expert's capacity rows
+    (:func:`moe_capacity`), and attn.qk / attn.pv on K2 where their query
+    rows take the dense attention path (the chunked scan above
     ``attn_dense_below`` dispatches nothing).  K3 is never on the model
     path."""
     want = {name: 0 for name in list(ag.LAUNCHES) + list(fa.LAUNCHES)}
     for site, rows in forward_seq(cfg, S, n_ctx):
         if site in ("attn.qk", "attn.pv") and rows > cfg.attn_dense_below:
             continue
-        for name, n in site_launches(cfg, site).items():
+        if site in MOE_SITES:
+            rows = moe_capacity(cfg, rows)
+        for name, n in site_launches(cfg, site, rows).items():
             want[name] += n
     return want
 
@@ -3870,7 +3916,8 @@ def family_kernel_phase(cell_sites, gen):
     """Each recorded site (:func:`recorded_sites`, by phase) checked
     against its plain version at the path's k in bf16 and fp32 (the
     full-sequence prefill's sites to :func:`step_tol`, as
-    :func:`prefill_kernel_phase`'s; the others to :func:`kernel_tol`),
+    :func:`prefill_kernel_phase`'s, but the tensor-core int8 banks
+    (:func:`tc_bank`); the others to :func:`kernel_tol`),
     then timed in the path's dtype.  Returns the rows and each kernel's
     largest error (bf16 for the tensor-core kernels, fp32 for the FFMA
     kernels of fp32 x)."""
@@ -3882,7 +3929,8 @@ def family_kernel_phase(cell_sites, gen):
             for dt in (torch.bfloat16, torch.float32):
                 dname = str(dt).split(".")[-1]
                 errs[f"{dname}/k{site.k}"] = check_site(
-                    site, dt, gen, site.k, step_tol if full else None)
+                    site, dt, gen, site.k,
+                    step_tol if full and not tc_bank(site, dt) else None)
                 name = site.kernel_key(dt)
                 if dt == torch.bfloat16 or name in FFMA_FP32:
                     max_err[name] = max(max_err.get(name, 0.0),
@@ -4017,6 +4065,11 @@ def family_phase(arch):
             out["prefill"], s = family_prefill(cfg, params)
             sites[f"prefill S={out['prefill']['S']}"] = s
             runs.append(out["prefill"])
+        if cfg.moe is not None and "arrayflex_int8" in backends:
+            S = WIDE_MOE[arch][1]
+            out["int8_prefill"], s = int8_moe_prefill(cfg, params, S)
+            sites[f"prefill S={S} int8"] = s
+            runs.append(out["int8_prefill"])
         del params
         _free()
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -4042,6 +4095,437 @@ def family_phase(arch):
     del params
     _free()
     return out, rows, max_err, runs, fp32_runs
+
+
+# ---------------------------------------------------------------------------
+# the wide tiles, above 16 rows: K2's int8-only MoE banks on bf16 x (the
+# tensor-core tile) and the FFMA tile of fp32 x
+
+# arch -> (layers, S): the int8 MoE prefills at B = 1 on the int8 trees
+# the MoE and family phases build (mixtral at its published window)
+WIDE_MOE = {MOE_ARCH: (MOE_QUANT_LAYERS, 2048), MIXTRAL_ARCH: (6, 4608)}
+# the fp32 lm.prefill of full-width qwen2-0.5b on arrayflex and
+# arrayflex_int8
+WIDE_FP32_SEQ = 2048
+
+
+def moe_capacity(cfg, S: int) -> int:
+    """An expert's capacity rows in one ``lm.prefill`` of S tokens at B = 1
+    (one dispatch group per sequence, ``nn.moe.moe_apply``'s rule)."""
+    m = cfg.moe
+    return int(max(1, round(S * m.top_k * m.capacity_factor
+                            / m.num_experts)))
+
+
+def wide_bank_sites(cfg, S: int):
+    """The three int8 expert banks of one ``lm.prefill`` of ``cfg`` at B =
+    1 and S tokens (``arrayflex_int8``, bf16 x): T = the capacity rows of
+    every expert, one launch a layer each.  A bank is hundreds of MB, past
+    the 50 MB L2, so two copies rotate."""
+    d, m, L = cfg.d_model, cfg.moe, cfg.n_layers
+    E, ff = m.num_experts, m.expert_d_ff or cfg.d_ff
+    T = moe_capacity(cfg, S)
+    kw = dict(copies=2, cell=cfg.name, form="int8")
+    return [Site("moe.wi_gate", "arrayflex_expert_gemm", (E, T, d, ff), L,
+                 **kw),
+            Site("moe.wi_up", "arrayflex_expert_gemm", (E, T, d, ff), L,
+                 **kw),
+            Site("moe.wo", "arrayflex_expert_gemm", (E, T, ff, d), L, **kw)]
+
+
+def wide_fp32_sites(cfg, S: int = WIDE_FP32_SEQ):
+    """The fp32 ``lm.prefill`` sites of ``cfg`` at B = 1, S tokens
+    (:func:`prefill_sites` in fp32): K1 fp32 and K2 fp32 at T > 16 on
+    ``arrayflex``, and the W8 K1 on fp32 x of ``arrayflex_int8``."""
+    base = [dataclasses.replace(s, time_dtype=torch.float32)
+            for s in prefill_sites(cfg, S)]
+    for s in base:
+        if s.name == "attn.qk":
+            s.flags = dict(s.flags, f32_keys=True)
+    return base + [dataclasses.replace(s, form="int8") for s in base
+                   if s.kernel == "arrayflex_gemm"]
+
+
+def ffma_k_bits(site: Site, gen, k: int) -> bool:
+    """The FFMA tile's output at k_collapse 1 and at ``k`` on the same fp32
+    operands: the same bits (each output one fmaf chain from 0 in
+    increasing K order); raises where they differ."""
+    fn, _ = _kernel_fns(site)
+    x, calls = _operands(site, torch.float32, gen, 1)
+    kw = dict(calls[0])
+    w = kw.pop("w")
+    a, b = fn(x, w, k_collapse=1, **kw), fn(x, w, k_collapse=k, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{site.cell} {site.name} {site.shape}: the "
+                             f"FFMA tile's output at k = {k} differs from "
+                             f"k = 1")
+    return True
+
+
+def ffma_digest(site: Site, seed: int) -> str:
+    """sha256 of the FFMA tile's output bits at k_collapse 1 on fp32
+    operands drawn from ``seed``: two builds of the tile give the same
+    digest where they give the same bits."""
+    import hashlib
+    fn, _ = _kernel_fns(site)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, calls = _operands(site, torch.float32, gen, 1)
+    kw = dict(calls[0])
+    w = kw.pop("w")
+    out = fn(x, w, k_collapse=1, **kw)
+    torch.cuda.synchronize()
+    return hashlib.sha256(out.contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def wide_rows(sites, gen, phase: str, dts=(None,)):
+    """Each site checked against its plain version at its k (step_tol, as
+    the full-sequence prefill's sites; the tensor-core banks
+    :func:`kernel_tol`) and timed, once per dtype of
+    ``dts`` (None: the site's own), by CUDA-graph replay: kernel, plain
+    version, the library call and the bound.  fp32 x runs the FFMA tile:
+    its output at k_collapse 1 and at the planned k must be the same
+    bits."""
+    rows, max_err = [], {}
+    for site in sites:
+        for dt in dts:
+            s = site if dt is None else dataclasses.replace(
+                site, time_dtype=dt)
+            dt = s.time_dtype
+            k = s.k or planned_k(s)
+            dname = str(dt).split(".")[-1]
+            err = check_site(s, dt, gen, k,
+                             None if tc_bank(s, dt) else step_tol)
+            name = s.kernel_key(dt)
+            max_err[name] = max(max_err.get(name, 0.0), err)
+            ffma = dt == torch.float32
+            if ffma:
+                ffma_k_bits(s, gen, k)
+            t = time_site(dataclasses.replace(s, k=k), gen,
+                          max(2, min(4, 2 * s.copies)))
+            rows.append(dict(phase=phase, cell=s.cell, site=s.name,
+                             kernel=s.kernel, form=s.form,
+                             launch_name=name, shape=s.shape,
+                             per_step=s.per_step,
+                             max_abs_err={f"{dname}/k{k}": err},
+                             k_bits_equal=ffma or None, **t))
+            log(f"  {s.cell} {phase} {s.form:5s} {s.name:22s} "
+                f"{str(s.shape):28s} x{s.per_step:<3d} {dname:8s} k={k} "
+                f"{name}: kernel {_us(t['ms'])} us  plain "
+                f"{_us(t['plain_ms'])} us  library {_us(t['library_ms'])} "
+                f"us  bound {t['bound_ms'] * 1e3:9.2f} us "
+                f"({t['bound_by']})  err {err:.3g}"
+                f"{'  bits equal at k=1' if ffma else ''}")
+            _free()
+    return rows, max_err
+
+
+def wide_totals(rows, what: str) -> dict:
+    """Per (cell, phase, kernel, x dtype) sums of ``rows``
+    (:func:`_step_totals`: one prefill), each with its share of the bound
+    and its ratio to the library call, logged."""
+    out = {}
+    def key(r):
+        return r["cell"], r["phase"], r["launch_name"], r["dtype"]
+    for cell, phase, name, dt in dict.fromkeys(map(key, rows)):
+        t = _step_totals([r for r in rows
+                          if key(r) == (cell, phase, name, dt)])
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["library_ratio"] = (None if t["library_ms"] is None
+                              else t["ms"] / t["library_ms"])
+        out[f"{cell} {phase} {name} {dt}"] = t
+        lib, ratio = t["library_ms"], t["library_ratio"]
+        log(f"  {what} {cell} {phase} {name} {dt}: kernel {t['ms']:.3f} / "
+            f"plain "
+            f"{t['plain_ms']:.3f} / library "
+            f"{'none' if lib is None else f'{lib:.3f}'} / bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"{100 * t['bound_share']:.1f}% of the bound"
+            + ("" if ratio is None else f", {ratio:.3f}x the library"))
+    return out
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Inside, every K1 / K2 call of the model path runs its kernel's plain
+    version on the card (``ops`` calls them in place of the wrappers): the
+    same plans, prologue and store, fp32 products."""
+    saved = ops.arrayflex_gemm, ops.arrayflex_expert_gemm
+    ops.arrayflex_gemm = ag.arrayflex_gemm_plain
+    ops.arrayflex_expert_gemm = ag.arrayflex_expert_gemm_plain
+    try:
+        yield
+    finally:
+        ops.arrayflex_gemm, ops.arrayflex_expert_gemm = saved
+
+
+@contextlib.contextmanager
+def pinned_routing(top_ids):
+    """Inside, the n-th ``nn.moe`` routing call takes the n-th expert ids
+    of ``top_ids`` (another run's, from ``moe.record_routing``), its
+    weights renormalized from its own probabilities at those ids, so that
+    two runs whose router logits differ in the last bits dispatch the same
+    tokens to the same experts.  Yields a list that counts the (token, k)
+    picks its own top-k would have moved."""
+    real, calls, moved = moe._route, iter(top_ids), [0]
+
+    def route(logits, top_k):
+        probs, _, own = real(logits, top_k)
+        ids = next(calls)
+        moved[0] += int((own != ids).sum())
+        vals = torch.take_along_dim(probs, ids, dim=-1)
+        return probs, vals / torch.sum(vals, dim=-1, keepdim=True), ids
+
+    moe._route = route
+    try:
+        yield moved
+    finally:
+        moe._route = real
+
+
+def int8_moe_prefill(cfg, params, S: int, device="cuda"):
+    """(a) ``lm.prefill`` of the MoE ``cfg`` on ``arrayflex_int8`` at B = 1
+    and S tokens (bf16, the served int8 tree): a recorded warm-up run (its
+    K1 / K2 sites), then the run whose launch counters are set to 0 just
+    before and read just after, held to :func:`forward_launches` (every
+    bank dispatch at T > 16 one launch of the tensor-core tile) with no
+    plain version called, its host-clock time and peak memory; then the
+    same prefill through the plain versions on the card
+    (:func:`plain_path`), the routing pinned to the kernels' run
+    (:func:`pinned_routing`): last-token logits within MODEL_TOL[bf16] of
+    max |plain logit|.  On the CPU (the tests' rehearsal) every wrapper
+    takes its plain version and launches nothing."""
+    on_card = torch.device(device).type == "cuda"
+    c = dataclasses.replace(cfg, gemm_backend="arrayflex_int8")
+    served = lm.prequantize_params(c, lm.prepare_params(c, params))
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(8).integers(
+        0, c.vocab_size, (1, S)), device=device)}
+    with recorded_sites(c.name) as sites:                # warm-up
+        lm.prefill(c, served, batch)
+    _free()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with moe.record_routing() as routing, plain_calls() as plain:
+        ag.reset_launches()                 # counts: 0 just before the run
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(c, served, batch)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ag.LAUNCHES, **fa.LAUNCHES)   # read just after
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    what = f"{c.name} x{c.n_layers} arrayflex_int8 lm.prefill S={S}"
+    check_launches(what, launches, forward_launches(c, S) if on_card
+                   else dict.fromkeys(launches, 0))
+    if on_card and any(plain.values()):
+        raise AssertionError(f"{what}: plain versions called {plain}")
+    del caches
+    _free()
+    with pinned_routing([ids for ids, _ in routing]) as moved, plain_path():
+        want, _ = lm.prefill(c, served, batch)
+    _sync(device)
+    parity = _rel(f"{what}: kernels vs plain versions (routing pinned; "
+                  f"bf16)", logits.float(), want.float(),
+                  MODEL_TOL[torch.bfloat16])
+    banks = {k: v for k, v in launches.items() if "expert_gemm_int8" in k}
+    log(f"  {what}: {wall_ms:.1f} ms host clock, peak {peak / 2**30:.2f} "
+        f"GiB; bank launches {banks} (T = {moe_capacity(c, S)}); the plain "
+        f"run's own top-k would have moved {moved[0]} of "
+        f"{S * c.moe.top_k * c.n_layers} picks")
+    del served, logits, want
+    _free()
+    return dict(S=S, n_layers=c.n_layers, capacity=moe_capacity(c, S),
+                prefill_ms=wall_ms, max_memory_allocated_bytes=peak,
+                launches=launches, parity=parity,
+                plain_routing_moved=moved[0]), sites
+
+
+def wide_fp32_phase(cfg, params, device="cuda"):
+    """(b) full-width ``cfg`` (qwen2-0.5b) ``lm.prefill`` in fp32 at B = 1,
+    S = WIDE_FP32_SEQ on ``arrayflex`` and ``arrayflex_int8`` (the served
+    int8 tree): each run recorded (its K1 / K2 sites: every one on the
+    FFMA wide tile); the int8 run counted (every launch on the FFMA
+    kernels, none on the tensor cores) and held against ``ref`` on the
+    dequantized weights (W8_PARITY_TOL; arrayflex's fp32 prefill is held
+    against ``ref`` in :func:`forward_parity_phase`); then every recorded
+    site checked, its bits held equal at k = 1 and the planned k, and
+    timed (:func:`wide_rows`: kernel, plain version, ``torch.matmul`` /
+    ``bmm`` in fp32 with TF32 off, the bound at 67 TFLOP/s).  On the CPU
+    (the tests' rehearsal, at a reduced width and S) the runs take the
+    plain versions, launch nothing and time nothing."""
+    on_card = torch.device(device).type == "cuda"
+    S = WIDE_FP32_SEQ if on_card else 2 * ag.NARROW_ROWS
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, S)), device=device)
+    sites, out = [], {}
+    for backend in ("arrayflex", "arrayflex_int8"):
+        c = dataclasses.replace(c32, gemm_backend=backend)
+        p = lm.prepare_params(c, params)
+        if backend == "arrayflex_int8":
+            p = lm.prequantize_params(c, p)
+        with recorded_sites(c.name) as s:
+            lm.prefill(c, p, {"tokens": toks})
+        for site in s:                  # the keys of an fp32 prefill
+            if site.name == "attn.qk":
+                site.flags = dict(site.flags, f32_keys=True)
+        # the float sites of the int8 run (attn.qk / pv) are arrayflex's
+        sites += [site for site in s
+                  if backend == "arrayflex" or site.form != "float"]
+        if backend == "arrayflex_int8" and on_card:
+            (got, _), out["launches"] = _counted(
+                f"fp32 {c.name} arrayflex_int8 prefill S={S}", c,
+                lambda: lm.prefill(c, p, {"tokens": toks}))
+            check_launches(f"fp32 {c.name} arrayflex_int8 prefill S={S}",
+                           dict(out["launches"], **fa.LAUNCHES),
+                           forward_launches(c, S))
+        elif backend == "arrayflex_int8":
+            got, _ = lm.prefill(c, p, {"tokens": toks})
+        if backend == "arrayflex_int8":
+            ref = dataclasses.replace(c, gemm_backend="ref")
+            want, _ = lm.prefill(ref, _dequantized(p), {"tokens": toks})
+            out["parity"] = _rel(f"{c.name} x{c.n_layers} fp32 lm.prefill "
+                                 f"S={S} arrayflex_int8 vs ref "
+                                 f"(dequantized)", got.float(), want.float(),
+                                 W8_PARITY_TOL)
+            del got, want
+        del p
+        _free()
+    out["sites"] = [(s.name, s.form, s.shape, s.kernel_key(s.time_dtype))
+                    for s in sites]
+    if not on_card:
+        return out, [], {}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, max_err = wide_rows(sites, gen, f"prefill S={S} fp32")
+    out["totals"] = wide_totals(rows, "fp32 prefill")
+    return out, rows, max_err
+
+
+def wide_sites():
+    """(site, x dtype) of the wide tiles at the shapes the main path gives
+    them: the int8-only MoE banks of :data:`WIDE_MOE`'s prefills in bf16
+    (the tensor-core tile) and fp32 x (the FFMA tile), then full-width
+    qwen2-0.5b's fp32 prefill sites at S = WIDE_FP32_SEQ
+    (:func:`wide_fp32_sites`)."""
+    out = []
+    for arch, (L, S) in WIDE_MOE.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=L,
+                                  compute_dtype="bfloat16",
+                                  param_dtype="bfloat16")
+        out += [(s, dt) for s in wide_bank_sites(cfg, S)
+                for dt in (torch.bfloat16, torch.float32)]
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    return out + [(s, torch.float32) for s in wide_fp32_sites(cfg)]
+
+
+@contextlib.contextmanager
+def parent_tiles(csrc: str):
+    """Inside, K1's and K2's wrappers launch a parent tree's tiles: its
+    ``arrayflex_gemm.cu`` (and ``tc.cuh``) from ``csrc``, built with the
+    same flags into ``build/parent_tiles``, bound with this tree's
+    signatures for the four entries the wide sites reach (``af_gemm``,
+    ``af_gemm_q``, ``af_expert_gemm``, ``af_expert_gemm_q``), and the
+    int8-only banks above 16 rows on bf16 x routed to
+    ``af_expert_gemm_q`` (the parent's FFMA tile)."""
+    import ctypes
+    import shutil
+    import types
+    out = ROOT / "build" / "parent_tiles"
+    out.mkdir(parents=True, exist_ok=True)
+    for name in ("arrayflex_gemm.cu", "tc.cuh"):
+        shutil.copy(Path(csrc) / name, out / name)
+    lib_path = out / "libarrayflex_gemm.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(out / "arrayflex_gemm.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {csrc}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    cur, lib = ag._lib(), ctypes.CDLL(str(lib_path))
+    bound = types.SimpleNamespace()
+    for name in ("af_gemm", "af_gemm_q", "af_expert_gemm",
+                 "af_expert_gemm_q"):
+        fn = getattr(lib, name)
+        fn.argtypes = getattr(cur, name).argtypes
+        fn.restype = getattr(cur, name).restype
+        setattr(bound, name, fn)
+    saved = ag._BOUND, ag.expert_gemm_q_kernel
+    ag._BOUND = bound
+    ag.expert_gemm_q_kernel = lambda *a: "af_expert_gemm_q"
+    try:
+        yield
+    finally:
+        ag._BOUND, ag.expert_gemm_q_kernel = saved
+
+
+def wide_compare(card: str, parent_csrc: str) -> dict:
+    """The wide tiles of this tree against a parent tree's (its kernel
+    sources in ``parent_csrc``, e.g. from ``git archive`` of the parent
+    commit unpacked under ``build/``) on one card, in turns: parent, this
+    tree, this tree, parent.  Each pass times every :func:`wide_sites`
+    site by CUDA-graph replay at its planned k and sums it per prefill
+    (launches a prefill x ms); the first pass of each build takes the
+    sha256 of every fp32 site's k = 1 output on inputs drawn from one seed
+    (:func:`ffma_digest`), and the two builds' digests must agree: the
+    FFMA tiles give the same bits.  Writes
+    ``chiprun_out/wide_compare.json``; run alone (``python3 -c "import
+    chip_smoke as c; c.wide_compare(c.card_line(), 'PARENT/src/repro_torch/
+    kernels/csrc')"``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    sites = wide_sites()
+    passes, digests = [], {}
+    for i, who in enumerate(("parent", "tree", "tree", "parent")):
+        ctx = (parent_tiles(parent_csrc) if who == "parent"
+               else contextlib.nullcontext())
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        totals, rows = {}, []
+        with ctx:
+            for s, dt in sites:
+                s = dataclasses.replace(s, time_dtype=dt)
+                k = planned_k(s)
+                fn, _ = _kernel_fns(s)
+                x, calls = _operands(s, dt, gen, s.copies)
+
+                def bind(kw):
+                    kw = dict(kw)
+                    w = kw.pop("w")
+                    return lambda: fn(x, w, k_collapse=k, **kw)
+
+                ms, _ = _time_ms([bind(kw) for kw in calls], 4)
+                dname = str(dt).split(".")[-1]
+                key = f"{s.cell} {s.kernel} {s.form} {dname}"
+                totals[key] = totals.get(key, 0.0) + ms * s.per_step
+                rows.append(dict(cell=s.cell, site=s.name, form=s.form,
+                                 shape=s.shape, dtype=dname, k=k, ms=ms,
+                                 per_step=s.per_step))
+                if dt == torch.float32 and i < 2:
+                    digests.setdefault(who, {})[
+                        f"{s.cell} {s.form} {s.name} {s.shape}"] = \
+                        ffma_digest(s, 1234)
+                del x, calls
+                _free()
+        passes.append(dict(build=who, totals=totals, rows=rows))
+        for key, ms in totals.items():
+            log(f"  wide compare pass {i + 1} ({who}) {key}: {ms:.3f} ms a "
+                f"prefill")
+    differ = [k for k in digests["parent"]
+              if digests["parent"][k] != digests["tree"].get(k)]
+    out = dict(card=card, passes=passes, digests=digests, differ=differ,
+               seconds=time.perf_counter() - t0)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "wide_compare.json").write_text(
+        json.dumps(out, indent=1, default=str))
+    log(f"  wide compare: FFMA k = 1 outputs "
+        f"{'the same bits at every fp32 site' if not differ else f'DIFFER at {differ}'}"
+        f"; {out['seconds']:.1f} s (card: {card})")
+    if differ:
+        raise AssertionError(f"the FFMA tiles' bits differ from the "
+                             f"parent's at {differ}")
+    return out
 
 
 def _step_totals(sel):
@@ -4078,15 +4562,20 @@ REPLACES = {
     "arrayflex_expert_gemm": "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_tc": "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_int8": "src/repro/kernels/arrayflex_gemm.py:452",
+    "arrayflex_expert_gemm_int8_tc":
+        "src/repro/kernels/arrayflex_gemm.py:452",
     "arrayflex_expert_gemm_w8a8": "src/repro/kernels/arrayflex_gemm.py:452",
 }
 
 
-def summarize(results, max_err, launches):
+def summarize(results, max_err, launches, prefill_rows=()):
     """One row per kernel form: its decode-site times and bounds per
     decode step of each model it serves (qwen2-0.5b's 24 layers,
-    qwen3-moe-30b-a3b's 48), summed over the models; ``launches`` maps
-    each form to its count over the counted runs.  Also returns the same
+    qwen3-moe-30b-a3b's 48), summed over the models, or, for a kernel no
+    decode site runs (the int8 MoE banks' tensor-core tile above 16 rows),
+    per prefill of each cell of ``prefill_rows`` (the int8 MoE prefills'
+    sites), summed; ``launches`` maps each form to its count over the
+    counted runs.  Also returns the same
     totals per model (``cells``), the FFMA K1's also split into the MoE
     router and the wide sites (the weight GEMMs and the unembed), and per
     prefill-chunk step of qwen2-0.5b (``chunk``: each form's sites at the
@@ -4112,6 +4601,7 @@ def summarize(results, max_err, launches):
                        if (r["site"] == "moe.router") == router]
                 if sub:
                     cells[cell][f"{name} ({part})"] = _step_totals(sub)
+        sel = sel or [r for r in prefill_rows if r["launch_name"] == name]
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=max_err[name], **_step_totals(sel)))
@@ -4209,7 +4699,7 @@ def tc_report(cfg, moe_cfg, chunk: int) -> None:
                 entry = line.split("'")[1] if "'" in line else line
             elif entry and any(key in entry for key in (
                     "tc_kernel", "combine", "narrow_kernel",
-                    "quant_kernel")) and (
+                    "quant_kernel", "ffma_kernel")) and (
                     "Used" in line or "spill" in line):
                 log(f"  {stem} {entry}: {line.split(':', 1)[-1].strip()}")
     glib, flib = ag._lib(), fa._lib()
@@ -4225,6 +4715,23 @@ def tc_report(cfg, moe_cfg, chunk: int) -> None:
                             ("S = 2048 attn.pv", (14336, 64, 1))):
         log(f"  af_expert_gemm_tc dynamic shared memory at the {what} (T = "
             f"{T}, N = {N}, k = {k}): {glib.af_gemm_tc_smem(T, N, k, 0, 0)} B")
+    for arch, (L, S) in WIDE_MOE.items():
+        for site in wide_bank_sites(dataclasses.replace(
+                get_config(arch), n_layers=L), S):
+            E, T, K, N = site.shape
+            k = planned_k(site)
+            log(f"  {arch} int8 {site.name} {site.shape} above 16 rows, k = "
+                f"{k}: the tensor-core tile (bf16 x) "
+                f"{glib.af_gemm_tc_smem(T, N, k, 0, 1)} B, the FFMA wide "
+                f"tile (fp32 x) {glib.af_ffma_smem(T, N, E, k, 2, 0)} B of "
+                f"dynamic shared memory")
+    for site in wide_fp32_sites(cfg):
+        rows, N, batch = site_rows(site)
+        w_dtype = 2 if site.form == "int8" else 0
+        dual, k = int(bool(site.flags.get("dual"))), planned_k(site)
+        log(f"  FFMA wide tile at {site.cell} fp32 prefill {site.form} "
+            f"{site.name} {site.shape} k = {k}: "
+            f"{glib.af_ffma_smem(rows, N, batch, k, w_dtype, dual)} B")
     for site in narrow_sites(cfg, moe_cfg):
         M, K, N = site.shape
         w_dtype = 2 if site.form == "int8" else 0
@@ -5755,7 +6262,17 @@ def main() -> int:
     log(f"  serving full-width {moe_cfg.name} (bf16 parameters): arrayflex "
         f"at {moe_cfg.n_layers} layers, the int8 backends at "
         f"{MOE_QUANT_LAYERS}")
-    moe_serving = moe_serving_phase(moe_cfg)
+    moe_serving, moe_int8_sites = moe_serving_phase(moe_cfg)
+    log(f"  K1 / K2 at the sites {moe_cfg.name}'s int8 lm.prefill launched, "
+        f"checked and timed (card: {card})")
+    moe_int8_rows, errs = family_kernel_phase(
+        {f"prefill S={moe_serving['int8_prefill']['S']} int8":
+         moe_int8_sites}, torch.Generator(device="cuda").manual_seed(19))
+    moe_serving["int8_prefill"]["kernel_totals"] = family_totals(
+        moe_int8_rows)
+    for name, err in errs.items():
+        max_err[name] = max(max_err.get(name, 0.0), err)
+    results += moe_int8_rows
     log(f"  serving full-width {ssm_cfg.name} (bf16 parameters, token "
         f"prefill) on arrayflex, arrayflex_int8 and arrayflex_w8a8, then "
         f"one resilient run (card: {card})")
@@ -5786,6 +6303,13 @@ def main() -> int:
     forward_parity = forward_parity_phase(cfg, params)
     fp32_runs += forward_parity.pop("launches").values()
     parity.update(forward_parity)
+    log(f"  the FFMA wide tile: full-width {cfg.name} lm.prefill in fp32 at "
+        f"S = {WIDE_FP32_SEQ} on arrayflex and arrayflex_int8, its sites "
+        f"checked, held equal across k and timed (card: {card})")
+    wide_fp32, wide_fp32_rows, errs = wide_fp32_phase(cfg, params)
+    fp32_runs.append(wide_fp32.pop("launches"))
+    for name, err in errs.items():
+        max_err[name] = max(max_err.get(name, 0.0), err)
     del params
     _free()
     log(f"  {moe_cfg.name} at full width, {MOE_PARITY_LAYERS} layers (fp32)")
@@ -5856,7 +6380,9 @@ def main() -> int:
                 for name in REPLACES}
     for tc in TC_COUNTERS:
         launches[tc[:-len("_tc")]] -= launches[tc]
-    kernels, cells, chunk = summarize(results, max_err, launches)
+    kernels, cells, chunk = summarize(
+        results, max_err, launches,
+        [r for r in results if r["phase"].endswith(" int8")])
     ssm_fwd = f"prefill S={SSM_FWD_SEQ}"
     ssm_rows = [r for r in results
                 if r["phase"] == ssm_fwd and r["cell"] == SSM_ARCH]
@@ -5883,7 +6409,9 @@ def main() -> int:
                   ssm_prefill=ssm_prefill,
                   ssm_prefill_kernel_totals=ssm_prefill_totals,
                   ssm_parity=ssm_parity, hybrid_parity=hybrid_parity,
-                  families=families, train=training, roofline=roofline,
+                  families=families, wide_fp32=wide_fp32,
+                  wide_fp32_sites=wide_fp32_rows,
+                  train=training, roofline=roofline,
                   audit=audit, examples=examples,
                   site_checks=SITE_CHECKS,
                   unlisted_flips=UNLISTED_FLIPS, seconds=elapsed)

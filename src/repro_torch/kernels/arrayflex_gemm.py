@@ -8,12 +8,15 @@ file), one C entry per operand form:
   ``af_gemm``           ``_kernel`` on fp32 operands (FFMA; at decode,
                         M <= 16, a narrow tile: K in 16 fixed warp slices,
                         16-byte ``cp.async`` staging, one or two
-                        contractions, any N, the width from M and N);
+                        contractions, any N, the width from M and N; above,
+                        the wide tile: 128 x 128 blocks of 8 x 8 outputs a
+                        thread, 64 x 64 where that grid is small, two
+                        blocks an SM, a ring of 2-4 steps);
   ``af_gemm_tc``        ``_kernel`` on bf16 operands (tensor cores,
                         ``mma.sync`` bf16 x bf16 -> fp32);
   ``af_gemm_q``         ``_kernel`` on int8 weight codes: W8 on fp32 x
-                        (FFMA, dequant at the store; at M <= 16 the narrow
-                        tile of ``af_gemm``, the codes staged as int8 and
+                        (FFMA, dequant at the store; the narrow and wide
+                        tiles of ``af_gemm``, the codes staged as int8 and
                         widened exactly to fp32 in the chain) or, with
                         ``act_quant``, W8A8 (per-tile int8 x, int8 x int8
                         -> int32 products: at M <= 16 the W8A8 narrow tile,
@@ -26,7 +29,8 @@ file), one C entry per operand form:
                         kernel of ``af_gemm_tc``, the codes widened to bf16
                         in registers, dequant at the store);
   ``af_expert_gemm``    ``_expert_kernel`` on fp32 x (fp32 or bf16 w; FFMA,
-                        a narrow decode tile at T <= 16);
+                        a narrow decode tile at T <= 16, the wide tile
+                        above);
   ``af_expert_gemm_tc`` ``_expert_kernel`` on bf16 operands (the tensor-core
                         kernel of ``af_gemm_tc``, the expert axis on the
                         grid's z);
@@ -35,11 +39,16 @@ file), one C entry per operand form:
                         bf16 x, dequant per (expert, column) at the store;
                         at T <= 16 the narrow tile of ``af_gemm``, x staged
                         in its own type and the codes widened exactly to
-                        fp32, the width from T, N and E) or, with
+                        fp32, the width from T, N and E; above, fp32 x on
+                        the wide FFMA tile) or, with
                         ``act_quant``, W8A8 (at T <= 16 the W8A8 narrow
                         tile of ``af_gemm_q``, the width from T, N and E;
                         above, its quantize pass and int8 tensor-core
-                        tile, the expert on the grid's z).
+                        tile, the expert on the grid's z);
+  ``af_expert_gemm_q_tc`` ``_expert_kernel``'s int8-only form on bf16 x
+                        above 16 rows (the MoE banks of a prefill under
+                        W8: the tensor-core kernel of ``af_gemm_q_tc``, the
+                        expert on the grid's z).
 
 What stays the same is the schedule's meaning: K is consumed in
 ``ceil(K / (bk * k_collapse))`` serial main-loop steps of ``k_collapse``
@@ -59,12 +68,13 @@ version computes the same function with the same prologue and store, cast
 once: the CPU tests hold it against the reference, and the on-card checks
 hold the kernel against it.  ``LAUNCHES`` counts kernel launches per form,
 and nothing else; the operand types pick the kernels by the written
-rules of :func:`gemm_kernel`, :func:`gemm_q_kernel` and
-:func:`expert_gemm_kernel`, and ``arrayflex_gemm_tc`` /
-``arrayflex_gemm_int8_tc`` / ``arrayflex_expert_gemm_tc`` count the
+rules of :func:`gemm_kernel`, :func:`gemm_q_kernel`,
+:func:`expert_gemm_kernel` and :func:`expert_gemm_q_kernel`, and
+``arrayflex_gemm_tc`` / ``arrayflex_gemm_int8_tc`` /
+``arrayflex_expert_gemm_tc`` / ``arrayflex_expert_gemm_int8_tc`` count the
 launches that ran the tensor-core kernel (subsets of ``arrayflex_gemm`` /
-``arrayflex_gemm_int8`` / ``arrayflex_expert_gemm``, which count every
-launch of their form).
+``arrayflex_gemm_int8`` / ``arrayflex_expert_gemm`` /
+``arrayflex_expert_gemm_int8``, which count every launch of their form).
 """
 from __future__ import annotations
 
@@ -87,6 +97,7 @@ LAUNCHES = {"arrayflex_gemm": 0, "arrayflex_gemm_tc": 0,
             "arrayflex_gemm_w8a8": 0, "arrayflex_expert_gemm": 0,
             "arrayflex_expert_gemm_tc": 0,
             "arrayflex_expert_gemm_int8": 0,
+            "arrayflex_expert_gemm_int8_tc": 0,
             "arrayflex_expert_gemm_w8a8": 0}
 
 # The reference kernel's tiles as ``ops.arrayflex_matmul`` launches it
@@ -96,6 +107,8 @@ QUANT_BM = 128
 QUANT_BK = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the rows (M, or T) at or below which every form takes a narrow tile
+NARROW_ROWS = 16
 _ACT_CODE = {"none": 0, "silu": 1, "gelu": 2}
 
 
@@ -110,9 +123,9 @@ def gemm_kernel(dtype) -> str:
     products into fp32 sums, the reference matrix unit's arithmetic), fp32
     -> ``af_gemm`` (FFMA: tensor cores give no IEEE fp32; its C entry
     takes the narrow decode tile, K in 16 fixed slices, for every launch
-    at M <= 16 -- one or two contractions, any N -- and the 64-column tile
-    for larger M).  The choice follows the operand type only, never a
-    failed build or launch."""
+    at M <= 16 -- one or two contractions, any N -- and the wide tile,
+    8 x 8 fmaf chains a thread, for larger M).  The choice follows the
+    operand type only, never a failed build or launch."""
     if dtype == torch.bfloat16:
         return "af_gemm_tc"
     if dtype == torch.float32:
@@ -127,9 +140,9 @@ def gemm_q_kernel(x_dtype, act_quant: bool) -> str:
     (tensor cores: the codes widen exactly to bf16, bf16 products into fp32
     sums, as the reference widens them to x's type for its matrix unit),
     W8 on fp32 x -> ``af_gemm_q`` (FFMA: tensor cores give no IEEE fp32;
-    its C entry takes ``af_gemm``'s narrow decode tile at M <= 16, the
-    codes widened exactly to fp32 as they leave shared memory, and the
-    64-column tile for larger M); W8A8 (``act_quant``) on either x type ->
+    its C entry takes ``af_gemm``'s narrow decode tile at M <= 16 and its
+    wide tile for larger M, the codes widened exactly to fp32 as they
+    leave shared memory); W8A8 (``act_quant``) on either x type ->
     ``af_gemm_q`` (int8 x int8 -> int32; its C entry takes the W8A8 narrow
     tile, ``__dp4a``, at M <= 16, and for larger M quantizes x once into
     scratch and runs the int8 tensor-core tile, ``mma.sync`` s8 x s8 ->
@@ -150,9 +163,9 @@ def expert_gemm_kernel(x_dtype, w_dtype) -> str:
     ``af_expert_gemm_tc`` (tensor cores, as :func:`gemm_kernel`), fp32 x
     with fp32 w, or with a bf16 K/V cache, -> ``af_expert_gemm`` (FFMA:
     an fp32 operand has no IEEE fp32 tensor-core product; its C entry
-    takes the narrow decode tile, K in 16 fixed slices, at T <= 16).  The
-    choice follows the operand types only, never a failed build or
-    launch."""
+    takes the narrow decode tile, K in 16 fixed slices, at T <= 16, and
+    the wide tile above).  The choice follows the operand types only,
+    never a failed build or launch."""
     if x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
         return "af_expert_gemm_tc"
     if x_dtype == torch.float32 and w_dtype in (torch.float32,
@@ -161,6 +174,26 @@ def expert_gemm_kernel(x_dtype, w_dtype) -> str:
     raise ValueError(f"arrayflex_expert_gemm: unsupported dtypes x "
                      f"{x_dtype}, w {w_dtype} (bf16 x bf16, or fp32 x with "
                      f"fp32 or bf16 w)")
+
+
+def expert_gemm_q_kernel(x_dtype, act_quant: bool, T: int) -> str:
+    """The kernel that :func:`arrayflex_expert_gemm`'s int8 forms
+    (``w_scale`` given) launch for x of ``x_dtype`` at T rows an expert:
+    the int8-only form (the MoE banks under W8) on bf16 x above
+    NARROW_ROWS -> ``af_expert_gemm_q_tc`` (tensor cores: the codes widen
+    exactly to bf16, bf16 products into fp32 sums, as :func:`gemm_q_kernel`
+    names for K1's W8 form on bf16 x); at T <= NARROW_ROWS on either x
+    type, and on fp32 x above -> ``af_expert_gemm_q`` (FFMA: its narrow
+    tile, then its wide tile); W8A8 (``act_quant``) on either x type ->
+    ``af_expert_gemm_q`` (the W8A8 narrow tile, then the quantize pass and
+    the int8 tensor-core tile).  The choice follows the types and T only,
+    never a failed build or launch."""
+    if x_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"arrayflex_expert_gemm: int8 forms take float32 "
+                         f"or bfloat16 x, got {x_dtype}")
+    if not act_quant and x_dtype == torch.bfloat16 and T > NARROW_ROWS:
+        return "af_expert_gemm_q_tc"
+    return "af_expert_gemm_q"
 
 
 def _act(y, activation: str):
@@ -460,6 +493,10 @@ def _lib():
         lib.af_expert_gemm_q.argtypes = [i, i, i, p, p, p, p, i, i, i, i,
                                          i, i, i, p, ll, p]
         lib.af_expert_gemm_q.restype = i
+        lib.af_expert_gemm_q_tc.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+        lib.af_expert_gemm_q_tc.restype = i
+        lib.af_ffma_smem.argtypes = [i, i, i, i, i, i]
+        lib.af_ffma_smem.restype = ll
         _BOUND = lib
     return _BOUND
 
@@ -707,14 +744,17 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
 
     CUDA tensors launch the kernel :func:`expert_gemm_kernel` names for
     their types (contiguous operands; ``af_expert_gemm_tc`` on bf16/bf16,
-    ``af_expert_gemm`` on fp32/fp32 or fp32/bf16) or, with ``w_scale``,
-    ``af_expert_gemm_q`` (fp32 or bf16 x, int8 w; the int8-only form of
-    the MoE expert banks — at T <= 16 on the narrow FFMA tile, whose
-    output is the same bits at every ``k_collapse`` and every E — or W8A8
-    under ``act_quant``, at T <= 16 on the W8A8 narrow tile and above on
-    the int8 tensor-core tile, both of whose outputs are the same bits at
-    every E) — fp32 or bf16 out — or raise; CPU tensors run
-    :func:`arrayflex_expert_gemm_plain`."""
+    ``af_expert_gemm`` on fp32/fp32 or fp32/bf16: the narrow FFMA tile at
+    T <= 16, the wide one above) or, with ``w_scale``, the one
+    :func:`expert_gemm_q_kernel` names (int8 w): the int8-only form of the
+    MoE expert banks on ``af_expert_gemm_q`` at T <= 16 (the narrow FFMA
+    tile, fp32 or bf16 x) and above on fp32 x (the wide FFMA tile), and on
+    ``af_expert_gemm_q_tc`` above 16 rows on bf16 x (the tensor cores) —
+    each output the same bits at every ``k_collapse`` and every E — or
+    W8A8 under ``act_quant`` on ``af_expert_gemm_q``, at T <= 16 on the
+    W8A8 narrow tile and above on the int8 tensor-core tile, both of whose
+    outputs are the same bits at every E — fp32 or bf16 out — or raise;
+    CPU tensors run :func:`arrayflex_expert_gemm_plain`."""
     check_no_grad("arrayflex_expert_gemm", x, w)
     E, T, K = x.shape
     E2, K2, N = w.shape
@@ -750,14 +790,21 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
             raise ValueError(f"{name}: unsupported dtypes x {x.dtype}, "
                              f"out {out_dtype}")
         _check_dtypes(name, torch.int8, w=w)
-        qbm, qkk = quant_tiles(T, K, k_collapse) if act_quant else (0, 0)
-        scratch, nbytes = (_w8a8_scratch_for(x, T, K, k_collapse, E)
-                           if act_quant else (None, 0))
+        entry = expert_gemm_q_kernel(x.dtype, act_quant, T)
         s = _fp32_vec(w_scale)
-        rc = _lib().af_expert_gemm_q(
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
-            _ptr(x), _ptr(w), _ptr(s), _ptr(out), E, T, K, N, k_collapse,
-            qbm, qkk, _ptr(scratch), nbytes, _stream(x.device))
+        if entry == "af_expert_gemm_q_tc":
+            rc = _lib().af_expert_gemm_q_tc(
+                _DTYPE_CODE[out_dtype], _ptr(x), _ptr(w), _ptr(s), _ptr(out),
+                E, T, K, N, k_collapse, _stream(x.device))
+        else:
+            qbm, qkk = (quant_tiles(T, K, k_collapse) if act_quant
+                        else (0, 0))
+            scratch, nbytes = (_w8a8_scratch_for(x, T, K, k_collapse, E)
+                               if act_quant else (None, 0))
+            rc = _lib().af_expert_gemm_q(
+                _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], int(act_quant),
+                _ptr(x), _ptr(w), _ptr(s), _ptr(out), E, T, K, N, k_collapse,
+                qbm, qkk, _ptr(scratch), nbytes, _stream(x.device))
     else:
         entry = expert_gemm_kernel(x.dtype, w.dtype)
         if out_dtype not in _DTYPE_CODE:
@@ -774,6 +821,6 @@ def arrayflex_expert_gemm(x, w, *, w_scale=None, act_quant: bool = False,
                 N, k_collapse, _stream(x.device))
     _check_rc(rc, name)
     LAUNCHES[name] += 1
-    if not quant and entry == "af_expert_gemm_tc":
-        LAUNCHES["arrayflex_expert_gemm_tc"] += 1
+    if entry.endswith("_tc"):
+        LAUNCHES[name + "_tc"] += 1
     return out

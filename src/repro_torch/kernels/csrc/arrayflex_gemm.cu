@@ -53,16 +53,19 @@
 // GEMM is bound by operations: 989 TFLOP/s for bf16 operands on the tensor
 // cores, 67 TFLOP/s for fp32 on the FFMA pipes.
 //
-// The kernels are chosen by operand type (the wrapper's written rules,
-// counted per kernel): bf16 operands of the float forms launch
+// The kernels are chosen by operand type and rows (the wrapper's written
+// rules, counted per kernel): bf16 operands of the float forms launch
 // af_gemm_tc_kernel (entries af_gemm_tc, and af_expert_gemm_tc with the
 // expert axis on blockIdx.z), fp32 operands the FFMA kernels (entries
 // af_gemm, af_expert_gemm); K1's W8 form on bf16 x launches
 // af_gemm_tc_kernel on int8 codes (entry af_gemm_q_tc), on fp32 x the FFMA
-// kernel (af_gemm_q).  K2's int8-only form takes the FFMA narrow tile at
-// T <= 16 on either x type.  W8A8 (K1 and K2, either x type) runs the
-// W8A8 narrow tile (__dp4a) at M (T) <= 16 and, above, a quantize pass
-// into scratch followed by the int8 tensor-core tile
+// kernels (af_gemm_q).  K2's int8-only form takes the FFMA narrow tile at
+// T <= 16 on either x type and, above, af_gemm_tc_kernel on int8 codes on
+// bf16 x (entry af_expert_gemm_q_tc) or the FFMA wide tile on fp32 x.
+// Every FFMA launch runs a narrow tile at 16 rows (M, or T) or fewer and
+// the wide tile (af_gemm_ffma_kernel) above.  W8A8 (K1 and K2, either x
+// type) runs the W8A8 narrow tile (__dp4a) at M (T) <= 16 and, above, a
+// quantize pass into scratch followed by the int8 tensor-core tile
 // (af_w8a8_quant_kernel, af_gemm_w8a8_tc_kernel).
 //
 // af_gemm_tc_kernel, bf16 x/w/w2/residual: the products run on the tensor
@@ -103,7 +106,9 @@
 //     in device memory; a base or row stride that is not 16-byte aligned
 //     stages through scalar loads inside the same kernel, into the same
 //     main loop;
-//   * W8 (af_gemm_q_tc, the QUANT instantiations): the reference widens
+//   * W8 (af_gemm_q_tc, the QUANT instantiations; with the expert axis,
+//     af_expert_gemm_q_tc, K2's int8-only MoE banks above 16 rows: codes
+//     offset by the expert's bsw, scales by bss): the reference widens
 //     the codes to x's type and runs bf16 x bf16 -> fp32 on its matrix unit
 //     (exact: |code| <= 127), which is this kernel's arithmetic.  The codes
 //     stay int8 through the cp.async ring (16 a chunk: half the bytes of a
@@ -135,8 +140,8 @@
 // every W8 af_gemm_q launch on fp32 x (fp32 or int8-code w, one or two
 // contractions, any N), af_expert_gemm at T <= 16, and af_expert_gemm_q's
 // int8-only form at T <= 16 (the MoE banks, on fp32 or bf16 x).  The
-// 64-column tile below would run them on ceil(N / 64) blocks -- 14 at an
-// 896-wide site, each walking K = 4864 in one chain with scalar loads
+// 64-column tile that ran them first did so on ceil(N / 64) blocks -- 14
+// at an 896-wide site, each walking K = 4864 in one chain with scalar loads
 // between two barriers (W8 mlp.wo on an H100: 308 us to read 4.4 MB of
 // codes), 12 of its 16 rows zeros at M = 4.  Here a block splits K into 16
 // fixed slices, one warp each: a warp
@@ -146,7 +151,7 @@
 // keeps its outputs as fmaf chains over the slice in K order (two sets for
 // the dual), and the slices' partials add in slice order at the end.  The
 // split is fixed by K alone, so the output is the same bits at every
-// k_collapse and every width, though not the 64-column tile's single chain
+// k_collapse and every width, though not the wide tile's single chain
 // (both hold the plain version's fp32 tolerance).  Why not that single
 // chain here: with one output a thread, each SM holds one computing warp
 // whose chain waits on a shared-memory load every K step, and few warps
@@ -182,7 +187,7 @@
 //     per expert before the alignment tests (an expert's bits do not depend
 //     on E), bf16 w (the fp32 query against a bf16 cache) staged as bf16
 //     and widened exactly, the half-SM ring (a bank is thousands of
-//     blocks).  Larger M (T) keeps the 64-row tile.
+//     blocks).  Larger M (T) takes the wide tile.
 //
 // af_gemm_w8a8_narrow_kernel, W8A8 at decode (M <= 16; K2 at T <= 16: the
 // MoE banks' one capacity row, attn.qk's g query rows).  On a 64-column
@@ -285,22 +290,45 @@
 //     per-column scales offset before the alignment tests, so an expert's
 //     bits do not depend on E.
 //
-// The FFMA kernels off the narrow tiles (fp32 af_gemm and W8 on fp32 x at
-// M > 16, K2's int8-only form and fp32 expert form at T > 16), plain
-// kernels that are right first:
-//   * one (64 x 64) output tile per block, 256 threads, 4 x 4 outputs a
-//     thread;
-//   * K is consumed in ceil(K / (BK * k_collapse)) main-loop iterations;
-//     each stages k_collapse BK-wide sub-tiles of X (and W, W2) in shared
-//     memory, widened to fp32 on load, and runs k_collapse sub-dots into
-//     the fp32 register accumulator(s).  k_collapse is the planner's
-//     collapse depth and stays a launch parameter; BK = 32 is the kernel's
-//     own (a TPU-sized (128, 512) fp32 panel does not fit in 227 KB of
-//     shared memory).  Every thread adds the K terms of its outputs in
-//     increasing K order, so the result does not depend on k_collapse;
-//   * ragged M/N/K edges are masked on load (zeros) and on store; nothing
-//     is padded in device memory.  These kernels read each element with a
-//     scalar load (the narrow and tensor-core tiles stage 16-byte chunks).
+// af_gemm_ffma_kernel, the FFMA wide tile above 16 rows (fp32 af_gemm and
+// W8 on fp32 x at M > 16, K2's fp32 form and its int8-only form on fp32 x
+// at T > 16): no tensor core gives IEEE fp32, so each output stays one
+// fmaf chain from 0 in increasing K order -- the same bits at every
+// k_collapse and tile -- and what bounds it is the FFMA pipes' 67 TFLOP/s.
+// The first tile here kept a 64 x 64 block of 4 x 4 outputs a thread,
+// staged every operand element with a scalar load and an integer division
+// into one buffer between two barriers, and ran at 22-28% of that bound.
+// Now:
+//   * 128 x 128 block tiles (128 x 64 with two accumulator sets for the
+//     dual swiglu pair), 256 threads of 8 x 8 outputs held in registers:
+//     per K row a thread reads two float4 of x and two of w (two 8-byte
+//     bf16 or 4-byte int8 loads) for 64 fmaf.  Where that grid would not
+//     give every SM two blocks, 128 x 64 tiles of 8 x 4 (the 896-column
+//     projections of a 2048-token prefill) or, where those would not give
+//     every SM one, 64 x 64 of 4 x 4 (the 128-column ones, attn.pv's 64);
+//   * two blocks an SM (the launch bound caps a thread at 128 registers;
+//     the ring at half the SM's shared memory), so one block's barrier and
+//     loads hide behind the other's products;
+//   * a ring of 2-4 main-loop steps, one barrier a step (run_ring): a step
+//     is k_collapse sub-tiles of 16 K rows, or as many as leave room for
+//     two steps; w and w2 arrive by 16-byte cp.async in their own type
+//     (Chunks' addresses, computed once) while earlier steps compute; bf16
+//     and int8 w widen exactly to fp32 as their fragments are read
+//     (nw_widen's permute and add for the codes);
+//   * x goes through registers so that it can be stored transposed, [K
+//     row][rows], and a thread's rows are one float4 read: each thread
+//     loads a 4-row unit of the next sub-tile (a vector a row where x and
+//     its row stride allow, else scalar), applies the rmsnorm scale g once
+//     per element (x_at's rounding), and stores it as float4 columns after
+//     the current sub-tile's products;
+//   * the row tiles run along blockIdx.x, so the blocks in flight share
+//     w's column tiles and each is read from device memory about once;
+//   * ragged M, N and K are zeros in shared memory (cp.async's src-size at
+//     the edge chunk, zero stores past it), nothing is padded in device
+//     memory; w off the 16-byte grid stages through scalar loads inside
+//     the same kernel;
+//   * the epilogue is store_one's math (epilogue_one) per element, stored
+//     as float4 (fp32) or four bf16 where the row is aligned.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -313,9 +341,6 @@
 
 namespace {
 
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
 constexpr int MAX_SMEM = 232448;  // 227 KB: the most a block may use
 
 enum Dtype { F32 = 0, BF16 = 1, I8 = 2 };   // I8: int8 w, in the queries
@@ -373,15 +398,16 @@ __device__ __forceinline__ float x_at(const Args& a, const TX* x, int r,
   return v;
 }
 
-// The epilogue of one output element (r, c), once, in store_phase order.
-// The multiplies are __fmul_rn so that nvcc does not fuse one with the add
-// after it: each rounds on its own, as in the plain version.
-template <typename TX, typename TO, bool DUAL>
-__device__ __forceinline__ void store_one(const Args& a, float y, float y2,
-                                          int r, int c, const float* ws,
-                                          const float* ws2, const TX* res,
-                                          TO* out) {
-  if (r >= a.M || c >= a.N) return;
+// The epilogue of one output element (r, c), once, in store_phase order:
+// its value before the cast.  The multiplies are __fmul_rn so that nvcc
+// does not fuse one with the add after it: each rounds on its own, as in
+// the plain version.
+template <typename TX, bool DUAL>
+__device__ __forceinline__ float epilogue_one(const Args& a, float y,
+                                              float y2, int r, int c,
+                                              const float* ws,
+                                              const float* ws2,
+                                              const TX* res) {
   if (ws != nullptr) y = __fmul_rn(y, ws[c]);
   if (a.bias != nullptr) y = __fadd_rn(y, a.bias[c]);
   float o = activate(y, a.activation);
@@ -391,110 +417,18 @@ __device__ __forceinline__ void store_one(const Args& a, float y, float y2,
     o = __fmul_rn(o, y2);
   }
   if (res != nullptr) o = __fadd_rn(to_f(res[(long long)r * a.ldr + c]), o);
-  out[(long long)r * a.ldo + c] = from_f<TO>(o);
+  return o;
 }
 
-// Carry-propagate store of one thread's TM x 4 outputs at rows r0..,
-// columns c0..: the epilogue once per element.
-template <typename TX, typename TO, int TM, bool DUAL>
-__device__ __forceinline__ void store_tile(const Args& a,
-                                           float (&acc)[TM][4],
-                                           float (&acc2)[TM][4],
-                                           int r0, int c0) {
-  const TX* res = static_cast<const TX*>(a.residual);
-  TO* out = static_cast<TO*>(a.out) + blockIdx.z * a.bso;
-  const float* ws = a.w_scale ? a.w_scale + blockIdx.z * a.bss : nullptr;
-  const float* ws2 = a.w2_scale ? a.w2_scale + blockIdx.z * a.bss : nullptr;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store_one<TX, TO, DUAL>(a, acc[i][j], acc2[i][j], r0 + i, c0 + j, ws,
-                              ws2, res, out);
-}
-
-// One (BM x BN) output tile of batch element blockIdx.z, float chain.  TX: x
-// (and residual) type, TW: w/w2 type (float, bf16 or int8 codes), TO:
-// output type.
-template <typename TX, typename TW, typename TO, int BM, bool DUAL>
-__global__ void __launch_bounds__(THREADS)
-af_gemm_kernel(Args a) {
-  constexpr int TM = BM / 16;           // rows per thread
-  extern __shared__ float smem[];
-  const int kk = BK * a.k_collapse;     // K width of one main-loop step
-  const int lda = kk + 1;               // padded: rows land on other banks
-  float* As = smem;                     // [BM][kk + 1]
-  float* Bs = As + BM * lda;            // [kk][BN]
-  float* Bs2 = Bs + kk * BN;            // [kk][BN] (dual only)
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int M = a.M, N = a.N, K = a.K;
-  const TX* x = static_cast<const TX*>(a.x) + blockIdx.z * a.bsx;
-  const TW* w = static_cast<const TW*>(a.w) + blockIdx.z * a.bsw;
-  const TW* w2 = DUAL ? static_cast<const TW*>(a.w2) : nullptr;
-
-  float acc[TM][4];
-  float acc2[TM][4];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.f;
-      acc2[i][j] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < K; k0 += kk) {
-    // stage the x tile, with the rmsnorm scale as its prologue
-    for (int idx = tid; idx < BM * kk; idx += THREADS) {
-      const int r = idx / kk, c = idx - r * kk;
-      const int gr = m0 + r, gc = k0 + c;
-      As[r * lda + c] = (gr < M && gc < K) ? x_at(a, x, gr, gc) : 0.f;
-    }
-    // stage the w (and w2) panel
-    for (int idx = tid; idx < kk * BN; idx += THREADS) {
-      const int c = idx / BN, n = idx - c * BN;
-      const int gk = k0 + c, gn = n0 + n;
-      const bool ok = gk < K && gn < N;
-      const long long off = (long long)gk * a.ldw + gn;
-      Bs[idx] = ok ? to_f(w[off]) : 0.f;
-      if (DUAL) Bs2[idx] = ok ? to_f(w2[off]) : 0.f;
-    }
-    __syncthreads();
-    // the k-deep chain: k_collapse sub-dots of width BK into the same
-    // fp32 accumulator(s)
-    for (int s = 0; s < a.k_collapse; ++s) {
-#pragma unroll 8
-      for (int kb = 0; kb < BK; ++kb) {
-        const int k = s * BK + kb;
-        float xa[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xa[i] = As[(ty * TM + i) * lda + k];
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[k * BN + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          acc[i][0] = fmaf(xa[i], b.x, acc[i][0]);
-          acc[i][1] = fmaf(xa[i], b.y, acc[i][1]);
-          acc[i][2] = fmaf(xa[i], b.z, acc[i][2]);
-          acc[i][3] = fmaf(xa[i], b.w, acc[i][3]);
-        }
-        if (DUAL) {
-          const float4 b2 =
-              *reinterpret_cast<const float4*>(&Bs2[k * BN + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            acc2[i][0] = fmaf(xa[i], b2.x, acc2[i][0]);
-            acc2[i][1] = fmaf(xa[i], b2.y, acc2[i][1]);
-            acc2[i][2] = fmaf(xa[i], b2.z, acc2[i][2]);
-            acc2[i][3] = fmaf(xa[i], b2.w, acc2[i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  store_tile<TX, TO, TM, DUAL>(a, acc, acc2, m0 + ty * TM, n0 + tx * 4);
+// ... and its store, with the one cast
+template <typename TX, typename TO, bool DUAL>
+__device__ __forceinline__ void store_one(const Args& a, float y, float y2,
+                                          int r, int c, const float* ws,
+                                          const float* ws2, const TX* res,
+                                          TO* out) {
+  if (r >= a.M || c >= a.N) return;
+  out[(long long)r * a.ldo + c] =
+      from_f<TO>(epilogue_one<TX, DUAL>(a, y, y2, r, c, ws, ws2, res));
 }
 
 // The main loop over a ring of `stages` slots of step_bytes each at shared
@@ -1393,7 +1327,9 @@ __device__ __forceinline__ void store_pair(const Args& a, const float (&y)[2],
 // tile, at its register budget, 3-8% at the prefill sites).  QUANT: w (w2)
 // are int8 codes, staged as codes (16 a chunk), widened to bf16 as the B
 // fragments are built and dequantized by the per-column scales at the
-// store (K1's W8 form, af_gemm_q_tc); otherwise bf16.
+// store (K1's W8 form, af_gemm_q_tc; with EXPERT, K2's int8-only MoE banks
+// above 16 rows, af_expert_gemm_q_tc, each expert's scales offset by bss);
+// otherwise bf16.
 template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool EXPERT,
           bool QUANT = false>
 __global__ void __launch_bounds__(WM * WN * 32)
@@ -1651,6 +1587,303 @@ af_gemm_tc_kernel(Args a, int stages) {
     const float y[2] = {v.x, v.y}, y2[2] = {v2.x, v2.y};
     store_pair<TO, DUAL, QUANT>(a, y, y2, m0 + rr, n0 + cc, wsc, wsc2, res,
                                 out, pairs);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FFMA wide tile above 16 rows (fp32 x): K1's fp32 and W8 forms at M > 16,
+// K2's fp32 form and its int8-only form on fp32 x at T > 16
+
+constexpr int FW_BK = 16;           // K rows of one staged sub-tile
+constexpr int FW_THREADS = 256;     // 16 x 16 threads
+constexpr int FW_BUDGET = 113 * 1024;   // a block's ring: two blocks an SM
+constexpr int FW_MAX_STAGES = 4;    // main-loop steps the ring holds
+constexpr int FW_FILL = 2 * NW_SMS; // blocks that fill the card: two an SM
+
+// One ring slot (one sub-tile) of a BM x BN tile on TW weights: x
+// transposed, [FW_BK][BM] fp32 (a thread's rows are neighbours, so its x
+// fragment is float4 loads), then w (and w2) [FW_BK][BN] in their own type,
+// as their 16-byte chunks arrive.  A thread keeps TM x TN outputs (and TM x
+// TN more for the dual pair's second contraction); its x unit, staged
+// through registers, is 4 rows by XK K columns.
+template <typename TW, int BM, int BN, bool DUAL>
+struct FwLayout {
+  static constexpr int TM = BM / 16, TN = BN / 16;
+  static constexpr int XK = FW_BK * BM / (4 * FW_THREADS);
+  static constexpr int X_BYTES = 4 * FW_BK * BM;
+  static constexpr int W_BYTES = (int)sizeof(TW) * FW_BK * BN;
+  static constexpr int SLOT = X_BYTES + W_BYTES * (DUAL ? 2 : 1);
+};
+
+// Four neighbouring weights of one staged K row, widened exactly to fp32
+// as they leave shared memory (one vector load): fp32 as they are, bf16
+// under the high half, int8 codes by nw_widen's permute and add.
+__device__ __forceinline__ void fw_load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void fw_load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = tc::bf16_lo(t.x);
+  v[1] = tc::bf16_hi(t.x);
+  v[2] = tc::bf16_lo(t.y);
+  v[3] = tc::bf16_hi(t.y);
+}
+__device__ __forceinline__ void fw_load4(const int8_t* p, float* v) {
+  float t[4];
+  nw_widen<int8_t, 4>(p, t);
+  v[0] = t[0];
+  v[1] = t[1];
+  v[2] = t[2];
+  v[3] = t[3];
+}
+
+// XK neighbouring x elements from p, the first n valid (zeros past them;
+// n <= 0: none): one XK-vector load where vec and all XK are valid (p then
+// on the vector's grid), else scalar loads.
+template <int XK>
+__device__ __forceinline__ void fw_ldx(const float* p, int n, bool vec,
+                                       float (&v)[XK]) {
+  if constexpr (XK == 4) {
+    if (vec && n >= 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = t.x;
+      v[1] = t.y;
+      v[2] = t.z;
+      v[3] = t.w;
+      return;
+    }
+  } else if constexpr (XK == 2) {
+    if (vec && n >= 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = t.x;
+      v[1] = t.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < XK; ++e) v[e] = e < n ? __ldg(p + e) : 0.f;
+}
+
+// Four outputs (r, c..c+3) of one row through epilogue_one, one vector
+// store where all four exist and the row is aligned, else store_one each.
+template <typename TO, bool DUAL>
+__device__ __forceinline__ void fw_store4(const Args& a, const float* y,
+                                          const float* y2, int r, int c,
+                                          const float* ws, const float* ws2,
+                                          const float* res, TO* out,
+                                          bool vec) {
+  if (r >= a.M || c >= a.N) return;
+  if (!vec || c + 3 >= a.N) {
+    for (int e = 0; e < 4; ++e)
+      store_one<float, TO, DUAL>(a, y[e], DUAL ? y2[e] : 0.f, r, c + e, ws,
+                                 ws2, res, out);
+    return;
+  }
+  float o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    o[e] = epilogue_one<float, DUAL>(a, y[e], DUAL ? y2[e] : 0.f, r, c + e,
+                                     ws, ws2, res);
+  TO* d = out + (long long)r * a.ldo + c;
+  if constexpr (sizeof(TO) == 4)
+    *reinterpret_cast<float4*>(d) = make_float4(o[0], o[1], o[2], o[3]);
+  else
+    *reinterpret_cast<uint2*>(d) =
+        make_uint2(tc::pack_bf16(o[0], o[1]), tc::pack_bf16(o[2], o[3]));
+}
+
+// One (BM x BN) output tile of batch element blockIdx.z (K1: z = 0, the
+// batch strides 0), fp32 x, TW (fp32, bf16 or int8-code) w, out TO.  The
+// row tiles run along blockIdx.x, so the blocks in flight share w's column
+// tiles (the unembed's w is 545 MB, x 7 MB).  Thread (ty, tx) of 16 x 16
+// keeps rows 4 ty..+3 (and BM / 2 + 4 ty..+3 at BM = 128) and columns
+// 4 tx..+3 (and BN / 2 + 4 tx..+3 at BN = 128; DUAL: two sets at BN = 64)
+// as fmaf chains from 0 in increasing K order, so the same bits at every
+// k_collapse, ring depth and tile shape.  A main-loop step is `subs`
+// sub-tiles; the ring holds `stages` >= 2 steps, one barrier a step
+// (run_ring).  w (w2) arrive by 16-byte cp.async in their own type
+// (Chunks' addresses, computed once; scalar loads where w is off the
+// 16-byte grid); x goes through registers: each thread loads a 4-row by
+// XK-column unit of a sub-tile (one XK-vector a row where x and the row
+// allow, else scalar), applies g (x_at's rounding, once per element) and
+// stores it transposed as XK float4 columns.  Step j + 1's x is loaded
+// sub-tile by sub-tile while step j's sub-tile computes and stored after
+// it, into step j + 1's slot (free since the barrier of step j).  Rows past
+// M, K rows past K and columns past N are zeros in shared memory.
+template <typename TW, typename TO, int BM, int BN, bool DUAL>
+__global__ void __launch_bounds__(FW_THREADS, 2)
+af_gemm_ffma_kernel(Args a, int subs, int stages) {
+  using L = FwLayout<TW, BM, BN, DUAL>;
+  constexpr int TM = L::TM, TN = L::TN, XK = L::XK;
+  constexpr int KU = FW_BK / XK;       // x units along a sub-tile's K
+  static_assert(!DUAL || BN == 64, "the dual pair takes 64 columns");
+  static_assert((BM / 4) * KU == FW_THREADS, "one x unit a thread");
+  extern __shared__ __align__(16) unsigned char fw_smem[];
+  const uint32_t ring = tc::smem_addr(fw_smem);
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = a.M, N = a.N, K = a.K;
+  const long long z = blockIdx.z;
+  const float* x = static_cast<const float*>(a.x) + z * a.bsx;
+  const TW* w = static_cast<const TW*>(a.w) + z * a.bsw;
+  const TW* w2 = static_cast<const TW*>(a.w2);
+  const float* g = a.g;
+  const bool wvec = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                    a.ldw % (16 / sizeof(TW)) == 0 &&
+                    (!DUAL || reinterpret_cast<uintptr_t>(w2) % 16 == 0);
+  const int n_sub = (K + FW_BK - 1) / FW_BK;
+  const int n_steps = (n_sub + subs - 1) / subs;
+
+  // this thread's x unit: rows 4 rq..+3, K columns XK kq..+XK-1 of a
+  // sub-tile; a warp's lanes of one row read its sub-tile row together
+  const int kq = tid % KU, rq = tid / KU;
+  const int x_rows = min(4, M - m0 - 4 * rq);       // valid rows (<= 0: none)
+  const bool xvec = XK > 1 && reinterpret_cast<uintptr_t>(x) % (4 * XK) == 0 &&
+                    a.ldx % XK == 0;
+  const float* xp = x + (long long)(m0 + 4 * rq) * a.ldx + XK * kq;
+
+  // this thread's w chunks: rows wr0 + j * W_RS (j < W_NCH) of a sub-tile,
+  // columns wcol..+W_EPC-1 (w_n of them valid), all from one pointer
+  constexpr int W_EPC = 16 / (int)sizeof(TW), W_CPR = BN / W_EPC;
+  constexpr int W_RS = FW_THREADS / W_CPR;
+  constexpr int W_NCH = (FW_BK + W_RS - 1) / W_RS;
+  const int wr0 = tid / W_CPR, wcol = tid % W_CPR * W_EPC;
+  const int w_n = N - n0 - wcol;
+  const long long w_off = (long long)wr0 * a.ldw + n0 + wcol;
+
+  float acc[TM][TN];
+  float acc2[DUAL ? TM : 1][DUAL ? TN : 1];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = 0.f;
+      if (DUAL) acc2[DUAL ? i : 0][DUAL ? j : 0] = 0.f;
+    }
+
+  float xr[4][XK];                     // the x unit in flight ...
+  float gv[XK];                        // ... and its columns' g
+  auto x_load = [&](int sub) {
+    const int k = sub * FW_BK + XK * kq, kn = K - k;   // valid columns
+#pragma unroll
+    for (int e = 0; e < XK; ++e)
+      gv[e] = g != nullptr && e < kn ? __ldg(g + k + e) : 1.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      fw_ldx<XK>(xp + (long long)i * a.ldx + sub * FW_BK,
+                 i < x_rows ? kn : 0, xvec, xr[i]);
+  };
+  // ... g applied here, after the products that hid the loads
+  auto x_store = [&](uint32_t slot) {
+    float* xs = reinterpret_cast<float*>(fw_smem + (slot - ring)) +
+                XK * kq * BM + 4 * rq;
+    if (g != nullptr)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < XK; ++e) xr[i][e] = __fmul_rn(xr[i][e], gv[e]);
+#pragma unroll
+    for (int e = 0; e < XK; ++e)
+      *reinterpret_cast<float4*>(xs + e * BM) =
+          make_float4(xr[0][e], xr[1][e], xr[2][e], xr[3][e]);
+  };
+  // w (and w2) of one sub-tile into a slot, by cp.async
+  auto w_stage = [&](int sub, uint32_t slot) {
+    const int k0 = sub * FW_BK;
+    if (wvec) {
+#pragma unroll
+      for (int j = 0; j < W_NCH; ++j) {
+        const int r = wr0 + j * W_RS;
+        if (r >= FW_BK) break;
+        const int n = k0 + r < K ? min(w_n, W_EPC) : 0;
+        const long long src = w_off + (long long)(k0 + j * W_RS) * a.ldw;
+        const uint32_t dst =
+            slot + L::X_BYTES + (uint32_t)sizeof(TW) * (r * BN + wcol);
+        tc::cp_chunk(dst, w + src, n, W_EPC);
+        if (DUAL) tc::cp_chunk(dst + L::W_BYTES, w2 + src, n, W_EPC);
+      }
+    } else {
+      TW* base = reinterpret_cast<TW*>(fw_smem + (slot - ring) + L::X_BYTES);
+      tc::stage_tile<FW_BK, BN, FW_THREADS>(base, BN, w, a.ldw, k0, K, n0, N,
+                                            false);
+      if (DUAL)
+        tc::stage_tile<FW_BK, BN, FW_THREADS>(base + L::W_BYTES / sizeof(TW),
+                                              BN, w2, a.ldw, k0, K, n0, N,
+                                              false);
+    }
+  };
+  // the products of one staged sub-tile, K row by K row
+  auto compute = [&](uint32_t slot) {
+    const unsigned char* S = fw_smem + (slot - ring);
+    const float* xs = reinterpret_cast<const float*>(S) + 4 * ty;
+    const TW* ws_ = reinterpret_cast<const TW*>(S + L::X_BYTES) + 4 * tx;
+#pragma unroll
+    for (int k = 0; k < FW_BK; ++k) {
+      float xa[TM], wb[TN], wb2[DUAL ? TN : 1];
+      fw_load4(xs + k * BM, xa);
+      if constexpr (TM == 8) fw_load4(xs + k * BM + BM / 2, xa + 4);
+      fw_load4(ws_ + k * BN, wb);
+      if constexpr (TN == 8) fw_load4(ws_ + k * BN + BN / 2, wb + 4);
+      if constexpr (DUAL)
+        fw_load4(ws_ + L::W_BYTES / sizeof(TW) + k * BN, wb2);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
+          if (DUAL)
+            acc2[DUAL ? i : 0][DUAL ? j : 0] =
+                fmaf(xa[i], wb2[DUAL ? j : 0], acc2[DUAL ? i : 0][DUAL ? j : 0]);
+        }
+    }
+  };
+
+  const uint32_t step_bytes = (uint32_t)L::SLOT * subs;
+  const uint32_t ring_end = ring + step_bytes * stages;
+  // stage a step: w by cp.async (one group); x in place for the first
+  // step, every later step's during the step before it
+  auto issue = [&](int step, uint32_t base) {
+    if (step < n_steps)
+      for (int s = 0, sub = step * subs; s < subs && sub < n_sub; ++s, ++sub) {
+        w_stage(sub, base + s * L::SLOT);
+        if (step == 0) {
+          x_load(sub);
+          x_store(base + s * L::SLOT);
+        }
+      }
+    tc::cp_async_commit();
+  };
+  auto run = [&](int step, uint32_t base) {
+    const uint32_t next =
+        base + step_bytes == ring_end ? ring : base + step_bytes;
+    for (int s = 0, sub = step * subs; s < subs && sub < n_sub; ++s, ++sub) {
+      const bool pre = sub + subs < n_sub;
+      if (pre) x_load(sub + subs);
+      compute(base + s * L::SLOT);
+      if (pre) x_store(next + s * L::SLOT);
+    }
+  };
+  run_ring(ring, step_bytes, stages, n_steps, issue, run);
+
+  TO* out = static_cast<TO*>(a.out) + z * a.bso;
+  const float* res = static_cast<const float*>(a.residual);   // K1 only
+  const float* wsc = a.w_scale ? a.w_scale + z * a.bss : nullptr;
+  const float* wsc2 = a.w2_scale ? a.w2_scale + z * a.bss : nullptr;
+  const bool vec = a.ldo % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TO)) == 0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + (i < 4 ? 4 * ty + i : BM / 2 + 4 * ty + i - 4);
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h)
+      fw_store4<TO, DUAL>(a, acc[i] + 4 * h,
+                          DUAL ? acc2[DUAL ? i : 0] : nullptr, r,
+                          n0 + BN / 2 * h + 4 * tx, wsc, wsc2, res, out, vec);
   }
 }
 
@@ -2288,19 +2521,69 @@ int launch_qt(const Args& a, int x_dtype, int out_dtype, int batch,
   return tile(nullptr);
 }
 
-template <typename TX, typename TW, typename TO, int BM, bool DUAL>
-int launch(const Args& a, int batch, cudaStream_t stream) {
-  const int kk = BK * a.k_collapse;
-  const size_t smem =
-      sizeof(float) * ((size_t)BM * (kk + 1) + (size_t)kk * BN * (DUAL ? 2 : 1));
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+// The FFMA wide tile (fp32 x) at BM x BN: a ring step of k_collapse
+// sub-tiles, or of as many as leave room for two steps in the block's
+// budget (every output is the same fmaf chain whatever the step), and as
+// many steps as the budget holds, 2 to FW_MAX_STAGES.  smem_only: report
+// the dynamic shared memory the launch takes, and launch nothing.
+template <typename TW, typename TO, int BM, int BN, bool DUAL>
+int launch_fw(const Args& a, int batch, cudaStream_t stream,
+              size_t* smem_only) {
+  using L = FwLayout<TW, BM, BN, DUAL>;
+  const int subs =
+      std::max(1, std::min(a.k_collapse, FW_BUDGET / (2 * L::SLOT)));
+  const int stages =
+      std::min(FW_MAX_STAGES, FW_BUDGET / (L::SLOT * subs));
+  const size_t smem = (size_t)L::SLOT * subs * stages;
+  if (smem_only != nullptr) {
+    *smem_only = smem;
+    return 0;
+  }
+  const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      af_gemm_kernel<TX, TW, TO, BM, DUAL>,
+      af_gemm_ffma_kernel<TW, TO, BM, BN, DUAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, batch);
-  af_gemm_kernel<TX, TW, TO, BM, DUAL><<<grid, THREADS, smem, stream>>>(a);
+  af_gemm_ffma_kernel<TW, TO, BM, BN, DUAL>
+      <<<grid, FW_THREADS, smem, stream>>>(a, subs, stages);
   return (int)cudaGetLastError();
+}
+
+template <typename TW, int BM, int BN, bool DUAL>
+int launch_fw_out(const Args& a, int out_dtype, int batch,
+                  cudaStream_t stream, size_t* smem_only) {
+  if (out_dtype == F32)
+    return launch_fw<TW, float, BM, BN, DUAL>(a, batch, stream, smem_only);
+  if (out_dtype == BF16)
+    return launch_fw<TW, __nv_bfloat16, BM, BN, DUAL>(a, batch, stream,
+                                                      smem_only);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The FFMA wide tile's shape at M rows, N columns and `batch` experts: 128
+// rows by 128 columns (64 for the dual pair) where that grid gives every SM
+// two blocks; else 128 x 64 where that grid gives every SM one (the 896-
+// column projections of a 2048-token prefill); else 64 x 64 (the 128-column
+// ones, attn.pv's 64-column head), so that the smaller grids still reach
+// every SM.  The tile changes no bit of the output.
+inline long long fw_blocks(int M, int N, int batch, int bm, int bn) {
+  return (long long)((M + bm - 1) / bm) * ((N + bn - 1) / bn) * batch;
+}
+
+template <typename TW, bool DUAL>
+int launch_ffma(const Args& a, int out_dtype, int batch, cudaStream_t stream,
+                size_t* smem_only = nullptr) {
+  if (DUAL || a.N > 64) {
+    if (fw_blocks(a.M, a.N, batch, 128, DUAL ? 64 : 128) >= FW_FILL)
+      return launch_fw_out<TW, 128, DUAL ? 64 : 128, DUAL>(
+          a, out_dtype, batch, stream, smem_only);
+    if (!DUAL && fw_blocks(a.M, a.N, batch, 128, 64) >= NW_SMS)
+      return launch_fw_out<TW, 128, 64, false>(a, out_dtype, batch, stream,
+                                               smem_only);
+  }
+  return launch_fw_out<TW, 64, 64, DUAL>(a, out_dtype, batch, stream,
+                                         smem_only);
 }
 
 // The narrow FFMA tile at width COLS, M <= MR rows (batch blocks along z
@@ -2532,14 +2815,18 @@ int launch_tc_k(const Args& a, int batch, cudaStream_t stream,
 }
 
 // K1 (batch 1) or K2's expert axis (batch > 1): only the latter offsets
-// its operands per blockIdx.z.  QUANT (int8 codes) is K1's W8 form only.
+// its operands per blockIdx.z.  QUANT (int8 codes): K1's W8 form, and K2's
+// int8-only MoE banks above 16 rows (the prefill tiles only: at T <= 16
+// the banks take the narrow FFMA tile).
 template <typename TO, int BM, int BN, int WM, int WN, bool DUAL, bool QUANT>
 int launch_tc(const Args& a, int batch, cudaStream_t stream,
               size_t* smem_only) {
-  if constexpr (!QUANT)
-    if (batch > 1)
-      return launch_tc_k<TO, BM, BN, WM, WN, DUAL, true, false>(
+  if (batch > 1) {
+    if constexpr (!QUANT || (BM > 16 && !DUAL))
+      return launch_tc_k<TO, BM, BN, WM, WN, DUAL, true, QUANT>(
           a, batch, stream, smem_only);
+    return (int)cudaErrorInvalidValue;
+  }
   if (batch != 1) return (int)cudaErrorInvalidValue;
   return launch_tc_k<TO, BM, BN, WM, WN, DUAL, false, QUANT>(a, 1, stream,
                                                               smem_only);
@@ -2563,16 +2850,6 @@ int launch_tc_m(const Args& a, int batch, cudaStream_t stream,
                                                    smem_only);
 }
 
-// The 64-column float chain (every launch at M <= 16 takes a narrow tile)
-template <typename TX, typename TW, bool DUAL>
-int launch_out(const Args& a, int out_dtype, int batch, cudaStream_t stream) {
-  if (out_dtype == F32)
-    return launch<TX, TW, float, 64, DUAL>(a, batch, stream);
-  if (out_dtype == BF16)
-    return launch<TX, TW, __nv_bfloat16, 64, DUAL>(a, batch, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // X[M,K] @ W[K,N] (+ W2) with the fused prologue/epilogue on the FFMA
@@ -2580,7 +2857,7 @@ int launch_out(const Args& a, int out_dtype, int batch, cudaStream_t stream) {
 // af_gemm_tc); bias, bias2 and g are fp32.  A null pointer turns its
 // operand off.  M <= 16 (decode) takes the narrow tile -- K in 16 fixed
 // slices, one or two contractions, any N, the width from M and N -- and
-// larger M the 64-column tile (one fmaf chain an output).  Returns
+// larger M the FFMA wide tile (one fmaf chain an output).  Returns
 // cudaGetLastError() of the launch.
 extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
                        const void* w, const void* w2, const float* bias,
@@ -2599,8 +2876,8 @@ extern "C" int af_gemm(int in_dtype, int out_dtype, const void* x,
     return dual ? launch_narrow_w<float, float, true, false>(a, out_dtype, 1, s)
                 : launch_narrow_w<float, float, false, false>(a, out_dtype, 1,
                                                               s);
-  return dual ? launch_out<float, float, true>(a, out_dtype, 1, s)
-              : launch_out<float, float, false>(a, out_dtype, 1, s);
+  return dual ? launch_ffma<float, true>(a, out_dtype, 1, s)
+              : launch_ffma<float, false>(a, out_dtype, 1, s);
 }
 
 // The same function on the tensor-core kernel: x/w/w2 and the residual
@@ -2654,8 +2931,9 @@ extern "C" long long af_gemm_tc_smem(int M, int N, int k_collapse, int dual,
 // af_gemm; x and the residual have dtype `x_dtype`.  act_quant = 0: W8 on
 // fp32 x (bf16 x takes af_gemm_q_tc), on the narrow tile at M <= 16 (the
 // codes through its cp.async ring, widened exactly to fp32 as they leave
-// shared memory, the scales first at the store), else on the 64-column
-// tile's float chain; act_quant = 1: W8A8 on the reference's x tiles of
+// shared memory, the scales first at the store), else on the FFMA wide
+// tile (the codes staged as int8, widened as its fragments are read);
+// act_quant = 1: W8A8 on the reference's x tiles of
 // quant_bm rows (M itself, or at M > 16 a multiple of 128) by quant_kk
 // columns (k_collapse is then only part of how quant_kk was chosen), on
 // the W8A8 narrow tile at M <= 16 (x quantized once a block, the codes
@@ -2693,8 +2971,8 @@ extern "C" int af_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                                               s)
                 : launch_narrow_w<float, int8_t, false, false>(a, out_dtype,
                                                                1, s);
-  return dual ? launch_out<float, int8_t, true>(a, out_dtype, 1, s)
-              : launch_out<float, int8_t, false>(a, out_dtype, 1, s);
+  return dual ? launch_ffma<int8_t, true>(a, out_dtype, 1, s)
+              : launch_ffma<int8_t, false>(a, out_dtype, 1, s);
 }
 
 // W8 on the tensor-core kernel: x and the residual bf16, w/w2 int8 codes
@@ -2738,12 +3016,12 @@ int launch_expert_narrow(const Args& a, int out_dtype, int E,
 // x and w fp32, or (fp32, bf16), the fp32-query x bf16-cache attention
 // product (bf16 x bf16 takes af_expert_gemm_tc).  T <= 16 (decode: an MoE
 // bank's capacity rows, a KV head's query rows) takes the narrow tile, K
-// in 16 fixed slices (E <= 65535), larger T the 64-row tile.
+// in 16 fixed slices, larger T the FFMA wide tile; E <= 65535.
 extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
                               const void* x, const void* w, void* out, int E,
                               int T, int K, int N, int k_collapse,
                               void* stream) {
-  if (k_collapse < 1 || E < 1 || T < 1 || N < 1 || K < 1)
+  if (k_collapse < 1 || E < 1 || E > 65535 || T < 1 || N < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   Args a{x, w, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
@@ -2752,14 +3030,13 @@ extern "C" int af_expert_gemm(int x_dtype, int w_dtype, int out_dtype,
   if (x_dtype != F32 || (w_dtype != F32 && w_dtype != BF16))
     return (int)cudaErrorInvalidValue;
   if (T <= 16) {
-    if (E > 65535) return (int)cudaErrorInvalidValue;
     return w_dtype == F32
                ? launch_expert_narrow<float>(a, out_dtype, E, s)
                : launch_expert_narrow<__nv_bfloat16>(a, out_dtype, E, s);
   }
   return w_dtype == F32
-             ? launch_out<float, float, false>(a, out_dtype, E, s)
-             : launch_out<float, __nv_bfloat16, false>(a, out_dtype, E, s);
+             ? launch_ffma<float, false>(a, out_dtype, E, s)
+             : launch_ffma<__nv_bfloat16, false>(a, out_dtype, E, s);
 }
 
 // The narrow FFMA tile at M rows (T for the expert form), N columns, K,
@@ -2818,6 +3095,33 @@ extern "C" int af_narrow_cols(int M, int N, int w_dtype, int expert) {
   return nw_cols(M, N, w_dtype == I8);
 }
 
+// The FFMA wide tile (K1's fp32 and W8 forms at M > 16, K2's fp32 and
+// int8-only forms on fp32 x at T > 16) at M rows, N columns, `batch`
+// experts (1 for K1), k_collapse and w of w_dtype (0 fp32, 1 bf16, 2 int8
+// codes), one or two contractions: the dynamic shared memory (bytes) of one
+// launch; -1 where the tile does not take it.
+extern "C" long long af_ffma_smem(int M, int N, int batch, int k_collapse,
+                                  int w_dtype, int dual) {
+  if (M <= 16 || N < 1 || batch < 1 || k_collapse < 1 ||
+      (dual && w_dtype == BF16))
+    return -1;
+  Args a{};
+  a.M = M;
+  a.N = N;
+  a.k_collapse = k_collapse;
+  size_t smem = 0;
+  int rc = (int)cudaErrorInvalidValue;
+  if (w_dtype == F32)
+    rc = dual ? launch_ffma<float, true>(a, F32, batch, nullptr, &smem)
+              : launch_ffma<float, false>(a, F32, batch, nullptr, &smem);
+  else if (w_dtype == I8)
+    rc = dual ? launch_ffma<int8_t, true>(a, F32, batch, nullptr, &smem)
+              : launch_ffma<int8_t, false>(a, F32, batch, nullptr, &smem);
+  else if (w_dtype == BF16)
+    rc = launch_ffma<__nv_bfloat16, false>(a, F32, batch, nullptr, &smem);
+  return rc == 0 ? (long long)smem : -1;
+}
+
 // The W8A8 narrow tile (af_gemm_q / af_expert_gemm_q with act_quant at M,
 // or T, <= 16) over `batch` experts (1 for K1): af_w8a8_cols gives its
 // width, af_w8a8_smem the dynamic shared memory (bytes) of one launch at
@@ -2864,30 +3168,30 @@ extern "C" int af_expert_gemm_tc(int out_dtype, const void* x, const void* w,
 
 // X[E,T,K] @ W[E,K,N] -> out[E,T,N] on int8 codes, all contiguous: x fp32
 // or bf16, w int8 codes, w_scale (E, N) fp32 dequantized per (expert,
-// column) at the store.  act_quant = 0: the int8-only form (MoE expert
-// banks under W8): at T <= 16 the narrow tile (x staged in its own type,
-// the codes through the warp rings, widened exactly to fp32; the width from
-// T, N and E; E <= 65535), larger T the 64-row float chain at k_collapse;
-// act_quant = 1: W8A8, each expert's x quantized on the reference's tiles
-// of quant_bm rows by quant_kk columns: at T <= 16 the W8A8 narrow tile
-// (the width from T, N and E, as the int8-only form's), larger T the
-// quantize pass into `scratch` (scratch_bytes, 16-byte aligned:
+// column) at the store; E <= 65535.  act_quant = 0: the int8-only form
+// (MoE expert banks under W8): at T <= 16 the narrow tile (x staged in its
+// own type, the codes through the warp rings, widened exactly to fp32; the
+// width from T, N and E), larger T on fp32 x the FFMA wide tile at
+// k_collapse (bf16 x above 16 rows takes af_expert_gemm_q_tc); act_quant
+// = 1: W8A8, each expert's x quantized on the reference's tiles of
+// quant_bm rows by quant_kk columns: at T <= 16 the W8A8 narrow tile (the
+// width from T, N and E, as the int8-only form's), larger T the quantize
+// pass into `scratch` (scratch_bytes, 16-byte aligned:
 // af_w8a8_scratch_bytes at batch E) and the int8 tensor-core tile, the
-// expert on z of both (E <= 65535).
+// expert on z of both.
 extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
                                 const void* x, const void* w,
                                 const float* w_scale, void* out, int E, int T,
                                 int K, int N, int k_collapse, int quant_bm,
                                 int quant_kk, void* scratch,
                                 long long scratch_bytes, void* stream) {
-  if (k_collapse < 1 || E < 1 || T < 1 || N < 1 || K < 1 ||
+  if (k_collapse < 1 || E < 1 || E > 65535 || T < 1 || N < 1 || K < 1 ||
       w_scale == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a{x, w, nullptr, w_scale, nullptr, nullptr, nullptr, nullptr, nullptr,
          out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
          (long long)T * N, N, k_collapse, ACT_NONE, quant_bm, quant_kk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 16 && E > 65535) return (int)cudaErrorInvalidValue;
   if (act_quant && T <= 16)
     return launch_qw_x<false>(a, x_dtype, out_dtype, E, s);
   if (act_quant)
@@ -2901,10 +3205,32 @@ extern "C" int af_expert_gemm_q(int x_dtype, int out_dtype, int act_quant,
           a, out_dtype, E, s);
     return (int)cudaErrorInvalidValue;
   }
-  if (x_dtype == F32)
-    return launch_out<float, int8_t, false>(a, out_dtype, E, s);
-  if (x_dtype == BF16)
-    return launch_out<__nv_bfloat16, int8_t, false>(a, out_dtype, E, s);
+  if (x_dtype == F32) return launch_ffma<int8_t, false>(a, out_dtype, E, s);
+  return (int)cudaErrorInvalidValue;     // bf16 x: af_expert_gemm_q_tc
+}
+
+// K2's int8-only form above 16 rows on bf16 x (the MoE expert banks of a
+// prefill under W8): af_gemm_tc_kernel's QUANT instantiations with the
+// expert on blockIdx.z -- its codes offset by the expert's bsw, its
+// per-(expert, column) scales by bss at the store, dequant first and one
+// cast -- at the prefill tiles (128 x 128; 128 x 64 for N <= 64).  x bf16,
+// w int8 codes, w_scale (E, N) fp32, out fp32 or bf16 (out_dtype), all
+// contiguous; T > 16, E <= 65535.  Returns cudaGetLastError() of the
+// launch.
+extern "C" int af_expert_gemm_q_tc(int out_dtype, const void* x,
+                                   const void* w, const float* w_scale,
+                                   void* out, int E, int T, int K, int N,
+                                   int k_collapse, void* stream) {
+  if (k_collapse < 1 || E < 1 || E > 65535 || T <= 16 || N < 1 || K < 1 ||
+      w_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{x, w, nullptr, w_scale, nullptr, nullptr, nullptr, nullptr, nullptr,
+         out, T, N, K, K, N, 0, N, (long long)T * K, (long long)K * N,
+         (long long)T * N, N, k_collapse, ACT_NONE, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == F32) return launch_tc_m<float, false, true>(a, E, s);
+  if (out_dtype == BF16)
+    return launch_tc_m<__nv_bfloat16, false, true>(a, E, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -877,20 +877,173 @@ def test_int8_expert_narrow_bits_do_not_depend_on_E(cuda, dx, etkn):
 
 
 @pytest.mark.parametrize("dx", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("etkn", [(128, 17, 2048, 768), (4, 17, 300, 70)])
+@pytest.mark.parametrize("etkn", [(128, 17, 2048, 768), (4, 17, 300, 70),
+                                  (128, 160, 768, 2048), (3, 40, 130, 64)])
 def test_int8_expert_past_16_rows_matches_plain(cuda, dx, etkn):
-    """T = 17 keeps the 64-row float chain: one launch, within 1e-5 of max
-    |plain| at every k."""
+    """T > 16: fp32 x on the FFMA wide tile, bf16 x on the tensor-core
+    tile (``af_expert_gemm_q_tc``, also counted under
+    ``arrayflex_expert_gemm_int8_tc``); one launch each, the same bits at
+    k = 1, 2, 4, and the fp32 output within 1e-5 of max |plain| (bf16 x:
+    the exact products summed in fp32 in another order)."""
     E, T, K, N = etkn
     g = torch.Generator(device=cuda).manual_seed(E + T + K + N)
     x, q, s = _int8_expert_operands(g, E, T, K, N, dx)
+    tc = int(dx == torch.bfloat16)
+    outs = []
     for k in (1, 2, 4):
-        before = ag.LAUNCHES["arrayflex_expert_gemm_int8"]
-        got = ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=k,
-                                       out_dtype=torch.float32)
-        assert ag.LAUNCHES["arrayflex_expert_gemm_int8"] == before + 1
-        _close(got, ag.arrayflex_expert_gemm_plain(
-            x, q, w_scale=s, out_dtype=torch.float32), torch.float32)
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=k,
+                                             out_dtype=torch.float32))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_expert_gemm_int8=before[
+                "arrayflex_expert_gemm_int8"] + 1,
+            arrayflex_expert_gemm_int8_tc=before[
+                "arrayflex_expert_gemm_int8_tc"] + tc)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close(outs[0], ag.arrayflex_expert_gemm_plain(
+        x, q, w_scale=s, out_dtype=torch.float32), torch.float32)
+
+
+@pytest.mark.parametrize("etkn", [(128, 160, 2048, 768), (7, 33, 131, 70),
+                                  (8, 40, 64, 200)])
+def test_int8_expert_tc_bits_do_not_depend_on_E(cuda, etkn):
+    """The int8 banks above 16 rows on bf16 x (the tensor-core tile): an
+    expert's output in an E-expert launch is the same bits as its own
+    one-expert launch, including experts whose x and codes are off their
+    16-byte boundary in the E-expert tensors (T * K odd), at fp32 and bf16
+    output, and holds the plain version within one bf16 step."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E * T + K + 3 * N)
+    x, q, s = _int8_expert_operands(g, E, T, K, N, torch.bfloat16)
+    for out in (torch.float32, torch.bfloat16):
+        whole = ag.arrayflex_expert_gemm(x, q, w_scale=s, k_collapse=2,
+                                         out_dtype=out)
+        _close_step(whole, ag.arrayflex_expert_gemm_plain(
+            x, q, w_scale=s, out_dtype=out), torch.bfloat16)
+        for e in sorted({0, 1, E // 2, E - 1}):
+            one = ag.arrayflex_expert_gemm(
+                x[e:e + 1].clone(), q[e:e + 1].clone(),
+                w_scale=s[e:e + 1].clone(), k_collapse=2, out_dtype=out)
+            torch.cuda.synchronize()
+            assert torch.equal(whole[e:e + 1], one), (out, e)
+
+
+# The FFMA wide tile above 16 rows (fp32 x): K1 fp32 and W8 at the
+# 2048-token prefill's sites of qwen2-0.5b, the dual swiglu, ragged M / N
+# / K (a 17-row tile, N = 65, K = 37), N <= 64 (the 64-column tile)
+WIDE_SHAPES = [(2048, 896, 896), (2048, 896, 128), (300, 896, 4864),
+               (1024, 4864, 896), (17, 130, 200), (129, 37, 65),
+               (40, 300, 64), (200, 64, 33)]
+
+
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("mkn", WIDE_SHAPES)
+@pytest.mark.parametrize("flags", ["none", "qkv", "swiglu",
+                                   "residual_bf16_out"])
+def test_ffma_wide_tile_bit_identical_across_k(cuda, form, mkn, flags):
+    """K1 on fp32 x above 16 rows keeps each output one fmaf chain from 0
+    in increasing K order: the same bits at k = 1, 2, 4, 8 (a step holds
+    at most three fp32 sub-tiles of the 128-row tile, seven of the 64-row
+    one: k = 8 is cut to them), one launch each on the FFMA kernel, and
+    within 1e-5 of max |plain|."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(M + 5 * K + N)
+
+    def r(*sh):
+        return torch.randn(*sh, generator=g, device=cuda)
+
+    def weight(name):
+        w = r(K, N) * K ** -0.5
+        if form == "float":
+            return {name: w}
+        q, sc = substrate._quantize(w)
+        return {name: q, f"{name}_scale": sc}
+
+    kw = weight("w")
+    kw.update({"none": {},
+               "qkv": dict(bias=r(N), norm_scale=1.0 + 0.1 * r(K)),
+               "swiglu": dict(weight("w2"), activation="silu",
+                              norm_scale=1.0 + 0.1 * r(K)),
+               "residual_bf16_out": dict(residual=r(M, N),
+                                         out_dtype=torch.bfloat16)}[flags])
+    x, w = r(M, K), kw.pop("w")
+    name = "arrayflex_gemm" if form == "float" else "arrayflex_gemm_int8"
+    outs = []
+    for k in (1, 2, 4, 8):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_gemm(x, w, k_collapse=k, **kw))
+        assert ag.LAUNCHES == dict(before, **{name: before[name] + 1})
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4, 8), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    _close_step(outs[0], ag.arrayflex_gemm_plain(x, w, **kw),
+                kw.get("out_dtype", torch.float32))
+
+
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("mkn", [(300, 264, 136), (37, 130, 200)])
+def test_ffma_wide_tile_scalar_staging(cuda, form, mkn):
+    """x, w, w2 and the residual 4 bytes off a 16-byte boundary (int8
+    codes 1 byte off) stage through the scalar paths of the same kernel:
+    the same bits as the aligned copies."""
+    M, K, N = mkn
+    g = torch.Generator(device=cuda).manual_seed(3 * M + K + N)
+
+    def r(*sh):
+        return torch.randn(*sh, generator=g, device=cuda)
+
+    def shifted(t):                     # same values, base one element off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    w, w2 = r(K, N) * K ** -0.5, r(K, N) * K ** -0.5
+    kw = dict(activation="silu", norm_scale=1.0 + 0.1 * r(K),
+              residual=r(M, N))
+    if form == "int8":
+        (w, s), (w2, s2) = substrate._quantize(w), substrate._quantize(w2)
+        kw.update(w_scale=s, w2_scale=s2)
+    x = r(M, K)
+    want = ag.arrayflex_gemm(x, w, w2=w2, k_collapse=2, **kw)
+    got = ag.arrayflex_gemm(shifted(x), shifted(w), w2=shifted(w2),
+                            k_collapse=2,
+                            **dict(kw, residual=shifted(kw["residual"])))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(got, ag.arrayflex_gemm_plain(x, w, w2=w2, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("etkn", [(2, 14336, 64, 2048), (2, 1792, 256, 64),
+                                  (3, 40, 130, 70), (5, 17, 100, 36)])
+def test_ffma_wide_expert_bit_identical_across_k(cuda, wdt, etkn):
+    """K2 on fp32 x above 16 rows (fp32 w, or a bf16 cache), the FFMA wide
+    tile with the expert on z: the same bits at k = 1, 2, 4, one
+    ``arrayflex_expert_gemm`` launch each and none on the tensor cores,
+    each expert's bits its own one-expert launch's, within 1e-5 of max
+    |plain|."""
+    E, T, K, N = etkn
+    g = torch.Generator(device=cuda).manual_seed(E + 7 * T + K + N)
+    x = torch.randn(E, T, K, generator=g, device=cuda)
+    w = (torch.randn(E, K, N, generator=g, device=cuda)
+         * K ** -0.5).to(wdt)
+    outs = []
+    for k in (1, 2, 4):
+        before = dict(ag.LAUNCHES)
+        outs.append(ag.arrayflex_expert_gemm(x, w, k_collapse=k))
+        assert ag.LAUNCHES == dict(
+            before, arrayflex_expert_gemm=before["arrayflex_expert_gemm"] + 1)
+    torch.cuda.synchronize()
+    for k, got in zip((2, 4), outs[1:]):
+        assert torch.equal(got, outs[0]), f"k={k} differs from k=1"
+    one = ag.arrayflex_expert_gemm(x[-1:].clone(), w[-1:].clone(),
+                                   k_collapse=2)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][-1:], one)
+    _close(outs[0], ag.arrayflex_expert_gemm_plain(x, w), torch.float32)
 
 
 def test_int8_expert_narrow_width_rule(cuda):

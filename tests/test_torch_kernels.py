@@ -276,7 +276,8 @@ def test_expert_gemm_kernel_rule():
 @pytest.mark.parametrize("counter,parent", [
     ("arrayflex_gemm_tc", "arrayflex_gemm"),
     ("arrayflex_gemm_int8_tc", "arrayflex_gemm_int8"),
-    ("arrayflex_expert_gemm_tc", "arrayflex_expert_gemm")])
+    ("arrayflex_expert_gemm_tc", "arrayflex_expert_gemm"),
+    ("arrayflex_expert_gemm_int8_tc", "arrayflex_expert_gemm_int8")])
 def test_tc_counter_resets_with_the_others(counter, parent):
     ag.LAUNCHES[counter] += 3
     ag.reset_launches()
